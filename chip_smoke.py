@@ -5,12 +5,15 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from zpix_tpu_torch/csrc, checks each kernel
-against its plain PyTorch version on the card (exact equality), decodes
-batches of 16 distinct 1024x1024 baseline 4:2:0 JPEGs (quality 50, a
-restart marker every 8 MCUs) through ``DeviceJpegDecoder``, times them
-with CUDA events, checks that corrupt streams are flagged, and prints
-one JSON object per line.  The last line is
+It builds the CUDA kernels from zpix_tpu_torch/csrc (nvcc) and the host
+library from zpix_tpu_torch/csrc/host (g++), checks each kernel against
+its plain PyTorch version on the card (exact equality), decodes batches
+of 16 distinct 1024x1024 baseline 4:2:0 JPEGs (quality 50) through the
+port's three routes -- ``DeviceJpegDecoder`` on streams with a restart
+marker every 8 MCUs, and ``BatchJpegDecoder`` (native front-end, K7, K6)
+and ``HostIndexJpegDecoder`` (host index scan, K2, K3, K4) on streams
+with none -- times them with CUDA events, checks that corrupt streams
+are flagged, and prints one JSON object per line.  The last line is
 ``{"ok": true, "device": {...}}``; any failure exits non-zero.  Without
 CUDA it exits non-zero and prints no result.
 """
@@ -22,6 +25,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from io import BytesIO
 
 import numpy as np
@@ -48,6 +52,10 @@ BOOST_HZ = 1.98e9  # H100 SXM boost clock, data sheet
 OPS_K1_SYMBOL, OPS_K2_SYMBOL = 6, 10
 OPS_IDCT_BLOCK = 8 * 55 + 8 * 64
 OPS_K4_BLOCK, OPS_K4_PIXEL, OPS_K4_CHROMA = OPS_IDCT_BLOCK + 64 * 4, 14, 6
+# - K7 per block: popcount and scan add; per coefficient: bit test (shift,
+#   mask) and select.  K6 counts as K4 does (same arithmetic per block,
+#   pixel and chroma pair).
+OPS_K7_BLOCK = 2 + 64 * 3
 # Serial-chain bound of K1 and K2: each symbol's position depends on the
 # previous symbol's length, so one step is at least a shared-memory table
 # lookup and a shift and an add; taken as 30 cycles at the boost clock
@@ -55,6 +63,10 @@ OPS_K4_BLOCK, OPS_K4_PIXEL, OPS_K4_CHROMA = OPS_IDCT_BLOCK + 64 * 4, 14, 6
 CHAIN_CYCLES_PER_SYMBOL = 30
 
 KERNELS = {  # name -> (source, TPU-side function it replaces)
+    "unpack_sparse": ("zpix_tpu_torch/csrc/unpack_sparse.cu",
+                      "zpix_tpu/parallel/batch.py:560"),
+    "component_planes": ("zpix_tpu_torch/csrc/planes.cu",
+                         "zpix_tpu/parallel/batch.py:84"),
     "index_pass": ("zpix_tpu_torch/csrc/entropy.cu",
                    "zpix_tpu/parallel/device_entropy.py:974"),
     "value_pass": ("zpix_tpu_torch/csrc/entropy.cu",
@@ -71,9 +83,10 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def make_bench_jpeg(size: int, quality: int, seed: int, dri_blocks: int) -> bytes:
-    """Structured 4:2:0 test image with restart markers (the JAX
-    package's bench content: a sine pattern with seeded noise)."""
+def make_bench_jpeg(size: int, quality: int, seed: int, dri_blocks) -> bytes:
+    """Structured 4:2:0 test image, with a restart marker every
+    ``dri_blocks`` MCUs or none (None): the JAX package's bench content,
+    a sine pattern with seeded noise."""
     from PIL import Image
 
     rng = np.random.RandomState(seed)
@@ -82,13 +95,30 @@ def make_bench_jpeg(size: int, quality: int, seed: int, dri_blocks: int) -> byte
     noise = rng.randint(0, 24, (size, size)).astype(np.uint8)
     rgb = np.stack([base ^ noise, base.T, (base // 2 + 64)], -1)
     buf = BytesIO()
-    Image.fromarray(rgb).save(buf, format="JPEG", quality=quality, subsampling=2,
-                              restart_marker_blocks=dri_blocks)
+    kw = {} if dri_blocks is None else {"restart_marker_blocks": dri_blocks}
+    Image.fromarray(rgb).save(buf, format="JPEG", quality=quality, subsampling=2, **kw)
     return buf.getvalue()
 
 
-def make_batch(index: int, batch: int = BATCH, size: int = SIZE):
-    return [make_bench_jpeg(size, QUALITY, index * batch + j, DRI) for j in range(batch)]
+def make_batch(index: int, batch: int = BATCH, size: int = SIZE, dri=DRI):
+    return [make_bench_jpeg(size, QUALITY, index * batch + j, dri) for j in range(batch)]
+
+
+def make_batches(indices, dri=DRI):
+    """make_batch for each index, on a thread pool (Pillow's encoder and
+    numpy release the GIL)."""
+    with ThreadPoolExecutor(os.cpu_count() or 2) as ex:
+        return list(ex.map(lambda i: make_batch(i, dri=dri), indices))
+
+
+def truncate_scan(data: bytes, n: int) -> bytes:
+    """Drop n entropy bytes before EOI: the host index walk reads zeros
+    past the stream's end where the card reads the next image's bytes,
+    so the value pass's agree check must fail."""
+    body = data[:-2 - n]
+    while body[-1] == 0xFF:  # never leave half of a stuffed FF00 pair
+        body = body[:-1]
+    return body + data[-2:]
 
 
 def inject_invalid_codes(data: bytes) -> bytes:
@@ -116,9 +146,14 @@ def flip_bytes(data: bytes) -> bytes:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps launches, after one warm-up."""
+    """Mean device time of fn() over reps launches, after one warm-up.  A
+    spin kernel (~10 ms) holds the stream while the launches are queued,
+    so a call whose host side is slower than its kernels is timed by the
+    card, not by the rate at which the host issues it."""
     fn()
+    torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -149,6 +184,251 @@ def segment_symbols(ac, dc_diff, seg_nmcu, nblk: int, bpm: int):
     return int(syms.view(-1, nblk).sum(1).max()), int(syms.max()), int(syms.sum())
 
 
+# ------------------------------------------------- restart-free slice (K3, K6, K7)
+
+_SMALL_PLANES = [("gray", [(1, 1)], None), ("ycbcr", [(1, 1)] * 3, "444"),
+                 ("ycbcr", [(2, 1), (1, 1), (1, 1)], "422"),
+                 ("ycbcr", [(2, 2), (1, 1), (1, 1)], "420"),
+                 ("ycbcr", [(1, 2), (1, 1), (1, 1)], "440"),
+                 ("ycbcr", [(4, 1), (1, 1), (1, 1)], "411"),
+                 ("ycbcr", [(4, 2), (1, 1), (1, 1)], "410"),
+                 ("rgb", [(2, 1), (1, 1), (1, 1)], "422"),
+                 ("ycck", [(2, 2), (1, 1), (1, 1), (2, 2)], "420"),
+                 ("cmyk", [(1, 1)] * 4, None), ("cmyk", [(2, 2), (1, 1), (1, 1), (2, 2)], None)]
+
+
+def small_kernel_checks(dev):
+    """K7 and K6 against their plain versions on small random inputs: K6
+    on every colour arm and ratio (full-range values and quants whose
+    products wrap), K7 with the perm of every ratio and a clipped cap.
+    -> {case: max_abs_err}."""
+    from zpix_tpu_torch.ops import planes as kp
+    from zpix_tpu_torch.ops import sparse as ks
+    from zpix_tpu_torch.parallel import batch as pb
+
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    errs = {}
+    mxx, myy, B = 7, 5, 3
+    for color, hv, ratio in _SMALL_PLANES:
+        for wide in (False, True):
+            lim = 2**15 if wide else 1024
+            grids = [torch.randint(-lim, lim, (B, myy * v, mxx * h, 64), generator=gen,
+                                   dtype=torch.int16) for h, v in hv]
+            grids = [(g * (torch.rand(g.shape, generator=gen) < 0.3)).to(dev) for g in grids]
+            quants = [torch.randint(1, 2**16 if wide else 64, (B, 64), generator=gen,
+                                    dtype=torch.int32).to(dev) for _ in hv]
+            H, W = 8 * hv[0][1] * myy - 3, 8 * hv[0][0] * mxx - 5
+            kw = dict(color=color, height=H, width=W, ratio=ratio,
+                      sub=tuple(x != hv[0] for x in hv))
+            got = pb.decode_batch_planes(grids, quants, **kw)
+            factors = ([(1, 1)] if color == "gray" else
+                       [(2, 2) if x else (1, 1) for x in kw["sub"]] if color == "cmyk" else
+                       [(1, 1)] + [pb.RATIO_FACTORS[ratio]] * 2 + [(1, 1)] * (len(hv) - 3))
+            want = kp.component_planes_plain(grids, quants, color=color, height=H, width=W,
+                                             factors=factors)
+            pattern = ratio or "".join(f"{h}{v}" for h, v in hv)
+            errs[f"planes_{color}_{pattern}_{'wide' if wide else 'jpeg'}"] = (
+                max_abs_err(got, want))
+    for hv in ((2, 2), (2, 1), (1, 2), (4, 1), (4, 2)):
+        bv, bh = myy * hv[1], mxx * hv[0]
+        bm = (torch.randint(0, 256, (B, bv * bh, 8), generator=gen, dtype=torch.uint8)
+              & torch.randint(0, 256, (B, bv * bh, 8), generator=gen, dtype=torch.uint8)).to(dev)
+        for cap in (bv * bh * 64, 100):
+            vals = torch.randint(-2**15, 2**15, (B, cap), generator=gen, dtype=torch.int16).to(dev)
+            perm = torch.from_numpy(pb.stream_perm(mxx, myy, *hv)).to(dev)
+            got = ks.unpack_sparse(bm, vals, bv=bv, bh=bh, perm=perm)
+            want = ks.unpack_sparse_plain(bm, vals, bv=bv, bh=bh, perm=perm)
+            errs[f"unpack_{hv[0]}{hv[1]}_cap{cap}"] = max_abs_err(got, want)
+    torch.cuda.synchronize()
+    return errs
+
+
+def native_stages(dec, datas, dev):
+    """One batch through BatchJpegDecoder's stages with CUDA events between
+    them -> (pixels, {stage: ms}): host parse (host clock), H2D, K7 (all
+    components), K6."""
+    from zpix_tpu_torch.parallel import batch as pb
+
+    t0 = time.perf_counter()
+    packed = dec.front_end(datas).packed()
+    parse_ms = (time.perf_counter() - t0) * 1e3
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    buf = pb.upload(packed, dev)
+    ev[1].record()
+    grids = pb.unpack_flat(buf, packed.layout, batch=packed.batch, dims=packed.dims,
+                           perms=packed.perms)
+    ev[2].record()
+    quants = [pb.carve(buf, packed.layout, "q", c, packed.batch) for c in range(3)]
+    px = pb.decode_batch_planes(grids, quants, color=packed.color, height=packed.height,
+                                width=packed.width, ratio=packed.ratio)
+    ev[3].record()
+    torch.cuda.synchronize()
+    ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    return px, {"host_parse": parse_ms, "h2d": ms[0], "unpack_sparse": ms[1],
+                "component_planes": ms[2], "device_total": ev[0].elapsed_time(ev[3])}
+
+
+def host_index_stages(dec, datas):
+    """One batch through HostIndexJpegDecoder's stages -> (pixels, ok,
+    {stage: ms}): host index scan (host clock), H2D, K2, K3, K4."""
+    from zpix_tpu_torch import prep_batch_host_index
+    from zpix_tpu_torch.ops import backend as kb
+    from zpix_tpu_torch.ops import entropy as ke
+
+    t0 = time.perf_counter()
+    plan = prep_batch_host_index(datas)
+    scan_ms = (time.perf_counter() - t0) * 1e3
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    bb = dec.upload(plan)
+    ev[1].record()
+    ok = torch.ones(1, dtype=torch.int32, device=bb[0].device)
+    a, d = ke.value_pass(*bb[:4], bb[4], ok, bpm=plan.bpm)
+    ev[2].record()
+    d = ke.dc_restore(d, hv=plan.hv, seg_mcus=plan.seg_mcus)
+    ev[3].record()
+    px = kb.backend(a, d, bb[3], kb.BackendGeometry.of(plan), planar=dec.planar)
+    ev[4].record()
+    torch.cuda.synchronize()
+    ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+    return px, bool(ok), {"host_index_scan": scan_ms, "h2d": ms[0], "value_pass": ms[1],
+                          "dc_restore": ms[2], "backend": ms[3],
+                          "device_total": ev[0].elapsed_time(ev[4])}
+
+
+def restart_free(batches, dev, mpix):
+    """The two restart-free routes on the same batches: launches, plain-path
+    equality on images 0 and 1, timed end to end and by stage, pixels equal
+    between routes, a corrupt stream flagged.  -> a summary dict."""
+    from zpix_tpu_torch import BatchJpegDecoder, HostIndexJpegDecoder, runtime
+    from zpix_tpu_torch import prep_batch_host_index
+    from zpix_tpu_torch.errors import ZpixError
+    from zpix_tpu_torch.ops import backend as kb
+    from zpix_tpu_torch.ops import entropy as ke
+    from zpix_tpu_torch.ops import planes as kp
+    from zpix_tpu_torch.ops import sparse as ks
+    from zpix_tpu_torch.parallel import batch as pb
+
+    native, hidx = BatchJpegDecoder(), HostIndexJpegDecoder(planar=False)
+    native.decode(batches[1])  # warm: pinned buffers, caches
+    hidx.decode(batches[1])
+    torch.cuda.synchronize()
+    runtime.reset_launches()
+    px_n = native.decode(batches[0])
+    torch.cuda.synchronize()
+    launches_native = dict(runtime.LAUNCHES)
+    runtime.reset_launches()
+    px_h, ok_h = hidx.decode(batches[0])
+    torch.cuda.synchronize()
+    launches_hidx = dict(runtime.LAUNCHES)
+
+    # images 0 and 1 against the plain path on the card, for each route
+    fe2 = pb.NativeBatchFrontEnd(batches[0][0], 2)
+    fe2.parse(batches[0][:2])
+    p2 = fe2.packed()
+    buf2 = pb.upload(p2, dev)
+    dims = p2.dims
+    perms = [None if p is None else torch.from_numpy(p).to(dev) for p in p2.perms]
+    grids = [ks.unpack_sparse_plain(pb.carve(buf2, p2.layout, "bm", c, 2),
+                                    pb.carve(buf2, p2.layout, "val", c, 2), bv=bv, bh=bh,
+                                    perm=perm)
+             for c, ((bv, bh), perm) in enumerate(zip(dims, perms))]
+    quants = [pb.carve(buf2, p2.layout, "q", c, 2) for c in range(3)]
+    f = pb.RATIO_FACTORS[p2.ratio]
+    ref_n = kp.component_planes_plain(grids, quants, color="ycbcr", height=p2.height,
+                                      width=p2.width, factors=[(1, 1), f, f])
+    plan2 = prep_batch_host_index(batches[0][:2])
+    b2 = hidx.upload(plan2)
+    ok2 = torch.ones(1, dtype=torch.int32, device=dev)
+    a2, d2 = ke.value_pass_plain(*b2[:4], b2[4], ok2, bpm=plan2.bpm)
+    d2 = ke.dc_restore_plain(d2, hv=plan2.hv, seg_mcus=plan2.seg_mcus)
+    ref_h = kb.backend_plain(a2, d2, b2[3], kb.BackendGeometry.of(plan2), planar=False)
+    torch.cuda.synchronize()
+    check = {"native_vs_plain": max_abs_err(px_n[:2], ref_n),
+             "host_index_vs_plain": max_abs_err(px_h[:2], ref_h),
+             "plain_ok": bool(ok2), "routes_equal": bool(torch.equal(px_n, px_h)),
+             "host_index_ok": bool(ok_h)}
+
+    # timed end to end, bytes in to a synchronised tensor, the two routes in
+    # turn on each batch; peak memory is what one decode allocates at most
+    # above what was held before it
+    timed = {r: {"walls": [], "oks": [], "peak_mem_bytes": 0} for r in ("native", "host_index")}
+    equal = []
+    for datas in batches[2:]:
+        outs = []
+        for route, run in (("native", lambda d: (native.decode(d), True)),
+                           ("host_index", hidx.decode)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            px, ok = run(datas)
+            torch.cuda.synchronize()
+            timed[route]["walls"].append(time.perf_counter() - t0)
+            timed[route]["oks"].append(bool(ok))
+            timed[route]["peak_mem_bytes"] = max(timed[route]["peak_mem_bytes"],
+                                                 torch.cuda.max_memory_allocated() - base)
+            outs.append(px)
+        equal.append(bool(torch.equal(*outs)))
+        del outs
+    # per-stage breakdown over the same batches
+    stages = {"native": [], "host_index": []}
+    for datas in batches[2:]:
+        _, st = native_stages(native, datas, dev)
+        stages["native"].append(st)
+        _, ok, st = host_index_stages(hidx, datas)
+        stages["host_index"].append(st)
+        timed["host_index"]["oks"].append(ok)
+    routes = {}
+    for route in ("native", "host_index"):
+        walls = timed[route]["walls"]
+        mean = {k: float(np.mean([st[k] for st in stages[route]])) for k in stages[route][0]}
+        routes[route] = {
+            "e2e_ms_per_batch": [w * 1e3 for w in walls],
+            "e2e_mpix_per_s": mpix / float(np.mean(walls)),
+            "device_mpix_per_s": mpix / (mean["device_total"] / 1e3),
+            "device_busy_share": mean["device_total"] / (float(np.mean(walls)) * 1e3),
+            "stage_ms_mean": mean, "peak_mem_bytes": timed[route]["peak_mem_bytes"],
+            "launches_per_decode": {k: v for k, v in (
+                launches_native if route == "native" else launches_hidx).items() if v},
+        }
+
+    # a corrupt stream on the host-index route: image 0 cut short.  Where
+    # the host walk stays inside the stream's 8-byte alignment padding both
+    # sides read zeros and agree (as in zpix_tpu); the first cut whose walk
+    # runs past it must clear ok
+    corrupt = {"outcomes": {}}
+    for n in range(1, 65):
+        try:
+            _, okc = hidx.decode([truncate_scan(batches[0][0], n)] + batches[0][1:])
+        except ZpixError:
+            corrupt["outcomes"][n] = "host_scan_raised"
+            continue
+        corrupt["outcomes"][n] = "ok_false" if not bool(okc) else "ok_true"
+        if not bool(okc):
+            corrupt.update(cut_bytes=n, ok=False)
+            break
+    return {"launches": {"native": launches_native, "host_index": launches_hidx},
+            "check": check, "routes": routes, "batches": len(batches) - 2,
+            "all_ok": all(timed["host_index"]["oks"]), "routes_equal_per_batch": equal,
+            "corrupt": corrupt}
+
+
+def host_index_inputs(batch):
+    """K2's outputs on a host-index batch: (plan, bufs, ac, dc diffs)."""
+    from zpix_tpu_torch import HostIndexJpegDecoder, prep_batch_host_index
+    from zpix_tpu_torch.ops import entropy as ke
+
+    plan = prep_batch_host_index(batch)
+    bufs = HostIndexJpegDecoder().upload(plan)
+    ok = torch.ones(1, dtype=torch.int32, device=bufs[0].device)
+    ac, dc = ke.value_pass(*bufs[:4], bufs[4], ok, bpm=plan.bpm)
+    return plan, bufs, ac, dc
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -156,6 +436,10 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from zpix_tpu_torch import DeviceJpegDecoder, prep_batch, runtime
     from zpix_tpu_torch.errors import ZpixError
+    from zpix_tpu_torch.ops import planes as kp
+    from zpix_tpu_torch.ops import sparse as ks
+    from zpix_tpu_torch.parallel import batch as pb
+    from zpix_tpu_torch.runtime import host
     from zpix_tpu_torch.ops import backend as kb
     from zpix_tpu_torch.ops import entropy as ke
     from zpix_tpu_torch.ops import idct as ki
@@ -173,15 +457,19 @@ def main() -> int:
 
     # ------------------------------------------------------------ build
     t0 = time.perf_counter()
-    runtime.lib()
+    with ThreadPoolExecutor(2) as ex:  # nvcc and g++ side by side
+        for f in [ex.submit(runtime.lib), ex.submit(host.lib)]:
+            f.result()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": runtime.build_seconds})
 
     # ----------------------------------------------------- content, plans
     t0 = time.perf_counter()
-    batches = [make_batch(i) for i in range(TIMED_BATCHES + 2)]
+    batches = make_batches(range(TIMED_BATCHES + 2))
+    batches_rf = make_batches(range(100, 100 + TIMED_BATCHES + 2), dri=None)
     emit({"phase": "content", "seconds": time.perf_counter() - t0,
-          "bytes_per_image": float(np.mean([len(d) for d in batches[0]]))})
+          "bytes_per_image": float(np.mean([len(d) for d in batches[0]])),
+          "bytes_per_image_restart_free": float(np.mean([len(d) for d in batches_rf[0]]))})
     dec = DeviceJpegDecoder(planar=True)
     plan = prep_batch(batches[0])
     bufs = dec.upload(plan)
@@ -238,9 +526,49 @@ def main() -> int:
         max_abs_err(ki.idct_blocks(blocks), ki.idct_plain(blocks)),
         max_abs_err(ki.idct_blocks(wide), ki.idct_plain(wide)),
     )
+    # K7 and K6 on the full restart-free batch (native front-end, 4:2:0)
+    fe = pb.NativeBatchFrontEnd(batches_rf[0][0], BATCH, pin=True)
+    fe.parse(batches_rf[0])
+    packed = fe.packed()
+    flat = pb.upload(packed, dev)
+    dims = packed.dims
+    perms = [None if p is None else torch.from_numpy(p).to(dev) for p in packed.perms]
+    sections = [(pb.carve(flat, packed.layout, "bm", c, BATCH),
+                 pb.carve(flat, packed.layout, "val", c, BATCH)) for c in range(3)]
+    grids = [ks.unpack_sparse(bm, v, bv=bv, bh=bh, perm=pm)
+             for (bm, v), (bv, bh), pm in zip(sections, dims, perms)]
+    results["unpack_sparse"] = max(
+        max_abs_err(g, ks.unpack_sparse_plain(bm, v, bv=bv, bh=bh, perm=pm))
+        for g, (bm, v), (bv, bh), pm in zip(grids, sections, dims, perms))
+    rf_quants = [pb.carve(flat, packed.layout, "q", c, BATCH) for c in range(3)]
+    rf_factors = [(1, 1)] + [pb.RATIO_FACTORS[packed.ratio]] * 2
+    rf_kw = dict(color="ycbcr", height=SIZE, width=SIZE, factors=rf_factors)
+    rf_px = kp.component_planes(grids, rf_quants, **rf_kw)
+    results["component_planes"] = max_abs_err(
+        rf_px, kp.component_planes_plain(grids, rf_quants, **rf_kw))
+    rf_blocks = BATCH * sum(bv * bh for bv, bh in dims)
+    small = small_kernel_checks(dev)
+    for k, err in small.items():
+        key = "component_planes" if k.startswith("planes") else "unpack_sparse"
+        results[key] = max(results[key], err)
+    # K3's two forms on the host-index batch's whole-image chains
+    hplan, hbufs, hac, hdc = host_index_inputs(batches_rf[0])
+    hdc_p = ke.dc_restore_plain(hdc, hv=hplan.hv, seg_mcus=hplan.seg_mcus)
+    long_errs = {form: max_abs_err(ke.dc_restore(hdc, hv=hplan.hv, seg_mcus=hplan.seg_mcus,
+                                                 form=form), hdc_p)
+                 for form in ("block", "thread")}
+    long_errs.update({f"dri8_{form}": max_abs_err(
+        ke.dc_restore(dc_diff, hv=plan.hv, seg_mcus=plan.seg_mcus, form=form), dc_p)
+        for form in ("block", "thread")})
+    results["dc_restore"] = max(results["dc_restore"], *long_errs.values())
     torch.cuda.synchronize()
     emit({"phase": "kernel_checks", "max_abs_err": results,
-          "k1_k2_batches": [2, BATCH], "k3_k4_k5_shapes": {"lanes": L2, "blocks": L2}})
+          "k1_k2_batches": [2, BATCH], "k3_k4_k5_shapes": {"lanes": L2, "blocks": L2},
+          "k6_k7_small_cases": small, "k3_forms": long_errs,
+          "k6_k7_full_batch": {"images": BATCH, "size": SIZE, "ratio": packed.ratio,
+                               "value_caps": fe.val_caps, "nnz_max": fe.nnz.max(0).tolist()},
+          "k3_host_index_chains": {"chains": BATCH * len(hplan.hv),
+                                   "longest": hplan.seg_mcus * max(h * v for h, v in hplan.hv)}})
     if any(results.values()) or not bool(okf):
         raise SystemExit("chip_smoke: a kernel disagrees with its plain version")
 
@@ -265,7 +593,7 @@ def main() -> int:
     emit({"phase": "main_path", "launches": launches, "ok": bool(ok),
           "shape": list(pixels.shape), "idct_blocks_entry_launches": idct_launches})
     if not bool(ok) or idct_launches == 0 or min(
-            n for k, n in launches.items() if k != "idct_blocks") == 0:
+            launches[k] for k in ("index_pass", "value_pass", "dc_restore", "backend")) == 0:
         raise SystemExit("chip_smoke: main path did not verify or skipped a kernel")
     if tuple(pixels.shape) != (BATCH, 3, SIZE, SIZE):
         raise SystemExit("chip_smoke: wrong output shape")
@@ -288,6 +616,7 @@ def main() -> int:
 
     # timed: distinct batches, host prep + upload + kernels, end to end
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # tensors of the checks above
     walls, oks = [], []
     for datas in batches[2:]:
         torch.cuda.synchronize()
@@ -330,7 +659,7 @@ def main() -> int:
           # same batches): the share of a batch the card is busy
           "device_busy_share": float(np.mean(stages["device_total"])) / (float(np.mean(walls)) * 1e3),
           "stage_ms_mean": {k: float(np.mean(v)) for k, v in stages.items()},
-          "peak_mem_bytes": peak})
+          "peak_mem_bytes": peak, "peak_mem_above_held_bytes": peak - held})
     if not all(oks):
         raise SystemExit("chip_smoke: a timed batch did not verify")
 
@@ -347,6 +676,21 @@ def main() -> int:
     emit({"phase": "corrupt", "invalid_codes_ok": bool(ok_bad), "flipped": flip})
     if bool(ok_bad) or flip == "ok_true_same":
         raise SystemExit("chip_smoke: a corrupt stream was not flagged")
+
+    # ------------------------------------------------ restart-free routes
+    rf = restart_free(batches_rf, dev, mpix)
+    emit({"phase": "restart_free", **rf})
+    ln, lh = rf["launches"]["native"], rf["launches"]["host_index"]
+    if (min(ln["unpack_sparse"], ln["component_planes"]) == 0 or lh["index_pass"]
+            or min(lh["value_pass"], lh["dc_restore"], lh["backend"]) == 0):
+        raise SystemExit("chip_smoke: a restart-free route skipped a kernel")
+    c = rf["check"]
+    if (c["native_vs_plain"] or c["host_index_vs_plain"] or not c["plain_ok"]
+            or not c["routes_equal"] or not c["host_index_ok"] or not rf["all_ok"]
+            or not all(rf["routes_equal_per_batch"])):
+        raise SystemExit("chip_smoke: a restart-free route's output is wrong")
+    if rf["corrupt"].get("ok", True):
+        raise SystemExit("chip_smoke: a corrupt restart-free stream was not flagged")
 
     # ------------------------------------------------------- kernel table
     ends, okf = ke.index_pass(*bufs, bpm=plan.bpm, nblk=nblk)
@@ -375,7 +719,43 @@ def main() -> int:
                     + OPS_K4_CHROMA * 64 * n_mcus),
         "idct_blocks": (lambda: ki.idct_blocks(blocks), lambda: ki.idct_plain(blocks),
                         2 * blocks.numel() * 4, OPS_IDCT_BLOCK * blocks.shape[0]),
+        # one decode's launches of K7 (every component) and of K6
+        "unpack_sparse": (
+            lambda: [ks.unpack_sparse(bm, v, bv=bv, bh=bh, perm=pm)
+                     for (bm, v), (bv, bh), pm in zip(sections, dims, perms)],
+            lambda: [ks.unpack_sparse_plain(bm, v, bv=bv, bh=bh, perm=pm)
+                     for (bm, v), (bv, bh), pm in zip(sections, dims, perms)],
+            (8 + 128) * rf_blocks + 2 * int(fe.nnz.sum()) + 4 * dims[0][0] * dims[0][1],
+            OPS_K7_BLOCK * rf_blocks),
+        "component_planes": (
+            lambda: kp.component_planes(grids, rf_quants, **rf_kw),
+            lambda: kp.component_planes_plain(grids, rf_quants, **rf_kw),
+            128 * rf_blocks + 4 * 64 * 3 * BATCH + rf_px.numel(),
+            OPS_K4_BLOCK * rf_blocks + OPS_K4_PIXEL * BATCH * SIZE * SIZE
+            + OPS_K4_CHROMA * 64 * BATCH * packed.mxx * packed.myy),
     }
+    # K3's two forms on both paths' chains, and its bound on the long ones
+    k3 = {form: {"dri8_ms": cuda_ms(lambda f=form: ke.dc_restore(
+                     dc_diff, hv=plan.hv, seg_mcus=plan.seg_mcus, form=f), 20),
+                 "host_index_ms": cuda_ms(lambda f=form: ke.dc_restore(
+                     hdc, hv=hplan.hv, seg_mcus=hplan.seg_mcus, form=f), 20)}
+          for form in ("thread", "block")}
+    k3["host_index_plain_ms"] = cuda_ms(
+        lambda: ke.dc_restore_plain(hdc, hv=hplan.hv, seg_mcus=hplan.seg_mcus), 1)
+    k3["host_index_bound_ms"] = max(8 * hdc.numel() / HBM_BYTES_PER_S,
+                                    hdc.numel() / INT32_OPS_PER_S) * 1e3
+    k3["host_index_launches"] = lh["dc_restore"]
+    k3["host_index_form"] = "block" if hplan.seg_mcus * 4 >= ke.LONG_CHAIN else "thread"
+    # K2 and K4 again on the host-index route's inputs (interleaved out)
+    hok = torch.ones(1, dtype=torch.int32, device=dev)
+    host_index_ms = {
+        "value_pass": cuda_ms(lambda: ke.value_pass(*hbufs[:4], hbufs[4], hok.clone(),
+                                                    bpm=hplan.bpm), 20),
+        "backend": cuda_ms(lambda: kb.backend(hac, hdc_p, hbufs[3],
+                                              kb.BackendGeometry.of(hplan), planar=False), 20),
+    }
+    by_path = {k: {"dri8": launches[k], "native": ln[k], "host_index": lh[k]}
+               for k in timing}
     kernels = []
     for kname, (fk, fp, nbytes, nops) in timing.items():
         ms = cuda_ms(fk, 20)
@@ -384,7 +764,9 @@ def main() -> int:
         ops_ms = nops / INT32_OPS_PER_S * 1e3
         row = {
             "name": kname, "route": "cuda", "source": KERNELS[kname][0],
-            "replaces": KERNELS[kname][1], "launches": launches[kname],
+            "replaces": KERNELS[kname][1],
+            "launches": ln[kname] if kname in ("unpack_sparse", "component_planes")
+            else launches[kname], "launches_by_path": by_path[kname],
             "max_abs_err": results[kname], "matches_plain": results[kname] == 0,
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
@@ -395,6 +777,10 @@ def main() -> int:
             row["chain_bound_ms"] = chain_ms[kname]
         if kname == "idct_blocks":  # not on decode's path: its own entry's run
             row["standalone_launches"] = idct_launches
+        if kname == "dc_restore":
+            row["forms"] = k3
+        if kname in host_index_ms:
+            row["host_index_ms"] = host_index_ms[kname]
         kernels.append(row)
     emit({"phase": "serial_chain", "max_symbols_per_segment": seg_syms,
           "max_symbols_per_block": blk_syms, "symbols": n_syms,

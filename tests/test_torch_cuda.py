@@ -87,3 +87,89 @@ def test_corrupt_lane_clears_ok(cuda):
     ends, ok = ke.index_pass(*bufs, bpm=plan.bpm, nblk=nblk)
     ends_p, ok_p = ke.index_pass_plain(*bufs, bpm=plan.bpm, nblk=nblk)
     assert not bool(ok) and not bool(ok_p)
+
+
+# ------------------------------------------------- restart-free slice (K3, K6, K7)
+
+
+@pytest.mark.parametrize("perm,cap", [(False, None), (True, None), (True, 37)],
+                         ids=["grid-order", "perm", "clipped-cap"])
+def test_unpack_kernel_matches_plain(cuda, perm, cap):
+    from zpix_tpu_torch.ops.sparse import unpack_sparse, unpack_sparse_plain
+    from zpix_tpu_torch.parallel.batch import stream_perm
+
+    rng = np.random.default_rng(1)
+    bv, bh, B = 6, 10, 3
+    bitmap = torch.from_numpy(rng.integers(0, 256, (B, bv * bh, 8), dtype=np.uint8)
+                              & rng.integers(0, 256, (B, bv * bh, 8), dtype=np.uint8))
+    n = int(np.unpackbits(bitmap.numpy(), axis=-1).reshape(B, -1).sum(1).max())
+    vals = torch.from_numpy(rng.integers(-2**15, 2**15, (B, cap or n + 5)).astype(np.int16))
+    p = torch.from_numpy(stream_perm(bh // 2, bv // 2, 2, 2)) if perm else None
+    kw = dict(bv=bv, bh=bh)
+    before = runtime.LAUNCHES["unpack_sparse"]
+    got = unpack_sparse(bitmap.to(cuda), vals.to(cuda), perm=None if p is None else p.to(cuda), **kw)
+    assert runtime.LAUNCHES["unpack_sparse"] == before + 1
+    assert torch.equal(got.cpu(), unpack_sparse_plain(bitmap, vals, perm=p, **kw))
+
+
+_PLANE_CASES = [("gray", [(1, 1)], None), ("ycbcr", [(2, 2), (1, 1), (1, 1)], "420"),
+                ("ycbcr", [(1, 1)] * 3, "444"), ("ycbcr", [(2, 1), (1, 1), (1, 1)], "422"),
+                ("ycbcr", [(1, 2), (1, 1), (1, 1)], "440"),
+                ("ycbcr", [(4, 1), (1, 1), (1, 1)], "411"),
+                ("ycbcr", [(4, 2), (1, 1), (1, 1)], "410"),
+                ("rgb", [(2, 1), (1, 1), (1, 1)], "422"),
+                ("ycck", [(2, 2), (1, 1), (1, 1), (2, 2)], "420"),
+                ("cmyk", [(1, 1)] * 4, None), ("cmyk", [(2, 2), (1, 1), (1, 1), (2, 2)], None)]
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["jpeg-range", "wrapping"])
+@pytest.mark.parametrize("color,hv,ratio", _PLANE_CASES,
+                         ids=[f"{c}-{r or len(h)}-{i}" for i, (c, h, r) in enumerate(_PLANE_CASES)])
+def test_planes_kernel_matches_plain(cuda, color, hv, ratio, wide):
+    from _torch_jpeg import random_grids
+
+    from zpix_tpu_torch.parallel.batch import decode_batch_planes
+
+    rng = np.random.default_rng(2)
+    mxx, myy, B = 5, 3, 2
+    lo, hi = (-2**15, 2**15) if wide else (-1024, 1024)
+    grids = [torch.from_numpy(g) for g in random_grids(rng, hv, mxx, myy, B, lo, hi)]
+    quants = [torch.from_numpy(rng.integers(1, 2**16 if wide else 100, (B, 64)).astype(np.int32))
+              for _ in hv]
+    H, W = 8 * hv[0][1] * myy - 3, 8 * hv[0][0] * mxx - 5
+    sub = tuple(x != hv[0] for x in hv)
+    kw = dict(color=color, height=H, width=W, ratio=ratio, sub=sub)
+    before = runtime.LAUNCHES["component_planes"]
+    got = decode_batch_planes([g.to(cuda) for g in grids], [q.to(cuda) for q in quants], **kw)
+    assert runtime.LAUNCHES["component_planes"] == before + 1
+    assert torch.equal(got.cpu(), decode_batch_planes(grids, quants, **kw))
+
+
+@pytest.mark.parametrize("form", ["thread", "block"])
+@pytest.mark.parametrize("seg_mcus,n_seg", [(8, 40), (1500, 3)], ids=["short", "long"])
+def test_dc_restore_forms_match_plain(cuda, form, seg_mcus, n_seg):
+    rng = np.random.default_rng(3)
+    hv = ((2, 2), (1, 1), (1, 1))
+    dc = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, n_seg * seg_mcus * 6).astype(np.int32))
+    got = ke.dc_restore(dc.to(cuda), hv=hv, seg_mcus=seg_mcus, form=form)
+    assert torch.equal(got.cpu(), ke.dc_restore_plain(dc, hv=hv, seg_mcus=seg_mcus))
+
+
+@pytest.mark.parametrize("mode", ["gray", "420", "422"])
+def test_restart_free_routes_agree(cuda, mode):
+    from _torch_jpeg import synth_plain_jpeg
+
+    from zpix_tpu_torch import BatchJpegDecoder, HostIndexJpegDecoder
+
+    datas = [synth_plain_jpeg(w=200, h=120, mode=mode, phase=p) for p in (0.0, 1.0, 2.0)]
+    runtime.reset_launches()
+    native = BatchJpegDecoder().decode(datas)
+    assert runtime.LAUNCHES["unpack_sparse"] == (1 if mode == "gray" else 3)
+    assert runtime.LAUNCHES["component_planes"] == 1
+    runtime.reset_launches()
+    px, ok = HostIndexJpegDecoder().decode(datas)
+    assert runtime.LAUNCHES["index_pass"] == 0
+    assert min(runtime.LAUNCHES[k] for k in ("value_pass", "dc_restore", "backend")) == 1
+    assert native.device.type == "cuda" and bool(ok)
+    assert torch.equal(native, px)
+    assert torch.equal(native.cpu(), BatchJpegDecoder(device="cpu").decode(datas))

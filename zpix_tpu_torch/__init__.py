@@ -1,12 +1,18 @@
 """zpix_tpu_torch — the PyTorch/CUDA port of zpix_tpu for NVIDIA Hopper.
 
-The restart-marker baseline JPEG path (``DeviceJpegDecoder``) runs on
-hand-written CUDA kernels (``csrc/``), built on first use.  Entry points
-run on ``cuda`` unless the caller passes ``device="cpu"``, which takes
-each kernel's plain PyTorch version.
+Baseline JPEG with restart markers (``DeviceJpegDecoder``), restart-free
+baseline JPEG through the host index scan (``HostIndexJpegDecoder``) and
+through the native coefficient front-end (``BatchJpegDecoder``) run on
+hand-written CUDA kernels (``csrc/``), built with nvcc on first use; the
+host C++ (``csrc/host``) is built with g++.  Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``, which takes each
+kernel's plain PyTorch version.
 """
 
 from . import errors
-from .parallel.device_entropy import DeviceJpegDecoder, prep_batch
+from .parallel.batch import BatchJpegDecoder
+from .parallel.device_entropy import (DeviceJpegDecoder, HostIndexJpegDecoder,
+                                      prep_batch, prep_batch_host_index)
 
-__all__ = ["DeviceJpegDecoder", "prep_batch", "errors"]
+__all__ = ["BatchJpegDecoder", "DeviceJpegDecoder", "HostIndexJpegDecoder",
+           "prep_batch", "prep_batch_host_index", "errors"]

@@ -10,6 +10,7 @@
 // dequantised and transformed in shared memory, and each output pixel of
 // the MCU is computed from the MCU's own blocks (chroma replication never
 // crosses an MCU) and written once, cropped, to [B,C,H,W] or [B,H,W,C].
+// The IDCT and pixel stage is mcu_pixels.cuh, which K6 (planes.cu) shares.
 //
 // Bound on the H100: bytes (128 + 4 per block in, the pixels out).
 #include <cuda_runtime.h>
@@ -17,20 +18,12 @@
 #include <cstdint>
 
 #include "huffman.cuh"
-#include "wang_idct.cuh"
+#include "mcu_pixels.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kMaxBpm = 10;
-
-enum Mode { kGray = 0, kYcbcr = 1, kRgb = 2, kCmyk = 3, kYcck = 4 };
-
-__device__ __forceinline__ uint8_t clamp_shift16(int32_t v) {
-  // the reference's branchless clamp (util.zig:58-77): in 24 bits -> v >> 16
-  return (v >> 24) == 0 ? static_cast<uint8_t>(v >> 16)
-                        : static_cast<uint8_t>(~(v >> 31) & 0xFF);
-}
+using zpix::kMaxBpm;
 
 __global__ void backend_kernel(const int16_t* __restrict__ ac,
                                const int32_t* __restrict__ dc,
@@ -41,24 +34,10 @@ __global__ void backend_kernel(const int16_t* __restrict__ ac,
                                int mode, int nchan, int planar) {
   __shared__ int32_t blk[kMaxBpm * 64];
   __shared__ uint8_t pix[kMaxBpm * 64];
-  __shared__ int8_t comp_of_slot[kMaxBpm];
-  __shared__ int geo[4][5];  // per component: h, v, fh, fv, first slot
+  __shared__ zpix::McuGeo g;
 
   const int tid = threadIdx.x;
-  if (tid == 0) {
-    const int packed[4] = {c0, c1, c2, c3};
-    int s0 = 0;
-    for (int c = 0; c < ncomp; ++c) {
-      const int h = packed[c] & 15, v = (packed[c] >> 4) & 15;
-      geo[c][0] = h;
-      geo[c][1] = v;
-      geo[c][2] = (packed[c] >> 8) & 15;
-      geo[c][3] = (packed[c] >> 12) & 15;
-      geo[c][4] = s0;
-      for (int j = 0; j < h * v; ++j) comp_of_slot[s0 + j] = c;
-      s0 += h * v;
-    }
-  }
+  if (tid == 0) zpix::load_geo(g, ncomp, c0, c1, c2, c3);
   __syncthreads();
 
   const int64_t mcu = blockIdx.x;  // over batch * n_mcu
@@ -70,59 +49,14 @@ __global__ void backend_kernel(const int16_t* __restrict__ ac,
   for (int i = tid; i < bpm * 64; i += blockDim.x) {
     const int slot = i >> 6, p = i & 63;
     const int32_t v = p == 0 ? dc[lane0 + slot] : ac[(lane0 + slot) * 64 + p];
-    const int32_t q = tables[zpix::kTabQuant + comp_of_slot[slot] * 64 + p];
+    const int32_t q = tables[zpix::kTabQuant + g.comp_of_slot[slot] * 64 + p];
     blk[i] = static_cast<int32_t>(static_cast<uint32_t>(v) * static_cast<uint32_t>(q));
   }
   __syncthreads();
-  if (tid < bpm * 8) zpix::wang_row(blk + (tid >> 3) * 64 + (tid & 7) * 8);
-  __syncthreads();
-  if (tid < bpm * 8) {
-    int32_t* col = blk + (tid >> 3) * 64 + (tid & 7);
-    zpix::wang_col(col, 8);
-    for (int r = 0; r < 8; ++r) {
-      const int32_t v = static_cast<int32_t>(static_cast<uint32_t>(col[8 * r]) + 128u);
-      pix[(tid >> 3) * 64 + 8 * r + (tid & 7)] =
-          static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
-    }
-  }
-  __syncthreads();
-
-  const int my = m / mxx, mx = m - my * mxx;
-  const int rw = 8 * geo[0][0], rh = 8 * geo[0][1];  // the MCU's pixel region
-  const int64_t plane = static_cast<int64_t>(height) * width;
-  for (int i = tid; i < rw * rh; i += blockDim.x) {
-    const int ly = i / rw, lx = i - ly * rw;
-    const int y = my * rh + ly, x = mx * rw + lx;
-    if (y >= height || x >= width) continue;
-    int val[4];
-    for (int c = 0; c < ncomp; ++c) {
-      const int py = ly / geo[c][3], px = lx / geo[c][2];
-      const int slot = geo[c][4] + (py >> 3) * geo[c][0] + (px >> 3);
-      val[c] = pix[slot * 64 + (py & 7) * 8 + (px & 7)];
-    }
-    uint8_t o[4];
-    if (mode == kGray) {
-      o[0] = val[0];
-    } else if (mode == kRgb) {
-      o[0] = val[0];
-      o[1] = val[1];
-      o[2] = val[2];
-    } else if (mode == kCmyk) {
-      for (int c = 0; c < 4; ++c) o[c] = 255 - val[c];
-    } else {  // ycbcr, ycck: exact YCbCr->RGB (util.zig:40-86)
-      const int32_t yy = val[0] * 0x10101, cb = val[1] - 128, cr = val[2] - 128;
-      o[0] = clamp_shift16(yy + 91881 * cr);
-      o[1] = clamp_shift16(yy - 22554 * cb - 46802 * cr);
-      o[2] = clamp_shift16(yy + 116130 * cb);
-      if (mode == kYcck) o[3] = 255 - val[3];
-    }
-    const int64_t pixel = static_cast<int64_t>(y) * width + x;
-    for (int ch = 0; ch < nchan; ++ch) {
-      const int64_t at = planar ? (b * nchan + ch) * plane + pixel
-                                : (b * plane + pixel) * nchan + ch;
-      out[at] = o[ch];
-    }
-  }
+  zpix::idct_to_pixels(blk, pix, bpm);
+  const int my = m / mxx;
+  zpix::write_mcu(pix, g, b, my, m - my * mxx, height, width, ncomp, mode, nchan,
+                  planar, out);
 }
 
 }  // namespace

@@ -8,7 +8,8 @@ and K3 (DC restore), each a CUDA kernel with its plain PyTorch version.
   (:611-766) and its agree/ok check (:1143-1150): one lane per block
   decodes the DC diff and the natural-order AC row.
 * ``dc_restore`` wraps K3 (csrc/dc_restore.cu), the port of
-  ``_restore_dc_T_split`` (:836-851).
+  ``_restore_dc_T_split`` (:836-851), in a thread-per-chain form for
+  restart segments and a block-per-chain form for whole-image chains.
 
 Layouts: lanes are block-major, lane = segment * nblk + mcu * bpm + slot,
 so a segment's blocks, and an MCU's slots, are contiguous.  ``ok`` is an
@@ -286,18 +287,32 @@ def value_pass(stream, seg_pos, seg_nmcu, tables, ends, ok, *, bpm: int):
     return ac, dc
 
 
-def dc_restore(dc, *, hv, seg_mcus: int):
-    """K3: raw DC diffs [L1*seg_mcus*bpm] int32 -> restored DC values."""
+# Chains at least this long take K3's block-per-chain form under "auto".
+LONG_CHAIN = 1024
+
+
+def dc_restore(dc, *, hv, seg_mcus: int, form: str = "auto"):
+    """K3: raw DC diffs [L1*seg_mcus*bpm] int32 -> restored DC values.
+
+    ``form`` picks the kernel: "thread" (one thread per chain, for the
+    short chains of restart segments), "block" (one CUDA block per chain,
+    for whole-image chains) or "auto" (block when a chain holds at least
+    LONG_CHAIN blocks)."""
     if dc.dtype != torch.int32:
         raise TypeError("dc_restore: expected int32 diffs")
+    if form not in ("auto", "thread", "block"):
+        raise ValueError(f"dc_restore: unknown form {form!r}")
     if dc.device.type == "cpu":
         return dc_restore_plain(dc, hv=hv, seg_mcus=seg_mcus)
     runtime.require_cuda(dc)
     bpm = sum(h * v for h, v in hv)
     nb = [h * v for h, v in hv] + [0] * (4 - len(hv))
+    if form == "auto":
+        form = "block" if seg_mcus * max(nb) >= LONG_CHAIN else "thread"
     out = torch.empty_like(dc)
     runtime.launch(
-        "dc_restore", dc.device, "zpix_dc_restore", "pp" + "i" * 8,
+        "dc_restore", dc.device,
+        "zpix_dc_restore_long" if form == "block" else "zpix_dc_restore", "pp" + "i" * 8,
         dc.data_ptr(), out.data_ptr(), dc.numel() // (seg_mcus * bpm), seg_mcus, bpm,
         len(hv), *nb,
     )

@@ -1,0 +1,484 @@
+"""Batched JPEG decode from coefficients: native front-end -> K7 -> K6.
+
+The PyTorch/CUDA counterpart of zpix_tpu/parallel/batch.py's native
+route (``NativeBatchFrontEnd`` + ``decode_batch_ycbcr_flat``).  The host
+half parses a batch of same-geometry baseline JPEGs with the port's copy
+of the native C++ front-end (csrc/host/entropy.cpp, a thread per image):
+marker walk, Huffman scan and sparse packing straight into one flat
+buffer (pinned when the decoder runs on CUDA), which goes to the card in
+one copy.  The device half carves that buffer with no copy and runs two
+hand-written kernels:
+
+1. sparse unpack (K7, ops/sparse.py): nonzero bitmaps + int16 values ->
+   dense coefficient grids in grid order, one launch per component;
+2. component planes (K6, ops/planes.py): per-image dequant, Wang IDCT,
+   level shift, chroma replication and colour into [B, H, W, C] u8.
+
+The native front-end takes 1- and 3-component single-scan non-RGB
+baseline streams.  RGB, 4-component, multi-scan and progressive streams
+need the reference's Python host front-end (codecs/jpeg/decoder.py),
+which the port has not copied yet: they raise UnsupportedError.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..errors import FormatError, UnsupportedError
+from ..ops import planes as _planes
+from ..ops import sparse as _sparse
+from ..runtime import host as _host
+from .device_entropy import resolve_device
+
+_RATIOS = {0x11: "444", 0x12: "440", 0x21: "422",
+           0x22: "420", 0x41: "411", 0x42: "410"}
+RATIO_FACTORS = {"444": (1, 1), "422": (2, 1), "420": (2, 2),
+                 "440": (1, 2), "411": (4, 1), "410": (4, 2)}
+_MISSING = ("needs the Python host front-end (zpix_tpu/codecs/jpeg/decoder.py), "
+            "which zpix_tpu_torch has not ported yet")
+
+
+# ------------------------------------------------------------------ host half
+
+
+class PackedFrontEnd:
+    """Sparse-packed front-end output of one image (stream block order;
+    ``perms[c]`` maps grid index -> stream index, None when equal)."""
+
+    __slots__ = ("width", "height", "ratio", "ncomp", "bitmaps", "vals", "quants",
+                 "hv", "perms")
+
+    def __init__(self, width, height, ratio, ncomp, bitmaps, vals, quants, hv, perms):
+        self.width, self.height, self.ratio, self.ncomp = width, height, ratio, ncomp
+        self.bitmaps = bitmaps  # list of [nb, 8] uint8
+        self.vals = vals  # list of int16[nnz]
+        self.quants = quants  # list of [64] int32, natural order
+        self.hv = hv
+        self.perms = perms
+
+
+_PERM_CACHE: dict = {}
+
+
+def stream_perm(mxx: int, myy: int, hi: int, vi: int):
+    """grid->stream block index map for one component of an interleaved
+    scan: stream order is (my, mx, j) with by = vi*my + j//hi and
+    bx = hi*mx + j%hi (decoder.zig:1327-1329); None when that is already
+    row-major grid order (hi == vi == 1)."""
+    if hi == 1 and vi == 1:
+        return None
+    key = (mxx, myy, hi, vi)
+    if key not in _PERM_CACHE:
+        my, mx, jj = np.meshgrid(np.arange(myy), np.arange(mxx), np.arange(hi * vi),
+                                 indexing="ij")
+        grid_of_stream = ((vi * my + jj // hi) * (mxx * hi) + hi * mx + jj % hi).reshape(-1)
+        inv = np.empty_like(grid_of_stream)
+        inv[grid_of_stream] = np.arange(len(grid_of_stream))
+        _PERM_CACHE[key] = inv.astype(np.int32)
+    return _PERM_CACHE[key]
+
+
+def _peek_sof(data: bytes):
+    """Cheap scan for SOF0/1 dims and sampling factors -> (w, h, nc, hv),
+    or None (no baseline SOF before the first SOS)."""
+    pos, n = 2, len(data)
+    while pos + 4 <= n:
+        if data[pos] != 0xFF:
+            pos += 1
+            continue
+        marker = data[pos + 1]
+        if marker in (0xD8, 0x01) or 0xD0 <= marker <= 0xD7:
+            pos += 2
+            continue
+        ln = (data[pos + 2] << 8) | data[pos + 3]
+        if marker in (0xC0, 0xC1):
+            seg = data[pos + 4 : pos + 2 + ln]
+            if len(seg) < 6:
+                return None
+            h, w, nc = (seg[1] << 8) | seg[2], (seg[3] << 8) | seg[4], seg[5]
+            hv = [(seg[7 + 3 * i] >> 4, seg[7 + 3 * i] & 0x0F) for i in range(nc)]
+            return w, h, nc, [(1, 1)] if nc == 1 else hv
+        if marker == 0xDA:
+            return None
+        pos += 2 + ln
+    return None
+
+
+def _ratio(hv):
+    if len(hv) == 1:
+        return "gray"
+    hr, vr = hv[0][0] // hv[1][0], hv[0][1] // hv[1][1]
+    return _RATIOS.get((hr << 4) | vr)
+
+
+def _mcus(w, h, hv):
+    h0, v0 = hv[0]
+    return (w + 8 * h0 - 1) // (8 * h0), (h + 8 * v0 - 1) // (8 * v0)
+
+
+def _ptrs(arrays):
+    out = (ctypes.c_void_p * 4)()
+    for i, a in enumerate(arrays):
+        out[i] = a.ctypes.data
+    return out
+
+
+def parse_packed_native(data: bytes, n_threads: int = 1):
+    """One image through the native front-end -> PackedFrontEnd, or None
+    where it refuses the stream.  ``n_threads`` > 1 decodes restart
+    segments in parallel when the stream has them."""
+    sof = _peek_sof(data)
+    if sof is None or sof[2] not in (1, 3):
+        return None
+    w, h, nc, hv = sof
+    mxx, myy = _mcus(w, h, hv)
+    bitmaps, vals = [], []
+    cap_arr = (ctypes.c_int64 * 4)()
+    for i in range(nc):
+        nb = mxx * hv[i][0] * myy * hv[i][1]
+        bitmaps.append(np.empty((nb, 8), np.uint8))
+        vals.append(np.empty(nb * 64, np.int16))
+        cap_arr[i] = nb * 64
+    quant_nat = np.zeros((3, 64), np.int32)
+    nnz = (ctypes.c_int64 * 4)()
+    rc = _host.lib().zpix_parse_baseline(
+        data, len(data), w, h, _ptrs(bitmaps), _ptrs(vals),
+        cap_arr, quant_nat.ctypes.data, nnz, n_threads)
+    ratio = _ratio(hv)
+    if rc != 0 or ratio is None:
+        return None
+    return PackedFrontEnd(
+        w, h, ratio, nc, bitmaps, [vals[i][: nnz[i]] for i in range(nc)],
+        [quant_nat[i] for i in range(nc)], hv,
+        [stream_perm(mxx, myy, *hv[i]) for i in range(nc)])
+
+
+def pack_sparse(coeff: np.ndarray):
+    """[bv, bh, 64] int32 -> (bitmap [nb, 8] uint8, vals int16[nnz])."""
+    coeff = np.ascontiguousarray(coeff, np.int32)
+    nb = coeff.shape[0] * coeff.shape[1]
+    bitmap = np.empty((nb, 8), np.uint8)
+    vals = np.empty(coeff.size, np.int16)
+    n = _host.lib().zpix_pack_sparse(coeff.ctypes.data, nb, bitmap.ctypes.data,
+                                     vals.ctypes.data, coeff.size)
+    if n < 0:
+        raise RuntimeError("pack_sparse: value buffer too small")
+    return bitmap, vals[:n].copy()
+
+
+def flat_layout(batch: int, nb, val_caps):
+    """The flat buffer's sections (kind, comp, byte offset, nbytes), each
+    64-byte aligned: the bitmaps [B, nb_c, 8] u8 of every component, then
+    the values [B, cap_c] int16, then the quant rows [B, 64] int32.  The
+    first two are zpix_tpu's NativeBatchFrontEnd layout, byte for byte."""
+    layout, off = [], 0
+    for kind, sizes in (("bm", [batch * n * 8 for n in nb]),
+                        ("val", [batch * c * 2 for c in val_caps]),
+                        ("q", [batch * 256] * len(nb))):
+        for c, nbytes in enumerate(sizes):
+            layout.append((kind, c, off, nbytes))
+            off += (nbytes + 63) // 64 * 64
+    return layout, off
+
+
+def carve(buffer: torch.Tensor, layout, kind: str, c: int, batch: int):
+    """A section of the flat buffer as a typed view (no copy): bitmaps
+    [B, nb, 8] u8, values [B, cap] int16 or quant rows [B, 64] int32."""
+    for k, cc, off, nbytes in layout:
+        if (k, cc) == (kind, c):
+            seg = buffer[off : off + nbytes]
+            if kind == "bm":
+                return seg.view(batch, -1, 8)
+            return seg.view(torch.int16 if kind == "val" else torch.int32).view(batch, -1)
+    raise KeyError((kind, c))
+
+
+class NativeBatchFrontEnd:
+    """Whole-batch native front-end: one C call, an internal thread pool.
+
+    Parses N same-geometry baseline JPEGs into one persistent flat buffer
+    (``flat_layout``) reused across batches, so a batch ships to the card
+    in one copy.  With ``pin=True`` the buffer lives in pinned host memory
+    (``buffer_tensor``; ``buffer`` is its numpy view).  Value capacity is
+    ``nb * 64 / VAL_CAP_FRAC`` per image, or twice the sample's count if
+    more; ``dense=True`` sizes it for every coefficient.
+    """
+
+    VAL_CAP_FRAC = 8
+
+    def __init__(self, sample: bytes, batch: int, n_threads: int | None = None, *,
+                 pin: bool = False, dense: bool = False):
+        sof = _peek_sof(sample)
+        if sof is None or sof[2] not in (1, 3):
+            raise UnsupportedError(f"jpeg: this stream {_MISSING}")
+        self.width, self.height, self.ncomp, self.hv = sof
+        self.ratio = _ratio(self.hv)
+        if self.ratio is None:
+            raise UnsupportedError(f"jpeg: sampling {self.hv} {_MISSING}")
+        self.mxx, self.myy = _mcus(self.width, self.height, self.hv)
+        self.batch = batch
+        self.n_threads = n_threads or (os.cpu_count() or 2)
+        p = None if dense else parse_packed_native(sample)
+        self.nb, self.val_caps = [], []
+        for c, (hi, vi) in enumerate(self.hv):
+            nb = self.mxx * hi * self.myy * vi
+            cap = nb * 64 if dense else nb * 64 // self.VAL_CAP_FRAC
+            if p is not None:
+                cap = max(cap, 2 * len(p.vals[c]))
+            self.nb.append(nb)
+            self.val_caps.append(min((cap + 511) // 512 * 512, nb * 64))
+        self.layout, nbytes = flat_layout(batch, self.nb, self.val_caps)
+        self.buffer_tensor = torch.zeros(nbytes, dtype=torch.uint8, pin_memory=pin)
+        self.buffer = self.buffer_tensor.numpy()
+        self.bitmaps, self.vals, self.quants = (
+            [carve(self.buffer_tensor, self.layout, kind, c, batch).numpy()
+             for c in range(self.ncomp)] for kind in ("bm", "val", "q"))
+        self.nnz = np.empty((batch, 3), np.int64)
+        self.rcs = np.empty(batch, np.int32)
+        self.perm_y = stream_perm(self.mxx, self.myy, *self.hv[0])
+        self.perm_c = stream_perm(self.mxx, self.myy, *self.hv[1]) if self.ncomp >= 3 else None
+
+    def parse(self, datas: list[bytes]) -> None:
+        """Parse the batch into the persistent buffer (one C call).  Raises
+        UnsupportedError for a stream this front-end refuses, FormatError
+        for a broken one or one denser than the value capacity."""
+        b = len(datas)
+        if b != self.batch:
+            raise ValueError("batch size mismatch")
+        data_ptrs = (ctypes.c_char_p * b)(*datas)
+        lens = (ctypes.c_int64 * b)(*[len(d) for d in datas])
+        caps = (ctypes.c_int64 * 4)(*self.val_caps)
+        strides = (ctypes.c_int64 * 4)(*[n * 8 for n in self.nb])
+        rc = _host.lib().zpix_parse_baseline_batch(
+            data_ptrs, lens, b, self.width, self.height, self.ncomp,
+            _ptrs(self.bitmaps), _ptrs(self.vals), caps,
+            strides, _ptrs(self.quants), self.nnz.ctypes.data,
+            self.rcs.ctypes.data, self.n_threads)
+        if rc == _host.ERR_UNSUPPORTED:
+            i = int(np.flatnonzero(self.rcs == rc)[0])
+            raise UnsupportedError(f"jpeg: image {i} {_MISSING}")
+        if rc != 0:
+            i = int(np.flatnonzero(self.rcs != 0)[0])
+            raise FormatError(f"jpeg: native front-end failed on image {i} (rc={rc}; "
+                              "a broken stream, or denser than the value capacity)")
+
+    def packed(self) -> "Packed":
+        return Packed(self.buffer_tensor, tuple(self.layout), self.batch, self.width,
+                      self.height, tuple(self.hv), self.mxx, self.myy, self.perm_y,
+                      self.perm_c)
+
+
+@dataclass
+class Packed:
+    """A parsed batch: the flat buffer (u8 tensor, or numpy), its layout
+    and the geometry the device half needs."""
+
+    buffer: object
+    layout: tuple
+    batch: int
+    width: int
+    height: int
+    hv: tuple
+    mxx: int
+    myy: int
+    perm_y: object = None  # grid->stream int32 [nb_y], or None
+    perm_c: object = None
+
+    @property
+    def ratio(self) -> str:
+        return _ratio(self.hv)
+
+    @property
+    def color(self) -> str:
+        return "gray" if len(self.hv) == 1 else "ycbcr"
+
+    @property
+    def dims(self):
+        """Per component its block grid (bv, bh)."""
+        return [(self.myy * v, self.mxx * h) for h, v in self.hv]
+
+    @property
+    def perms(self):
+        """Per component its grid->stream map (chroma share one)."""
+        return [self.perm_y] + [self.perm_c] * (len(self.hv) - 1)
+
+
+def packed_from_arrays(buffer, layout, quants, perm_y, perm_c, *, width: int,
+                       height: int, hv, batch: int) -> Packed:
+    """A Packed batch from plain numpy arrays: a flat buffer with bitmap
+    and value sections as ``layout`` gives them (zpix_tpu's
+    NativeBatchFrontEnd buffer and layout fit), the quant rows [B, 64] per
+    component, and the grid->stream perms.  The quant rows are appended
+    as ``flat_layout``'s "q" sections."""
+    buffer = np.asarray(buffer, np.uint8)
+    layout = [tuple(x) for x in layout if x[0] != "q"]
+    off = (buffer.shape[0] + 63) // 64 * 64
+    parts = [buffer, np.zeros(off - buffer.shape[0], np.uint8)]
+    for c, q in enumerate(quants):
+        q = np.ascontiguousarray(q, np.int32).reshape(batch, 64)
+        layout.append(("q", c, off, q.nbytes))
+        parts.append(q.view(np.uint8).reshape(-1))
+        off += q.nbytes
+    hv = tuple((int(h), int(v)) for h, v in hv)
+    mxx, myy = _mcus(width, height, hv)
+    perm = lambda p: None if p is None else np.asarray(p, np.int32)  # noqa: E731
+    return Packed(torch.from_numpy(np.concatenate(parts)), tuple(layout), batch,
+                  int(width), int(height), hv, mxx, myy, perm(perm_y), perm(perm_c))
+
+
+# ---------------------------------------------------------------- device half
+
+
+_DEVICE_PERMS: dict = {}
+
+
+def _perm_tensor(perm, device):
+    """A grid->stream perm as an int32 tensor on ``device``, copied there
+    once per distinct perm (a decode then makes no copy of its own)."""
+    if perm is None or isinstance(perm, torch.Tensor):
+        return perm
+    perm = np.asarray(perm, np.int32)
+    key = (str(device), perm.tobytes())
+    if key not in _DEVICE_PERMS:
+        _DEVICE_PERMS[key] = torch.from_numpy(perm.copy()).to(device)
+    return _DEVICE_PERMS[key]
+
+
+def unpack_flat(buffer, layout, *, batch: int, dims, perms):
+    """K7 over each component of a flat buffer -> grids [B, bv, bh, 64]
+    int16.  ``dims``: per component its grid (bv, bh); ``perms``: its
+    grid->stream map or None."""
+    return [_sparse.unpack_sparse(carve(buffer, layout, "bm", c, batch),
+                                  carve(buffer, layout, "val", c, batch), bv=bv, bh=bh,
+                                  perm=_perm_tensor(perm, buffer.device))
+            for c, ((bv, bh), perm) in enumerate(zip(dims, perms))]
+
+
+def decode_batch_planes(grids, quants, *, color: str, height: int, width: int,
+                        ratio: str | None = None, sub=None):
+    """K6 on coefficient grids (int16 [B, bv, bh, 64]) and quant rows
+    (int32 [B, 64]), for one of zpix_tpu's batch.py colour graphs:
+    ``ratio`` gives the chroma replication of ycbcr, rgb and ycck, ``sub``
+    marks the cmyk arm's 2x2-subsampled components."""
+    n = len(grids)
+    if color == "gray":
+        factors = [(1, 1)]
+    elif color == "cmyk":
+        factors = [(2, 2) if s else (1, 1) for s in sub]
+    else:
+        f = RATIO_FACTORS[ratio]
+        factors = [(1, 1), f, f] + [(1, 1)] * (n - 3)
+    return _planes.component_planes(grids, quants, color=color, height=height, width=width,
+                                    factors=factors)
+
+
+def decode_batch_ycbcr_to_rgb(cy, ccb, ccr, qy, qcb, qcr, *, height, width, ratio):
+    """[B, bv, bh, 64] grids + [B, 64] quants -> interleaved RGB8 [B, H, W, 3]."""
+    return decode_batch_planes([cy, ccb, ccr], [qy, qcb, qcr], color="ycbcr",
+                               height=height, width=width, ratio=ratio)
+
+
+def decode_batch_gray(cy, qy, *, height, width):
+    return decode_batch_planes([cy], [qy], color="gray", height=height, width=width)
+
+
+def decode_batch_ycbcr_packed(bm_y, v_y, bm_cb, v_cb, bm_cr, v_cr, qy, qcb, qcr, *,
+                              height, width, ratio, by, bx, cby, cbx,
+                              perm_y=None, perm_c=None):
+    """Per-component bitmaps and values -> RGB8 [B, H, W, 3] (K7, then K6)."""
+    dev = bm_y.device
+    grids = [_sparse.unpack_sparse(bm, v, bv=bv, bh=bh, perm=_perm_tensor(p, dev))
+             for bm, v, bv, bh, p in ((bm_y, v_y, by, bx, perm_y),
+                                      (bm_cb, v_cb, cby, cbx, perm_c),
+                                      (bm_cr, v_cr, cby, cbx, perm_c))]
+    return decode_batch_ycbcr_to_rgb(*grids, qy, qcb, qcr, height=height, width=width,
+                                     ratio=ratio)
+
+
+def decode_batch_ycbcr_flat(buffer, qy, qcb, qcr, *, height, width, ratio, by, bx,
+                            cby, cbx, layout, batch, perm_y=None, perm_c=None):
+    """One flat u8 buffer (bitmap and value sections as ``layout`` gives
+    them) + quant rows -> RGB8 [B, H, W, 3] (K7 per component, then K6)."""
+    grids = unpack_flat(buffer, layout, batch=batch, dims=[(by, bx), (cby, cbx), (cby, cbx)],
+                        perms=[perm_y, perm_c, perm_c])
+    return decode_batch_ycbcr_to_rgb(*grids, qy, qcb, qcr, height=height, width=width,
+                                     ratio=ratio)
+
+
+def upload(packed: Packed, device) -> torch.Tensor:
+    """The flat buffer on ``device``: one copy, asynchronous from pinned
+    memory."""
+    buf = packed.buffer
+    if not isinstance(buf, torch.Tensor):
+        buf = torch.from_numpy(np.asarray(buf, np.uint8))
+    return buf.to(device, non_blocking=True)
+
+
+def decode_uploaded(buf: torch.Tensor, packed: Packed) -> torch.Tensor:
+    """The flat buffer on the device -> pixels: K7 per component, then K6."""
+    grids = unpack_flat(buf, packed.layout, batch=packed.batch, dims=packed.dims,
+                        perms=packed.perms)
+    quants = [carve(buf, packed.layout, "q", c, packed.batch) for c in range(len(packed.hv))]
+    return decode_batch_planes(grids, quants, color=packed.color, height=packed.height,
+                               width=packed.width, ratio=packed.ratio)
+
+
+class BatchJpegDecoder:
+    """Same-geometry baseline JPEG batches through the native front-end,
+    K7 and K6: bytes -> interleaved RGB8 [B, H, W, 3] (gray [B, H, W]) on
+    the decoder's device, no sync.
+
+    Gray and YCbCr at every ratio the native front-end admits.  A batch
+    of mixed geometry raises ValueError; a stream that front-end refuses
+    (RGB, 4-component, multi-scan, progressive) raises UnsupportedError.
+    """
+
+    def __init__(self, *, device=None, n_threads: int | None = None):
+        self.device = resolve_device(device)
+        self.n_threads = n_threads
+        self._front_ends: dict = {}
+        self._copied = None  # CUDA event: the last upload has left the buffer
+
+    def front_end(self, datas: list[bytes]) -> NativeBatchFrontEnd:
+        """The cached front-end for this batch's geometry, parsed."""
+        if not datas:
+            raise ValueError("jpeg: empty batch")
+        sofs = [_peek_sof(d) for d in datas]
+        for s in sofs:
+            if s is None or s[2] not in (1, 3):
+                what = "a progressive or non-baseline" if s is None else f"a {s[2]}-component"
+                raise UnsupportedError(f"jpeg: {what} stream {_MISSING}")
+        if any(s != sofs[0] for s in sofs[1:]):
+            raise ValueError("batch images must share (width, height, ratio, color); "
+                             "bucket mixed shapes separately")
+        if self._copied is not None:
+            self._copied.synchronize()  # the pinned buffer is about to be rewritten
+        pin = self.device.type == "cuda"
+        key = (tuple(sofs[0][:3]), tuple(sofs[0][3]), len(datas))
+        fe = self._front_ends.get(key)
+        if fe is None:
+            fe = self._front_ends[key] = NativeBatchFrontEnd(
+                datas[0], len(datas), self.n_threads, pin=pin)
+        try:
+            fe.parse(datas)
+        except FormatError:
+            # perhaps denser than the value capacity: once more with room
+            # for every coefficient, kept only if that parses
+            dense = NativeBatchFrontEnd(datas[0], len(datas), self.n_threads, pin=pin,
+                                        dense=True)
+            dense.parse(datas)
+            fe = self._front_ends[key] = dense
+        return fe
+
+    def decode(self, datas: list[bytes]) -> torch.Tensor:
+        packed = self.front_end(datas).packed()
+        buf = upload(packed, self.device)
+        if self.device.type == "cuda":
+            self._copied = torch.cuda.Event()
+            self._copied.record()
+        return decode_uploaded(buf, packed)

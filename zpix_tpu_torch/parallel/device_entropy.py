@@ -16,6 +16,11 @@ hand-written kernels:
 4. back-end (K4, ops/backend.py): dequant, Wang IDCT, level shift,
    chroma replication and YCbCr->RGB straight into the output tensor.
 
+Restart-free streams take ``HostIndexJpegDecoder``: the port's copy of
+the host C++ index scan (csrc/host/entropy.cpp, a thread per image)
+finds every block's end bit in place of K1, then K2, K3 (one chain per
+image and component) and K4 run as above.
+
 Everything is exact integer math: the output matches the JAX package
 and the host decoder bit for bit.
 """
@@ -23,6 +28,10 @@ and the host decoder bit for bit.
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import ctypes
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -61,6 +70,7 @@ class ScanPlan:
     batch: int
     tables: np.ndarray  # int32 [entropy.TAB_WORDS]: Huffman tables + slot map
     color: str = "ycbcr"  # gray | ycbcr | rgb | ycck | cmyk
+    ends: np.ndarray | None = None  # int32 [B, nblk]: the host index scan's block ends
 
 
 def _parse_headers(data: bytes):
@@ -287,19 +297,18 @@ def plan_from_arrays(*, stream, seg_bit_pos, seg_n_mcu, quants, hv, bpm,
     )
 
 
-def prep_batch(datas: list[bytes]) -> ScanPlan:
-    """Parse/destuff a batch; all images must share geometry AND tables.
-
-    The stream buffer is a power of two at least 16 bytes longer than the
-    data, so the kernels' 8-byte reads past a lane's last bit stay inside
-    it (and it matches the JAX package's buffer byte for byte)."""
+def _batch_streams(datas: list[bytes], *, restarts: bool):
+    """Headers and destuffed scans of a batch that shares geometry AND
+    tables -> (the first image's header fields, streams, segment starts).
+    ``restarts`` asks for restart markers (DRI > 0); without, each stream
+    must be one segment (the host-index route)."""
     if not datas:
         raise ValueError("jpeg: empty batch")
     first = None
     streams, seg_pos_all = [], []
     for data in datas:
         sof, quants, huffs, dri, sel, scan_start, color = _parse_headers(data)
-        if dri <= 0:
+        if restarts and dri <= 0:
             raise UnsupportedError(
                 "jpeg: device entropy decode needs restart markers (DRI)"
             )
@@ -312,45 +321,70 @@ def prep_batch(datas: list[bytes]) -> ScanPlan:
         elif key != first[0]:
             raise UnsupportedError("jpeg: batch must share geometry and tables")
         stream, seg_starts = _destuff(data, scan_start)
+        if not restarts and (len(seg_starts) != 1 or int(seg_starts[0]) != 0):
+            raise UnsupportedError(
+                "jpeg: host-index path covers restart-free streams "
+                "(use prep_batch/DeviceJpegDecoder for DRI > 0)"
+            )
         streams.append(stream)
         seg_pos_all.append(seg_starts)
+    return first[1:], streams, seg_pos_all
 
-    _, sof, quants, huffs, dri, sel, color = first
-    w, h, nc, comps = sof
+
+def _flat_stream(streams):
+    """Streams back to back (8-byte aligned per image) in a power-of-two
+    buffer with >= 16 pad bytes, so the kernels' 8-byte reads past a
+    lane's last bit stay inside it (and it matches the JAX package's
+    buffer byte for byte) -> (buffer, byte offset of each stream)."""
+    offs, total = [], 0
+    for s in streams:
+        offs.append(total)
+        total += (len(s) + 7) // 8 * 8
+    flat = np.zeros(1 << max(12, (total + 15).bit_length()), np.uint8)
+    for s, o in zip(streams, offs):
+        flat[o : o + len(s)] = s
+    return flat, offs
+
+
+def _mcu_grid(sof):
+    w, h, _, comps = sof
     h0, v0 = comps[0][1], comps[0][2]
-    mxx = (w + 8 * h0 - 1) // (8 * h0)
-    myy = (h + 8 * v0 - 1) // (8 * v0)
+    return (w + 8 * h0 - 1) // (8 * h0), (h + 8 * v0 - 1) // (8 * v0)
+
+
+def _plan(header, **arrays) -> ScanPlan:
+    """plan_from_arrays with the header fields of ``_batch_streams``."""
+    sof, quants, huffs, _, sel, color = header
+    w, h, nc, comps = sof
+    mxx, myy = _mcu_grid(sof)
+    by_comp = {i: (td, ta) for i, (_, td, ta) in enumerate(sel)}
+    return plan_from_arrays(
+        quants=[quants[c[3]] for c in comps], hv=[(c[1], c[2]) for c in comps],
+        bpm=sum(c[1] * c[2] for c in comps), mxx=mxx, myy=myy, width=w, height=h,
+        color=color, huffs={k: (t.counts, t.vals[: t.num_codes]) for k, t in huffs.items()},
+        sel=[by_comp[c] for c in range(nc)], **arrays,
+    )
+
+
+def prep_batch(datas: list[bytes]) -> ScanPlan:
+    """Parse/destuff a batch with restart markers; all images must share
+    geometry AND tables.  Every restart segment becomes a lane."""
+    header, streams, seg_pos_all = _batch_streams(datas, restarts=True)
+    dri = header[3]
+    mxx, myy = _mcu_grid(header[0])
     n_mcu = mxx * myy
     n_segs = (n_mcu + dri - 1) // dri
     for starts in seg_pos_all:
         if len(starts) != n_segs:
             raise UnsupportedError("jpeg: restart segment count mismatch")
-
-    # Flat stream: segments of all images back to back (8-byte aligned
-    # per image), in a power-of-two buffer with >= 16 pad bytes.
-    offs, total = [], 0
-    for s in streams:
-        offs.append(total)
-        total += (len(s) + 7) // 8 * 8
-    cap = 1 << max(12, (total + 15).bit_length())
-    flat = np.zeros(cap, np.uint8)
-    for s, o in zip(streams, offs):
-        flat[o : o + len(s)] = s
+    flat, offs = _flat_stream(streams)
     seg_bit_pos = np.concatenate(
         [(o + p) * 8 for o, p in zip(offs, seg_pos_all)]
     ).astype(np.int64)
     nm = np.full(n_segs, dri, np.int32)
     nm[-1] = n_mcu - dri * (n_segs - 1)
-    by_comp = {i: (td, ta) for i, (_, td, ta) in enumerate(sel)}
-    return plan_from_arrays(
-        stream=flat, seg_bit_pos=seg_bit_pos,
-        seg_n_mcu=np.tile(nm, len(datas)),
-        quants=[quants[c[3]] for c in comps], hv=[(c[1], c[2]) for c in comps],
-        bpm=sum(c[1] * c[2] for c in comps), seg_mcus=dri, n_segs=n_segs,
-        mxx=mxx, myy=myy, width=w, height=h, color=color,
-        huffs={k: (t.counts, t.vals[: t.num_codes]) for k, t in huffs.items()},
-        sel=[by_comp[c] for c in range(nc)],
-    )
+    return _plan(header, stream=flat, seg_bit_pos=seg_bit_pos,
+                 seg_n_mcu=np.tile(nm, len(datas)), seg_mcus=dri, n_segs=n_segs)
 
 
 # ------------------------------------------------------------- assembly
@@ -385,19 +419,38 @@ class DeviceJpegDecoder:
     def __init__(self, *, planar: bool = False, device=None):
         self.planar = planar
         self.device = resolve_device(device)
+        self._staging = torch.empty(0, dtype=torch.uint8)  # host side of the upload
+        self._copied = None  # CUDA event: the last upload has left the staging buffer
 
     def upload(self, plan: ScanPlan):
-        """Host arrays -> device tensors (stream, offsets, counts, tables)."""
-        dev = self.device
-
-        def put(a):
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            if dev.type == "cuda":
-                return t.pin_memory().to(dev, non_blocking=True)
-            return t
-
-        return (put(plan.stream), put(plan.seg_bit_pos.astype(np.int32)),
-                put(plan.seg_n_mcu), put(plan.tables))
+        """Stream, offsets, counts, tables (and the host index scan's ends,
+        if the plan has them) -> device tensors, in one copy: the arrays
+        are packed, 64-byte aligned, into one host buffer (pinned on CUDA,
+        reused across batches) and carved on the device, as zpix_tpu's
+        packed upload does."""
+        parts = [plan.stream, plan.seg_bit_pos.astype(np.int32), plan.seg_n_mcu,
+                 plan.tables] + ([] if plan.ends is None else [plan.ends])
+        offs, total = [], 0
+        for a in parts:
+            offs.append(total)
+            total += (a.nbytes + 63) // 64 * 64
+        cuda = self.device.type == "cuda"
+        if self._copied is not None:
+            self._copied.synchronize()  # the staging buffer is about to be rewritten
+        if self._staging.numel() < total:
+            self._staging = torch.empty(total, dtype=torch.uint8, pin_memory=cuda)
+        host = self._staging.numpy()
+        for a, o in zip(parts, offs):
+            host[o : o + a.nbytes] = np.ascontiguousarray(a).view(np.uint8).reshape(-1)
+        if cuda:
+            buf = self._staging[:total].to(self.device, non_blocking=True)
+            self._copied = torch.cuda.Event()
+            self._copied.record()
+        else:
+            buf = self._staging[:total].clone()
+        return tuple(
+            buf[o : o + a.nbytes].view(torch.uint8 if a.dtype == np.uint8 else torch.int32)
+            .view(a.shape) for a, o in zip(parts, offs))
 
     def entropy(self, plan: ScanPlan, bufs):
         """K1 + K2 + K3 -> (AC int16 [L1*nblk, 64], DC int32 [L1*nblk]
@@ -420,11 +473,114 @@ class DeviceJpegDecoder:
         ac[:, 0] = dc.to(torch.int16)  # the AC rows hold 0 at position 0
         return ac.view(-1, plan.seg_mcus * plan.bpm, 64), okf[0] != 0
 
+    def prep(self, datas: list[bytes]) -> ScanPlan:
+        return prep_batch(datas)
+
     def decode(self, datas: list[bytes]):
         """bytes -> (pixels, ok), both on the decoder's device, no sync."""
-        plan = prep_batch(datas)
+        plan = self.prep(datas)
         bufs = self.upload(plan)
         ac, dc, okf = self.entropy(plan, bufs)
         pixels = _backend.backend(ac, dc, bufs[3], _backend.BackendGeometry.of(plan),
                                   planar=self.planar)
         return pixels, okf[0] != 0
+
+
+# ------------------------------------------------------ restart-free streams
+
+# Zero bytes after each stream for the host index scan.  It stops a
+# corrupt stream's walk only at a block start past nbits + 512, and a
+# block reads at most 64 symbols of <= 31 bits from there, so reads stay
+# within ~320 bytes of the end (zpix_tpu pads 8, which a corrupt stream
+# can overrun).
+INDEX_SCAN_PAD = 512
+
+
+def _huff_array(huffs):
+    """{(class, id): HuffTable} -> the C side's HuffTable[8] (dc 0..3, ac 4..7)."""
+    from ..runtime import host
+
+    arr = (host.HuffTableC * 8)()
+    for (cls, tid), tab in huffs.items():
+        ct = arr[cls * 4 + tid]
+        ct.min_codes[:] = tab.min_codes
+        ct.max_codes[:] = tab.max_codes
+        ct.vals_indices[:] = tab.vals_indices
+        ct.vals[:] = tab.vals
+        ct.num_codes = tab.num_codes
+    return arr
+
+
+def prep_batch_host_index(datas: list[bytes], n_threads: int | None = None) -> ScanPlan:
+    """Restart-free batches: the host index scan -> per-block end bits.
+
+    The port of zpix_tpu's prep_batch_host_index
+    (device_entropy.py:1688-1830): headers and destuffing as prep_batch,
+    then ``zpix_baseline_index_scan`` decodes symbol lengths only on a
+    thread pool (one image each) and gives every block's end bit; the
+    plan has one segment per image (seg_mcus = n_mcu) and carries the
+    absolute ends for K2, whose agree check verifies each of them.
+    """
+    from ..runtime import host
+
+    header, streams, _ = _batch_streams(datas, restarts=False)
+    sof, _, huffs, _, sel, _ = header
+    comps = sof[3]
+    mxx, myy = _mcu_grid(sof)
+    n_mcu = mxx * myy
+    comp_of_slot = [c for c in range(sof[2]) for _ in range(comps[c][1] * comps[c][2])]
+    bpm = len(comp_of_slot)
+    B = len(datas)
+    slot_dc = np.array([sel[c][1] for c in comp_of_slot], np.int32)
+    slot_ac = np.array([sel[c][2] for c in comp_of_slot], np.int32)
+    huff_arr = _huff_array(huffs)
+    lib = host.lib()
+    ends = np.empty((B, n_mcu * bpm), np.int32)
+    padded = [np.concatenate([s, np.zeros(INDEX_SCAN_PAD, np.uint8)]) for s in streams]
+
+    def one(b):
+        endb = ctypes.c_int64(0)
+        return lib.zpix_baseline_index_scan(
+            padded[b].ctypes.data, len(streams[b]), huff_arr, slot_dc.ctypes.data,
+            slot_ac.ctypes.data, bpm, n_mcu, ends[b].ctypes.data, ctypes.byref(endb))
+
+    workers = min(B, n_threads or os.cpu_count() or 2)
+    with ThreadPoolExecutor(max_workers=workers) as ex:
+        rcs = list(ex.map(one, range(B)))
+    bad = [rc for rc in rcs if rc != 0]
+    if bad:
+        raise FormatError(f"jpeg: host index scan failed (rc={bad[0]})")
+    flat, offs = _flat_stream(streams)
+    seg_bit_pos = np.asarray(offs, np.int64) * 8
+    plan = _plan(header, stream=flat, seg_bit_pos=seg_bit_pos,
+                 seg_n_mcu=np.full(B, n_mcu, np.int32), seg_mcus=n_mcu, n_segs=1)
+    plan.ends = ends + seg_bit_pos.astype(np.int32)[:, None]
+    return plan
+
+
+class HostIndexJpegDecoder(DeviceJpegDecoder):
+    """Restart-free baseline JPEG: host index scan + K2, K3, K4.
+
+    The port of zpix_tpu's HostIndexJpegDecoder (device_entropy.py:1833):
+    the host decodes symbol lengths only (``prep_batch_host_index``), the
+    card decodes every block's values in parallel from those ends and
+    verifies each end exactly.  ``ok`` is K2's done & ~err & agree; there
+    is no K1.  Streams with restart markers raise UnsupportedError (they
+    belong to DeviceJpegDecoder).
+    """
+
+    def __init__(self, *, planar: bool = False, device=None, n_threads: int | None = None):
+        super().__init__(planar=planar, device=device)
+        self.n_threads = n_threads
+
+    def entropy(self, plan: ScanPlan, bufs):
+        """K2 from the host's ends + K3 -> (AC, restored DC, ok int32 [1])."""
+        stream, seg_bit_pos, seg_n_mcu, tables, ends = bufs
+        okf = torch.ones(1, dtype=torch.int32, device=stream.device)
+        ac, dc = _entropy.value_pass(stream, seg_bit_pos, seg_n_mcu, tables, ends, okf,
+                                     bpm=plan.bpm)
+        dc = _entropy.dc_restore(dc, hv=plan.hv, seg_mcus=plan.seg_mcus)
+        return ac, dc, okf
+
+    def prep(self, datas: list[bytes]) -> ScanPlan:
+        return prep_batch_host_index(datas, self.n_threads)

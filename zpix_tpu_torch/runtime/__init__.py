@@ -9,7 +9,8 @@ an edit rebuilds it and a stale build is never loaded.  Nothing is built
 at import: the first kernel call (or ``lib()``) does it.
 
 Each C entry point launches on the caller's CUDA stream and returns
-``cudaGetLastError()``; ``launch`` raises when that is not 0.
+``cudaGetLastError()``; ``launch`` raises when that is not 0.  The host
+C++ (``csrc/host``) is a second library, built with g++ by ``host.py``.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Kernel launches, by kernel name: each wrapper adds one where it launches.
 LAUNCHES = {"index_pass": 0, "value_pass": 0, "dc_restore": 0,
-            "backend": 0, "idct_blocks": 0}
+            "backend": 0, "idct_blocks": 0, "unpack_sparse": 0,
+            "component_planes": 0}
 
 _lock = threading.Lock()
 _lib = None
