@@ -9,17 +9,21 @@ It builds the CUDA kernels from zpix_tpu_torch/csrc (nvcc) and the host
 library from zpix_tpu_torch/csrc/host (g++), checks each kernel against
 its plain PyTorch version on the card (exact equality), decodes batches
 of 16 distinct 1024x1024 baseline 4:2:0 JPEGs (quality 50) through the
-port's three routes -- ``DeviceJpegDecoder`` on streams with a restart
-marker every 8 MCUs, and ``BatchJpegDecoder`` (native front-end, K7, K6)
-and ``HostIndexJpegDecoder`` (host index scan, K2, K3, K4) on streams
-with none -- times them with CUDA events, checks that corrupt streams
-are flagged, and prints one JSON object per line.  The last line is
+port's three baseline routes -- ``DeviceJpegDecoder`` on streams with a
+restart marker every 8 MCUs, and ``BatchJpegDecoder`` (native front-end,
+K7, K6) and ``HostIndexJpegDecoder`` (host index scan, K2, K3, K4) on
+streams with none -- and batches of 16 copies of one 1024x1024 4:2:0
+progressive JPEG (a new image each batch) through
+``OnchipProgressiveDecoder`` (host index walks, K8-K11, K3, K6), times
+them with CUDA events, checks that corrupt streams are flagged, and
+prints one JSON object per line.  The last line is
 ``{"ok": true, "device": {...}}``; any failure exits non-zero.  Without
 CUDA it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -56,6 +60,10 @@ OPS_K4_BLOCK, OPS_K4_PIXEL, OPS_K4_CHROMA = OPS_IDCT_BLOCK + 64 * 4, 14, 6
 #   mask) and select.  K6 counts as K4 does (same arithmetic per block,
 #   pixel and chroma pair).
 OPS_K7_BLOCK = 2 + 64 * 3
+# - K10 per band position of a block: load, zero test, count or bit read,
+#   advance; K11 per block: bit extract (shift, mask), OR; K8 per block,
+#   after its symbol: the prefix add and the shift.
+OPS_K10_POSITION, OPS_K11_BLOCK, OPS_K8_BLOCK = 4, 3, 2
 # Serial-chain bound of K1 and K2: each symbol's position depends on the
 # previous symbol's length, so one step is at least a shared-memory table
 # lookup and a shift and an add; taken as 30 cycles at the boost clock
@@ -76,17 +84,27 @@ KERNELS = {  # name -> (source, TPU-side function it replaces)
     "backend": ("zpix_tpu_torch/csrc/backend.cu",
                 "zpix_tpu/parallel/device_entropy.py:1289"),
     "idct_blocks": ("zpix_tpu_torch/csrc/idct.cu", "zpix_tpu/ops/idct.py:242"),
+    "dc_first": ("zpix_tpu_torch/csrc/prog_entropy.cu",
+                 "zpix_tpu/parallel/progressive_onchip.py:799"),
+    "ac_first": ("zpix_tpu_torch/csrc/prog_entropy.cu",
+                 "zpix_tpu/parallel/progressive_onchip.py:866"),
+    "ac_refine": ("zpix_tpu_torch/csrc/prog_entropy.cu",
+                  "zpix_tpu/parallel/progressive_onchip.py:937"),
+    "dc_refine": ("zpix_tpu_torch/csrc/prog_store.cu",
+                  "zpix_tpu/parallel/progressive_onchip.py:1713"),
 }
+PROG_KINDS = ("dc_first", "ac_first", "ac_refine", "dc_refine")
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def make_bench_jpeg(size: int, quality: int, seed: int, dri_blocks) -> bytes:
+def make_bench_jpeg(size: int, quality: int, seed: int, dri_blocks,
+                    progressive: bool = False) -> bytes:
     """Structured 4:2:0 test image, with a restart marker every
-    ``dri_blocks`` MCUs or none (None): the JAX package's bench content,
-    a sine pattern with seeded noise."""
+    ``dri_blocks`` MCUs or none (None), baseline or progressive: the JAX
+    package's bench content, a sine pattern with seeded noise."""
     from PIL import Image
 
     rng = np.random.RandomState(seed)
@@ -96,6 +114,8 @@ def make_bench_jpeg(size: int, quality: int, seed: int, dri_blocks) -> bytes:
     rgb = np.stack([base ^ noise, base.T, (base // 2 + 64)], -1)
     buf = BytesIO()
     kw = {} if dri_blocks is None else {"restart_marker_blocks": dri_blocks}
+    if progressive:
+        kw["progressive"] = True
     Image.fromarray(rgb).save(buf, format="JPEG", quality=quality, subsampling=2, **kw)
     return buf.getvalue()
 
@@ -429,6 +449,340 @@ def host_index_inputs(batch):
     return plan, bufs, ac, dc
 
 
+# ---------------------------------------------------- progressive slice (K8-K11)
+
+
+def make_prog_batches(indices):
+    """One 1024^2 4:2:0 q50 progressive image per batch, repeated BATCH
+    times: Pillow gives every progressive image its own Huffman tables, and
+    a batch must share them (the JAX package's BENCH_MODE=prog batches
+    one image the same way)."""
+    with ThreadPoolExecutor(os.cpu_count() or 2) as ex:
+        images = list(ex.map(lambda i: make_bench_jpeg(SIZE, QUALITY, 1000 + i, None, True),
+                             indices))
+    return [[d] * BATCH for d in images]
+
+
+def prog_plain():
+    from zpix_tpu_torch.ops import progressive as kp
+
+    return {"dc_first": kp.dc_first_plain, "ac_first": kp.ac_first_plain,
+            "ac_refine": kp.ac_refine_plain, "dc_refine": kp.dc_refine_plain}
+
+
+def prog_scan_checks(prep, bufs):
+    """Every scan of one batch, in order: the kernel and its plain version
+    on the same store and inputs, compared; the kernel's store goes on.
+    -> (final grids, ok, {kind: max_abs_err}, {kind: work counts}, the
+    store before each AC refinement scan)."""
+    from zpix_tpu_torch.ops import progressive as kp
+    from zpix_tpu_torch.parallel import progressive_onchip as po
+
+    plain = prog_plain()
+    grids, ok = po.new_store(prep, bufs[1].device)
+    errs = {k: 0 for k in PROG_KINDS}
+    work = {k: {"scans": 0, "lanes": 0, "data_lanes": 0, "stream_bytes": 0, "changed": 0,
+                "band_positions": 0} for k in PROG_KINDS}
+    refine_inputs = {}
+    for si, (sc, t) in enumerate(zip(prep.scans, bufs[0])):
+        before = [g.clone() for g in grids]
+        if sc.kind == "ac_refine":
+            refine_inputs[si] = before[sc.comps[0]]
+        p_grids, p_ok = [g.clone() for g in grids], ok.clone()
+        po.apply_scan(po.SCAN_KERNELS[sc.kind], sc, t, grids, prep, ok)
+        po.apply_scan(plain[sc.kind], sc, t, p_grids, prep, p_ok)
+        torch.cuda.synchronize()
+        errs[sc.kind] = max(errs[sc.kind], max_abs_err(ok, p_ok),
+                            *(max_abs_err(a, b) for a, b in zip(grids, p_grids)))
+        w = work[sc.kind]
+        w["scans"] += 1
+        w["changed"] += sum(int((a != b).sum()) for a, b in zip(grids, before))
+        if sc.kind == "dc_refine":
+            g = [grids[c] for c in sc.comps]
+            w["lanes"] += prep.batch * kp.scan_blocks(
+                g, [prep.hv[c] for c in sc.comps], po.valid_grid(prep, sc.comps[0]))
+            w["stream_bytes"] += sc.stream.nbytes
+            continue
+        w["lanes"] += sc.starts.shape[0]
+        ends = sc.ends.reshape(prep.batch, -1).astype(np.int64)
+        starts = sc.starts.reshape(prep.batch, -1).astype(np.int64)
+        w["stream_bytes"] += int((ends[:, -1] - starts[:, 0]).sum() + 7) // 8  # bits walked
+        if sc.kind == "ac_first":
+            w["data_lanes"] += int(sc.flags.sum())
+        if sc.kind == "ac_refine":
+            w["band_positions"] += sc.starts.shape[0] * (sc.se - sc.ss + 1)
+        del before, p_grids
+    return grids, ok, errs, work, refine_inputs
+
+
+MIXED_STREAMS, MIXED_QUANTS = (3, 8, 13), (5, 10)
+
+
+def mixed_prep(prep):
+    """A copy of ``prep`` whose images differ after the host walk, so that a
+    kernel that put one image's lanes, rows or quant into another would
+    disagree with its plain version: two bytes of every scan of the images
+    MIXED_STREAMS XORed, each image at its own place (their lanes from
+    there on fail their end checks and write other values), and the quant
+    rows of the images MIXED_QUANTS changed."""
+    B, scans = prep.batch, []
+    for si, sc in enumerate(prep.scans):
+        s = sc.stream.copy()
+        for b in MIXED_STREAMS:
+            if sc.kind == "dc_refine":  # raw bit rows [B, rowlen]
+                s[b, (b * 7 + si) % s.shape[1]] ^= 0x5A
+                continue
+            lo = int(sc.starts.reshape(B, -1)[b, 0]) // 8
+            hi = (int(sc.ends.reshape(B, -1)[b, -1]) + 7) // 8
+            at = lo + (hi - lo) * (b + 1) // (B + 2)
+            s[at : at + 2] ^= 0x5A
+        scans.append(dataclasses.replace(sc, stream=s))
+    quants = prep.quants.copy()
+    for b in MIXED_QUANTS:
+        quants[:, b] += b
+    return dataclasses.replace(prep, scans=scans, quants=quants)
+
+
+def prog_mixed_checks(dec, prep, kw6):
+    """K8-K11 and K6's int32 arm against their plain versions on the full
+    batch with images made to differ (``mixed_prep``) -> {kind:
+    max_abs_err, "images_differ_store": n, "images_differ_pixels": n}."""
+    from zpix_tpu_torch.ops import planes as kp6
+
+    mp = mixed_prep(prep)
+    mbufs = dec.upload(mp)
+    grids, _, errs, _, _ = prog_scan_checks(mp, mbufs)
+    quants = list(mbufs[1])
+    px = kp6.component_planes(grids, quants, **kw6)
+    errs["component_planes_int32"] = max_abs_err(
+        px, kp6.component_planes_plain(grids, quants, **kw6))
+    store_differs = torch.zeros(mp.batch, dtype=torch.bool, device=px.device)
+    for g in grids:
+        store_differs |= (g != g[:1]).flatten(1).any(1)
+    errs["images_differ_store"] = int(store_differs.sum())
+    errs["images_differ_pixels"] = int((px != px[:1]).flatten(1).any(1).sum())
+    del grids, px
+    return errs
+
+
+def prog_stages(dec, datas, plain=None):
+    """One 4:2:0 batch through OnchipProgressiveDecoder's stages -> (pixels,
+    ok, {stage: ms}): parse and index walks (host clock), then CUDA events
+    around H2D, the store, each scan (summed by kind; K8's include its K3
+    launch) and K6.  ``plain`` (prog_plain()) takes the plain versions,
+    K6's too."""
+    from zpix_tpu_torch.ops import planes as kp6
+    from zpix_tpu_torch.parallel import progressive_onchip as po
+    from zpix_tpu_torch.parallel.batch import RATIO_FACTORS
+
+    t0 = time.perf_counter()
+    plans = [po.parse_progressive(d) for d in datas]
+    po.check_batch(plans)
+    t1 = time.perf_counter()
+    prep = po.prep_hostindex(plans, dec._pool)
+    t2 = time.perf_counter()
+    fns = plain or po.SCAN_KERNELS
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4 + 2 * len(prep.scans))]
+    torch.cuda.synchronize()
+    ev[0].record()
+    bufs = dec.upload(prep)
+    ev[1].record()
+    grids, ok = po.new_store(prep, dec.device)
+    ev[2].record()
+    for i, (sc, t) in enumerate(zip(prep.scans, bufs[0])):
+        ev[3 + 2 * i].record()
+        po.apply_scan(fns[sc.kind], sc, t, grids, prep, ok)
+        ev[4 + 2 * i].record()
+    kw6 = dict(color="ycbcr", height=prep.height, width=prep.width,
+               factors=[(1, 1)] + [RATIO_FACTORS[prep.ratio]] * 2)
+    k6 = kp6.component_planes if plain is None else kp6.component_planes_plain
+    px = k6(grids, list(bufs[1]), **kw6)
+    ev[-1].record()
+    torch.cuda.synchronize()
+    st = {"parse": (t1 - t0) * 1e3, "index_walks": (t2 - t1) * 1e3,
+          "h2d": ev[0].elapsed_time(ev[1]), "store_zero": ev[1].elapsed_time(ev[2]),
+          **{k: 0.0 for k in PROG_KINDS},
+          "component_planes": ev[-2].elapsed_time(ev[-1]),
+          "device_total": ev[0].elapsed_time(ev[-1])}
+    for i, sc in enumerate(prep.scans):
+        st[sc.kind] += ev[3 + 2 * i].elapsed_time(ev[4 + 2 * i])
+    return px, bool(ok), st
+
+
+def corrupt_first_scan(data: bytes) -> bytes:
+    """Overwrite 8 bytes at the start of the first scan's entropy data with
+    FF00 pairs: they destuff to FF bytes, an all-ones code no table holds,
+    so the host's DC-first walk refuses the stream."""
+    sos = data.find(b"\xff\xda")
+    at = sos + 2 + ((data[sos + 2] << 8) | data[sos + 3]) + 2
+    out = bytearray(data)
+    out[at : at + 8] = b"\xff\x00" * 4
+    if out[at + 8] == 0x00:  # the byte after was the 00 of a stuffed FF
+        out[at + 8] = 0x01
+    return bytes(out)
+
+
+def progressive(dev):
+    """The progressive route: kernels against their plain versions scan by
+    scan on a full batch, as it is and with its images made to differ,
+    launches of one decode, images 0 and 1 against the plain path and
+    Pillow, 10 timed batches end to end and by stage, corrupt streams.
+    -> (summary dict, {kernel: timing entry})."""
+    from PIL import Image
+
+    from zpix_tpu_torch import OnchipProgressiveDecoder, runtime
+    from zpix_tpu_torch.ops import entropy as ke
+    from zpix_tpu_torch.ops import planes as kp6
+    from zpix_tpu_torch.parallel import progressive_onchip as po
+    from zpix_tpu_torch.parallel.batch import RATIO_FACTORS
+
+    t0 = time.perf_counter()
+    batches = make_prog_batches(range(TIMED_BATCHES + 2))
+    content_s = time.perf_counter() - t0
+    dec = OnchipProgressiveDecoder()
+    prep = dec.prep(batches[0])
+    bufs = dec.upload(prep)
+    script = [f"{sc.kind}{list(sc.comps)} {sc.ss}-{sc.se} al{sc.al}" for sc in prep.scans]
+
+    # K8-K11 against their plain versions, scan by scan, on the full batch
+    grids, ok_k, errs, work, refine_inputs = prog_scan_checks(prep, bufs)
+    quants = list(bufs[1])
+    kw6 = dict(color="ycbcr", height=SIZE, width=SIZE,
+               factors=[(1, 1)] + [RATIO_FACTORS[prep.ratio]] * 2)
+    px6 = kp6.component_planes(grids, quants, **kw6)
+    errs["component_planes_int32"] = max_abs_err(px6, kp6.component_planes_plain(grids, quants,
+                                                                                **kw6))
+    # the same at full width on images made to differ
+    mixed = prog_mixed_checks(dec, prep, kw6)
+    torch.cuda.synchronize()
+
+    # the main path: one decode, launches counted
+    dec.decode(batches[1])  # warm: pinned buffer, thread pool
+    torch.cuda.synchronize()
+    runtime.reset_launches()
+    px, ok = dec.decode(batches[0])
+    torch.cuda.synchronize()
+    launches = dict(runtime.LAUNCHES)
+    # images 0 and 1 against the plain path on the card, image 0 against Pillow
+    ref2, ok2, _ = prog_stages(dec, batches[0][:2], plain=prog_plain())
+    pil = np.asarray(Image.open(BytesIO(batches[0][0])).convert("RGB"))
+    check = {"max_abs_err": errs, "mixed_batch": mixed, "kernels_ok": bool(ok_k),
+             "main_ok": bool(ok),
+             "main_vs_plain": max_abs_err(px[:2], ref2), "plain_ok": ok2,
+             "mean_abs_diff_vs_pillow": float(np.abs(px[0].cpu().numpy().astype(np.int32)
+                                                     - pil.astype(np.int32)).mean()),
+             "shape": list(px.shape)}
+
+    # timed end to end, then by stage, over the same 10 batches
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    walls, oks, peak = [], [], 0
+    for datas in batches[2:]:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        px_t, ok_t = dec.decode(datas)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        oks.append(bool(ok_t))
+        peak = max(peak, torch.cuda.max_memory_allocated() - base)
+        del px_t
+    stages = []
+    for datas in batches[2:]:
+        _, ok_s, st = prog_stages(dec, datas)
+        oks.append(ok_s)
+        stages.append(st)
+    mean = {k: float(np.mean([st[k] for st in stages])) for k in stages[0]}
+    mpix = BATCH * SIZE * SIZE / 1e6
+
+    # corrupt streams: the host walk refuses one; the kernels catch bytes
+    # changed after the walk
+    bad = [corrupt_first_scan(batches[0][0])] + batches[0][1:]
+    _, ok_bad = dec.decode(bad)
+    bad_prep = dec.prep(bad)
+    late = dec.prep(batches[0][:2])
+    late.scans[0].stream = late.scans[0].stream.copy()
+    late.scans[0].stream[64:72] ^= 0x55
+    _, ok_late = dec.run(late)
+    corrupt = {"walk_refused_ok": bool(ok_bad), "failure": bad_prep.failure,
+               "changed_after_walk_ok": bool(ok_late)}
+
+    summary = {
+        "script": script, "content_seconds": content_s, "check": check,
+        "launches": launches, "batches": len(walls), "all_ok": all(oks),
+        "e2e_ms_per_batch": [w * 1e3 for w in walls],
+        "e2e_mpix_per_s": mpix / float(np.mean(walls)),
+        "device_mpix_per_s": mpix / (mean["device_total"] / 1e3),
+        "device_busy_share": mean["device_total"] / (float(np.mean(walls)) * 1e3),
+        "stage_ms_mean": mean, "peak_mem_bytes": peak, "held_bytes": held,
+        "bytes_per_image": len(batches[0][0]), "work": work, "corrupt": corrupt,
+    }
+
+    # timing entries for the kernel table: one decode's launches of each
+    # kernel on this batch's inputs (K8, K9 and K11 do the same work on any
+    # store; K10 reads it, so each rep restores its input first and the
+    # restore alone is timed and taken off)
+    plain = prog_plain()
+    tg = [g.clone() for g in grids]
+    tok = torch.ones(1, dtype=torch.int32, device=dev)
+    by_kind = {k: [(si, sc, t) for si, (sc, t) in enumerate(zip(prep.scans, bufs[0]))
+                   if sc.kind == k] for k in PROG_KINDS}
+
+    def runner(kind, fns):
+        def go():
+            for si, sc, t in by_kind[kind]:
+                if kind == "ac_refine":
+                    tg[sc.comps[0]].copy_(refine_inputs[si])
+                po.apply_scan(fns[kind], sc, t, tg, prep, tok)
+        return go
+
+    def restore():
+        for si, sc, _ in by_kind["ac_refine"]:
+            tg[sc.comps[0]].copy_(refine_inputs[si])
+
+    restore_ms = cuda_ms(restore, 20)
+    nblk_all = BATCH * sum(prep.myy * v * prep.mxx * h for h, v in prep.hv)
+    tab = 4 * ke.TAB_WORDS
+    wk = work
+    bytes_ops = {
+        "dc_first": (wk["dc_first"]["stream_bytes"] + 12 * wk["dc_first"]["lanes"]
+                     + tab * wk["dc_first"]["scans"],
+                     (OPS_K2_SYMBOL + OPS_K8_BLOCK) * wk["dc_first"]["lanes"]),
+        # hasdata for every lane; starts and ends for a data lane only (an
+        # EOB-covered lane reads no bits)
+        "ac_first": (wk["ac_first"]["stream_bytes"] + 4 * wk["ac_first"]["lanes"]
+                     + 8 * wk["ac_first"]["data_lanes"] + tab * wk["ac_first"]["scans"]
+                     + 8 * wk["ac_first"]["changed"],
+                     OPS_K2_SYMBOL * (wk["ac_first"]["changed"] + wk["ac_first"]["data_lanes"])),
+        "ac_refine": (wk["ac_refine"]["stream_bytes"] + 12 * wk["ac_refine"]["lanes"]
+                      + tab * wk["ac_refine"]["scans"] + 4 * wk["ac_refine"]["band_positions"]
+                      + 4 * wk["ac_refine"]["changed"],
+                      OPS_K10_POSITION * wk["ac_refine"]["band_positions"]),
+        "dc_refine": (wk["dc_refine"]["stream_bytes"] + 8 * wk["dc_refine"]["changed"],
+                      OPS_K11_BLOCK * wk["dc_refine"]["lanes"]),
+    }
+    entries = {}
+    for kind in PROG_KINDS:
+        ms = cuda_ms(runner(kind, po.SCAN_KERNELS), 20)
+        plain_ms = cuda_ms(runner(kind, plain), 1)
+        if kind == "ac_refine":
+            ms, plain_ms = ms - restore_ms, plain_ms - restore_ms
+        entries[kind] = {"ms": ms, "plain_ms": plain_ms, "bytes": bytes_ops[kind][0],
+                         "ops": bytes_ops[kind][1], "launches": launches[kind],
+                         "max_abs_err": errs[kind], "scans": wk[kind]["scans"]}
+    entries["ac_refine"]["restore_ms_taken_off"] = restore_ms
+    entries["component_planes_int32"] = {
+        "ms": cuda_ms(lambda: kp6.component_planes(grids, quants, **kw6), 20),
+        "plain_ms": cuda_ms(lambda: kp6.component_planes_plain(grids, quants, **kw6), 1),
+        "bytes": 256 * nblk_all + 4 * 64 * 3 * BATCH + px6.numel(),
+        "ops": OPS_K4_BLOCK * nblk_all + OPS_K4_PIXEL * BATCH * SIZE * SIZE
+        + OPS_K4_CHROMA * 64 * BATCH * prep.mxx * prep.myy,
+        "max_abs_err": errs["component_planes_int32"]}
+    del tg, refine_inputs
+    return summary, entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -692,6 +1046,24 @@ def main() -> int:
     if rf["corrupt"].get("ok", True):
         raise SystemExit("chip_smoke: a corrupt restart-free stream was not flagged")
 
+    # ------------------------------------------------------ progressive
+    pg, prog_entries = progressive(dev)
+    emit({"phase": "progressive", **pg})
+    lp, pc = pg["launches"], pg["check"]
+    if min(lp[k] for k in PROG_KINDS + ("dc_restore", "component_planes")) == 0:
+        raise SystemExit("chip_smoke: the progressive route skipped a kernel")
+    mx = pc["mixed_batch"]
+    if (any(mx[k] for k in PROG_KINDS + ("component_planes_int32",))
+            or mx["images_differ_store"] < len(MIXED_STREAMS)
+            or mx["images_differ_pixels"] < len(MIXED_STREAMS) + len(MIXED_QUANTS)):
+        raise SystemExit("chip_smoke: a progressive kernel disagrees on a mixed batch")
+    if (any(pc["max_abs_err"].values()) or not pc["kernels_ok"] or not pc["main_ok"]
+            or pc["main_vs_plain"] or not pc["plain_ok"] or pc["mean_abs_diff_vs_pillow"] > 8
+            or pc["shape"] != [BATCH, SIZE, SIZE, 3] or not pg["all_ok"]):
+        raise SystemExit("chip_smoke: the progressive route's output is wrong")
+    if pg["corrupt"]["walk_refused_ok"] or pg["corrupt"]["changed_after_walk_ok"]:
+        raise SystemExit("chip_smoke: a corrupt progressive stream was not flagged")
+
     # ------------------------------------------------------- kernel table
     ends, okf = ke.index_pass(*bufs, bpm=plan.bpm, nblk=nblk)
     ac, dc_diff = ke.value_pass(*bufs, ends, okf, bpm=plan.bpm)
@@ -754,8 +1126,8 @@ def main() -> int:
         "backend": cuda_ms(lambda: kb.backend(hac, hdc_p, hbufs[3],
                                               kb.BackendGeometry.of(hplan), planar=False), 20),
     }
-    by_path = {k: {"dri8": launches[k], "native": ln[k], "host_index": lh[k]}
-               for k in timing}
+    by_path = {k: {"dri8": launches[k], "native": ln[k], "host_index": lh[k],
+                   "progressive": lp[k]} for k in timing}
     kernels = []
     for kname, (fk, fp, nbytes, nops) in timing.items():
         ms = cuda_ms(fk, 20)
@@ -781,7 +1153,31 @@ def main() -> int:
             row["forms"] = k3
         if kname in host_index_ms:
             row["host_index_ms"] = host_index_ms[kname]
+        if kname == "component_planes":  # its int32 arm, on the progressive store
+            e = prog_entries["component_planes_int32"]
+            row["max_abs_err"] = max(row["max_abs_err"], e["max_abs_err"])
+            row["matches_plain"] = row["max_abs_err"] == 0
+            row["progressive_int32"] = {
+                "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_bytes": e["bytes"],
+                "bound_ms": max(e["bytes"] / HBM_BYTES_PER_S, e["ops"] / INT32_OPS_PER_S) * 1e3}
         kernels.append(row)
+    for kname in PROG_KINDS:
+        e = prog_entries[kname]
+        bytes_ms = e["bytes"] / HBM_BYTES_PER_S * 1e3
+        ops_ms = e["ops"] / INT32_OPS_PER_S * 1e3
+        kernels.append({
+            "name": kname, "route": "cuda", "source": KERNELS[kname][0],
+            "replaces": KERNELS[kname][1], "launches": e["launches"],
+            "launches_by_path": {"dri8": 0, "native": 0, "host_index": 0,
+                                 "progressive": e["launches"]},
+            "max_abs_err": e["max_abs_err"], "matches_plain": e["max_abs_err"] == 0,
+            "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_bytes": e["bytes"], "bound_int32_ops": e["ops"], "library_ms": None,
+            "scans_per_decode": e["scans"],
+            **({"restore_ms_taken_off": e["restore_ms_taken_off"]}
+               if "restore_ms_taken_off" in e else {}),
+        })
     emit({"phase": "serial_chain", "max_symbols_per_segment": seg_syms,
           "max_symbols_per_block": blk_syms, "symbols": n_syms,
           "index_pass_ns_per_symbol": kernels[0]["ms"] * 1e6 / seg_syms,

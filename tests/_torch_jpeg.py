@@ -276,3 +276,59 @@ def synth_ratio_jpeg(hv, width=40, height=24, seed=0):
         g[..., 0] = rng.integers(-300, 300, g.shape[:2])
         grids.append(g)
     return encode_baseline(grids, hv, width, height)
+
+
+def synth_progressive(w=64, h=48, mode="420", phase=0.0, quality=75, **kw):
+    """Structured image with seeded noise -> progressive JPEG (Pillow
+    writes libjpeg's standard script and optimised Huffman tables, so
+    every image has its own tables)."""
+    x = np.linspace(0, 17, w)
+    y = np.linspace(0, 13, h)
+    base = (128 + 100 * np.sin(x[None, :] * np.cos(y[:, None]) + phase)).astype(np.uint8)
+    base ^= np.random.default_rng(int(phase * 1000)).integers(0, 16, base.shape, dtype=np.uint8)
+    buf = io.BytesIO()
+    if mode == "gray":
+        Image.fromarray(base, "L").save(buf, format="JPEG", quality=quality, progressive=True,
+                                        **kw)
+    else:
+        rgb = np.stack([base, base[::-1], base // 2 + 32], -1)
+        Image.fromarray(rgb).save(buf, format="JPEG", quality=quality, progressive=True,
+                                  subsampling={"444": 0, "422": 1, "420": 2}[mode], **kw)
+    return buf.getvalue()
+
+
+def host_coeffs(data: bytes, n_scans: int):
+    """The host Decoder's coefficients after the first ``n_scans`` scans:
+    per component [bv, bh, 64] int32 natural order.  Later scans' entropy bytes are skipped, as
+    zpix_tpu's _TailScanDecoder skips the first ones."""
+    from zpix_tpu.codecs.jpeg.decoder import Decoder
+
+    class _Prefix(Decoder):
+        def __init__(self):
+            super().__init__(data)
+            self.collect_only = True
+            self._scan_no = 0
+
+        def process_sos(self, n: int) -> None:
+            self._scan_no += 1
+            if self._scan_no <= n_scans:
+                super().process_sos(n)
+                return
+            if not self.img_allocated:  # zeros for an empty prefix
+                h0, v0 = self.component[0].h, self.component[0].v
+                self._make_img((self.width + 8 * h0 - 1) // (8 * h0),
+                               (self.height + 8 * v0 - 1) // (8 * v0))
+            for c in range(self.num_components):
+                self._ensure_coeff(c)
+            # skip the SOS header and the entropy bytes up to the next real
+            # marker (stuffed FF00 and RSTs are entropy data)
+            self.read_full(n)
+            d, p = self.data, self.pos
+            while p < len(d) - 1 and not (d[p] == 0xFF and d[p + 1] not in (0x00, 0xFF)
+                                          and not 0xD0 <= d[p + 1] <= 0xD7):
+                p += 1
+            self.pos = p
+
+    dec = _Prefix()
+    dec.decode_inner(False)
+    return [dec.coeff[c] for c in range(dec.num_components)]

@@ -7,6 +7,8 @@ These need a CUDA device and skip without one.  On a GPU machine:
 Exact integer math: tolerance 0.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -173,3 +175,109 @@ def test_restart_free_routes_agree(cuda, mode):
     assert native.device.type == "cuda" and bool(ok)
     assert torch.equal(native, px)
     assert torch.equal(native.cpu(), BatchJpegDecoder(device="cpu").decode(datas))
+
+
+# ------------------------------------------------- progressive slice (K8-K11)
+
+
+def _prog_prep(mode, w, h, batch=3):
+    from _torch_jpeg import synth_progressive
+
+    from zpix_tpu_torch import OnchipProgressiveDecoder
+
+    return OnchipProgressiveDecoder(device="cpu").prep([synth_progressive(w, h, mode)] * batch)
+
+
+def _prog_stores(prep, n_scans=None):
+    """The store after the first n_scans scans (all by default), on the card
+    (kernels) and on the CPU (plain versions) -> (grids, ok) each."""
+    from zpix_tpu_torch import OnchipProgressiveDecoder
+
+    prep = dataclasses.replace(prep, scans=prep.scans[:n_scans])
+    return [OnchipProgressiveDecoder(device=dev).decode_coefficients(prep)
+            for dev in ("cuda", "cpu")]
+
+
+@pytest.mark.parametrize("size", [(64, 48), (37, 29), (200, 120)], ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("mode", ["gray", "444", "422", "420"])
+def test_progressive_kernels_match_plain(cuda, mode, size):
+    """After every scan prefix, the store and ok of K8-K11 on the card equal
+    their plain versions'."""
+    prep = _prog_prep(mode, *size)
+    for n in range(1, len(prep.scans) + 1):
+        (g_k, ok_k), (g_p, ok_p) = _prog_stores(prep, n)
+        assert int(ok_k) == int(ok_p) == 1
+        for a, b in zip(g_k, g_p):
+            assert torch.equal(a.cpu(), b), (n, prep.scans[n - 1].kind)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_progressive_kernels_match_plain_on_damaged_streams(cuda, seed):
+    """Random bytes written into every scan after the host walked it: the
+    kernels and their plain versions agree on the store and on ok."""
+    prep = _prog_prep("420", 200, 120)
+    rng = np.random.default_rng(seed)
+    for sc in prep.scans:
+        sc.stream = sc.stream.copy()
+        flat = sc.stream.reshape(-1)
+        at = rng.integers(0, flat.shape[0], 6)
+        flat[at] = rng.integers(0, 256, 6, dtype=np.uint8)
+    (g_k, ok_k), (g_p, ok_p) = _prog_stores(prep)
+    assert int(ok_k) == int(ok_p)
+    for a, b in zip(g_k, g_p):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("mode", ["gray", "420"])
+def test_progressive_decoder_matches_cpu_run(cuda, mode):
+    from _torch_jpeg import host_pixels, synth_progressive
+
+    from zpix_tpu_torch import OnchipProgressiveDecoder
+
+    datas = [synth_progressive(200, 120, mode, phase=0.4)] * 3
+    runtime.reset_launches()
+    px, ok = OnchipProgressiveDecoder().decode(datas)
+    kinds = ("dc_first", "ac_first", "ac_refine", "dc_refine", "dc_restore", "component_planes")
+    assert min(runtime.LAUNCHES[k] for k in kinds) >= 1
+    assert px.device.type == "cuda" and ok.device.type == "cuda" and bool(ok)
+    want, want_ok = OnchipProgressiveDecoder(device="cpu").decode(datas)
+    assert bool(want_ok) and torch.equal(px.cpu(), want)
+    assert np.array_equal(want[0].numpy(), host_pixels(datas[0]))
+
+
+def test_progressive_damaged_upload_clears_ok(cuda):
+    """Bytes changed after the host walked the first scan: the DC-first
+    kernel's end check clears ok."""
+    from zpix_tpu_torch import OnchipProgressiveDecoder
+
+    prep = _prog_prep("420", 200, 120)
+    sc = prep.scans[0]
+    sc.stream = sc.stream.copy()
+    sc.stream[4:12] ^= 0x55
+    _, ok = OnchipProgressiveDecoder().run(prep)
+    assert not bool(ok)
+
+
+@pytest.mark.parametrize("hv", [[(1, 1)], [(2, 2), (1, 1), (1, 1)], [(2, 1), (1, 1), (1, 1)]],
+                         ids=["gray", "420", "422"])
+def test_planes_int32_kernel_matches_plain(cuda, hv):
+    """K6's int32 arm: values past the int16 range, products that wrap."""
+    from zpix_tpu_torch.ops.planes import component_planes, component_planes_plain
+
+    rng = np.random.default_rng(4)
+    mxx, myy, B = 5, 3, 2
+    grids = [torch.from_numpy(rng.integers(-2**24, 2**24, (B, myy * v, mxx * h, 64))
+                              .astype(np.int32)) for h, v in hv]
+    quants = [torch.from_numpy(rng.integers(1, 2**16, (B, 64)).astype(np.int32)) for _ in hv]
+    f = {1: (1, 1), 2: (2, 2) if hv[0] == (2, 2) else (2, 1)}[min(len(hv), 2)]
+    kw = dict(color="gray" if len(hv) == 1 else "ycbcr", height=8 * hv[0][1] * myy - 3,
+              width=8 * hv[0][0] * mxx - 5, factors=[(1, 1)] + [f] * (len(hv) - 1))
+    before = runtime.LAUNCHES["component_planes"]
+    got = component_planes([g.to(cuda) for g in grids], [q.to(cuda) for q in quants], **kw)
+    assert runtime.LAUNCHES["component_planes"] == before + 1
+    assert torch.equal(got.cpu(), component_planes_plain(grids, quants, **kw))
+    small = [torch.from_numpy(g.numpy().clip(-1024, 1023)) for g in grids]
+    a = component_planes([g.to(cuda) for g in small], [q.to(cuda) for q in quants], **kw)
+    b = component_planes([g.to(torch.int16).to(cuda) for g in small],
+                         [q.to(cuda) for q in quants], **kw)
+    assert torch.equal(a, b)

@@ -2,7 +2,8 @@
 
 Baseline JPEG with restart markers (``DeviceJpegDecoder``), restart-free
 baseline JPEG through the host index scan (``HostIndexJpegDecoder``) and
-through the native coefficient front-end (``BatchJpegDecoder``) run on
+through the native coefficient front-end (``BatchJpegDecoder``), and
+progressive JPEG (``OnchipProgressiveDecoder``, host index walks) run on
 hand-written CUDA kernels (``csrc/``), built with nvcc on first use; the
 host C++ (``csrc/host``) is built with g++.  Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``, which takes each
@@ -13,6 +14,7 @@ from . import errors
 from .parallel.batch import BatchJpegDecoder
 from .parallel.device_entropy import (DeviceJpegDecoder, HostIndexJpegDecoder,
                                       prep_batch, prep_batch_host_index)
+from .parallel.progressive_onchip import OnchipProgressiveDecoder
 
 __all__ = ["BatchJpegDecoder", "DeviceJpegDecoder", "HostIndexJpegDecoder",
-           "prep_batch", "prep_batch_host_index", "errors"]
+           "OnchipProgressiveDecoder", "prep_batch", "prep_batch_host_index", "errors"]

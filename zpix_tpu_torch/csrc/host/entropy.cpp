@@ -1,6 +1,6 @@
-// Host C++ for the port's restart-free JPEG slice: the native baseline
-// front-end (marker walk, Huffman scan fused with sparse packing) and the
-// lengths-only index scan.
+// Host C++ for the port's JPEG slices: the native baseline front-end
+// (marker walk, Huffman scan fused with sparse packing), the lengths-only
+// baseline index scan and the three progressive index walks.
 //
 // A copy, with the same C ABI, of the parts of
 // zpix_tpu/runtime/entropy.cpp this slice runs (the port builds its own
@@ -10,6 +10,8 @@
 //   build_huff, pack_block, decode_scan_packed(_mt)      (:565-899)
 //   zpix_parse_baseline, zpix_parse_baseline_batch       (:912-1277)
 //   zpix_baseline_index_scan                             (:1392-1462)
+//   zpix_prog_dc_first_index, zpix_prog_ac_first_index   (:1487-1592)
+//   zpix_prog_refine_index                               (:1294-1390)
 // Semantics follow the reference decoder (zpix src/jpeg/decoder.zig:
 // 909-1022 bit reader, :1294-1455 MCU traversal, :1432-1452 restarts).
 // Built by zpix_tpu_torch/runtime/host.py with
@@ -1113,6 +1115,217 @@ int zpix_baseline_index_scan(
       ends_out[t++] = int32_t(bit);
     }
   }
+  *end_bit_out = bit;
+  return OK;
+}
+
+// ---------------------------------------------------------------------
+// Progressive index walks: each walks one DESTUFFED scan of one image,
+// decoding symbol LENGTHS only, and gives every block's bit offsets; the
+// card's value passes (K8-K10, csrc/prog_entropy.cu) then decode every
+// block independently from those offsets and check that each block ends
+// exactly where the walk said.  Semantics: the reference's spectral
+// selection (decoder.zig:1362-1412) and refinement (:1459-1549); length
+// accounting mirrors the value passes exactly, including the overflow
+// rule (a size > 0 symbol with k + r > se ends the block on its code bits
+// only).  Every stream must be zero-padded by >= 8 readable bytes past
+// nbytes: reads start before nbits and touch < 5 bytes past it.
+
+// DC-first (Ss=0, Ah=0): one DC symbol + extend bits per block.  huffs
+// are the scan's DC tables in the order the caller packed them;
+// tid_of_slot cycles over the MCU's block slots (length 1 for a
+// single-component scan).  ends_out[i] = end bit of block i.
+int zpix_prog_dc_first_index(
+    const uint8_t* stream, int64_t nbytes,
+    const HuffTable* huffs, const int32_t* tid_of_slot, int32_t bpm,
+    int64_t nblk, int32_t* ends_out, int64_t* end_bit_out) {
+  for (int32_t s = 0; s < bpm; s++)
+    ensure_lut16(const_cast<HuffTable*>(&huffs[tid_of_slot[s]]));
+  const int64_t nbits = nbytes * 8;
+  int64_t bit = 0;
+  auto peek16 = [&]() -> uint32_t {
+    const int64_t byte = bit >> 3;
+    const uint32_t w = (uint32_t(stream[byte]) << 24)
+        | (uint32_t(stream[byte + 1]) << 16)
+        | (uint32_t(stream[byte + 2]) << 8) | uint32_t(stream[byte + 3]);
+    return (w >> (16 - (bit & 7))) & 0xFFFF;
+  };
+  int32_t slot = 0;
+  for (int64_t i = 0; i < nblk; i++) {
+    if (bit >= nbits) return ERR_EOF;
+    const HuffTable* hd = &huffs[tid_of_slot[slot]];
+    uint16_t e = hd->lut16[peek16()];
+    if (!e) return ERR_BAD_HUFFMAN;
+    int val = e >> 5;
+    if (val > 16) return ERR_EXCESSIVE_DC;
+    bit += (e & 31) + val;  // code + skipped extend bits
+    ends_out[i] = int32_t(bit);
+    if (++slot >= bpm) slot = 0;
+  }
+  *end_bit_out = bit;
+  return OK;
+}
+
+// AC-first (Ss>0, Ah=0, one component): per-block spectral walk with EOB
+// runs.  Each DATA block gets its [start, end) bit span and hasdata=1;
+// EOB-covered blocks consume no bits and get hasdata=0.  nzmask_io
+// (optional, [nvalid * 64] zigzag flags) gains the nonzero each emitted
+// coefficient creates, so the refinement walks below need no store.
+int zpix_prog_ac_first_index(
+    const uint8_t* stream, int64_t nbytes, const HuffTable* ac,
+    int32_t ss, int32_t se, int64_t nvalid,
+    int32_t* starts_out, int32_t* ends_out, uint8_t* hasdata_out,
+    uint8_t* nzmask_io, int64_t* end_bit_out) {
+  // the band indexes each block's 64 mask bytes: refuse one outside 1..63
+  if (ss < 1 || ss > se || se > 63) return ERR_FORMAT;
+  ensure_lut16(const_cast<HuffTable*>(ac));
+  const int64_t nbits = nbytes * 8;
+  int64_t bit = 0;
+  auto peek16 = [&]() -> uint32_t {
+    const int64_t byte = bit >> 3;
+    const uint32_t w = (uint32_t(stream[byte]) << 24)
+        | (uint32_t(stream[byte + 1]) << 16)
+        | (uint32_t(stream[byte + 2]) << 8) | uint32_t(stream[byte + 3]);
+    return (w >> (16 - (bit & 7))) & 0xFFFF;
+  };
+  uint32_t eob_run = 0;
+  for (int64_t bi = 0; bi < nvalid; bi++) {
+    if (eob_run > 0) {
+      eob_run--;
+      starts_out[bi] = int32_t(bit);
+      ends_out[bi] = int32_t(bit);
+      hasdata_out[bi] = 0;
+      continue;
+    }
+    starts_out[bi] = int32_t(bit);
+    hasdata_out[bi] = 1;
+    int32_t k = ss;
+    while (true) {
+      if (bit >= nbits) return ERR_EOF;
+      uint16_t e = ac->lut16[peek16()];
+      if (!e) return ERR_BAD_HUFFMAN;
+      int sym = e >> 5;
+      int len = e & 31;
+      int r = sym >> 4, sz = sym & 15;
+      if (sz == 0) {
+        if (r < 15) {  // EOB: run-length extra bits (r <= 14) in one peek
+          bit += len;
+          uint32_t extra = r ? (peek16() >> (16 - r)) : 0;
+          bit += r;
+          eob_run = ((1u << r) | extra) - 1;  // current block included
+          break;
+        }
+        bit += len;  // ZRL
+        k += 16;
+        if (k > se) break;
+      } else {
+        if (k + r > se) {  // the overflow rule: code bits only
+          bit += len;
+          break;
+        }
+        k += r;
+        if (nzmask_io) nzmask_io[bi * 64 + k] = 1;
+        bit += len + sz;
+        k++;
+        if (k > se) break;
+      }
+    }
+    ends_out[bi] = int32_t(bit);
+  }
+  *end_bit_out = bit;
+  return OK;
+}
+
+// AC refinement (Ss>0, Ah>0, one component): keeps ONLY the per-block
+// zigzag nonzero masks (no values) and gives each block's entry bit
+// offset and whether an EOB run covers it at entry.  The masks come from
+// the AC-first walks and earlier refinements; eob_run carries across
+// refinement scans (refine_block/refine_non_zeroes, decoder.zig:1459-1549).
+int zpix_prog_refine_index(
+    const uint8_t* stream, int64_t nbytes,
+    const HuffTable* ac,
+    uint8_t* nzmask,          // [nblk * 64] zigzag-order nonzero flags, in/out
+    int64_t nblk,
+    int32_t zig_start, int32_t zig_end,
+    uint16_t eob_run_in,
+    int32_t* block_bit_off,   // out [nblk]: entry bit offset
+    uint8_t* block_eob_entry, // out [nblk]: 1 = an EOB run covers entry
+    uint16_t* eob_run_out, int64_t* end_bit_out) {
+  if (zig_start < 1 || zig_start > zig_end || zig_end > 63) return ERR_FORMAT;
+  ensure_lut16(const_cast<HuffTable*>(ac));
+  const int64_t nbits = nbytes * 8;
+  int64_t bit = 0;
+  uint32_t eob_run = eob_run_in;
+  auto peek16 = [&]() -> uint32_t {
+    const int64_t byte = bit >> 3;
+    const uint32_t w = (uint32_t(stream[byte]) << 24)
+        | (uint32_t(stream[byte + 1]) << 16)
+        | (uint32_t(stream[byte + 2]) << 8) | uint32_t(stream[byte + 3]);
+    return (w >> (16 - (bit & 7))) & 0xFFFF;
+  };
+  auto get1 = [&]() -> int {
+    int b = (stream[bit >> 3] >> (7 - (bit & 7))) & 1;
+    bit++;
+    return b;
+  };
+
+  for (int64_t bi = 0; bi < nblk; bi++) {
+    block_bit_off[bi] = int32_t(bit);
+    block_eob_entry[bi] = eob_run > 0 ? 1 : 0;
+    uint8_t* m = nzmask + bi * 64;
+    int32_t zig = zig_start;
+    if (eob_run == 0) {
+      while (zig <= zig_end) {
+        if (bit >= nbits) return ERR_EOF;
+        uint16_t e = ac->lut16[peek16()];
+        if (!e) return ERR_BAD_HUFFMAN;
+        bit += e & 31;
+        int value = e >> 5;
+        int r = value >> 4, s = value & 0x0F;
+        int newnz = 0;
+        if (s == 0) {
+          if (r != 0x0F) {
+            eob_run = 1u << r;
+            if (r) {
+              uint32_t extra = (peek16() >> (16 - r));  // r <= 14 bits
+              bit += r;
+              eob_run += extra;
+            }
+            break;
+          }
+          // ZRL: r = 15 zeros crossed + the stop slot (z stays 0)
+        } else if (s == 1) {
+          bit++;  // sign bit of the new +-1<<Al coefficient
+          newnz = 1;
+        } else {
+          return ERR_UNEXPECTED_CODE;
+        }
+        int nz = r;
+        while (zig <= zig_end) {  // refine_non_zeroes, lengths only
+          if (m[zig]) {
+            if (bit >= nbits) return ERR_EOF;
+            get1();  // correction bit of an existing nonzero
+          } else {
+            if (nz == 0) break;
+            nz--;
+          }
+          zig++;
+        }
+        if (zig > zig_end) return ERR_TOO_MANY_COEFFS;
+        if (newnz) m[zig] = 1;
+        zig++;
+      }
+    }
+    if (eob_run > 0) {
+      eob_run--;
+      // band tail: one correction bit per existing nonzero
+      int32_t nc = 0;
+      for (int32_t z = zig; z <= zig_end; z++) nc += m[z];
+      bit += nc;
+      if (bit > nbits) return ERR_EOF;
+    }
+  }
+  *eob_run_out = uint16_t(eob_run);
   *end_bit_out = bit;
   return OK;
 }

@@ -13,7 +13,12 @@
 // pixel stage it shares with K4 (mcu_pixels.cuh), which writes each
 // output pixel once.
 //
-// Bound on the H100: bytes (128 per block in, the pixels out).
+// The grids are int16 (the baseline routes) or int32 (the progressive
+// store, which is int32 as in JAX, progressive_onchip.py:1807): one
+// template, so the progressive store needs no cast and no copy, and a
+// value outside the int16 range stays exact.
+//
+// Bound on the H100: bytes (128 or 256 per block in, the pixels out).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -25,12 +30,14 @@ namespace {
 constexpr int kThreads = 128;
 using zpix::kMaxBpm;
 
+template <typename T>
 struct Grids {
-  const int16_t* coef[4];  // [B, myy*v, mxx*h, 64] per component
+  const T* coef[4];  // [B, myy*v, mxx*h, 64] per component
   const int32_t* quant[4];  // [B, 64] per component, natural order
 };
 
-__global__ void planes_kernel(Grids in, uint8_t* __restrict__ out, int n_mcu,
+template <typename T>
+__global__ void planes_kernel(Grids<T> in, uint8_t* __restrict__ out, int n_mcu,
                               int mxx, int myy, int bpm, int height, int width,
                               int ncomp, int c0, int c1, int c2, int c3,
                               int mode, int nchan) {
@@ -64,26 +71,42 @@ __global__ void planes_kernel(Grids in, uint8_t* __restrict__ out, int n_mcu,
   zpix::write_mcu(pix, g, b, my, mx, height, width, ncomp, mode, nchan, 0, out);
 }
 
+template <typename T>
+void launch_planes(const void* const* g, const void* const* q, void* out, int batch,
+                   int mxx, int myy, int bpm, int height, int width, int ncomp, int c0,
+                   int c1, int c2, int c3, int mode, int nchan, cudaStream_t stream) {
+  Grids<T> in{{static_cast<const T*>(g[0]), static_cast<const T*>(g[1]),
+               static_cast<const T*>(g[2]), static_cast<const T*>(g[3])},
+              {static_cast<const int32_t*>(q[0]), static_cast<const int32_t*>(q[1]),
+               static_cast<const int32_t*>(q[2]), static_cast<const int32_t*>(q[3])}};
+  const int64_t grid = static_cast<int64_t>(batch) * mxx * myy;
+  if (grid > 0) {
+    planes_kernel<T><<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(
+        in, static_cast<uint8_t*>(out), mxx * myy, mxx, myy, bpm, height, width,
+        ncomp, c0, c1, c2, c3, mode, nchan);
+  }
+}
+
 }  // namespace
 
+// ``coef_i32`` picks the grids' type: 0 int16, 1 int32.
 extern "C" int zpix_component_planes(const void* g0, const void* g1, const void* g2,
                                      const void* g3, const void* q0, const void* q1,
                                      const void* q2, const void* q3, void* out,
                                      int batch, int mxx, int myy, int bpm,
                                      int height, int width, int ncomp, int c0,
                                      int c1, int c2, int c3, int mode, int nchan,
-                                     void* stream) {
-  const int64_t grid = static_cast<int64_t>(batch) * mxx * myy;
+                                     int coef_i32, void* stream) {
   if (bpm > kMaxBpm || ncomp > 4) return static_cast<int>(cudaErrorInvalidValue);
-  Grids in{{static_cast<const int16_t*>(g0), static_cast<const int16_t*>(g1),
-            static_cast<const int16_t*>(g2), static_cast<const int16_t*>(g3)},
-           {static_cast<const int32_t*>(q0), static_cast<const int32_t*>(q1),
-            static_cast<const int32_t*>(q2), static_cast<const int32_t*>(q3)}};
-  if (grid > 0) {
-    planes_kernel<<<static_cast<unsigned>(grid), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-        in, static_cast<uint8_t*>(out), mxx * myy, mxx, myy, bpm, height, width,
-        ncomp, c0, c1, c2, c3, mode, nchan);
+  const void* g[4] = {g0, g1, g2, g3};
+  const void* q[4] = {q0, q1, q2, q3};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (coef_i32) {
+    launch_planes<int32_t>(g, q, out, batch, mxx, myy, bpm, height, width, ncomp, c0, c1,
+                           c2, c3, mode, nchan, s);
+  } else {
+    launch_planes<int16_t>(g, q, out, batch, mxx, myy, bpm, height, width, ncomp, c0, c1,
+                           c2, c3, mode, nchan, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,7 +25,7 @@ CHANNELS = {"gray": 1, "ycbcr": 3, "rgb": 3, "cmyk": 4, "ycck": 4}
 
 def component_plane_plain(coeff, quant):
     """Dequant + IDCT + level shift of one component:
-    [B, bv, bh, 64] int16 + [B, 64] int32 -> [B, 8*bv, 8*bh] u8."""
+    [B, bv, bh, 64] int16 or int32 + [B, 64] int32 -> [B, 8*bv, 8*bh] u8."""
     B, bv, bh = coeff.shape[:3]
     deq = coeff.to(torch.int32) * quant.to(torch.int32)[:, None, None, :]
     pix = (idct_plain(deq.view(B, bv, bh, 8, 8)) + 128).clamp(0, 255).to(torch.uint8)
@@ -74,17 +74,21 @@ def mcu_layout(grids, factors):
 
 
 def component_planes(grids, quants, *, color: str, height: int, width: int, factors):
-    """K6: per component a grid [B, bv, bh, 64] int16 (natural order) and
-    the images' quant rows [B, 64] int32, and the replication (fh, fv)
-    that maps an output pixel (y, x) to the component's sample
+    """K6: per component a grid [B, bv, bh, 64] (natural order; int16, or
+    int32 for the progressive store, every grid of one type) and the
+    images' quant rows [B, 64] int32, and the replication (fh, fv) that
+    maps an output pixel (y, x) to the component's sample
     (y // fv, x // fh) -> u8 [B, H, W, C], or [B, H, W] for gray."""
     if color not in MODES or not (len(grids) == len(quants) == len(factors)
                                   == CHANNELS[color]):
         raise ValueError("component_planes: components do not match the colour arm")
     B = grids[0].shape[0]
+    coef_dtype = grids[0].dtype
     for g, q, (fh, fv) in zip(grids, quants, factors):
-        if g.dtype != torch.int16 or q.dtype != torch.int32:
-            raise TypeError("component_planes: expected int16 grids and int32 quants")
+        if (g.dtype != coef_dtype or coef_dtype not in (torch.int16, torch.int32)
+                or q.dtype != torch.int32):
+            raise TypeError("component_planes: expected int16 or int32 grids (one type) "
+                            "and int32 quants")
         if g.dim() != 4 or g.shape[0] != B or g.shape[3] != 64 or tuple(q.shape) != (B, 64):
             raise ValueError("component_planes: grids must be [B, bv, bh, 64], quants [B, 64]")
         if 8 * g.shape[1] * fv < height or 8 * g.shape[2] * fh < width:
@@ -100,10 +104,10 @@ def component_planes(grids, quants, *, color: str, height: int, width: int, fact
     packed = [h | v << 4 | fh << 8 | fv << 12 for (h, v), (fh, fv) in zip(hv, factors)]
     pad = 4 - len(grids)
     runtime.launch(
-        "component_planes", out.device, "zpix_component_planes", "p" * 9 + "i" * 13,
+        "component_planes", out.device, "zpix_component_planes", "p" * 9 + "i" * 14,
         *[g.data_ptr() for g in grids], *[0] * pad,
         *[q.data_ptr() for q in quants], *[0] * pad, out.data_ptr(),
         B, mxx, myy, sum(h * v for h, v in hv), height, width, len(grids),
-        *packed, *[0] * pad, MODES[color], nchan,
+        *packed, *[0] * pad, MODES[color], nchan, int(coef_dtype == torch.int32),
     )
     return out

@@ -1,0 +1,411 @@
+"""Progressive JPEG scans on the coefficient store: K8 (DC first), K9 (AC
+first), K10 (AC refinement) and K11 (DC refinement), each a CUDA kernel
+with its plain PyTorch version.
+
+* ``dc_first`` is K8: ``dc_first_values`` (csrc/prog_entropy.cu, the port
+  of zpix_tpu/parallel/progressive_onchip.py::build_dc_first_value_fn,
+  :799) decodes one DC symbol per block; K3's block-per-chain form
+  (ops/entropy.py::dc_restore) takes the prefix along each component's
+  chain; ``store_blocks`` (csrc/prog_store.cu) shifts by Al and sets
+  coefficient 0 of each block (the "dc" arm of ``_make_update``,
+  :1611-1652).  Two launches of its own a scan, plus K3's.
+* ``ac_first`` is K9 (csrc/prog_entropy.cu, ``build_ac_first_value_fn``,
+  :866): one thread per valid block with data adds ``val << Al`` to its
+  row.
+* ``ac_refine`` is K10 (csrc/prog_entropy.cu, ``build_ac_refine_fn``,
+  :937): one thread per valid block applies the refinement to its row in
+  place.
+* ``dc_refine`` is K11: ``store_blocks`` in or mode (the "dcr" arm of
+  ``_make_update``, :1713-1745): one raw bit per block ORs ``1 << Al``
+  into coefficient 0.
+
+A scan's inputs: ``stream`` u8 (the batch's destuffed scans), ``starts``
+and ``ends`` int32 [B * nblk] absolute bit offsets into it, ``tables``
+int32 [TAB_WORDS] (ops/entropy.py::pack_tables: a DC-first scan's tables
+with its slot map in ``slot_dc``, an AC scan's one table in slot 0 of
+``slot_ac``), and ``ok`` int32 [1], which every pass clears on a failure
+(a bad code, a block that does not end where the host said, a read past
+the stream buffer).
+
+The store: per component an int32 grid [B, bv, bh, 64], natural order.
+A scan names its components' grids and their blocks per MCU ``hv``.  A
+single-component scan visits the component's valid blocks only: ``valid
+= (nvy, nvx)``, the top-left corner of its grid, in raster order
+(decoder.py:525-529).  An interleaved scan visits every block in (MCU,
+slot) order.  Values wrap as int32, as in XLA.
+
+The plain versions are lane-parallel loops with the same semantics; the
+dispatch takes them for CPU tensors only.  The bounds and design of each
+kernel are noted in its CUDA source.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import runtime
+from ..codecs.jpeg.tables import UNZIG
+from . import entropy as _entropy
+from .entropy import TAB_WORDS, _bits, _extend, _Tables, _window
+
+# ------------------------------------------------------------- plain versions
+
+
+def _wrap32(x):
+    """int64 -> int32, two's-complement wrap."""
+    x = x & 0xFFFFFFFF
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def _mcu_dims(grids, hv):
+    return grids[0].shape[2] // hv[0][0], grids[0].shape[1] // hv[0][1]
+
+
+def _dc_gather(grids, hv, valid):
+    """Coefficient 0 of every block the scan visits, in scan order ->
+    int64 [B, nblk]."""
+    B = grids[0].shape[0]
+    if len(grids) == 1:
+        nvy, nvx = valid
+        return grids[0][:, :nvy, :nvx, 0].reshape(B, -1).to(torch.int64)
+    mxx, myy = _mcu_dims(grids, hv)
+    parts = [g[..., 0].reshape(B, myy, v, mxx, h).permute(0, 1, 3, 2, 4)
+             .reshape(B, myy * mxx, v * h) for g, (h, v) in zip(grids, hv)]
+    return torch.cat(parts, 2).reshape(B, -1).to(torch.int64)
+
+
+def _dc_scatter(grids, hv, valid, vals):
+    """Write int64 [B, nblk] values (scan order) into coefficient 0, int32
+    wrapping."""
+    B = grids[0].shape[0]
+    vals = _wrap32(vals)
+    if len(grids) == 1:
+        nvy, nvx = valid
+        grids[0][:, :nvy, :nvx, 0] = vals.view(B, nvy, nvx)
+        return
+    mxx, myy = _mcu_dims(grids, hv)
+    per_mcu = vals.view(B, myy * mxx, -1)
+    s0 = 0
+    for g, (h, v) in zip(grids, hv):
+        part = per_mcu[:, :, s0 : s0 + h * v].reshape(B, myy, mxx, v, h)
+        g[..., 0] = part.permute(0, 1, 3, 2, 4).reshape(B, myy * v, mxx * h)
+        s0 += h * v
+
+
+def dc_first_values_plain(stream, starts, ends, tables, ok, *, bpm: int):
+    """K8's decode, plain: -> raw DC diffs int32 [L]; clears ``ok``."""
+    tab = _Tables(tables)
+    s64 = stream.to(torch.int64)
+    pos = starts.to(torch.int64)
+    past = (pos >> 3) + 8 > stream.shape[0]
+    v, off = _window(s64, pos)
+    slot = torch.arange(pos.shape[0], device=pos.device) % bpm
+    ln, sym, bad = tab.decode(_bits(v, off, 16), tab.slot_dc[slot])
+    diff = torch.where(past, 0, _extend(v, off + ln, sym))
+    err = past | bad | (sym > 16) | (pos + ln + sym != ends.to(torch.int64))
+    ok.mul_((~err.any()).to(torch.int32))
+    return diff.to(torch.int32)
+
+
+def store_blocks_plain(src, grids, *, hv, valid, al: int, mode: str):
+    """The store kernel, plain: ``mode="set"`` writes int32 [B * nblk]
+    values ``<< al`` into coefficient 0; ``mode="or"`` reads one bit a
+    block from u8 rows [B, rowlen] (MSB first) and ORs ``1 << al`` where
+    it is set.  In place."""
+    B = grids[0].shape[0]
+    if mode == "set":
+        _dc_scatter(grids, hv, valid, src.to(torch.int64).view(B, -1) << al)
+        return
+    cur = _dc_gather(grids, hv, valid)
+    i = torch.arange(cur.shape[1], device=cur.device)
+    bit = (src[:, i >> 3].to(torch.int64) >> (7 - (i & 7))) & 1
+    _dc_scatter(grids, hv, valid, torch.where(bit > 0, cur | (1 << al), cur))
+
+
+def dc_first_plain(stream, starts, ends, tables, ok, grids, *, hv, valid, al: int) -> None:
+    """K8, plain: decode, K3's plain prefix, the plain store."""
+    interleaved = len(grids) > 1
+    diffs = dc_first_values_plain(stream, starts, ends, tables, ok,
+                                  bpm=sum(h * v for h, v in hv) if interleaved else 1)
+    chains, seg = _dc_chains(grids, hv, valid)
+    dc = _entropy.dc_restore_plain(diffs, hv=chains, seg_mcus=seg)
+    store_blocks_plain(dc, grids, hv=hv, valid=valid, al=al, mode="set")
+
+
+def dc_refine_plain(rows, grids, *, hv, valid, al: int) -> None:
+    """K11, plain: the plain store in or mode."""
+    store_blocks_plain(rows, grids, hv=hv, valid=valid, al=al, mode="or")
+
+
+def _dc_chains(grids, hv, valid):
+    """K3's view of a DC scan: (blocks per MCU of each chain, MCUs a
+    chain): one chain per component over the MCUs of an interleaved scan,
+    one chain over the valid blocks of a single-component one."""
+    if len(grids) > 1:
+        mxx, myy = _mcu_dims(grids, hv)
+        return tuple(hv), mxx * myy
+    return ((1, 1),), valid[0] * valid[1]
+
+
+def _valid_rows(grid, valid):
+    nvy, nvx = valid
+    return grid[:, :nvy, :nvx].reshape(-1, 64)
+
+
+def ac_first_plain(stream, starts, ends, hasdata, tables, ok, grid, *, valid, ss: int,
+                   se: int, al: int):
+    """K9, plain: adds ``val << al`` into the valid blocks' rows of
+    ``grid`` in place; clears ``ok``."""
+    dev = stream.device
+    tab = _Tables(tables)
+    s64 = stream.to(torch.int64)
+    cap = stream.shape[0]
+    n = starts.shape[0]
+    lanes = torch.arange(n, device=dev)
+    tid = tab.slot_ac[torch.zeros(n, dtype=torch.int64, device=dev)]
+    unzig = torch.as_tensor(UNZIG, dtype=torch.int64, device=dev)
+    pos = starts.to(torch.int64)
+    k = torch.full((n,), ss, dtype=torch.int64, device=dev)
+    done = hasdata == 0  # EOB-covered blocks have no bits
+    err = torch.zeros(n, dtype=torch.bool, device=dev)
+    vals = torch.zeros(n, 64, dtype=torch.int64, device=dev)
+    for _ in range(64):  # each symbol advances k or ends the block
+        act = ~done & ~err
+        if not bool(act.any()):
+            break
+        err |= act & ((pos >> 3) + 8 > cap)
+        act &= ~err
+        v, off = _window(s64, pos)
+        ln, sym, bad = tab.decode(_bits(v, off, 16), tid)
+        err |= act & bad
+        act &= ~bad
+        r, size = sym >> 4, sym & 15
+        eob = (size == 0) & (r < 15)
+        zrl = (size == 0) & (r == 15)
+        over = (size > 0) & (k + r > se)
+        emit = act & (size > 0) & ~over
+        vals[lanes[emit], unzig[(k + r)[emit]]] = _extend(v, off + ln, size)[emit]
+        consume = torch.where(eob, ln + r, torch.where(zrl | over, ln, ln + size))
+        new_k = torch.where(zrl, k + 16, torch.where(eob | over, k, k + r + 1))
+        pos = torch.where(act, pos + consume, pos)
+        k = torch.where(act, new_k, k)
+        done |= act & (eob | over | (new_k > se))
+    agree = (pos == ends.to(torch.int64)) | (hasdata == 0)
+    ok.mul_((done.all() & ~err.any() & agree.all()).to(torch.int32))
+    nvy, nvx = valid
+    rows = _valid_rows(grid, valid).to(torch.int64) + (vals << al)
+    grid[:, :nvy, :nvx] = _wrap32(rows).view(grid.shape[0], nvy, nvx, 64)
+
+
+def ac_refine_plain(stream, starts, ends, eob_entry, tables, ok, grid, *, valid, ss: int,
+                    se: int, al: int):
+    """K10, plain: applies one AC refinement scan to the valid blocks'
+    rows of ``grid`` in place; clears ``ok``."""
+    dev = stream.device
+    tab = _Tables(tables)
+    s64 = stream.to(torch.int64)
+    cap = stream.shape[0]
+    n = starts.shape[0]
+    tid = tab.slot_ac[torch.zeros(n, dtype=torch.int64, device=dev)]
+    unzig = torch.as_tensor(UNZIG, dtype=torch.int64, device=dev)
+    delta = 1 << al
+    zig = _valid_rows(grid, valid).to(torch.int64)[:, unzig]  # the store before the scan
+    out = zig.clone()
+    pos = starts.to(torch.int64)
+    in_eob = eob_entry != 0
+    need = ~in_eob
+    err = torch.zeros(n, dtype=torch.bool, device=dev)
+    nz = torch.zeros(n, dtype=torch.int64, device=dev)
+    pending = torch.zeros(n, dtype=torch.int64, device=dev)
+    for kz in range(ss, se + 1):
+        # the next (run, size) symbol, where one is due
+        want = need & ~err
+        err |= want & ((pos >> 3) + 8 > cap)
+        want &= ~err
+        v, off = _window(s64, pos)
+        ln, sym, badh = tab.decode(_bits(v, off, 16), tid)
+        r, s = sym >> 4, sym & 15
+        err |= want & (badh | (s > 1))
+        want &= ~err
+        is_eob = (s == 0) & (r < 15)
+        sign = _bits(v, off + ln, 1)
+        pos = torch.where(want, pos + ln + torch.where(s == 1, 1, torch.where(is_eob, r, 0)),
+                          pos)
+        nz = torch.where(want, torch.where(s == 1, r, torch.where(is_eob, 0, 15)), nz)
+        pending = torch.where(want, torch.where(s == 1, torch.where(sign > 0, delta, -delta),
+                                                0), pending)
+        in_eob |= want & is_eob
+        need &= ~want
+        # zigzag position kz
+        coef = zig[:, kz]
+        corr = ~err & (coef != 0)
+        err |= corr & ((pos >> 3) + 8 > cap)
+        corr &= ~err
+        v, off = _window(s64, pos)
+        cb = _bits(v, off, 1)
+        pos = torch.where(corr, pos + 1, pos)
+        zero = ~err & (coef == 0) & ~in_eob
+        place = zero & (nz == 0)
+        nz = torch.where(zero & (nz > 0), nz - 1, nz)
+        out[:, kz] = (coef + torch.where(corr & (cb > 0), torch.where(coef > 0, delta, -delta), 0)
+                      + torch.where(place, pending, 0))
+        pending = torch.where(place, 0, pending)
+        need |= place
+    ok.mul_((~err.any() & (pos == ends.to(torch.int64)).all()).to(torch.int32))
+    nat = torch.empty_like(out)
+    nat[:, unzig] = out
+    nvy, nvx = valid
+    grid[:, :nvy, :nvx] = _wrap32(nat).view(grid.shape[0], nvy, nvx, 64)
+
+
+# ------------------------------------------------------------------ wrappers
+
+
+def _check_scan(stream, starts, ends, tables, ok):
+    if stream.dtype != torch.uint8 or starts.dtype != torch.int32 or (
+        ends.dtype != torch.int32 or tables.dtype != torch.int32 or ok.dtype != torch.int32
+    ):
+        raise TypeError("progressive: expected a u8 stream and int32 offsets, tables, ok")
+    if tables.shape[0] != TAB_WORDS or starts.shape != ends.shape or ok.shape != (1,):
+        raise ValueError("progressive: table, offset or ok shapes disagree")
+
+
+def _check_grids(grids, hv):
+    for g in grids:
+        if g.dtype != torch.int32 or g.dim() != 4 or g.shape[3] != 64:
+            raise TypeError("progressive: the store's grids are int32 [B, bv, bh, 64]")
+        if not g.is_contiguous():
+            raise ValueError("progressive: the store's grids must be contiguous")
+    if len(grids) != len(hv) or not 1 <= len(grids) <= 3:
+        raise ValueError("progressive: 1 to 3 grids, one (h, v) each")
+
+
+def scan_blocks(grids, hv, valid) -> int:
+    """Blocks one image has in a DC scan over ``grids``."""
+    if len(grids) == 1:
+        return valid[0] * valid[1]
+    mxx, myy = _mcu_dims(grids, hv)
+    return mxx * myy * sum(h * v for h, v in hv)
+
+
+def dc_first_values(stream, starts, ends, tables, ok, *, bpm: int):
+    """K8's decode: -> raw DC diffs int32 [L], block i decoded with the
+    table of slot i % bpm.  Clears ``ok`` on a bad code, a symbol > 16, a
+    block not ending at ``ends`` or a read past the buffer."""
+    _check_scan(stream, starts, ends, tables, ok)
+    if stream.device.type == "cpu":
+        return dc_first_values_plain(stream, starts, ends, tables, ok, bpm=bpm)
+    runtime.require_cuda(stream, starts, ends, tables, ok)
+    n = starts.shape[0]
+    diffs = torch.empty(n, dtype=torch.int32, device=stream.device)
+    runtime.launch("dc_first", stream.device, "zpix_prog_dc_first", "plpppppl" + "i",
+                   stream.data_ptr(), stream.shape[0], starts.data_ptr(), ends.data_ptr(),
+                   tables.data_ptr(), diffs.data_ptr(), ok.data_ptr(), n, bpm)
+    return diffs
+
+
+def store_blocks(src, grids, *, hv, valid, al: int, mode: str) -> None:
+    """The store kernel: ``mode="set"`` (K8's last step) writes int32
+    [B * nblk] values ``<< al`` into coefficient 0 of each block the scan
+    visits; ``mode="or"`` (K11) ORs ``1 << al`` where the block's bit of
+    u8 rows [B, rowlen] is set.  In place."""
+    if mode not in ("set", "or"):
+        raise ValueError(f"store_blocks: unknown mode {mode!r}")
+    _check_grids(grids, hv)
+    B, nblk = grids[0].shape[0], scan_blocks(grids, hv, valid)
+    if mode == "set" and (src.dtype != torch.int32 or src.numel() != B * nblk):
+        raise ValueError("store_blocks: set mode takes int32 [B * nblk] values")
+    if mode == "or" and (src.dtype != torch.uint8 or src.dim() != 2 or src.shape[0] != B
+                         or 8 * src.shape[1] < nblk):
+        raise ValueError("store_blocks: or mode takes u8 rows [B, >= nblk / 8]")
+    if src.device.type == "cpu":
+        store_blocks_plain(src, grids, hv=hv, valid=valid, al=al, mode=mode)
+        return
+    runtime.require_cuda(src, *grids)
+    mxx, myy = _mcu_dims(grids, hv)
+    ptrs = [g.data_ptr() for g in grids] + [0] * (3 - len(grids))
+    packed = [h | v << 4 for h, v in hv] + [0] * (3 - len(hv))
+    orm = mode == "or"
+    runtime.launch(
+        "dc_refine" if orm else "dc_first", src.device, "zpix_prog_store",
+        "ppi" + "ppp" + "l" + "i" * 10,
+        0 if orm else src.data_ptr(), src.data_ptr() if orm else 0,
+        src.shape[1] if orm else 0, *ptrs, B * nblk, nblk, len(grids), *packed,
+        mxx, myy, valid[1] if len(grids) == 1 else 0, al, int(orm),
+    )
+
+
+def dc_first(stream, starts, ends, tables, ok, grids, *, hv, valid, al: int) -> None:
+    """K8: a DC-first scan -> coefficient 0 of every block it visits set to
+    the restored DC << al.  In place; clears ``ok`` on a failure."""
+    _check_grids(grids, hv)
+    interleaved = len(grids) > 1
+    bpm = sum(h * v for h, v in hv) if interleaved else 1
+    if starts.shape[0] != grids[0].shape[0] * scan_blocks(grids, hv, valid):
+        raise ValueError("dc_first: one start per block the scan visits")
+    diffs = dc_first_values(stream, starts, ends, tables, ok, bpm=bpm)
+    chains, seg = _dc_chains(grids, hv, valid)
+    dc = _entropy.dc_restore(diffs, hv=chains, seg_mcus=seg, form="block")
+    store_blocks(dc, grids, hv=hv, valid=valid, al=al, mode="set")
+
+
+def dc_refine(rows, grids, *, hv, valid, al: int) -> None:
+    """K11: a DC refinement scan (u8 rows [B, rowlen], one bit a block,
+    MSB first) -> ``1 << al`` ORed into coefficient 0.  In place."""
+    store_blocks(rows, grids, hv=hv, valid=valid, al=al, mode="or")
+
+
+def _ac_launch(kernel, name, stream, starts, ends, flags, tables, ok, grid, valid, ss,
+               se, al):
+    runtime.require_cuda(stream, starts, ends, flags, tables, ok, grid)
+    B, bv, bh = grid.shape[:3]
+    nvy, nvx = valid
+    runtime.launch(
+        kernel, stream.device, name, "pl" + "pppppp" + "l" + "iii" + "l" + "iii",
+        stream.data_ptr(), stream.shape[0], starts.data_ptr(), ends.data_ptr(),
+        flags.data_ptr(), tables.data_ptr(), grid.data_ptr(), ok.data_ptr(),
+        starts.shape[0], nvy * nvx, nvx, bh, bv * bh, ss, se, al,
+    )
+
+
+def _check_ac(stream, starts, ends, flags, tables, ok, grid, valid, ss, se):
+    _check_scan(stream, starts, ends, tables, ok)
+    _check_grids([grid], [(1, 1)])
+    nvy, nvx = valid
+    if flags.dtype != torch.int32 or flags.shape != starts.shape:
+        raise TypeError("progressive: flags must be int32, one per block")
+    if starts.shape[0] != grid.shape[0] * nvy * nvx or nvy > grid.shape[1] or (
+            nvx > grid.shape[2]):
+        raise ValueError("progressive: one offset per valid block of the grid")
+    if not 1 <= ss <= se <= 63:
+        raise ValueError("progressive: bad spectral band")
+
+
+def ac_first(stream, starts, ends, hasdata, tables, ok, grid, *, valid, ss: int, se: int,
+             al: int) -> None:
+    """K9: an AC-first scan over band ss..se of one component -> ``val <<
+    al`` added to each valid block's row of ``grid`` (int32 [B, bv, bh,
+    64]).  ``hasdata`` int32 [B * nvalid]: 0 for blocks an EOB run covers
+    (no bits, no end check).  In place; clears ``ok`` on a failure."""
+    _check_ac(stream, starts, ends, hasdata, tables, ok, grid, valid, ss, se)
+    if stream.device.type == "cpu":
+        ac_first_plain(stream, starts, ends, hasdata, tables, ok, grid, valid=valid, ss=ss,
+                       se=se, al=al)
+        return
+    _ac_launch("ac_first", "zpix_prog_ac_first", stream, starts, ends, hasdata, tables, ok,
+               grid, valid, ss, se, al)
+
+
+def ac_refine(stream, starts, ends, eob_entry, tables, ok, grid, *, valid, ss: int,
+              se: int, al: int) -> None:
+    """K10: an AC refinement scan over band ss..se of one component,
+    applied to each valid block's row of ``grid`` in place.  ``eob_entry``
+    int32 [B * nvalid]: 1 where an EOB run covers the block at entry.
+    Clears ``ok`` on a failure."""
+    _check_ac(stream, starts, ends, eob_entry, tables, ok, grid, valid, ss, se)
+    if stream.device.type == "cpu":
+        ac_refine_plain(stream, starts, ends, eob_entry, tables, ok, grid, valid=valid,
+                        ss=ss, se=se, al=al)
+        return
+    _ac_launch("ac_refine", "zpix_prog_ac_refine", stream, starts, ends, eob_entry, tables,
+               ok, grid, valid, ss, se, al)

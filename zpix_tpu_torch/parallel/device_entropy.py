@@ -390,6 +390,41 @@ def prep_batch(datas: list[bytes]) -> ScanPlan:
 # ------------------------------------------------------------- assembly
 
 
+class PinnedUpload:
+    """Several numpy arrays (u8 or int32) -> device tensors in one copy: the
+    arrays are packed, 64-byte aligned, into one host buffer (pinned on
+    CUDA, reused across calls) and carved on the device with no copy.
+    The copy is asynchronous; the next call waits for it before it
+    rewrites the buffer."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._staging = torch.empty(0, dtype=torch.uint8)  # host side of the upload
+        self._copied = None  # CUDA event: the last upload has left the staging buffer
+
+    def __call__(self, parts) -> list:
+        offs, total = [], 0
+        for a in parts:
+            offs.append(total)
+            total += (a.nbytes + 63) // 64 * 64
+        cuda = self.device.type == "cuda"
+        if self._copied is not None:
+            self._copied.synchronize()  # the staging buffer is about to be rewritten
+        if self._staging.numel() < total:
+            self._staging = torch.empty(total, dtype=torch.uint8, pin_memory=cuda)
+        host = self._staging.numpy()
+        for a, o in zip(parts, offs):
+            host[o : o + a.nbytes] = np.ascontiguousarray(a).view(np.uint8).reshape(-1)
+        if cuda:
+            buf = self._staging[:total].to(self.device, non_blocking=True)
+            self._copied = torch.cuda.Event()
+            self._copied.record()
+        else:
+            buf = self._staging[:total].clone()
+        return [buf[o : o + a.nbytes].view(torch.uint8 if a.dtype == np.uint8 else torch.int32)
+                .view(a.shape) for a, o in zip(parts, offs)]
+
+
 def resolve_device(device) -> torch.device:
     """The decoder's device: CUDA unless the caller names the CPU.
 
@@ -419,38 +454,15 @@ class DeviceJpegDecoder:
     def __init__(self, *, planar: bool = False, device=None):
         self.planar = planar
         self.device = resolve_device(device)
-        self._staging = torch.empty(0, dtype=torch.uint8)  # host side of the upload
-        self._copied = None  # CUDA event: the last upload has left the staging buffer
+        self._upload = PinnedUpload(self.device)
 
     def upload(self, plan: ScanPlan):
         """Stream, offsets, counts, tables (and the host index scan's ends,
-        if the plan has them) -> device tensors, in one copy: the arrays
-        are packed, 64-byte aligned, into one host buffer (pinned on CUDA,
-        reused across batches) and carved on the device, as zpix_tpu's
-        packed upload does."""
-        parts = [plan.stream, plan.seg_bit_pos.astype(np.int32), plan.seg_n_mcu,
-                 plan.tables] + ([] if plan.ends is None else [plan.ends])
-        offs, total = [], 0
-        for a in parts:
-            offs.append(total)
-            total += (a.nbytes + 63) // 64 * 64
-        cuda = self.device.type == "cuda"
-        if self._copied is not None:
-            self._copied.synchronize()  # the staging buffer is about to be rewritten
-        if self._staging.numel() < total:
-            self._staging = torch.empty(total, dtype=torch.uint8, pin_memory=cuda)
-        host = self._staging.numpy()
-        for a, o in zip(parts, offs):
-            host[o : o + a.nbytes] = np.ascontiguousarray(a).view(np.uint8).reshape(-1)
-        if cuda:
-            buf = self._staging[:total].to(self.device, non_blocking=True)
-            self._copied = torch.cuda.Event()
-            self._copied.record()
-        else:
-            buf = self._staging[:total].clone()
-        return tuple(
-            buf[o : o + a.nbytes].view(torch.uint8 if a.dtype == np.uint8 else torch.int32)
-            .view(a.shape) for a, o in zip(parts, offs))
+        if the plan has them) -> device tensors, in one copy
+        (``PinnedUpload``), as zpix_tpu's packed upload does."""
+        return tuple(self._upload(
+            [plan.stream, plan.seg_bit_pos.astype(np.int32), plan.seg_n_mcu, plan.tables]
+            + ([] if plan.ends is None else [plan.ends])))
 
     def entropy(self, plan: ScanPlan, bufs):
         """K1 + K2 + K3 -> (AC int16 [L1*nblk, 64], DC int32 [L1*nblk]
@@ -547,9 +559,10 @@ def prep_batch_host_index(datas: list[bytes], n_threads: int | None = None) -> S
     workers = min(B, n_threads or os.cpu_count() or 2)
     with ThreadPoolExecutor(max_workers=workers) as ex:
         rcs = list(ex.map(one, range(B)))
-    bad = [rc for rc in rcs if rc != 0]
+    bad = [b for b, rc in enumerate(rcs) if rc != 0]
     if bad:
-        raise FormatError(f"jpeg: host index scan failed (rc={bad[0]})")
+        raise FormatError(f"jpeg: host index scan failed on image {bad[0]} "
+                          f"({host.error_name(rcs[bad[0]])})")
     flat, offs = _flat_stream(streams)
     seg_bit_pos = np.asarray(offs, np.int64) * 8
     plan = _plan(header, stream=flat, seg_bit_pos=seg_bit_pos,

@@ -33,7 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Kernel launches, by kernel name: each wrapper adds one where it launches.
 LAUNCHES = {"index_pass": 0, "value_pass": 0, "dc_restore": 0,
             "backend": 0, "idct_blocks": 0, "unpack_sparse": 0,
-            "component_planes": 0}
+            "component_planes": 0, "dc_first": 0, "ac_first": 0,
+            "ac_refine": 0, "dc_refine": 0}
 
 _lock = threading.Lock()
 _lib = None

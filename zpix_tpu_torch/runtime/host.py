@@ -29,8 +29,21 @@ OK = 0
 ERR_EOF = 1
 ERR_BAD_HUFFMAN = 3
 ERR_EXCESSIVE_DC = 5
+ERR_UNEXPECTED_CODE = 7
+ERR_TOO_MANY_COEFFS = 8
 ERR_UNSUPPORTED = 100
 ERR_FORMAT = 101
+
+ERROR_NAMES = {ERR_EOF: "ERR_EOF", ERR_BAD_HUFFMAN: "ERR_BAD_HUFFMAN",
+               ERR_EXCESSIVE_DC: "ERR_EXCESSIVE_DC",
+               ERR_UNEXPECTED_CODE: "ERR_UNEXPECTED_CODE",
+               ERR_TOO_MANY_COEFFS: "ERR_TOO_MANY_COEFFS",
+               ERR_UNSUPPORTED: "ERR_UNSUPPORTED", ERR_FORMAT: "ERR_FORMAT"}
+
+
+def error_name(rc: int) -> str:
+    """A return code of csrc/host/entropy.cpp as its name."""
+    return ERROR_NAMES.get(rc, f"rc={rc}")
 
 
 class HuffTableC(ctypes.Structure):
@@ -58,6 +71,11 @@ _SIGNATURES = {
     "zpix_parse_baseline_batch": (_I32, [_P, _P, _I32, _I32, _I32, _I32, _P, _P,
                                          _P, _P, _P, _P, _P, _I32]),
     "zpix_baseline_index_scan": (_I32, [_P, _I64, _P, _P, _P, _I32, _I64, _P, _P]),
+    "zpix_prog_dc_first_index": (_I32, [_P, _I64, _P, _P, _I32, _I64, _P, _P]),
+    "zpix_prog_ac_first_index": (_I32, [_P, _I64, _P, _I32, _I32, _I64, _P, _P, _P,
+                                        _P, _P]),
+    "zpix_prog_refine_index": (_I32, [_P, _I64, _P, _P, _I64, _I32, _I32,
+                                      ctypes.c_uint16, _P, _P, _P, _P]),
 }
 
 _lock = threading.Lock()
