@@ -16,7 +16,14 @@ streams with none -- and batches of 16 copies of one 1024x1024 4:2:0
 progressive JPEG (a new image each batch) through
 ``OnchipProgressiveDecoder`` (host index walks, K8-K11, K3, K6), times
 them with CUDA events, checks that corrupt streams are flagged, and
-prints one JSON object per line.  The last line is
+prints one JSON object per line.  Then the raster slice: batches of 16
+distinct 1024x1024 QOI streams (the JAX bench's "noise" and "screen"
+content, made by the port's host encoder) through ``HostIndexQoiDecoder``
+(host lane fill, K12; host records, K13), the decoded batches back
+through ``encode_device_batch`` (K14, streams byte-identical to the host
+encoder), and 16 distinct 1024x1024 BMPs a batch from the port's numpy
+writer through ``BatchBmpDecoder`` (K18, every bit depth, header and
+orientation).  The last line is
 ``{"ok": true, "device": {...}}``; any failure exits non-zero.  Without
 CUDA it exits non-zero and prints no result.
 """
@@ -92,8 +99,39 @@ KERNELS = {  # name -> (source, TPU-side function it replaces)
                   "zpix_tpu/parallel/progressive_onchip.py:937"),
     "dc_refine": ("zpix_tpu_torch/csrc/prog_store.cu",
                   "zpix_tpu/parallel/progressive_onchip.py:1713"),
+    "qoi_lane_expand": ("zpix_tpu_torch/csrc/qoi_expand.cu",
+                        "zpix_tpu/parallel/qoi_batch.py:1174"),
+    "qoi_sorted_expand": ("zpix_tpu_torch/csrc/qoi_expand.cu",
+                          "zpix_tpu/parallel/qoi_batch.py:818"),
+    "qoi_encode": ("zpix_tpu_torch/csrc/qoi_encode.cu", "zpix_tpu/parallel/qoi_batch.py:1423"),
+    "bmp_unpack": ("zpix_tpu_torch/csrc/bmp_unpack.cu", "zpix_tpu/parallel/bmp_batch.py:21"),
 }
 PROG_KINDS = ("dc_first", "ac_first", "ac_refine", "dc_refine")
+RASTER_KINDS = ("qoi_lane_expand", "qoi_sorted_expand", "qoi_encode", "bmp_unpack")
+# QOI content profiles -> lane_p, the JAX bench's choice for each
+# (bench.py main_qoi); p4 caps 256 at 255, then shrinks it to 128 on 1024^2
+QOI_PROFILES = {"noise": 16, "screen": 256}
+# The least operations of each function, a pixel (or a record):
+# - K12's masked sum, as a per-lane difference array (exact on any entry
+#   set): an add at the clamped start and a subtract at the clamped end
+#   per entry slot, a prefix add per pixel (the kernel itself does two
+#   compares and an add per (pixel, entry slot));
+# - K13: an add per record (the prefix sum), a compare per search step;
+# - K14: hash (4 multiplies, 3 adds, a mask), run test, 5 differences, 16
+#   range compares, bucket compare, size and scan adds;
+# - K18: index extract (shift, mask) or swizzle, 3 x 4 for the premultiply.
+OPS_K12_SLOT, OPS_K12_PIXEL = 2, 1
+OPS_K13_RECORD, OPS_K13_STEP, OPS_K14_PIXEL = 1, 1, 32
+OPS_K18_PIXEL = {1: 2, 2: 2, 4: 2, 8: 1, 24: 1, 32: 12}
+
+
+def with_bound(entry: dict) -> dict:
+    """A side measurement's entry with its bound: the larger of its bytes
+    over the memory rate and its operations over the int32 rate."""
+    bytes_ms = entry["bytes"] / HBM_BYTES_PER_S * 1e3
+    ops_ms = entry["ops"] / INT32_OPS_PER_S * 1e3
+    return {**entry, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 def emit(obj) -> None:
@@ -783,6 +821,557 @@ def progressive(dev):
     return summary, entries
 
 
+# ------------------------------------------------- QOI and BMP slice (K12-K14, K18)
+
+
+def make_bench_qoi(size: int, seed: int, content: str) -> bytes:
+    """A copy of the JAX bench's QOI content (bench.py:855-888) through the
+    port's host encoder: "noise" (per-pixel noise over a sinusoid field,
+    nearly one op a pixel) or "screen" (flat panels, a gradient band and 2%
+    speckle; run-heavy).  "alpha" is this script's own: the noise image
+    with an alpha that varies, content the p4 lane form refuses."""
+    from zpix_tpu_torch.codecs.qoi.encode import Desc, encode
+
+    rng = np.random.RandomState(seed)
+    if content == "screen":
+        rgba = np.zeros((size, size, 4), np.uint8)
+        rgba[..., 3] = 255
+        for _ in range(24):  # flat UI panels
+            y, x = rng.randint(0, size, 2)
+            h, w = rng.randint(size // 16, size // 3, 2)
+            rgba[y : y + h, x : x + w, :3] = rng.randint(30, 226, 3)
+        gy = rng.randint(0, size - size // 8)  # one gradient band
+        grad = np.linspace(40, 215, size).astype(np.uint8)
+        rgba[gy : gy + size // 8, :, :3] = grad[None, :, None]
+        m = rng.rand(size, size) < 0.02  # sparse speckle
+        rgba[..., :3][m] = rng.randint(0, 256, (int(m.sum()), 3))
+        return encode(rgba, Desc(size, size, 4, 0))
+    x = np.linspace(0, 20, size)
+    base = (128 + 100 * np.sin(x[None, :] * np.cos(x[:, None]) + seed)).astype(np.uint8)
+    noise = rng.randint(0, 8, (size, size)).astype(np.uint8)
+    alpha = 255 - 16 * noise if content == "alpha" else np.full_like(base, 255)
+    rgba = np.stack([base ^ noise, base.T, base // 2 + 64, alpha], -1)
+    return encode(rgba, Desc(size, size, 4, 0))
+
+
+def make_qoi_batches(content: str, indices):
+    """Batch s holds the BATCH images of seeds s * BATCH + j."""
+    with ThreadPoolExecutor(os.cpu_count() or 2) as ex:
+        return [list(ex.map(lambda j, s=s: make_bench_qoi(SIZE, s * BATCH + j, content),
+                            range(BATCH))) for s in indices]
+
+
+def dev_t(a, dev):
+    """numpy -> a tensor on ``dev``; uint32 as the int32 of the same bits."""
+    return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a).to(dev)
+
+
+def qoi_host_pixels(datas):
+    """The port's host decoder on each stream -> [n, H, W, 4] uint8."""
+    from zpix_tpu_torch.codecs.qoi.decode import decode
+
+    with ThreadPoolExecutor(os.cpu_count() or 2) as ex:
+        return np.stack(list(ex.map(decode, datas)))
+
+
+def qoi_plan_layout(plan) -> dict:
+    """A plan's layout and the bytes it uploads a pixel."""
+    if hasattr(plan, "cnts"):
+        nbytes = plan.cols.nbytes + plan.cnts.nbytes + plan.fill.nbytes
+        out = {"fmt": "records", "rcap": plan.rcap}
+    else:
+        nbytes = plan.p4.nbytes if plan.fmt == "p4" else (
+            plan.cols.nbytes + plan.s.nbytes + plan.e.nbytes)
+        out = {"fmt": plan.fmt, "P": plan.P, "R": plan.R}
+    return {**out, "staged_bytes": nbytes,
+            "staged_bytes_per_px": nbytes / (plan.batch * plan.width * plan.height)}
+
+
+def qoi_stages(dec, datas):
+    """One batch through HostIndexQoiDecoder's stages -> (pixels, plan,
+    {stage: ms}): the host pass (host clock; a lane pass at the hinted
+    layout writes into the pinned buffer), then CUDA events around the
+    upload (any packing into the pinned buffer included) and the
+    expansion kernel."""
+    t0 = time.perf_counter()
+    plan = dec.prep(datas)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    bufs = dec.upload(plan)
+    ev[1].record()
+    px = dec.run(plan, bufs)
+    ev[2].record()
+    torch.cuda.synchronize()
+    return px, plan, {"host_pass": host_ms, "h2d": ev[0].elapsed_time(ev[1]),
+                      "expand": ev[1].elapsed_time(ev[2]),
+                      "device_total": ev[0].elapsed_time(ev[2])}
+
+
+def timed_decodes(decode, batches, stages=None, check=None):
+    """Each batch decoded end to end (host clock, bytes in to a synchronised
+    tensor) and, if ``stages``, again by stage -> (walls s, peak bytes
+    above what was held, stage means or None, check results).  ``check``
+    (datas, pixels) -> bool runs after each timed decode, outside the
+    clock."""
+    walls, peak, checks = [], 0, []
+    for datas in batches:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        px = decode(datas)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        peak = max(peak, torch.cuda.max_memory_allocated() - base)
+        if check is not None:
+            checks.append(check(datas, px))
+        del px
+    mean = None
+    if stages is not None:
+        rows = [stages(datas)[-1] for datas in batches]
+        mean = {k: float(np.mean([r[k] for r in rows])) for k in rows[0]}
+    return walls, peak, mean, checks
+
+
+def route_summary(walls, peak, mean, launches) -> dict:
+    mpix = BATCH * SIZE * SIZE / 1e6
+    return {"e2e_ms_per_batch": [w * 1e3 for w in walls],
+            "e2e_mpix_per_s": mpix / float(np.mean(walls)),
+            "device_mpix_per_s": mpix / (mean["device_total"] / 1e3),
+            "device_busy_share": mean["device_total"] / (float(np.mean(walls)) * 1e3),
+            "stage_ms_mean": mean, "peak_mem_bytes": peak,
+            "launches_per_call": {k: v for k, v in launches.items() if v}}
+
+
+def qoi_phase(dev):
+    """The QOI decode routes: K12 and K13 against their plain versions on
+    full batches (both profiles, alpha content, hand-built entries and
+    records), HostIndexQoiDecoder (auto) on each profile and impl="sorted"
+    on noise, launches of one decode, 10 timed batches end to end and by
+    stage, pixels against the host decoder, damaged streams.  -> (summary,
+    {kernel: timing entry}, {profile: (lane decoder, batches, decoded
+    batch 0)})"""
+    from zpix_tpu_torch import HostIndexQoiDecoder, runtime
+    from zpix_tpu_torch.errors import ZpixError
+    from zpix_tpu_torch.ops import qoi as kq
+    from zpix_tpu_torch.parallel import qoi_batch as tq
+
+    t0 = time.perf_counter()
+    batches = {c: make_qoi_batches(c, range(TIMED_BATCHES + 2)) for c in QOI_PROFILES}
+    alpha = make_qoi_batches("alpha", [50])[0]
+    content_s = time.perf_counter() - t0
+    shape, npx = (BATCH, SIZE, SIZE), SIZE * SIZE
+
+    # K12 and K13 against their plain versions on the card, full batches
+    errs, layouts, lane_in = {}, {}, {}
+    for c, lane_p in QOI_PROFILES.items():
+        plan = tq.prep_qoi_lanes4(batches[c][0], lane_p)
+        t = dev_t(plan.p4, dev)
+        errs[f"lane_p4_{c}"] = max_abs_err(kq.lane_expand_p4(t, P=plan.P, shape=shape),
+                                           kq.lane_expand_p4_plain(t, P=plan.P, shape=shape))
+        layouts[c] = qoi_plan_layout(plan)
+        lane_in[c] = (t, plan.P, plan.R)
+    wplan = tq.prep_qoi_lanes(alpha, QOI_PROFILES["noise"])
+    wide = [dev_t(a, dev) for a in (wplan.cols, wplan.s, wplan.e)]
+    errs["lane_wide_alpha"] = max_abs_err(
+        kq.lane_expand_wide(*wide, P=wplan.P, shape=shape),
+        kq.lane_expand_wide_plain(*wide, P=wplan.P, shape=shape))
+    layouts["alpha"] = qoi_plan_layout(wplan)
+    gen = np.random.default_rng(2)
+    _, P, R = lane_in["noise"]
+    lanes = BATCH * npx // P
+    hs = gen.integers(-3, P + 3, (lanes, R)).astype(np.int16)
+    hand = [dev_t(gen.integers(0, 2**32, (lanes, R), dtype=np.uint64).astype(np.uint32), dev),
+            dev_t(hs, dev), dev_t((hs + gen.integers(-2, P // 2 + 2, (lanes, R))).astype(
+                np.int16), dev)]
+    errs["lane_wide_hand_built"] = max_abs_err(kq.lane_expand_wide(*hand, P=P, shape=shape),
+                                               kq.lane_expand_wide_plain(*hand, P=P, shape=shape))
+    hp4 = dev_t(gen.integers(0, 256, (lanes, R * 4), dtype=np.uint8), dev)
+    errs["lane_p4_hand_built"] = max_abs_err(kq.lane_expand_p4(hp4, P=P, shape=shape),
+                                             kq.lane_expand_p4_plain(hp4, P=P, shape=shape))
+    del hand, hp4
+    rplan = tq.prep_qoi_records(batches["noise"][0])
+    rec = [dev_t(a, dev) for a in (rplan.cols, rplan.cnts, rplan.fill)]
+    errs["sorted_noise"] = max_abs_err(kq.sorted_expand(*rec, shape=shape),
+                                       kq.sorted_expand_plain(*rec, shape=shape))
+    layouts["records"] = qoi_plan_layout(rplan)
+    hcnt = gen.integers(0, 63, (BATCH, 65536)).astype(np.uint8)
+    hcnt[gen.random(hcnt.shape) < 0.33] = 0  # zero counts inside the records
+    hcnt[::2, 40000:] = 0  # even images fall short of the pixel count: fill
+    hrec = [dev_t(gen.integers(0, 2**32, hcnt.shape, dtype=np.uint64).astype(np.uint32), dev),
+            dev_t(hcnt, dev),
+            dev_t(gen.integers(0, 2**32, BATCH, dtype=np.uint64).astype(np.uint32), dev)]
+    errs["sorted_hand_built"] = max_abs_err(kq.sorted_expand(*hrec, shape=shape),
+                                            kq.sorted_expand_plain(*hrec, shape=shape))
+    del hrec
+    torch.cuda.synchronize()
+
+    def check_host(n):
+        return lambda datas, px: bool(np.array_equal(px[:n].cpu().numpy(),
+                                                     qoi_host_pixels(datas[:n])))
+
+    # the main path on each profile: one decode, launches counted, every
+    # image against the host decoder; then 10 timed batches
+    routes, launches, lane_decs = {}, {}, {}
+    for c, lane_p in QOI_PROFILES.items():
+        dec = HostIndexQoiDecoder(lane_p=lane_p)
+        dec.decode(batches[c][1])  # warm: pinned buffer, thread pool
+        torch.cuda.synchronize()
+        runtime.reset_launches()
+        px = dec.decode(batches[c][0])
+        torch.cuda.synchronize()
+        launches[c] = dict(runtime.LAUNCHES)
+        main_equal = bool(np.array_equal(px.cpu().numpy(), qoi_host_pixels(batches[c][0])))
+        lane_decs[c] = (dec, batches[c], px)
+        walls, peak, mean, oks = timed_decodes(dec.decode, batches[c][2:],
+                                               lambda d, dec=dec: qoi_stages(dec, d),
+                                               check_host(2))
+        # with the R hint set, the lane pass fills the pinned staging buffer
+        plan = dec.prep(batches[c][2])
+        in_staging = bool(np.shares_memory(plan.p4, dec._upload._staging.numpy()))
+        routes[c] = {"main_equal_host": main_equal, "timed_images_0_1_equal_host": oks,
+                     "layout": layouts[c], "plan_filled_in_staging": in_staging,
+                     **route_summary(walls, peak, mean, launches[c])}
+    # auto on alpha content: the wide form
+    adec = HostIndexQoiDecoder(lane_p=QOI_PROFILES["noise"])
+    aplan = adec.prep(alpha)
+    runtime.reset_launches()
+    pxa = adec.run(aplan, adec.upload(aplan))
+    torch.cuda.synchronize()
+    routes["alpha_auto"] = {"fmt": aplan.fmt, "launches": runtime.LAUNCHES["qoi_lane_expand"],
+                            "equal_host": bool(np.array_equal(pxa.cpu().numpy(),
+                                                              qoi_host_pixels(alpha)))}
+    del pxa
+    # impl="sorted" on the noise batches; pixels against the lane route's
+    sdec = HostIndexQoiDecoder(impl="sorted")
+    sdec.decode(batches["noise"][1])
+    torch.cuda.synchronize()
+    runtime.reset_launches()
+    pxs = sdec.decode(batches["noise"][0])
+    torch.cuda.synchronize()
+    launches["sorted"] = dict(runtime.LAUNCHES)
+    sorted_main_equal = bool(torch.equal(pxs, lane_decs["noise"][2]))
+    del pxs
+    lane_noise = lane_decs["noise"][0]
+    walls, peak, mean, eq = timed_decodes(
+        sdec.decode, batches["noise"][2:], lambda d: qoi_stages(sdec, d),
+        lambda datas, px: bool(torch.equal(px, lane_noise.decode(datas))))
+    routes["sorted_noise"] = {"main_equal_lane": sorted_main_equal,
+                              "timed_equal_lane": eq, "layout": layouts["records"],
+                              **route_summary(walls, peak, mean, launches["sorted"])}
+
+    # damaged streams: ops cut short decode to the host decoder's fill; a
+    # stream too short for its header raises as zpix_tpu does
+    data = batches["noise"][0][0]
+    cut = data[: len(data) // 2] + b"\x00" * 8
+    want = qoi_host_pixels([cut])[0]
+    damaged = {}
+    for name, d in (("lane", lane_noise), ("sorted", sdec)):
+        out = d.decode([cut] + batches["noise"][0][1:])
+        damaged[f"cut_{name}_equal_host"] = bool(np.array_equal(out[0].cpu().numpy(), want))
+    tail = want.reshape(-1, 4)[-SIZE:]  # the last row: the stream-exhausted fill
+    damaged["cut_tail_is_fill"] = bool((tail == tail[-1]).all())
+    try:
+        HostIndexQoiDecoder().decode([b"qoif" + b"\x00" * 10])
+        damaged["short_header"] = "no error"
+    except ZpixError as exc:
+        damaged["short_header"] = f"{type(exc).__name__}: {exc}"
+
+    # timing entries: one decode's launch of K12 (noise, p4; screen and the
+    # wide form beside it) and of K13 (noise records); the library yardstick
+    # is the run-length expansion alone, torch.repeat_interleave of the
+    # batch's packed colours by their counts
+    t, P, R = lane_in["noise"]
+    ts, Ps, Rs = lane_in["screen"]
+    rcols, rcnt = rec[0].view(-1), rec[1].view(-1).long()
+    total = int(rcnt.sum())
+    lib_ms = cuda_ms(lambda: torch.repeat_interleave(rcols, rcnt, output_size=total), 20)
+    out_bytes = BATCH * npx * 4
+    steps = int(np.ceil(np.log2(rplan.rcap + 1)))
+
+    def k12_ops(P, R):  # entry slots of the batch's lanes, and its pixels
+        return OPS_K12_SLOT * R * (BATCH * npx // P) + OPS_K12_PIXEL * BATCH * npx
+
+    entries = {
+        "qoi_lane_expand": {
+            "ms": cuda_ms(lambda: kq.lane_expand_p4(t, P=P, shape=shape), 20),
+            "plain_ms": cuda_ms(lambda: kq.lane_expand_p4_plain(t, P=P, shape=shape), 1),
+            "bytes": t.numel() + out_bytes, "ops": k12_ops(P, R),
+            "launches": launches["noise"]["qoi_lane_expand"], "library_ms": lib_ms,
+            "max_abs_err": max(v for k, v in errs.items() if k.startswith("lane")),
+            "layout": {"P": P, "R": R, "fmt": "p4", "content": "noise"},
+            "screen_p4": with_bound({
+                "ms": cuda_ms(lambda: kq.lane_expand_p4(ts, P=Ps, shape=shape), 20),
+                "P": Ps, "R": Rs, "bytes": ts.numel() + out_bytes, "ops": k12_ops(Ps, Rs)}),
+            "alpha_wide": with_bound({
+                "ms": cuda_ms(lambda: kq.lane_expand_wide(*wide, P=wplan.P, shape=shape), 20),
+                "P": wplan.P, "R": wplan.R,
+                "bytes": sum(x.numel() * x.element_size() for x in wide) + out_bytes,
+                "ops": k12_ops(wplan.P, wplan.R)})},
+        "qoi_sorted_expand": {
+            "ms": cuda_ms(lambda: kq.sorted_expand(*rec, shape=shape), 20),
+            "plain_ms": cuda_ms(lambda: kq.sorted_expand_plain(*rec, shape=shape), 1),
+            "bytes": sum(x.numel() * x.element_size() for x in rec) + out_bytes,
+            "ops": OPS_K13_RECORD * BATCH * rplan.rcap + OPS_K13_STEP * steps * BATCH * npx,
+            "launches": launches["sorted"]["qoi_sorted_expand"], "library_ms": lib_ms,
+            "max_abs_err": max(errs["sorted_noise"], errs["sorted_hand_built"]),
+            "layout": {"rcap": rplan.rcap, "records": total}},
+    }
+    summary = {"content_seconds": content_s, "max_abs_err": errs, "layouts": layouts,
+               "routes": routes, "damaged": damaged,
+               "bytes_per_image": {c: float(np.mean([len(d) for d in batches[c][0]]))
+                                   for c in QOI_PROFILES}}
+    return summary, entries, launches, lane_decs
+
+
+def qoi_encode_phase(dev, lane_decs):
+    """encode_device_batch on the decoded batch 0 of each profile (a tensor
+    on the card) and encode_device on one 3-channel image: every stream
+    byte-identical to the host encoder, equal to the source stream and
+    decoding back to its input; K14 against its plain version on both full
+    batches; 10 timed noise batches (pack, K14, download).  -> (summary,
+    timing entry, launches of one encode_device_batch)"""
+    from zpix_tpu_torch import encode_device, encode_device_batch, runtime
+    from zpix_tpu_torch.codecs.qoi.decode import decode
+    from zpix_tpu_torch.codecs.qoi.encode import Desc, encode
+    from zpix_tpu_torch.ops import qoi as kq
+    from zpix_tpu_torch.parallel.qoi_batch import _pack_px, _streams
+
+    descs = [Desc(SIZE, SIZE, 4, 0)] * BATCH
+    check, launches, packed, errs = {}, None, {}, {}
+    for c, (_dec, batches, px) in lane_decs.items():
+        runtime.reset_launches()
+        streams = encode_device_batch(px, descs)
+        torch.cuda.synchronize()
+        if launches is None:
+            launches = dict(runtime.LAUNCHES)
+        host = px.cpu().numpy()
+        check[f"{c}_equal_host_encoder"] = all(s == encode(h, d)
+                                               for s, h, d in zip(streams, host, descs))
+        check[f"{c}_equal_source"] = streams == batches[0]
+        check[f"{c}_roundtrip"] = all(np.array_equal(decode(s), h)
+                                      for s, h in zip(streams, host))
+        packed[c] = torch.stack([_pack_px(px[i], descs[i], dev) for i in range(BATCH)])
+        out_k, tot_k = kq.encode(packed[c])
+        out_p, tot_p = kq.encode_plain(packed[c])
+        errs[c] = max(max_abs_err(out_k, out_p), max_abs_err(tot_k, tot_p))
+        check[f"{c}_stream_bytes"] = int(tot_k.sum())
+        del out_k, out_p, host
+    rgb = lane_decs["noise"][2][0, ..., :3]
+    d3 = Desc(SIZE, SIZE, 3, 0)
+    check["rgb_equal_host_encoder"] = encode_device(rgb, d3) == encode(rgb.cpu().numpy(), d3)
+
+    # timed: decoded noise batches (decoded outside the clock) encoded end to end
+    dec, batches, _ = lane_decs["noise"]
+    walls, stages = [], []
+    mpix = BATCH * SIZE * SIZE / 1e6
+    for datas in batches[2:]:
+        px = dec.decode(datas)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        streams = encode_device_batch(px, descs)
+        walls.append(time.perf_counter() - t0)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ev[0].record()
+        pk = torch.stack([_pack_px(px[i], descs[i], dev) for i in range(BATCH)])
+        ev[1].record()
+        out, tot = kq.encode(pk)
+        ev[2].record()
+        again = _streams(out, tot, descs)
+        t2 = time.perf_counter()
+        stages.append({"pack": ev[0].elapsed_time(ev[1]), "encode": ev[1].elapsed_time(ev[2]),
+                       "download_and_streams": (t2 - t1) * 1e3 - ev[0].elapsed_time(ev[2])})
+        check.setdefault("timed_equal_source", []).append(streams == datas == again)
+        del px, pk, out
+    mean = {k: float(np.mean([s[k] for s in stages])) for k in stages[0]}
+    pk = packed["noise"]
+    entry = {"ms": cuda_ms(lambda: kq.encode(pk), 20),
+             "plain_ms": cuda_ms(lambda: kq.encode_plain(pk), 1),
+             "bytes": pk.numel() * 4 + check["noise_stream_bytes"],
+             "ops": OPS_K14_PIXEL * pk.numel(), "launches": launches["qoi_encode"],
+             "library_ms": None, "max_abs_err": max(errs.values()),
+             "screen_ms": cuda_ms(lambda: kq.encode(packed["screen"]), 20)}
+    summary = {"check": check, "max_abs_err": errs, "e2e_ms_per_batch": [w * 1e3 for w in walls],
+               "e2e_mpix_per_s": mpix / float(np.mean(walls)), "stage_ms_mean": mean,
+               "launches_per_call": {k: v for k, v in launches.items() if v}}
+    del packed
+    return summary, entry, launches
+
+
+BMP_TIMED = {"24bpp": (24, 40, False, False), "8bpp": (8, 40, False, False)}
+
+
+def make_bmp(seed: int, bpp: int, info: int, top_down: bool, short: bool) -> bytes:
+    """One random 1024^2 BMP from the port's numpy writer: indices and a
+    palette of 2^bpp colours (fewer than half when ``short``, so indices
+    pass its end) for 1-8 bpp, RGB or RGBA pixels for 24 and 32."""
+    from zpix_tpu_torch.codecs.bmp.encode import encode
+
+    rng = np.random.default_rng(seed)
+    if bpp <= 8:
+        n = max(1, (1 << bpp) // 2 - 1) if short else 1 << bpp
+        pal = rng.integers(0, 256, (n, 3), dtype=np.uint8)
+        idx = rng.integers(0, 1 << bpp, (SIZE, SIZE), dtype=np.uint8)
+        return encode(idx, bpp=bpp, info_len=info, top_down=top_down, palette=pal)
+    pix = rng.integers(0, 256, (SIZE, SIZE, 3 if bpp == 24 else 4), dtype=np.uint8)
+    return encode(pix, bpp=bpp, info_len=info, top_down=top_down)
+
+
+def make_bmp_batch(arm, s: int):
+    with ThreadPoolExecutor(os.cpu_count() or 2) as ex:
+        return list(ex.map(lambda j: make_bmp(s * BATCH + j, *arm), range(BATCH)))
+
+
+def bmp_stages(dec, datas):
+    """One batch through BatchBmpDecoder's stages -> (pixels, plain pixels
+    on the same uploaded inputs, {stage: ms})."""
+    from zpix_tpu_torch.ops.bmp import bmp_unpack, bmp_unpack_plain
+
+    t0 = time.perf_counter()
+    rows, pal, (width, _h, top_down, bpp, allow_alpha) = dec.prep(datas)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    kw = dict(bpp=bpp, width=width, top_down=top_down, allow_alpha=allow_alpha)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    rows_d, pal_d = dec.upload(rows, pal)
+    ev[1].record()
+    px = bmp_unpack(rows_d, pal_d, **kw)
+    ev[2].record()
+    torch.cuda.synchronize()
+    return px, bmp_unpack_plain(rows_d, pal_d, **kw), {
+        "host_parse": host_ms, "h2d": ev[0].elapsed_time(ev[1]),
+        "bmp_unpack": ev[1].elapsed_time(ev[2]), "device_total": ev[0].elapsed_time(ev[2])}
+
+
+def bmp_phase(dev):
+    """BMP: K18 against its plain version on every arm at full batch,
+    BatchBmpDecoder on 10 timed batches of 24-bit bottom-up and of 8-bit
+    paletted images, launches of one decode, pixels against the plain path,
+    truncated pixel data.  -> (summary, timing entry, launches)"""
+    from zpix_tpu_torch import BatchBmpDecoder, runtime
+    from zpix_tpu_torch.errors import ZpixError
+    from zpix_tpu_torch.ops.bmp import bmp_unpack, bmp_unpack_plain
+
+    dec = BatchBmpDecoder()
+    t0 = time.perf_counter()
+    errs = {}
+    arms = [(bpp, info, td, False) for bpp in (1, 2, 4, 8, 24, 32) for info in (40, 108, 124)
+            for td in (False, True)] + [(bpp, 40, False, True) for bpp in (1, 2, 4, 8)]
+    for i, arm in enumerate(arms):
+        px, ref, _ = bmp_stages(dec, make_bmp_batch(arm, 700 + i))
+        errs["{}bpp_{}_{}{}".format(arm[0], arm[1], "td" if arm[2] else "bu",
+                                    "_short" if arm[3] else "")] = max_abs_err(px, ref)
+        del px, ref
+    arms_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batches = {k: [make_bmp_batch(arm, 900 + s) for s in range(TIMED_BATCHES + 2)]
+               for k, arm in BMP_TIMED.items()}
+    content_s = time.perf_counter() - t0
+    routes, launches = {}, {}
+    for k, bb in batches.items():
+        dec.decode(bb[1])
+        torch.cuda.synchronize()
+        runtime.reset_launches()
+        px = dec.decode(bb[0])
+        torch.cuda.synchronize()
+        launches[k] = dict(runtime.LAUNCHES)
+        _, ref, _ = bmp_stages(dec, bb[0])
+        main_equal = bool(torch.equal(px, ref))
+        del px, ref
+        walls, peak, mean, _ = timed_decodes(dec.decode, bb[2:], lambda d: bmp_stages(dec, d))
+        equal = [bool(torch.equal(*bmp_stages(dec, d)[:2])) for d in bb[2:]]
+        routes[k] = {"main_equal_plain": main_equal, "timed_equal_plain": equal,
+                     **route_summary(walls, peak, mean, launches[k])}
+    bad = batches["24bpp"][0]
+    try:
+        dec.decode(bad[:-1] + [bad[-1][:-100]])
+        truncated = "no error"
+    except ZpixError as exc:
+        truncated = type(exc).__name__
+
+    # timing entry: the 8-bit arm (its library yardstick is the palette
+    # gather pal[b, idx], the index tensor made beforehand), 24-bit beside it
+    rows, pal, (width, _h, top_down, bpp, allow_alpha) = dec.prep(batches["8bpp"][0])
+    rows_d, pal_d = dev_t(rows, dev), dev_t(pal, dev)
+    kw = dict(bpp=bpp, width=width, top_down=top_down, allow_alpha=allow_alpha)
+    idx = rows_d[:, :, :width].long()
+    bidx = torch.arange(BATCH, device=dev)[:, None, None]
+    out_bytes = BATCH * SIZE * SIZE * 4
+    rows24, pal24, (w24, _h, td24, bpp24, aa24) = dec.prep(batches["24bpp"][0])
+    r24, p24 = dev_t(rows24, dev), dev_t(pal24, dev)
+    kw24 = dict(bpp=bpp24, width=w24, top_down=td24, allow_alpha=aa24)
+    entry = {"ms": cuda_ms(lambda: bmp_unpack(rows_d, pal_d, **kw), 20),
+             "plain_ms": cuda_ms(lambda: bmp_unpack_plain(rows_d, pal_d, **kw), 1),
+             "bytes": rows.nbytes + pal.nbytes + out_bytes,
+             "ops": OPS_K18_PIXEL[8] * BATCH * SIZE * SIZE,
+             "launches": launches["8bpp"]["bmp_unpack"],
+             "library_ms": cuda_ms(lambda: pal_d[bidx, idx], 20),
+             "max_abs_err": max(errs.values()), "arm": "8bpp",
+             "arm_24bpp": with_bound({
+                 "ms": cuda_ms(lambda: bmp_unpack(r24, p24, **kw24), 20),
+                 "plain_ms": cuda_ms(lambda: bmp_unpack_plain(r24, p24, **kw24), 1),
+                 "bytes": rows24.nbytes + pal24.nbytes + out_bytes,
+                 "ops": OPS_K18_PIXEL[24] * BATCH * SIZE * SIZE,
+                 "launches": launches["24bpp"]["bmp_unpack"]})}
+    summary = {"arms_seconds": arms_s, "content_seconds": content_s, "max_abs_err": errs,
+               "routes": routes, "truncated": truncated}
+    return summary, entry, launches["24bpp"]
+
+
+def raster_slice(dev):
+    """The phases qoi, qoi_encode and bmp, each printed and checked ->
+    ({kernel: timing entry}, {path: launches of one call})."""
+    # ------------------------------------------------------------ QOI
+    t0 = time.perf_counter()
+    q, raster_entries, q_launches, lane_decs = qoi_phase(dev)
+    emit({"phase": "qoi", "seconds": time.perf_counter() - t0, **q})
+    if any(q["max_abs_err"].values()):
+        raise SystemExit("chip_smoke: a QOI expansion kernel disagrees with its plain version")
+    qr = q["routes"]
+    if (min(q_launches[c]["qoi_lane_expand"] for c in QOI_PROFILES) == 0
+            or q_launches["sorted"]["qoi_sorted_expand"] == 0
+            or qr["alpha_auto"]["launches"] == 0 or qr["alpha_auto"]["fmt"] != "wide"):
+        raise SystemExit("chip_smoke: a QOI route skipped its kernel")
+    if (not all(qr[c]["main_equal_host"] and all(qr[c]["timed_images_0_1_equal_host"])
+                for c in QOI_PROFILES)
+            or not qr["alpha_auto"]["equal_host"] or not qr["sorted_noise"]["main_equal_lane"]
+            or not all(qr["sorted_noise"]["timed_equal_lane"])):
+        raise SystemExit("chip_smoke: a QOI route's pixels are wrong")
+    dm = q["damaged"]
+    if (not (dm["cut_lane_equal_host"] and dm["cut_sorted_equal_host"]
+             and dm["cut_tail_is_fill"])
+            or dm["short_header"] != "FormatError: qoi: data too short"):
+        raise SystemExit("chip_smoke: a damaged QOI stream decoded wrongly")
+
+    # ------------------------------------------------------ QOI encode
+    t0 = time.perf_counter()
+    qe, raster_entries["qoi_encode"], qe_launches = qoi_encode_phase(dev, lane_decs)
+    emit({"phase": "qoi_encode", "seconds": time.perf_counter() - t0, **qe})
+    del lane_decs
+    qc = qe["check"]
+    if (any(qe["max_abs_err"].values()) or qe_launches["qoi_encode"] == 0
+            or not all(v for k, v in qc.items() if isinstance(v, bool))
+            or not all(qc["timed_equal_source"])):
+        raise SystemExit("chip_smoke: the device encoder's streams are wrong")
+
+    # ------------------------------------------------------------ BMP
+    t0 = time.perf_counter()
+    bm, raster_entries["bmp_unpack"], bm_launches = bmp_phase(dev)
+    emit({"phase": "bmp", "seconds": time.perf_counter() - t0, **bm})
+    if any(bm["max_abs_err"].values()) or bm_launches["bmp_unpack"] == 0:
+        raise SystemExit("chip_smoke: K18 disagrees with its plain version or was skipped")
+    if (not all(r["main_equal_plain"] and all(r["timed_equal_plain"])
+                for r in bm["routes"].values()) or bm["truncated"] != "UnexpectedEof"):
+        raise SystemExit("chip_smoke: the BMP route's output is wrong")
+    return raster_entries, {"qoi_lane": q_launches["noise"], "qoi_sorted": q_launches["sorted"],
+                            "qoi_encode": qe_launches, "bmp": bm_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1064,6 +1653,9 @@ def main() -> int:
     if pg["corrupt"]["walk_refused_ok"] or pg["corrupt"]["changed_after_walk_ok"]:
         raise SystemExit("chip_smoke: a corrupt progressive stream was not flagged")
 
+    # ------------------------------------------- QOI decode and encode, BMP
+    raster_entries, raster_paths = raster_slice(dev)
+
     # ------------------------------------------------------- kernel table
     ends, okf = ke.index_pass(*bufs, bpm=plan.bpm, nblk=nblk)
     ac, dc_diff = ke.value_pass(*bufs, ends, okf, bpm=plan.bpm)
@@ -1126,8 +1718,9 @@ def main() -> int:
         "backend": cuda_ms(lambda: kb.backend(hac, hdc_p, hbufs[3],
                                               kb.BackendGeometry.of(hplan), planar=False), 20),
     }
-    by_path = {k: {"dri8": launches[k], "native": ln[k], "host_index": lh[k],
-                   "progressive": lp[k]} for k in timing}
+    paths = {"dri8": launches, "native": ln, "host_index": lh, "progressive": lp,
+             **raster_paths}
+    by_path = {k: {p: counts[k] for p, counts in paths.items()} for k in KERNELS}
     kernels = []
     for kname, (fk, fp, nbytes, nops) in timing.items():
         ms = cuda_ms(fk, 20)
@@ -1168,8 +1761,7 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda", "source": KERNELS[kname][0],
             "replaces": KERNELS[kname][1], "launches": e["launches"],
-            "launches_by_path": {"dri8": 0, "native": 0, "host_index": 0,
-                                 "progressive": e["launches"]},
+            "launches_by_path": by_path[kname],
             "max_abs_err": e["max_abs_err"], "matches_plain": e["max_abs_err"] == 0,
             "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -1177,6 +1769,22 @@ def main() -> int:
             "scans_per_decode": e["scans"],
             **({"restore_ms_taken_off": e["restore_ms_taken_off"]}
                if "restore_ms_taken_off" in e else {}),
+        })
+    for kname in RASTER_KINDS:
+        e = raster_entries[kname]
+        bytes_ms = e["bytes"] / HBM_BYTES_PER_S * 1e3
+        ops_ms = e["ops"] / INT32_OPS_PER_S * 1e3
+        kernels.append({
+            "name": kname, "route": "cuda", "source": KERNELS[kname][0],
+            "replaces": KERNELS[kname][1], "launches": e["launches"],
+            "launches_by_path": by_path[kname], "max_abs_err": e["max_abs_err"],
+            "matches_plain": e["max_abs_err"] == 0, "ms": e["ms"], "plain_ms": e["plain_ms"],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_bytes": e["bytes"], "bound_int32_ops": e["ops"],
+            "library_ms": e["library_ms"],
+            **{k: v for k, v in e.items() if k not in (
+                "ms", "plain_ms", "bytes", "ops", "launches", "library_ms", "max_abs_err")},
         })
     emit({"phase": "serial_chain", "max_symbols_per_segment": seg_syms,
           "max_symbols_per_block": blk_syms, "symbols": n_syms,

@@ -110,7 +110,7 @@ def test_unpack_kernel_matches_plain(cuda, perm, cap):
     kw = dict(bv=bv, bh=bh)
     before = runtime.LAUNCHES["unpack_sparse"]
     got = unpack_sparse(bitmap.to(cuda), vals.to(cuda), perm=None if p is None else p.to(cuda), **kw)
-    assert runtime.LAUNCHES["unpack_sparse"] == before + 1
+    assert runtime.LAUNCHES["unpack_sparse"] == before + 2  # offsets, expand
     assert torch.equal(got.cpu(), unpack_sparse_plain(bitmap, vals, perm=p, **kw))
 
 
@@ -166,7 +166,7 @@ def test_restart_free_routes_agree(cuda, mode):
     datas = [synth_plain_jpeg(w=200, h=120, mode=mode, phase=p) for p in (0.0, 1.0, 2.0)]
     runtime.reset_launches()
     native = BatchJpegDecoder().decode(datas)
-    assert runtime.LAUNCHES["unpack_sparse"] == (1 if mode == "gray" else 3)
+    assert runtime.LAUNCHES["unpack_sparse"] == 2 * (1 if mode == "gray" else 3)
     assert runtime.LAUNCHES["component_planes"] == 1
     runtime.reset_launches()
     px, ok = HostIndexJpegDecoder().decode(datas)
@@ -281,3 +281,162 @@ def test_planes_int32_kernel_matches_plain(cuda, hv):
     b = component_planes([g.to(torch.int16).to(cuda) for g in small],
                          [q.to(cuda) for q in quants], **kw)
     assert torch.equal(a, b)
+
+
+# ------------------------------------------------- QOI and BMP slice (K12-K14, K18)
+
+
+def _dev(a, dev):
+    """numpy -> a tensor on ``dev``; uint32 as the int32 of the same bits."""
+    return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a).to(dev)
+
+
+def _qoi_lane_plans(datas, P):
+    from zpix_tpu_torch.parallel import qoi_batch as tq
+
+    return tq.prep_qoi_lanes4(datas, P), tq.prep_qoi_lanes(datas, P)
+
+
+def _lane_counted(fn, *args, **kw):
+    before = runtime.LAUNCHES["qoi_lane_expand"]
+    out = fn(*args, **kw)
+    assert runtime.LAUNCHES["qoi_lane_expand"] == before + 1
+    return out
+
+
+@pytest.mark.parametrize("P", [8, 16, 60, 320])
+def test_qoi_lane_expand_matches_plain_on_host_plans(cuda, P):
+    """K12, both formats, on the lanes the host fills make (opaque images
+    for p4, every image for the wide form)."""
+    from _torch_raster import qoi_enc, qoi_images
+
+    from zpix_tpu_torch.ops import qoi as kq
+
+    imgs = qoi_images()
+    opaque = [qoi_enc(i) for i in imgs if (i[..., 3] == 255).all()]
+    p4, _ = _qoi_lane_plans(opaque, P)
+    shape = (p4.batch, p4.height, p4.width)
+    t = torch.from_numpy(p4.p4).to(cuda)
+    got = _lane_counted(kq.lane_expand_p4, t, P=p4.P, shape=shape)
+    assert torch.equal(got, kq.lane_expand_p4_plain(t, P=p4.P, shape=shape))
+    _, wide = _qoi_lane_plans([qoi_enc(i) for i in imgs], P)
+    cols, s, e = (_dev(a, cuda) for a in (wide.cols, wide.s, wide.e))
+    shape = (wide.batch, wide.height, wide.width)
+    got = _lane_counted(kq.lane_expand_wide, cols, s, e, P=wide.P, shape=shape)
+    assert torch.equal(got, kq.lane_expand_wide_plain(cols, s, e, P=wide.P, shape=shape))
+
+
+@pytest.mark.parametrize("P,R", [(16, 5), (128, 72), (300, 9), (20, 3000)])
+def test_qoi_lane_expand_matches_plain_on_any_entries(cuda, P, R):
+    """K12 on hand-built entries that overlap, leave gaps or lie outside
+    the lane (wide), and on granules of random bytes (p4, P <= 255): the
+    masked sum, wrapping, not a tiling."""
+    from _torch_raster import lane_entries, p4_entries
+
+    from zpix_tpu_torch.ops import qoi as kq
+
+    rng = np.random.default_rng(P + R)
+    lanes = 3 * 7
+    shape = (3, 7, P)
+    cols, s, e = (_dev(a, cuda) for a in lane_entries(rng, lanes, R, P))
+    got = _lane_counted(kq.lane_expand_wide, cols, s, e, P=P, shape=shape)
+    assert torch.equal(got, kq.lane_expand_wide_plain(cols, s, e, P=P, shape=shape))
+    if P <= 255:
+        p4 = torch.from_numpy(p4_entries(rng, lanes, R)).to(cuda)
+        got = _lane_counted(kq.lane_expand_p4, p4, P=P, shape=shape)
+        assert torch.equal(got, kq.lane_expand_p4_plain(p4, P=P, shape=shape))
+
+
+@pytest.mark.parametrize("case", ["host", "short", "long"])
+def test_qoi_sorted_expand_matches_plain(cuda, case):
+    """K13 on host records (with a stream cut short) and on hand-built
+    records with zero counts anywhere, totals short of and past the pixel
+    count, and more than one 4096-count tile."""
+    from _torch_raster import qoi_enc, qoi_images, record_entries
+
+    from zpix_tpu_torch.ops import qoi as kq
+    from zpix_tpu_torch.parallel import qoi_batch as tq
+
+    if case == "host":
+        datas = [qoi_enc(i) for i in qoi_images()]
+        datas[3] = datas[3][: len(datas[3]) // 2] + b"\x00" * 8
+        plan = tq.prep_qoi_records(datas)
+        arrs, shape = (plan.cols, plan.cnts, plan.fill), (plan.batch, plan.height, plan.width)
+    else:
+        rng = np.random.default_rng(3)
+        rcap, shape = (50, (4, 24, 40)) if case == "short" else (9000, (2, 420, 450))
+        arrs = record_entries(rng, shape[0], rcap)
+    cols, cnts, fill = (_dev(a, cuda) for a in arrs)
+    before = runtime.LAUNCHES["qoi_sorted_expand"]
+    got = kq.sorted_expand(cols, cnts, fill, shape=shape)
+    assert runtime.LAUNCHES["qoi_sorted_expand"] == before + 4  # three scans, expand
+    assert torch.equal(got, kq.sorted_expand_plain(cols, cnts, fill, shape=shape))
+
+
+def test_qoi_encode_matches_plain_and_host(cuda):
+    """K14 on every encode case: its bytes and totals equal its plain
+    version's, and each stream equals the host encoder's."""
+    from _torch_raster import encode_cases
+
+    from zpix_tpu_torch import encode_device
+    from zpix_tpu_torch.codecs.qoi.encode import Desc, encode
+    from zpix_tpu_torch.ops import qoi as kq
+    from zpix_tpu_torch.parallel.qoi_batch import _pack_px
+
+    for i, (img, ch) in enumerate(encode_cases()):
+        h, w = img.shape[:2]
+        d = Desc(w, h, ch, 0)
+        px = torch.stack([_pack_px(img, d, cuda), _pack_px(img[::-1].copy(), d, cuda)])
+        before = runtime.LAUNCHES["qoi_encode"]
+        out, tot = kq.encode(px)
+        assert runtime.LAUNCHES["qoi_encode"] == before + 5  # summary, carry, walk, offsets, write
+        out_p, tot_p = kq.encode_plain(px)
+        assert torch.equal(tot, tot_p) and torch.equal(out, out_p), i
+        assert encode_device(img, d) == encode(img, d), i
+
+
+def test_qoi_decoder_and_batch_encode_match_cpu_run(cuda):
+    """HostIndexQoiDecoder by every route, and encode_device_batch, on the
+    card against the same calls on the CPU."""
+    from _torch_raster import qoi_enc, qoi_images
+
+    from zpix_tpu_torch import HostIndexQoiDecoder, encode_device_batch
+    from zpix_tpu_torch.codecs.qoi.decode import decode
+    from zpix_tpu_torch.codecs.qoi.encode import Desc
+
+    imgs = qoi_images()
+    datas = [qoi_enc(i) for i in imgs]
+    want = np.stack([decode(d) for d in datas])
+    for impl, fmt, kernel, n in (("lane", "auto", "qoi_lane_expand", 1),
+                                 ("lane", "wide", "qoi_lane_expand", 1),
+                                 ("sorted", "auto", "qoi_sorted_expand", 4)):
+        runtime.reset_launches()
+        got = HostIndexQoiDecoder(impl=impl, lane_fmt=fmt).decode(datas)
+        assert runtime.LAUNCHES[kernel] == n and got.device.type == "cuda"
+        assert np.array_equal(got.cpu().numpy(), want), (impl, fmt)
+    h, w = imgs[0].shape[:2]
+    descs = [Desc(w, h, 4, 0)] * len(imgs)
+    assert encode_device_batch(np.stack(imgs), descs) == datas
+    assert encode_device_batch(torch.from_numpy(np.stack(imgs)).to(cuda), descs) == datas
+
+
+@pytest.mark.parametrize("size", [(7, 13), (64, 37)], ids=["7x13", "64x37"])
+def test_bmp_unpack_matches_plain(cuda, size):
+    """K18 on every arm (bpp, header, orientation, short palette) through
+    BatchBmpDecoder, against its plain version on the card."""
+    from _torch_raster import bmp_arms, bmp_batch
+
+    from zpix_tpu_torch import BatchBmpDecoder
+    from zpix_tpu_torch.ops.bmp import bmp_unpack_plain
+
+    dec = BatchBmpDecoder()
+    for arm in bmp_arms():
+        datas = bmp_batch(arm, *size)
+        rows, pal, (width, _h, top_down, bpp, allow_alpha) = dec.prep(datas)
+        before = runtime.LAUNCHES["bmp_unpack"]
+        got = dec.decode(datas)
+        assert runtime.LAUNCHES["bmp_unpack"] == before + 1
+        want = bmp_unpack_plain(torch.from_numpy(rows).to(cuda), torch.from_numpy(pal).to(cuda),
+                                bpp=bpp, width=width, top_down=top_down,
+                                allow_alpha=allow_alpha)
+        assert torch.equal(got, want), arm

@@ -59,6 +59,6 @@ def unpack_sparse(bitmap, vals, *, bv: int, bh: int, perm=None):
     runtime.launch(
         "unpack_sparse", bitmap.device, "zpix_unpack_sparse", "ppppplll",
         bitmap.data_ptr(), vals.data_ptr(), 0 if perm is None else perm.data_ptr(),
-        offs.data_ptr(), out.data_ptr(), B, nb, vals.shape[1],
+        offs.data_ptr(), out.data_ptr(), B, nb, vals.shape[1], kernels=2,
     )
     return out

@@ -390,39 +390,64 @@ def prep_batch(datas: list[bytes]) -> ScanPlan:
 # ------------------------------------------------------------- assembly
 
 
+_UPLOAD_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.int16): torch.int16,
+                  np.dtype(np.int32): torch.int32,
+                  np.dtype(np.uint32): torch.int32}  # the same 32 bits
+
+
 class PinnedUpload:
-    """Several numpy arrays (u8 or int32) -> device tensors in one copy: the
-    arrays are packed, 64-byte aligned, into one host buffer (pinned on
-    CUDA, reused across calls) and carved on the device with no copy.
-    The copy is asynchronous; the next call waits for it before it
-    rewrites the buffer."""
+    """Several numpy arrays (u8, int16, int32 or uint32, the last as int32
+    bits) -> device tensors in one copy: the arrays are packed, 64-byte
+    aligned, into one host buffer (pinned on CUDA, reused across calls) and
+    carved on the device with no copy.  The copy is asynchronous; the next
+    call waits for it before it rewrites the buffer.  ``views`` lends the
+    buffer out, so that a host pass can write the arrays there itself."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self._staging = torch.empty(0, dtype=torch.uint8)  # host side of the upload
         self._copied = None  # CUDA event: the last upload has left the staging buffer
 
-    def __call__(self, parts) -> list:
+    def _reserve(self, sizes):
+        """-> (64-byte-aligned offsets of parts of ``sizes`` bytes, their
+        total, the staging buffer as numpy), once the last upload has left
+        the buffer, grown to hold them."""
         offs, total = [], 0
-        for a in parts:
+        for n in sizes:
             offs.append(total)
-            total += (a.nbytes + 63) // 64 * 64
-        cuda = self.device.type == "cuda"
+            total += (n + 63) // 64 * 64
         if self._copied is not None:
             self._copied.synchronize()  # the staging buffer is about to be rewritten
+            self._copied = None
         if self._staging.numel() < total:
-            self._staging = torch.empty(total, dtype=torch.uint8, pin_memory=cuda)
-        host = self._staging.numpy()
+            self._staging = torch.empty(total, dtype=torch.uint8,
+                                        pin_memory=self.device.type == "cuda")
+        return offs, total, self._staging.numpy()
+
+    def views(self, specs) -> list:
+        """numpy arrays of ``specs`` [(shape, dtype), ...] in the staging
+        buffer, where ``__call__`` packs arrays of those shapes: filled in
+        place and passed to ``__call__``, they go up with no packing copy.
+        They hold until the next ``views`` or upload."""
+        sizes = [int(np.prod(shape)) * np.dtype(dt).itemsize for shape, dt in specs]
+        offs, _total, host = self._reserve(sizes)
+        return [host[o : o + n].view(dt).reshape(shape)
+                for (shape, dt), o, n in zip(specs, offs, sizes)]
+
+    def __call__(self, parts) -> list:
+        offs, total, host = self._reserve([a.nbytes for a in parts])
+        cuda = self.device.type == "cuda"
         for a, o in zip(parts, offs):
-            host[o : o + a.nbytes] = np.ascontiguousarray(a).view(np.uint8).reshape(-1)
+            if a.ctypes.data != host.ctypes.data + o or not a.flags.c_contiguous:
+                host[o : o + a.nbytes] = np.ascontiguousarray(a).view(np.uint8).reshape(-1)
         if cuda:
             buf = self._staging[:total].to(self.device, non_blocking=True)
             self._copied = torch.cuda.Event()
             self._copied.record()
         else:
             buf = self._staging[:total].clone()
-        return [buf[o : o + a.nbytes].view(torch.uint8 if a.dtype == np.uint8 else torch.int32)
-                .view(a.shape) for a, o in zip(parts, offs)]
+        return [buf[o : o + a.nbytes].view(_UPLOAD_DTYPES[a.dtype]).view(a.shape)
+                for a, o in zip(parts, offs)]
 
 
 def resolve_device(device) -> torch.device:

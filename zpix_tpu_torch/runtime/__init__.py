@@ -30,11 +30,13 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "zpix_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
-# Kernel launches, by kernel name: each wrapper adds one where it launches.
+# CUDA kernel launches, by kernel name: each wrapper adds the number of
+# kernels its C entry launches, where it launches them.
 LAUNCHES = {"index_pass": 0, "value_pass": 0, "dc_restore": 0,
             "backend": 0, "idct_blocks": 0, "unpack_sparse": 0,
             "component_planes": 0, "dc_first": 0, "ac_first": 0,
-            "ac_refine": 0, "dc_refine": 0}
+            "ac_refine": 0, "dc_refine": 0, "qoi_lane_expand": 0,
+            "qoi_sorted_expand": 0, "qoi_encode": 0, "bmp_unpack": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -130,9 +132,10 @@ def fn(name: str, sig: str):
     return f
 
 
-def launch(kernel: str, device, name: str, sig: str, *args) -> None:
-    """Launch C entry ``name`` on ``device``'s current stream, count the
-    launch under ``kernel``, and raise if the launch was refused."""
+def launch(kernel: str, device, name: str, sig: str, *args, kernels: int = 1) -> None:
+    """Launch C entry ``name`` on ``device``'s current stream, count its
+    ``kernels`` CUDA kernel launches under ``kernel``, and raise if the
+    launch was refused."""
     import torch
 
     with torch.cuda.device(device):
@@ -140,7 +143,7 @@ def launch(kernel: str, device, name: str, sig: str, *args) -> None:
         err = fn(name, sig + "p")(*args, stream)
     if err:
         raise RuntimeError(f"zpix_tpu_torch: {name} failed: cudaError {err}")
-    LAUNCHES[kernel] += 1
+    LAUNCHES[kernel] += kernels
 
 
 def require_cuda(*tensors) -> None:

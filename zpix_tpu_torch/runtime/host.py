@@ -76,6 +76,17 @@ _SIGNATURES = {
                                         _P, _P]),
     "zpix_prog_refine_index": (_I32, [_P, _I64, _P, _P, _I64, _I32, _I32,
                                       ctypes.c_uint16, _P, _P, _P, _P]),
+    # csrc/host/qoi.cpp
+    "zpix_qoi_decode": (_I32, [ctypes.c_char_p, _I64, _I64, _P]),
+    "zpix_qoi_record_scan": (_I32, [ctypes.c_char_p, _I64, _I64, _P, _P, _I64, _P, _P]),
+    # no decoder calls the lane scan (the lane fill writes the same entries
+    # in place); it stays as the unfused form the tests check the fill by
+    "zpix_qoi_lane_scan": (_I32, [ctypes.c_char_p, _I64, _I64, _I32, _P, _P, _P, _I64,
+                                  _P, _I64, _P, _P]),
+    "zpix_qoi_lane_fill": (_I32, [ctypes.c_char_p, _I64, _I64, _I32, _I32, _P, _P, _P,
+                                  _P, _P]),
+    "zpix_qoi_lane_fill4": (_I32, [ctypes.c_char_p, _I64, _I64, _I32, _I32, _P, _P, _P]),
+    "zpix_qoi_encode": (_I64, [_P, _I64, _I32, _P, _I64]),
 }
 
 _lock = threading.Lock()
