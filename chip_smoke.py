@@ -23,7 +23,13 @@ content, made by the port's host encoder) through ``HostIndexQoiDecoder``
 through ``encode_device_batch`` (K14, streams byte-identical to the host
 encoder), and 16 distinct 1024x1024 BMPs a batch from the port's numpy
 writer through ``BatchBmpDecoder`` (K18, every bit depth, header and
-orientation).  The last line is
+orientation).  Then the ``png`` phase: K15-K17 against their plain
+versions at 16 x 1024^2, batches of 16 distinct 1024x1024 RGB8 PNGs of the
+JAX bench's content (Pillow, compress_level 6) through ``BatchPngDecoder``
+by its three front-ends (host inflate and defilter, K17; host inflate,
+K15, K17; host tokens, K16, K15, K17), two Adam7 batches (RGB8, and
+paletted with tRNS, from the tests' PNG writer, tests/_torch_png.py) by
+every front-end, and four kinds of damaged stream.  The last line is
 ``{"ok": true, "device": {...}}``; any failure exits non-zero.  Without
 CUDA it exits non-zero and prints no result.
 """
@@ -105,9 +111,13 @@ KERNELS = {  # name -> (source, TPU-side function it replaces)
                           "zpix_tpu/parallel/qoi_batch.py:818"),
     "qoi_encode": ("zpix_tpu_torch/csrc/qoi_encode.cu", "zpix_tpu/parallel/qoi_batch.py:1423"),
     "bmp_unpack": ("zpix_tpu_torch/csrc/bmp_unpack.cu", "zpix_tpu/parallel/bmp_batch.py:21"),
+    "png_defilter": ("zpix_tpu_torch/csrc/png_defilter.cu", "zpix_tpu/ops/defilter.py:35"),
+    "inflate_resolve": ("zpix_tpu_torch/csrc/inflate_resolve.cu", "zpix_tpu/ops/inflate.py:33"),
+    "png_expand": ("zpix_tpu_torch/csrc/png_expand.cu", "zpix_tpu/parallel/png_batch.py:299"),
 }
 PROG_KINDS = ("dc_first", "ac_first", "ac_refine", "dc_refine")
-RASTER_KINDS = ("qoi_lane_expand", "qoi_sorted_expand", "qoi_encode", "bmp_unpack")
+RASTER_KINDS = ("qoi_lane_expand", "qoi_sorted_expand", "qoi_encode", "bmp_unpack",
+                "png_defilter", "inflate_resolve", "png_expand")
 # QOI content profiles -> lane_p, the JAX bench's choice for each
 # (bench.py main_qoi); p4 caps 256 at 255, then shrinks it to 128 on 1024^2
 QOI_PROFILES = {"noise": 16, "screen": 256}
@@ -1323,8 +1333,429 @@ def bmp_phase(dev):
     return summary, entry, launches["24bpp"]
 
 
+# ------------------------------------------------------ PNG slice (K15-K17)
+
+PNG_FRONTS = {"host": {}, "defilter": {"device_defilter": True},
+              "inflate": {"device_inflate": True}}
+# The least operations of each function:
+# - K15 a byte, by filter type: None 0, Sub and Up an add, Average two adds
+#   and a shift, Paeth 14 (p, three differences and their absolutes, three
+#   compares, two selects, the add);
+# - K16: an add a token (the prefix sum of the lengths), a subtract a byte
+#   (its source pointer);
+# - K17: tc8 an OR a pixel (the alpha); p8 none beyond the gather.
+OPS_K15_BYTE = (0, 1, 1, 3, 14)
+OPS_K16_TOKEN, OPS_K16_BYTE, OPS_K17_PIXEL = 1, 1, 1
+# Chain bound of K15: H + W - 1 dependent wavefront steps, each at least an
+# L1 round trip for the previous step's bytes and a block barrier; taken as
+# 40 cycles at the boost clock (an assumption, not a measurement).
+CHAIN_CYCLES_PER_STEP = 40
+
+
+def png_writer():
+    """tests/_torch_png.py, the tests' PNG writer (numpy and zlib; Pillow
+    for the bench content), loaded by path."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "_torch_png.py")
+    spec = importlib.util.spec_from_file_location("_torch_png", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def make_png_content(writer):
+    """-> (bench batches: batch s holds the JAX bench's PNGs of seeds
+    s * BATCH + j; the Adam7 batches {name: (files, source RGBA8 [B, H, W,
+    4])}), made on a thread pool."""
+    def adam7(j, kind):
+        if kind == "tc8":
+            rgb = writer.bench_rgb(SIZE, 500 + j)
+            data = writer.encode_png(rgb, "tc8", interlace=True, seed=j)
+            return data, np.concatenate([rgb, np.full_like(rgb[..., :1], 255)], -1)
+        rng = np.random.default_rng(600 + j)
+        idx = writer.bench_rgb(SIZE, 600 + j)[..., 0]
+        pal = rng.integers(0, 256, (256, 3), dtype=np.uint8)
+        alpha = rng.integers(0, 256, 256, dtype=np.uint8)
+        data = writer.encode_png(idx, "p8", palette=pal, trns=alpha.tobytes(), interlace=True,
+                                 seed=j)
+        c, a = pal.astype(np.uint32), alpha.astype(np.uint32)[:, None]
+        table = np.concatenate([(((c | c << 8) * a) // 0xFF) >> 8, a], 1).astype(np.uint8)
+        return data, table[idx]  # the premultiplied NRGBA palette entry
+
+    with ThreadPoolExecutor(os.cpu_count() or 2) as ex:
+        batches = [list(ex.map(lambda j, s=s: writer.make_bench_png(SIZE, s * BATCH + j),
+                               range(BATCH))) for s in range(TIMED_BATCHES + 2)]
+        interlaced = {}
+        for kind in ("tc8", "p8_trns"):
+            made = list(ex.map(lambda j, k=kind: adam7(j, k), range(BATCH)))
+            interlaced[kind] = ([m[0] for m in made], np.stack([m[1] for m in made]))
+    return batches, interlaced
+
+
+def png_stages(dec, datas):
+    """One bench batch (non-interlaced) through BatchPngDecoder's own steps
+    -> (pixels, {upload bytes}, {stage: ms}): ``parse`` (host walk with
+    inflate or tokenize) and, on the default route, ``defilter`` (host
+    clock); then CUDA events around ``upload`` and after each kernel that
+    ``run`` queues (its ``on_kernel`` hook)."""
+    t0 = time.perf_counter()
+    plan = dec.parse(datas)
+    t1 = time.perf_counter()
+    ms = {"host_parse_inflate" if plan.route != "inflate" else "host_parse_tokenize":
+          (t1 - t0) * 1e3}
+    if plan.route == "host":
+        dec.defilter(plan)
+        ms["host_defilter"] = (time.perf_counter() - t1) * 1e3
+    marks = []
+
+    def mark(name, *_):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    torch.cuda.synchronize()
+    mark("start")
+    bufs = dec.upload(plan)
+    mark("h2d")
+    px, bad = dec.run(plan, bufs, on_kernel=mark)
+    torch.cuda.synchronize()
+    if bad is not None and int(bad):
+        raise SystemExit("chip_smoke: K15 flagged a filter type on the bench content")
+    ms.update(dict.fromkeys(("h2d", "inflate_resolve", "png_defilter", "png_expand"), 0.0))
+    for (_n, a), (name, b) in zip(marks, marks[1:]):
+        ms[name] += a.elapsed_time(b)
+    ms["device_total"] = marks[0][1].elapsed_time(marks[-1][1])
+    sizes = {"h2d_bytes": sum(a.nbytes for a in plan.parts)}
+    if plan.route == "inflate":
+        sizes["tokens_read_bytes"] = len(datas) * plan.nt * 9
+        sizes["token_rows"] = {"nt": plan.nt, "cap": plan.main[0].shape[1]}
+    return px, sizes, ms
+
+
+PNG_KERNEL_TAGS = {"png_defilter": "k15", "inflate_resolve": "k16", "png_expand": "k17"}
+
+
+class PngLaunchCheck:
+    """BatchPngDecoder.run's ``on_kernel`` hook: every K15-K17 launch of a
+    decode held against its plain version on the same inputs (the views of
+    the upload that run passes, K16's output, each Adam7 pass and its
+    placement on the canvas), the largest error a kernel under
+    ``{k15,k16,k17}_{tag}``.  ``kept`` gets each kernel's first (args, kw,
+    result), for the timing entries."""
+
+    def __init__(self, errs: dict, facts: dict, tag: str):
+        self.errs, self.facts, self.tag, self.kept = errs, facts, tag, {}
+
+    def __call__(self, name, args, kw, res):
+        from zpix_tpu_torch.ops.defilter import png_defilter_plain
+        from zpix_tpu_torch.ops.inflate import inflate_resolve_plain
+        from zpix_tpu_torch.ops.png import png_expand_plain
+
+        if name == "inflate_resolve":
+            want, moved_plain = inflate_resolve_plain(*args)
+            err = max_abs_err(res[0], want)
+            self.facts[f"k16_{self.tag}_rounds_moved"] = {
+                "kernel": int(res[1].sum()), "plain": int(moved_plain.sum())}
+        elif name == "png_defilter":
+            flag = torch.zeros(1, dtype=torch.int32, device=args[0].device)
+            err = max_abs_err(res, png_defilter_plain(*args, bpp=kw["bpp"], bad=flag))
+            if kw["bad"] is not None:  # valid streams: never set
+                err = max(err, max_abs_err(kw["bad"], flag))
+        else:
+            rows, width = args[0], kw["width"]
+            got = res
+            if kw.get("out") is not None:  # the pass's pixels, where K17 placed them
+                xo, yo, xf, yf = kw["place"]
+                got = res[:, yo : yo + rows.shape[1] * yf : yf, xo : xo + width * xf : xf]
+            err = max_abs_err(got, png_expand_plain(*args, cd=kw["cd"], width=width))
+        key = f"{PNG_KERNEL_TAGS[name]}_{self.tag}"
+        self.errs[key] = max(self.errs.get(key, 0), err)
+        self.kept.setdefault(name, (args, kw, res))
+
+
+def png_kernel_checks(dev, writer, decs, batch, interlaced):
+    """K15, K16 and K17 against their plain versions on the card at full
+    batch: every launch of the bench batch's decode by each front-end and
+    of both Adam7 batches' decode by ``device_inflate`` (PngLaunchCheck, at
+    the shapes and strides the decoder gives them); K15 on random rows with
+    random filter bytes 0-255 at every bpp; K16 against the host's inflate
+    and on hand-built chains; K17 on every arm, keyed or not, a short
+    palette, a width that is not a multiple of the pixels a byte, and
+    placed as an Adam7 pass.  -> (max abs errors, {front: kept launches},
+    facts)"""
+    from zpix_tpu_torch.ops.defilter import png_defilter, png_defilter_plain
+    from zpix_tpu_torch.ops.inflate import inflate_resolve, inflate_resolve_plain
+    from zpix_tpu_torch.ops.png import ARMS, png_expand, png_expand_plain, row_bytes
+
+    errs, facts, kept = {}, {}, {}
+
+    def zero():
+        return torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def checked_run(dec, datas, tag):
+        check = PngLaunchCheck(errs, facts, tag)
+        plan = dec.prep(datas)
+        bufs = dec.upload(plan)
+        px, bad = dec.run(plan, bufs, on_kernel=check)
+        torch.cuda.synchronize()
+        if bad is not None and int(bad):
+            raise SystemExit(f"chip_smoke: K15 flagged a filter type in {tag}")
+        return px, check.kept, bufs
+
+    px, bufs = {}, {}
+    for front, dec in decs.items():
+        px[front], kept[front], bufs[front] = checked_run(dec, batch, f"bench_{front}")
+    # K16's bytes against the host's inflate, which the defilter route uploads
+    errs["k16_bench_vs_host_inflate"] = max_abs_err(kept["inflate"]["inflate_resolve"][2][0],
+                                                    bufs["defilter"][0])
+    errs["k17_bench_routes_agree"] = max(max_abs_err(px["host"], px[f])
+                                         for f in ("defilter", "inflate"))
+    ft = kept["defilter"]["png_defilter"][0][1]
+    facts["k15_bench_rows_by_type"] = torch.bincount(ft.reshape(-1).long(), minlength=5).tolist()
+    for kind, (datas, src) in interlaced.items():
+        got, _kept, _bufs = checked_run(decs["inflate"], datas, f"adam7_{kind}")
+        errs[f"k17_adam7_{kind}_vs_source"] = max_abs_err(got, torch.from_numpy(src).to(dev))
+    del px, bufs
+
+    gen = np.random.default_rng(5)
+    for bpp in (1, 2, 3, 4, 6, 8):
+        s = torch.from_numpy(gen.integers(0, 256, (BATCH, SIZE, 1 + SIZE * bpp),
+                                          dtype=np.uint8)).to(dev)
+        bk, bp = zero(), zero()
+        errs[f"k15_random_types_bpp{bpp}"] = max(
+            max_abs_err(png_defilter(s[:, :, 1:], s[:, :, 0], bpp=bpp, bad=bk),
+                        png_defilter_plain(s[:, :, 1:], s[:, :, 0], bpp=bpp, bad=bp)),
+            max_abs_err(bk, bp), 1 - int(bk))
+        del s
+    lens, per = kept["inflate"]["inflate_resolve"][0][0], kept["inflate"]["inflate_resolve"][0][3]
+    facts["k16_bench_tokens"] = {"most": lens.shape[1],
+                                 "mean": float((lens > 0).sum(1).double().mean())}
+    kinds = ("rle", "overlap", "far")
+    hand = writer.stack_tokens([writer.hand_tokens(gen, per, kinds[i % 3])
+                                for i in range(BATCH)])
+    hand = [torch.from_numpy(a).to(dev) for a in hand]
+    got, moved = inflate_resolve(*hand, per)
+    want, moved_plain = inflate_resolve_plain(*hand, per)
+    errs["k16_hand_built"] = max_abs_err(got, want)
+    facts["k16_hand_built_rounds_moved"] = {"kernel": int(moved.sum()),
+                                            "plain": int(moved_plain.sum())}
+    del hand, got, want
+    # every arm at 16 x 1024 rows of width 1,021, not a multiple of 2, 4 or
+    # 8 pixels a byte; placed at Adam7 pass 5's offsets and strides
+    w = SIZE - 3
+    pal = torch.from_numpy(gen.integers(0, 256, (BATCH, 256, 4), dtype=np.uint8)).to(dev)
+    pal[:, 7:] = torch.tensor([0, 0, 0, 255], dtype=torch.uint8, device=dev)  # short palette
+    canvas_p = torch.zeros(BATCH, 2 * SIZE, 2 * w, 4, dtype=torch.uint8, device=dev)
+    rgen = torch.Generator(device=dev).manual_seed(5)
+    for cd in ARMS:
+        rows = torch.randint(0, 256, (BATCH, SIZE, row_bytes(cd, w)), generator=rgen,
+                             dtype=torch.uint8, device=dev)
+        keys = [None]
+        if cd in ("g1", "g2", "g4", "g8", "g16", "tc8", "tc16"):
+            first = rows[:, :1].cpu().numpy()
+            keys.append(torch.from_numpy(writer.first_pixel_keys(first, cd)).to(dev))
+        for key in keys:
+            tag = f"k17_{cd}{'_keyed' if key is not None else ''}"
+            errs[tag] = max_abs_err(png_expand(rows, pal, key, cd=cd, width=w),
+                                    png_expand_plain(rows, pal, key, cd=cd, width=w))
+            canvas_k = canvas_p.clone()
+            png_expand(rows, pal, key, cd=cd, width=w, out=canvas_k, place=(1, 0, 2, 2))
+            want = png_expand_plain(rows, pal, key, cd=cd, width=w, out=canvas_p.clone(),
+                                    place=(1, 0, 2, 2))
+            errs[tag + "_adam7_place"] = max_abs_err(canvas_k, want)
+        del rows
+    torch.cuda.synchronize()
+    return errs, kept, facts
+
+
+def png_phase(dev):
+    """PNG: K15-K17 against their plain versions at full batch, then
+    BatchPngDecoder by each front-end on 10 timed batches of the JAX bench's
+    content (launches of one decode, stages, pixels against the other routes
+    and Pillow), both Adam7 batches by every route against their source
+    pixels, and the damaged streams by every route.  -> (summary, {kernel:
+    timing entry}, {path: launches of one decode})"""
+    from io import BytesIO
+
+    from PIL import Image
+
+    from zpix_tpu_torch import BatchPngDecoder, runtime
+    from zpix_tpu_torch.errors import ZpixError
+    from zpix_tpu_torch.ops.defilter import png_defilter, png_defilter_plain
+    from zpix_tpu_torch.ops.inflate import doubling_rounds, inflate_resolve, inflate_resolve_plain
+    from zpix_tpu_torch.ops.png import png_expand, png_expand_plain
+    from zpix_tpu_torch.runtime import host
+
+    writer = png_writer()
+    t0 = time.perf_counter()
+    batches, interlaced = make_png_content(writer)
+    content_s = time.perf_counter() - t0
+    decs = {f: BatchPngDecoder(**kw) for f, kw in PNG_FRONTS.items()}
+    t0 = time.perf_counter()
+    errs, kept, facts = png_kernel_checks(dev, writer, decs, batches[0], interlaced)
+    checks_s = time.perf_counter() - t0
+
+    # the routes: one decode with launches counted, then 10 timed batches;
+    # every timed batch equal across the routes, images 0-1 equal Pillow's
+    ref, routes, launches = {}, {}, {}
+
+    def pillow_and_keep(datas, px):
+        ref[id(datas)] = px
+        pil = np.stack([np.asarray(Image.open(BytesIO(d)).convert("RGBA")) for d in datas[:2]])
+        return bool(np.array_equal(px[:2].cpu().numpy(), pil))
+
+    for front, dec in decs.items():
+        dec.decode(batches[1])  # warm: pinned buffer, pool, token rows
+        torch.cuda.synchronize()
+        runtime.reset_launches()
+        dec.decode(batches[0])
+        torch.cuda.synchronize()
+        launches[front] = dict(runtime.LAUNCHES)
+        check = pillow_and_keep if front == "host" else (
+            lambda datas, px: bool(torch.equal(px, ref[id(datas)])))
+        walls, peak, mean, oks = timed_decodes(dec.decode, batches[2:],
+                                               lambda d, dec=dec: png_stages(dec, d), check)
+        _px, sizes, _ms = png_stages(dec, batches[2])
+        key = "equal_pillow_images_0_1" if front == "host" else "equal_host_route"
+        routes[front] = {key: oks, **sizes, **route_summary(walls, peak, mean, launches[front])}
+    ref.clear()
+
+    # Adam7: both batches by every route against the writer's source pixels
+    adam7 = {}
+    for kind, (datas, src) in interlaced.items():
+        want = torch.from_numpy(src).to(dev)
+        for front, dec in decs.items():
+            runtime.reset_launches()
+            px = dec.decode(datas)
+            torch.cuda.synchronize()
+            if kind == "tc8" and front == "host":
+                launches["adam7"] = dict(runtime.LAUNCHES)
+            adam7[f"{kind}_{front}_equal_source"] = bool(torch.equal(px, want))
+        del want
+
+    # damaged streams, each by every route: the error class and message
+    rng = np.random.default_rng(8)
+    pix = rng.integers(0, 256, (48, 64, 3), dtype=np.uint8)
+    good = writer.encode_png(pix, "tc8")
+    damaged = {}
+    for damage in writer.DAMAGE:
+        bad = writer.encode_png(pix, "tc8", damage=damage, filters=[0])
+        for front, dec in decs.items():
+            try:
+                dec.decode([good, bad])
+                damaged[f"{damage}_{front}"] = "no error"
+            except ZpixError as exc:
+                damaged[f"{damage}_{front}"] = f"{type(exc).__name__}: {exc}"
+    for dec in decs.values():
+        dec.close()
+
+    # timing entries on the bench batch's launches of the main path (the
+    # inputs run gave each kernel): K15 on the defilter route's stream
+    # views, K16 on the inflate route's token-row views, K17's tc8 arm on
+    # the default route's uploaded rows (library: one F.pad adding the
+    # alpha); p8 beside it (library: the gather pal[b, idx])
+    raw, ft = kept["defilter"]["png_defilter"][0]
+    toks, per = kept["inflate"]["inflate_resolve"][0][:3], kept["inflate"]["inflate_resolve"][0][3]
+    nt = toks[0].shape[1]
+    rows = kept["host"]["png_expand"][0][0]
+    npx = BATCH * SIZE * SIZE
+    ftc = facts["k15_bench_rows_by_type"]
+    idx8 = torch.from_numpy(np.random.default_rng(9).integers(
+        0, 256, (BATCH, SIZE, SIZE), dtype=np.uint8)).to(dev)
+    pal8 = torch.from_numpy(np.random.default_rng(9).integers(
+        0, 256, (BATCH, 256, 4), dtype=np.uint8)).to(dev)
+    errs["k17_p8_timed_inputs"] = max_abs_err(png_expand(idx8, pal8, None, cd="p8", width=SIZE),
+                                              png_expand_plain(idx8, pal8, None, cd="p8",
+                                                               width=SIZE))
+    bidx = torch.arange(BATCH, device=dev)[:, None, None]
+    idx_long = idx8.long()
+    tc8 = rows.view(BATCH, SIZE, SIZE, 3)
+    moved = facts["k16_bench_inflate_rounds_moved"]["kernel"]
+    entries = {
+        "png_defilter": {
+            "ms": cuda_ms(lambda: png_defilter(raw, ft, bpp=3), 5),
+            "plain_ms": cuda_ms(lambda: png_defilter_plain(raw, ft, bpp=3), 1),
+            "bytes": 2 * raw.numel() + ft.numel(),
+            "ops": sum(OPS_K15_BYTE[t] * n for t, n in enumerate(ftc[:5])) * SIZE * 3,
+            "launches": launches["defilter"]["png_defilter"], "library_ms": None,
+            "library_note": "no single PyTorch call computes the Paeth recurrence",
+            "max_abs_err": max(v for k, v in errs.items() if k.startswith("k15")),
+            "chain_bound_ms": (2 * SIZE - 1) * CHAIN_CYCLES_PER_STEP / BOOST_HZ * 1e3,
+            "chain_cycles_per_step": CHAIN_CYCLES_PER_STEP,
+            "rows_by_filter_type": ftc},
+        "inflate_resolve": {
+            "ms": cuda_ms(lambda: inflate_resolve(*toks, per), 10),
+            "plain_ms": cuda_ms(lambda: inflate_resolve_plain(*toks, per), 1),
+            "bytes": BATCH * nt * 9 + BATCH * per,
+            "ops": OPS_K16_TOKEN * BATCH * nt + OPS_K16_BYTE * BATCH * per,
+            "launches": launches["inflate"]["inflate_resolve"], "library_ms": None,
+            "library_note": "no single PyTorch call resolves LZ77 copies",
+            "max_abs_err": max(v for k, v in errs.items() if k.startswith("k16")),
+            "rounds_run": min(doubling_rounds(per), moved + 1),
+            "rounds_moved": facts["k16_bench_inflate_rounds_moved"],
+            "rounds_moved_hand_built": facts["k16_hand_built_rounds_moved"],
+            "tokens": facts["k16_bench_tokens"]},
+        "png_expand": {
+            "ms": cuda_ms(lambda: png_expand(rows, None, None, cd="tc8", width=SIZE), 20),
+            "plain_ms": cuda_ms(lambda: png_expand_plain(rows, None, None, cd="tc8",
+                                                         width=SIZE), 1),
+            "bytes": rows.numel() + 4 * npx, "ops": OPS_K17_PIXEL * npx,
+            "launches": launches["host"]["png_expand"],
+            "library_ms": cuda_ms(lambda: torch.nn.functional.pad(tc8, (0, 1), value=255), 20),
+            "max_abs_err": max(v for k, v in errs.items() if k.startswith("k17")), "arm": "tc8",
+            "arm_p8": with_bound({
+                "ms": cuda_ms(lambda: png_expand(idx8, pal8, None, cd="p8", width=SIZE), 20),
+                "plain_ms": cuda_ms(lambda: png_expand_plain(idx8, pal8, None, cd="p8",
+                                                             width=SIZE), 1),
+                "library_ms": cuda_ms(lambda: pal8[bidx, idx_long], 20),
+                "bytes": idx8.numel() + pal8.numel() + 4 * npx, "ops": 0})},
+    }
+    del rows, idx8, idx_long, toks, kept
+    summary = {"content_seconds": content_s, "kernel_checks_seconds": checks_s,
+               "max_abs_err": errs, "facts": facts, "routes": routes, "adam7": adam7,
+               "damaged": damaged, "inflater": "libdeflate" if host.libdeflate_available()
+               else "zlib", "bytes_per_image": float(np.mean([len(d) for d in batches[0]])),
+               "inflated_bytes_per_image": per}
+    paths = {"png_host": launches["host"], "png_defilter": launches["defilter"],
+             "png_inflate": launches["inflate"], "png_adam7": launches["adam7"]}
+    return summary, entries, paths
+
+
+PNG_DAMAGE_WANT = {  # damage -> (error class, message prefix) on the host-inflate routes
+    "crc": ("ChecksumError", "png: CRC mismatch"),
+    "short": ("FormatError", "png: not enough image data"),
+    "filter": ("FormatError", "png: invalid filter type"),
+    "deflate": ("FormatError", "png: inflate failed"),
+}
+PNG_DAMAGE_WANT_INFLATE = {**PNG_DAMAGE_WANT, "short": ("FormatError",
+                                                        "png: inflated size mismatch"),
+                           "deflate": ("FormatError", "zlib: invalid deflate stream")}
+
+
+def png_check(pg, paths) -> None:
+    """SystemExit unless the png phase's checks all held."""
+    if any(pg["max_abs_err"].values()):
+        raise SystemExit("chip_smoke: a PNG kernel disagrees with its plain version")
+    if (min(p["png_expand"] for p in paths.values()) == 0
+            or min(paths[p]["png_defilter"] for p in ("png_defilter", "png_inflate",
+                                                      "png_adam7")) == 0
+            or paths["png_inflate"]["inflate_resolve"] == 0):
+        raise SystemExit("chip_smoke: a PNG route skipped its kernel")
+    r = pg["routes"]
+    if (not all(r["host"]["equal_pillow_images_0_1"])
+            or not all(all(r[f]["equal_host_route"]) for f in ("defilter", "inflate"))
+            or not all(pg["adam7"].values())):
+        raise SystemExit("chip_smoke: a PNG route's pixels are wrong")
+    for key, got in pg["damaged"].items():
+        damage, front = key.split("_", 1)
+        cls, msg = (PNG_DAMAGE_WANT_INFLATE if front == "inflate" else PNG_DAMAGE_WANT)[damage]
+        if not got.startswith(f"{cls}: {msg}"):
+            raise SystemExit(f"chip_smoke: damaged PNG {key} gave {got!r}")
+
+
 def raster_slice(dev):
-    """The phases qoi, qoi_encode and bmp, each printed and checked ->
+    """The phases qoi, qoi_encode, bmp and png, each printed and checked ->
     ({kernel: timing entry}, {path: launches of one call})."""
     # ------------------------------------------------------------ QOI
     t0 = time.perf_counter()
@@ -1368,8 +1799,15 @@ def raster_slice(dev):
     if (not all(r["main_equal_plain"] and all(r["timed_equal_plain"])
                 for r in bm["routes"].values()) or bm["truncated"] != "UnexpectedEof"):
         raise SystemExit("chip_smoke: the BMP route's output is wrong")
+
+    # ------------------------------------------------------------ PNG
+    t0 = time.perf_counter()
+    pg, png_entries, png_paths = png_phase(dev)
+    emit({"phase": "png", "seconds": time.perf_counter() - t0, **pg})
+    png_check(pg, png_paths)
+    raster_entries.update(png_entries)
     return raster_entries, {"qoi_lane": q_launches["noise"], "qoi_sorted": q_launches["sorted"],
-                            "qoi_encode": qe_launches, "bmp": bm_launches}
+                            "qoi_encode": qe_launches, "bmp": bm_launches, **png_paths}
 
 
 def main() -> int:

@@ -440,3 +440,146 @@ def test_bmp_unpack_matches_plain(cuda, size):
                                 bpp=bpp, width=width, top_down=top_down,
                                 allow_alpha=allow_alpha)
         assert torch.equal(got, want), arm
+
+
+# ------------------------------------------------------ PNG slice (K15-K17)
+
+PNG_DEPTHS = ("g1", "g2", "g4", "g8", "g16", "tc8", "tc16", "tca8", "tca16", "ga8", "ga16",
+              "p1", "p2", "p4", "p8")
+PNG_KEYED = ("g1", "g2", "g4", "g8", "g16", "tc8", "tc16")  # depths a tRNS key applies to
+PNG_FRONTS = {"host": {}, "defilter": {"device_defilter": True},
+              "inflate": {"device_inflate": True}}
+
+
+def _counted(kernel, n, fn, *args, **kw):
+    before = runtime.LAUNCHES[kernel]
+    out = fn(*args, **kw)
+    assert runtime.LAUNCHES[kernel] == before + n
+    return out
+
+
+@pytest.mark.parametrize("bpp", [1, 2, 3, 4, 6, 8])
+@pytest.mark.parametrize("H,W", [(1, 40), (40, 1), (9, 70), (70, 9), (1500, 3)],
+                         ids=lambda v: str(v))
+def test_png_defilter_matches_plain(cuda, bpp, H, W):
+    """K15 on random rows with random filter bytes 0-255, contiguous and
+    read in place from a filtered stream [B, H, 1 + Wb] (H above the
+    block's 1,024 threads too); the flag of types above 4 as well."""
+    from zpix_tpu_torch.ops.defilter import png_defilter, png_defilter_plain
+
+    rng = np.random.default_rng(bpp * 1000 + H)
+    stream = torch.from_numpy(rng.integers(0, 256, (3, H, 1 + W * bpp), dtype=np.uint8)).to(cuda)
+    stream[1, :, 0] %= 5  # image 1: valid types only
+    for raw, ft in ((stream[:, :, 1:].contiguous(), stream[:, :, 0].contiguous()),
+                    (stream[:, :, 1:], stream[:, :, 0])):
+        bad_k = torch.zeros(1, dtype=torch.int32, device=cuda)
+        bad_p = torch.zeros(1, dtype=torch.int32, device=cuda)
+        got = _counted("png_defilter", 1, png_defilter, raw, ft, bpp=bpp, bad=bad_k)
+        assert torch.equal(got, png_defilter_plain(raw, ft, bpp=bpp, bad=bad_p))
+        assert torch.equal(bad_k, bad_p)
+    good = stream[1:2]
+    bad = torch.zeros(1, dtype=torch.int32, device=cuda)
+    png_defilter(good[:, :, 1:], good[:, :, 0], bpp=bpp, bad=bad)
+    assert int(bad) == 0
+
+
+@pytest.mark.parametrize("case", ["stored", "fixed", "rle", "default", "hand"])
+def test_inflate_resolve_matches_plain(cuda, case):
+    """K16 on the tokenizer's output for the four deflate modes (rows read
+    through a wider stride, as the decoder's staging layout has them) and
+    on hand-built chains: 258-byte distance-1 runs over a whole image,
+    overlapping copies, distance 32,768, zero-length padding."""
+    from _torch_png import encode_png, hand_tokens, random_pixels, stack_tokens
+
+    from zpix_tpu_torch.ops.inflate import doubling_rounds, inflate_resolve, inflate_resolve_plain
+    from zpix_tpu_torch.parallel.png_batch import parse_tokens
+
+    rng = np.random.default_rng(5)
+    if case == "hand":
+        per = 70_000
+        toks = [hand_tokens(rng, per, k) for k in ("rle", "overlap", "far")]
+    else:
+        pix = [random_pixels(rng, "tc8", 61, 47, hi=4) for _ in range(2)]
+        files = [encode_png(p, "tc8", strategy=case, seed=i) for i, p in enumerate(pix)]
+        toks = [parse_tokens(f)[1:] for f in files]
+        per = 47 * (1 + 61 * 3)
+    lens, dists, lits = (torch.from_numpy(a).to(cuda) for a in stack_tokens(toks))
+    nt = max(len(t[0]) for t in toks)
+    views = [a[:, : nt + 2] for a in (lens, dists, lits)]  # strided rows
+    got, moved = _counted("inflate_resolve", doubling_rounds(per) + 4, inflate_resolve, *views,
+                          per)
+    assert torch.equal(got, inflate_resolve_plain(*views, per)[0])
+    assert torch.equal(got, inflate_resolve(lens, dists, lits, per)[0])
+    # in place, a round reaches at least as far as a ping-pong round
+    assert int(moved.sum()) <= int(inflate_resolve_plain(*views, per)[1].sum())
+
+
+@pytest.mark.parametrize("cd", PNG_DEPTHS)
+def test_png_expand_matches_plain(cuda, cd):
+    """K17 on every arm, with and without a tRNS key (keyed and unkeyed
+    images in one batch), a short palette, widths that are not a multiple
+    of the pixels a byte, and placed on an Adam7 canvas."""
+    from _torch_png import first_pixel_keys
+
+    from zpix_tpu_torch.ops.png import png_expand, png_expand_plain, row_bytes
+
+    rng = np.random.default_rng(len(cd))
+    for w, h in ((13, 5), (64, 9)):
+        rows = torch.from_numpy(rng.integers(0, 256, (3, h, row_bytes(cd, w)),
+                                             dtype=np.uint8)).to(cuda)
+        pal = torch.from_numpy(rng.integers(0, 256, (3, 256, 4), dtype=np.uint8)).to(cuda)
+        keys = [None]
+        if cd in PNG_KEYED:
+            keys.append(torch.from_numpy(first_pixel_keys(rows.cpu().numpy(), cd)).to(cuda))
+        for key in keys:
+            got = _counted("png_expand", 1, png_expand, rows, pal, key, cd=cd, width=w)
+            assert torch.equal(got, png_expand_plain(rows, pal, key, cd=cd, width=w))
+            canvas = torch.zeros(3, 2 * h + 1, 8 * w, 4, dtype=torch.uint8, device=cuda)
+            want = png_expand_plain(rows, pal, key, cd=cd, width=w, out=canvas.clone(),
+                                    place=(4, 1, 8, 2))
+            png_expand(rows, pal, key, cd=cd, width=w, out=canvas, place=(4, 1, 8, 2))
+            assert torch.equal(canvas, want)
+
+
+@pytest.mark.parametrize("interlace", [False, True], ids=["plain", "adam7"])
+@pytest.mark.parametrize("cd", PNG_DEPTHS)
+def test_png_routes_match_cpu_run(cuda, cd, interlace):
+    """BatchPngDecoder by each front-end on the card against the same
+    call on the CPU, keyed images and short palettes included, and the
+    kernels each route launches."""
+    from _torch_png import png_batch
+
+    from zpix_tpu_torch import BatchPngDecoder
+
+    datas, _ = png_batch(cd, 21, 11, batch=3, seed=3, interlace=interlace,
+                         trns=cd in PNG_KEYED or cd.startswith("p"), short=cd.startswith("p"))
+    passes = 7 if interlace else 1
+    for front, kw in PNG_FRONTS.items():
+        want = BatchPngDecoder(device="cpu", **kw).decode(datas)
+        runtime.reset_launches()
+        got = BatchPngDecoder(**kw).decode(datas)
+        assert got.device.type == "cuda" and torch.equal(got.cpu(), want), front
+        on_card = front != "host" or interlace
+        assert runtime.LAUNCHES["png_defilter"] == (passes if on_card else 0), front
+        assert runtime.LAUNCHES["png_expand"] == passes, front
+        assert (runtime.LAUNCHES["inflate_resolve"] > 0) == (front == "inflate"), front
+
+
+@pytest.mark.parametrize("interlace", [False, True], ids=["plain", "adam7"])
+def test_png_damaged_streams_raise_as_on_cpu(cuda, interlace):
+    """The four damaged streams raise the same error by every route on the
+    card as on the CPU."""
+    from _torch_png import DAMAGE, encode_png, random_pixels
+
+    from zpix_tpu_torch import BatchPngDecoder
+
+    pix = random_pixels(np.random.default_rng(1), "tc8", 16, 8)
+    good = encode_png(pix, "tc8", interlace=interlace)
+    for damage in DAMAGE:
+        bad = encode_png(pix, "tc8", interlace=interlace, filters=[0], damage=damage)
+        for front, kw in PNG_FRONTS.items():
+            with pytest.raises(Exception) as want:
+                BatchPngDecoder(device="cpu", **kw).decode([good, bad])
+            with pytest.raises(type(want.value)) as got:
+                BatchPngDecoder(**kw).decode([good, bad])
+            assert str(got.value) == str(want.value), (damage, front)

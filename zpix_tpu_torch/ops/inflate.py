@@ -1,0 +1,84 @@
+"""K16, the LZ77 copy resolve: DEFLATE tokens -> the inflated bytes.
+
+``inflate_resolve`` wraps K16 (csrc/inflate_resolve.cu), the port of
+zpix_tpu/ops/inflate.py::resolve_tokens_jnp (:33) vmapped an image
+(zpix_tpu/parallel/png_batch.py:498-500).  ``inflate_resolve_plain`` is
+the same function in plain PyTorch, written as the JAX graph is: token
+starts by an exclusive cumsum, each byte's token by searchsorted (side
+"right", minus 1), a source pointer (pos for a literal, pos - dist for a
+copy), pointer doubling to the fixed point, and a gather of the literals.
+The dispatch takes it for CPU tensors only.
+
+Tokens come from the host symbol-resolve pass (``runtime.host.
+inflate_tokens``): lens and dists int32, lits u8, [B, NT], zero-length
+padding after each image's last token.  Domain: lengths >= 1 summing to
+``per``, 1 <= dist <= the bytes produced before the token.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import runtime
+
+SCAN_TILE = 4096  # tokens a tile of K16's scan (csrc/inflate_resolve.cu kTile)
+
+
+def doubling_rounds(per: int) -> int:
+    """Rounds that always reach the fixed point: every chain is shorter
+    than ``per``, and a round at least doubles each pointer's reach."""
+    return max(1, (per - 1).bit_length())
+
+
+def inflate_resolve_plain(lens, dists, lits, per: int):
+    B = lens.shape[0]
+    dev = lens.device
+    ln = lens.to(torch.int64)
+    starts = torch.cumsum(ln, 1) - ln  # the first byte of each token
+    pos = torch.arange(per, dtype=torch.int64, device=dev).expand(B, per).contiguous()
+    # Padded tokens start at the total (== per) > pos: never selected.
+    tok = torch.searchsorted(starts, pos, right=True) - 1
+    d = torch.gather(dists.to(torch.int64), 1, tok)
+    src = torch.where(d > 0, pos - d, pos)
+    val = torch.gather(lits, 1, tok)
+    moved = torch.zeros(doubling_rounds(per), dtype=torch.int32, device=dev)
+    for k in range(moved.numel()):  # ping-pong: nxt is a new tensor
+        nxt = torch.gather(src, 1, src)
+        if torch.equal(nxt, src):
+            break
+        moved[k] = 1
+        src = nxt
+    return torch.gather(val, 1, src), moved
+
+
+def inflate_resolve(lens, dists, lits, per: int):
+    """K16: lens, dists int32 and lits u8 [B, NT] (each row contiguous; rows
+    may be strided views of a wider staging buffer) -> (u8 [B, per], moved
+    int32 [doubling_rounds(per)]: entry k is 1 when doubling round k moved
+    a pointer).  The kernel doubles in place and may reach the fixed point
+    a round sooner than the plain version's ping-pong, so the two ``moved``
+    can differ; the bytes cannot."""
+    if lens.dtype != torch.int32 or dists.dtype != torch.int32 or lits.dtype != torch.uint8:
+        raise TypeError("inflate resolve: expected int32 lens and dists, u8 lits")
+    if lens.dim() != 2 or dists.shape != lens.shape or lits.shape != lens.shape:
+        raise ValueError("inflate resolve: lens, dists and lits must be [B, NT]")
+    if per < 1 or per >= 2**31:
+        raise ValueError("inflate resolve: output size out of range")
+    if lens.device.type == "cpu":
+        return inflate_resolve_plain(lens, dists, lits, per)
+    runtime.require_cuda(lens, dists, lits, rows=True)
+    if not lens.stride(0) == dists.stride(0) == lits.stride(0):
+        raise ValueError("inflate resolve: lens, dists and lits must share a row stride")
+    B, nt = lens.shape
+    dev = lens.device
+    rounds = doubling_rounds(per)
+    moved = torch.zeros(rounds, dtype=torch.int32, device=dev)
+    src = torch.empty(B, per, dtype=torch.int32, device=dev)
+    tile_sum = torch.empty(B, max(1, -(-nt // SCAN_TILE)), dtype=torch.int32, device=dev)
+    out = torch.empty(B, per, dtype=torch.uint8, device=dev)
+    if B and nt:
+        runtime.launch("inflate_resolve", dev, "zpix_inflate_resolve", "pppllpppplli",
+                       lens.data_ptr(), dists.data_ptr(), lits.data_ptr(), lens.stride(0), nt,
+                       src.data_ptr(), tile_sum.data_ptr(), moved.data_ptr(), out.data_ptr(),
+                       B, per, rounds, kernels=rounds + 4)
+    return out, moved

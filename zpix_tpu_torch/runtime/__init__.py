@@ -36,7 +36,8 @@ LAUNCHES = {"index_pass": 0, "value_pass": 0, "dc_restore": 0,
             "backend": 0, "idct_blocks": 0, "unpack_sparse": 0,
             "component_planes": 0, "dc_first": 0, "ac_first": 0,
             "ac_refine": 0, "dc_refine": 0, "qoi_lane_expand": 0,
-            "qoi_sorted_expand": 0, "qoi_encode": 0, "bmp_unpack": 0}
+            "qoi_sorted_expand": 0, "qoi_encode": 0, "bmp_unpack": 0,
+            "png_defilter": 0, "inflate_resolve": 0, "png_expand": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -146,13 +147,15 @@ def launch(kernel: str, device, name: str, sig: str, *args, kernels: int = 1) ->
     LAUNCHES[kernel] += kernels
 
 
-def require_cuda(*tensors) -> None:
-    """Kernel inputs must be contiguous CUDA tensors on one device."""
+def require_cuda(*tensors, rows: bool = False) -> None:
+    """Kernel inputs must be contiguous CUDA tensors on one device; with
+    ``rows``, only their last dimension (a kernel that reads rows through
+    strides)."""
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(
                 f"zpix_tpu_torch: kernel input on {t.device}, expected one CUDA device"
             )
-        if not t.is_contiguous():
+        if not (t.stride(-1) == 1 if rows else t.is_contiguous()):
             raise ValueError("zpix_tpu_torch: kernel input is not contiguous")

@@ -87,6 +87,10 @@ _SIGNATURES = {
                                   _P, _P]),
     "zpix_qoi_lane_fill4": (_I32, [ctypes.c_char_p, _I64, _I64, _I32, _I32, _P, _P, _P]),
     "zpix_qoi_encode": (_I64, [_P, _I64, _I32, _P, _I64]),
+    # csrc/host/inflate.cpp and csrc/host/defilter.cpp
+    "zpix_inflate_tokens": (_I64, [_P, _I64, _I32, _P, _P, _P, _I64, _I64, _P]),
+    "zpix_defilter": (_I32, [_P, _I64, _I64, _I32, _P]),
+    "zpix_defilter_batch": (_I32, [_P, _I64, _I64, _I32, _P, _I32, _I32]),
 }
 
 _lock = threading.Lock()
@@ -135,3 +139,91 @@ def lib(extra_flags: tuple = ()) -> ctypes.CDLL:
                 f.restype, f.argtypes = res, args
             _libs[key] = cdll
     return _libs[key]
+
+
+def inflate_tokens(data: bytes, expected_out: int, zlib_wrap: bool = True, out=None):
+    """DEFLATE symbol-resolve pass: bitstream -> LZ77 token arrays (the port
+    of zpix_tpu/runtime/__init__.py::inflate_tokens).
+
+    Returns (lens int32[nt], dists int32[nt], lits uint8[nt], out_bytes).
+    ``out``: (lens, dists, lits) numpy arrays to write into (pinned
+    staging); the returned arrays are views of them, and None is returned
+    when they are shorter than expected_out + 1 and too short for this
+    stream.  Raises FormatError on a malformed stream or when the stream
+    inflates past expected_out (PNG's IHDR fixes the exact size, so an
+    overflow is corruption).  The copy resolve runs on the card (K16)."""
+    import numpy as np
+
+    from ..errors import FormatError
+
+    # Every token produces >= 1 byte, so expected_out bounds the count.
+    max_tokens = expected_out + 1
+    if out is None:
+        out = (np.empty(max_tokens, np.int32), np.empty(max_tokens, np.int32),
+               np.empty(max_tokens, np.uint8))
+    lens, dists, lits = out
+    room = min(len(lens), len(dists), len(lits), max_tokens)
+    out_bytes = ctypes.c_int64(0)
+    nt = lib().zpix_inflate_tokens(data, len(data), 1 if zlib_wrap else 0,
+                                   lens.ctypes.data, dists.ctypes.data, lits.ctypes.data,
+                                   room, expected_out, ctypes.byref(out_bytes))
+    if nt == -102 and room < max_tokens:
+        return None  # out of room, or past expected_out: the caller retries at full room
+    if nt < 0:
+        raise FormatError(f"zlib: invalid deflate stream (code {-nt})")
+    return lens[:nt], dists[:nt], lits[:nt], out_bytes.value
+
+
+_libdeflate = None
+_libdeflate_local = threading.local()
+
+
+def _get_libdeflate():
+    global _libdeflate
+    if _libdeflate is None:
+        try:
+            cdll = ctypes.CDLL("libdeflate.so.0")
+            cdll.libdeflate_alloc_decompressor.restype = ctypes.c_void_p
+            cdll.libdeflate_zlib_decompress.restype = ctypes.c_int
+            cdll.libdeflate_zlib_decompress.argtypes = [
+                ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
+                ctypes.c_size_t, ctypes.POINTER(ctypes.c_size_t)]
+            _libdeflate = cdll
+        except OSError:
+            _libdeflate = False
+    return _libdeflate or None
+
+
+def libdeflate_available() -> bool:
+    return _get_libdeflate() is not None
+
+
+def zlib_decompress_sized(data: bytes, out_size: int, out=None):
+    """Inflate a zlib stream of known decompressed size with the system's
+    libdeflate (the port of zpix_tpu/runtime/__init__.py::
+    zlib_decompress_sized).
+
+    Returns the bytes -- or ``out``, a writable uint8 numpy array of
+    ``out_size`` bytes (pinned staging) inflated in place -- or None when
+    libdeflate is not installed, the stream is refused or its size differs
+    (the caller then inflates with the standard library's ``zlib``, the
+    same bytes).  One decompressor a thread; ctypes releases the GIL."""
+    cdll = _get_libdeflate()
+    if cdll is None:
+        return None
+    dec = getattr(_libdeflate_local, "dec", None)
+    if dec is None:
+        dec = cdll.libdeflate_alloc_decompressor()
+        if not dec:
+            return None
+        _libdeflate_local.dec = dec
+    if out is not None and (out.nbytes != out_size or not out.flags.c_contiguous):
+        raise ValueError("zlib_decompress_sized: out must be out_size contiguous bytes")
+    buf = ctypes.create_string_buffer(out_size) if out is None else None
+    actual = ctypes.c_size_t(0)
+    rc = cdll.libdeflate_zlib_decompress(dec, data, len(data),
+                                         buf if out is None else out.ctypes.data, out_size,
+                                         ctypes.byref(actual))
+    if rc != 0 or actual.value != out_size:
+        return None
+    return buf.raw if out is None else out
