@@ -9,9 +9,10 @@ It builds the CUDA kernels from zpix_tpu_torch/csrc (nvcc) and the host
 library from zpix_tpu_torch/csrc/host (g++), checks each kernel against
 its plain PyTorch version on the card (exact equality), decodes batches
 of 16 distinct 1024x1024 baseline 4:2:0 JPEGs (quality 50) through the
-port's three baseline routes -- ``DeviceJpegDecoder`` on streams with a
+port's four baseline routes -- ``DeviceJpegDecoder`` on streams with a
 restart marker every 8 MCUs, and ``BatchJpegDecoder`` (native front-end,
-K7, K6) and ``HostIndexJpegDecoder`` (host index scan, K2, K3, K4) on
+K7, K6), ``HostIndexJpegDecoder`` (host index scan, K2, K3, K4) and
+``SyncJpegDecoder`` (K19's chunk sync, K2, K3, K4; the ``sync`` phase) on
 streams with none -- and batches of 16 copies of one 1024x1024 4:2:0
 progressive JPEG (a new image each batch) through
 ``OnchipProgressiveDecoder`` (host index walks, K8-K11, K3, K6), times
@@ -29,8 +30,10 @@ JAX bench's content (Pillow, compress_level 6) through ``BatchPngDecoder``
 by its three front-ends (host inflate and defilter, K17; host inflate,
 K15, K17; host tokens, K16, K15, K17), two Adam7 batches (RGB8, and
 paletted with tRNS, from the tests' PNG writer, tests/_torch_png.py) by
-every front-end, and four kinds of damaged stream.  The last line is
-``{"ok": true, "device": {...}}``; any failure exits non-zero.  Without
+every front-end, and five kinds of damaged stream (a wrong adler32
+trailer among them, checked on the card by ``device_inflate``).  The
+last line is ``{"ok": true, "device": {...}}``; any failure exits
+non-zero.  Without
 CUDA it exits non-zero and prints no result.
 """
 
@@ -114,6 +117,8 @@ KERNELS = {  # name -> (source, TPU-side function it replaces)
     "png_defilter": ("zpix_tpu_torch/csrc/png_defilter.cu", "zpix_tpu/ops/defilter.py:35"),
     "inflate_resolve": ("zpix_tpu_torch/csrc/inflate_resolve.cu", "zpix_tpu/ops/inflate.py:33"),
     "png_expand": ("zpix_tpu_torch/csrc/png_expand.cu", "zpix_tpu/parallel/png_batch.py:299"),
+    "sync_decode": ("zpix_tpu_torch/csrc/sync_entropy.cu",
+                    "zpix_tpu/parallel/device_entropy_sync.py:176"),
 }
 PROG_KINDS = ("dc_first", "ac_first", "ac_refine", "dc_refine")
 RASTER_KINDS = ("qoi_lane_expand", "qoi_sorted_expand", "qoi_encode", "bmp_unpack",
@@ -234,9 +239,9 @@ def max_abs_err(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item()) if a.numel() else 0
 
 
-def segment_symbols(ac, dc_diff, seg_nmcu, nblk: int, bpm: int):
-    """Huffman symbols per block (DC, AC with ZRLs, EOB) from decoded
-    coefficients, -> (max per restart segment, max per block, total)."""
+def block_symbols(ac):
+    """Huffman symbols of each block (DC, AC with ZRLs, EOB) from its
+    decoded natural-order AC row -> int64 [L2]."""
     from zpix_tpu_torch.codecs.jpeg.tables import UNZIG
 
     zz = ac[:, torch.as_tensor(UNZIG, device=ac.device).long()][:, 1:] != 0  # [L2, 63]
@@ -245,7 +250,13 @@ def segment_symbols(ac, dc_diff, seg_nmcu, nblk: int, bpm: int):
     prev = torch.cummax(torch.where(zz, idx, 0), 1).values
     prev = torch.cat([torch.zeros_like(prev[:, :1]), prev[:, :-1]], 1)
     run = torch.where(zz, idx - prev - 1, 0)
-    syms = 1 + zz.sum(1) + (run // 16).sum(1) + (last < 63).long()
+    return 1 + zz.sum(1) + (run // 16).sum(1) + (last < 63).long()
+
+
+def segment_symbols(ac, dc_diff, seg_nmcu, nblk: int, bpm: int):
+    """Huffman symbols per block from decoded coefficients, -> (max per
+    restart segment, max per block, total)."""
+    syms = block_symbols(ac)
     blk = torch.arange(ac.shape[0], device=ac.device) % nblk
     valid = (blk // bpm) < seg_nmcu.long().repeat_interleave(nblk)
     syms = torch.where(valid, syms, 0)
@@ -495,6 +506,253 @@ def host_index_inputs(batch):
     ok = torch.ones(1, dtype=torch.int32, device=bufs[0].device)
     ac, dc = ke.value_pass(*bufs[:4], bufs[4], ok, bpm=plan.bpm)
     return plan, bufs, ac, dc
+
+
+# ------------------------------------------- restart-free on the card (K19)
+
+SYNC_CHUNKS = (32, 256)  # the port's default chunk, and the JAX bench's (bench.py:763)
+
+
+def sync_kernel_checks(batch, hplan):
+    """K19 against its plain version on the card at full batch, at both
+    chunk sizes: ends, ok, the entries and the link misses; the ends
+    against the host index scan's; K19 alone at each sync chunk size (its
+    misses and time).  -> {case: facts}"""
+    from zpix_tpu_torch import SyncJpegDecoder, prep_batch_sync
+    from zpix_tpu_torch.ops import sync as ksync
+
+    out = {}
+    # K19 alone at each sync chunk size on the 32-byte chunks: misses and time
+    plan = prep_batch_sync(batch)
+    b = SyncJpegDecoder().upload(plan)
+    kw = dict(chunk_bytes=plan.chunk_bytes, n_chunks=plan.n_chunks, bpm=plan.bpm,
+              nblk=plan.n_mcu * plan.bpm)
+    ref = ksync.sync_ends(b[0], b[1], b[4], b[3], **kw)
+    for sb in (32, 64, 128, 256, 512):
+        res = ksync.sync_ends(b[0], b[1], b[4], b[3], sync_bytes=sb, **kw)
+        out[f"sync_bytes{sb}"] = {
+            "misses": int(res[3]), "ms": cuda_ms(lambda: ksync.sync_ends(
+                b[0], b[1], b[4], b[3], sync_bytes=sb, **kw), 3),
+            "max_abs_err_vs_default": max(max_abs_err(x, y) for x, y in zip(res[:3], ref[:3]))}
+    for cb in SYNC_CHUNKS:
+        plan = prep_batch_sync(batch, cb)
+        b = SyncJpegDecoder(chunk_bytes=cb).upload(plan)
+        kw = dict(chunk_bytes=cb, n_chunks=plan.n_chunks, bpm=plan.bpm,
+                  nblk=plan.n_mcu * plan.bpm)
+        ends, ok, entries, misses = ksync.sync_ends(b[0], b[1], b[4], b[3], **kw)
+        t0 = time.perf_counter()
+        pe, pok, pent, pmisses = ksync.sync_ends_plain(b[0], b[1], b[4], b[3], **kw)
+        torch.cuda.synchronize()
+        out[f"chunk{cb}"] = {
+            "max_abs_err": max(max_abs_err(ends, pe), max_abs_err(ok, pok),
+                               max_abs_err(entries, pent), abs(int(misses) - pmisses)),
+            "ok": bool(ok), "plain_ok": bool(pok), "misses": int(misses),
+            "plain_seconds": time.perf_counter() - t0,
+            "chunks_per_image": plan.n_chunks,
+            "sync_chunk_bytes": cb * ksync.sync_factor(cb, None),
+            "ends_equal_host_index_scan": bool(np.array_equal(ends.cpu().numpy(), hplan.ends))}
+    return out
+
+
+def sync_stages(dec, datas):
+    """One batch through SyncJpegDecoder's stages -> (pixels, ok, {stage:
+    ms}, K19's link misses): prep (host clock), then CUDA events around
+    the upload, after each K19 stage (guesses, links, resolve, refine,
+    record with the assembly; the wrapper's ``on_stage`` hook), K2, K3 and
+    K4."""
+    from zpix_tpu_torch.ops import backend as kb
+
+    t0 = time.perf_counter()
+    plan = dec.prep(datas)
+    prep_ms = (time.perf_counter() - t0) * 1e3
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    torch.cuda.synchronize()
+    mark("start")
+    bufs = dec.upload(plan)
+    mark("h2d")
+    ac, dc, okf = dec.entropy(plan, bufs, on_stage=mark)
+    px = kb.backend(ac, dc, bufs[3], kb.BackendGeometry.of(plan), planar=False)
+    mark("backend")
+    torch.cuda.synchronize()
+    ms = {"prep": prep_ms}
+    for (_n, a), (name, b) in zip(marks, marks[1:]):
+        ms[name if name in ("h2d", "value_pass", "dc_restore", "backend")
+           else f"k19_{name}"] = a.elapsed_time(b)
+    ms["device_total"] = marks[0][1].elapsed_time(marks[-1][1])
+    return px, bool(okf), ms, int(dec.misses)
+
+
+def sync_phase(batches, hplan, mpix):
+    """SyncJpegDecoder on the restart-free batches: K19 against its plain
+    version at both chunk sizes, one decode with launches counted (and no
+    host index scan), images 0-1 against the plain path, 10 timed batches
+    end to end and by stage with pixels equal to HostIndexJpegDecoder's,
+    and three damaged streams.  -> summary"""
+    from zpix_tpu_torch import HostIndexJpegDecoder, SyncJpegDecoder, prep_batch_sync, runtime
+    from zpix_tpu_torch.errors import ZpixError
+    from zpix_tpu_torch.ops import backend as kb
+    from zpix_tpu_torch.ops import entropy as ke
+    from zpix_tpu_torch.ops import sync as ksync
+    from zpix_tpu_torch.runtime import host
+
+    t0 = time.perf_counter()
+    checks = sync_kernel_checks(batches[0], hplan)
+    checks_s = time.perf_counter() - t0
+    dec, hidx = SyncJpegDecoder(), HostIndexJpegDecoder(planar=False)
+    dec.decode(batches[1])  # warm: pinned buffer, caches
+    torch.cuda.synchronize()
+    scans, lib = [], host.lib()  # calls of the host index scan's C entry
+    real_scan = lib.zpix_baseline_index_scan
+    lib.zpix_baseline_index_scan = lambda *a: scans.append(1) or real_scan(*a)
+    try:
+        runtime.reset_launches()
+        px, ok = dec.decode(batches[0])
+        torch.cuda.synchronize()
+        launches = dict(runtime.LAUNCHES)
+    finally:
+        lib.zpix_baseline_index_scan = real_scan
+    main_misses = int(dec.misses)
+    hx, hok = hidx.decode(batches[0])
+    # images 0 and 1 against the plain path on the card
+    plan2 = prep_batch_sync(batches[0][:2])
+    b2 = dec.upload(plan2)
+    e2, o2, _ent, _r = ksync.sync_ends_plain(b2[0], b2[1], b2[4], b2[3], chunk_bytes=32,
+                                             n_chunks=plan2.n_chunks, bpm=plan2.bpm,
+                                             nblk=plan2.n_mcu * plan2.bpm)
+    a2, d2 = ke.value_pass_plain(*b2[:4], e2, o2, bpm=plan2.bpm)
+    d2 = ke.dc_restore_plain(d2, hv=plan2.hv, seg_mcus=plan2.seg_mcus)
+    ref2 = kb.backend_plain(a2, d2, b2[3], kb.BackendGeometry.of(plan2), planar=False)
+    torch.cuda.synchronize()
+    check = {"main_ok": bool(ok), "host_index_ok": bool(hok),
+             "main_equal_host_index": bool(torch.equal(px, hx)),
+             "main_vs_plain": max_abs_err(px[:2], ref2), "plain_ok": bool(o2),
+             "shape": list(px.shape), "host_index_scans_in_decode": len(scans)}
+    del px, hx, ref2, a2, d2
+
+    # timed end to end; each batch's pixels against the host-index route's
+    walls, oks, equal, peak = [], [], [], 0
+    for datas in batches[2:]:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        pxb, okb = dec.decode(datas)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        peak = max(peak, torch.cuda.max_memory_allocated() - base)
+        oks.append(bool(okb))
+        equal.append(bool(torch.equal(pxb, hidx.decode(datas)[0])))
+        del pxb
+    rows, misses = [], []
+    for datas in batches[2:]:
+        _px, okb, ms, r = sync_stages(dec, datas)
+        rows.append(ms)
+        misses.append(r)
+        oks.append(okb)
+    mean = {k: float(np.mean([r[k] for r in rows])) for k in rows[0]}
+
+    # damaged streams in batch 0: ok False, or a refusal in prep; where the
+    # damage leaves a stream that parses to its end (ok True), the pixels
+    # must be the host-index route's, with its ok True too, and differ from
+    # the clean decode's
+    damaged = {}
+    good = batches[0]
+    clean = hidx.decode(good)[0]
+    for name, bad in (("invalid_codes", inject_invalid_codes(good[0])),
+                      ("truncated_10", truncate_scan(good[0], 10)),
+                      ("flipped", flip_bytes(good[0]))):
+        datas = [bad] + good[1:]
+        try:
+            pxd, okd = dec.decode(datas)
+        except ZpixError as exc:
+            damaged[name] = f"prep_raised:{type(exc).__name__}"
+            continue
+        if not bool(okd):
+            damaged[name] = "ok_false"
+            continue
+        hpx, hok = hidx.decode(datas)
+        same = bool(hok) and bool(torch.equal(pxd, hpx)) and not torch.equal(pxd[0], clean[0])
+        damaged[name] = "ok_true_parses_as_host_index" if same else "ok_true"
+    del clean
+    return {"kernel_checks": checks, "kernel_checks_seconds": checks_s, "check": check,
+            "launches": launches, "misses_main": main_misses, "misses_timed": misses,
+            "host_syncs_per_decode": 0,
+            "e2e_ms_per_batch": [w * 1e3 for w in walls],
+            "e2e_mpix_per_s": mpix / float(np.mean(walls)),
+            "device_mpix_per_s": mpix / (mean["device_total"] / 1e3),
+            "device_busy_share": mean["device_total"] / (float(np.mean(walls)) * 1e3),
+            "stage_ms_mean": mean, "peak_mem_bytes": peak,
+            "all_ok": all(oks), "equal_host_index_per_batch": equal, "damaged": damaged}
+
+
+def sync_entry(batch, hplan, hac, sy, by_path) -> dict:
+    """K19's row of the kernels line: one sync_ends call on the restart-free
+    batch at 32-byte chunks (the decoder's default); the bound from the
+    stream read once, an int32 end written a
+    block and OPS_K1_SYMBOL a symbol; the chain bounds of the longest chunk
+    and sync chunk, a pass each (each block's symbols counted in the chunk
+    where the block ends)."""
+    from zpix_tpu_torch import SyncJpegDecoder, prep_batch_sync
+    from zpix_tpu_torch.ops import sync as ksync
+
+    plan = prep_batch_sync(batch)
+    b = SyncJpegDecoder().upload(plan)
+    kw = dict(chunk_bytes=plan.chunk_bytes, n_chunks=plan.n_chunks, bpm=plan.bpm,
+              nblk=plan.n_mcu * plan.bpm)
+    ms = cuda_ms(lambda: ksync.sync_ends(b[0], b[1], b[4], b[3], **kw), 20)
+    plain_ms = cuda_ms(lambda: ksync.sync_ends_plain(b[0], b[1], b[4], b[3], **kw), 1)
+    syms = block_symbols(hac).cpu().numpy().reshape(len(batch), -1)
+    nbytes = int((plan.img_bit_end - plan.img_bit_start).sum()) // 8 + 4 * syms.size
+    nops = OPS_K1_SYMBOL * int(syms.sum())
+    longest = {}
+    for name, cb in (("chunk", plan.chunk_bytes),
+                     ("sync_chunk", plan.chunk_bytes * ksync.sync_factor(plan.chunk_bytes))):
+        idx = (hplan.ends.astype(np.int64) - 1 - hplan.seg_bit_pos[:, None]) // (8 * cb)
+        longest[name] = max(int(np.bincount(i, weights=w).max()) for i, w in zip(idx, syms))
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, nops / INT32_OPS_PER_S * 1e3
+    kc = {k: v for k, v in sy["kernel_checks"].items() if k.startswith("chunk")}
+    return {
+        "name": "sync_decode", "route": "cuda", "source": KERNELS["sync_decode"][0],
+        "replaces": KERNELS["sync_decode"][1], "launches": sy["launches"]["sync_decode"],
+        "launches_by_path": by_path, "max_abs_err": max(v["max_abs_err"] for v in kc.values()),
+        "matches_plain": all(v["max_abs_err"] == 0 for v in kc.values()),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bound_bytes": nbytes,
+        "bound_int32_ops": nops, "library_ms": None,
+        "library_note": "no single PyTorch call decodes Huffman",
+        "chain_bound_ms": longest["chunk"] * CHAIN_CYCLES_PER_SYMBOL / BOOST_HZ * 1e3,
+        "sync_chunk_chain_bound_ms": longest["sync_chunk"] * CHAIN_CYCLES_PER_SYMBOL
+        / BOOST_HZ * 1e3,
+        "longest_chunk_symbols": longest, "symbols": int(syms.sum()),
+        "misses": sy["misses_main"], "chunk_bytes": plan.chunk_bytes,
+        "sync_chunk_bytes": plan.chunk_bytes * ksync.sync_factor(plan.chunk_bytes)}
+
+
+def sync_check(sy) -> None:
+    """SystemExit unless the sync phase's checks all held."""
+    c, ln = sy["check"], sy["launches"]
+    kc = {k: v for k, v in sy["kernel_checks"].items() if k.startswith("chunk")}
+    if any(v["max_abs_err_vs_default"] for k, v in sy["kernel_checks"].items()
+           if k.startswith("sync_bytes")):
+        raise SystemExit("chip_smoke: K19's result depends on its sync chunk")
+    if any(v["max_abs_err"] for v in kc.values()) or not all(
+            v["ok"] and v["plain_ok"] and v["ends_equal_host_index_scan"] for v in kc.values()):
+        raise SystemExit("chip_smoke: K19 disagrees with its plain version")
+    if (min(ln["sync_decode"], ln["value_pass"], ln["dc_restore"], ln["backend"]) == 0
+            or ln["index_pass"] or c["host_index_scans_in_decode"]):
+        raise SystemExit("chip_smoke: the sync route skipped a kernel or scanned on the host")
+    if (not (c["main_ok"] and c["host_index_ok"] and c["main_equal_host_index"] and c["plain_ok"])
+            or c["main_vs_plain"] or c["shape"] != [BATCH, SIZE, SIZE, 3]
+            or not sy["all_ok"] or not all(sy["equal_host_index_per_batch"])):
+        raise SystemExit("chip_smoke: the sync route's output is wrong")
+    if "ok_true" in sy["damaged"].values():
+        raise SystemExit("chip_smoke: a damaged stream passed the sync route")
 
 
 # ---------------------------------------------------- progressive slice (K8-K11)
@@ -1422,7 +1680,8 @@ def png_stages(dec, datas):
     torch.cuda.synchronize()
     if bad is not None and int(bad):
         raise SystemExit("chip_smoke: K15 flagged a filter type on the bench content")
-    ms.update(dict.fromkeys(("h2d", "inflate_resolve", "png_defilter", "png_expand"), 0.0))
+    ms.update(dict.fromkeys(("h2d", "inflate_resolve", "adler32", "png_defilter", "png_expand"),
+                            0.0))
     for (_n, a), (name, b) in zip(marks, marks[1:]):
         ms[name] += a.elapsed_time(b)
     ms["device_total"] = marks[0][1].elapsed_time(marks[-1][1])
@@ -1433,7 +1692,8 @@ def png_stages(dec, datas):
     return px, sizes, ms
 
 
-PNG_KERNEL_TAGS = {"png_defilter": "k15", "inflate_resolve": "k16", "png_expand": "k17"}
+PNG_KERNEL_TAGS = {"png_defilter": "k15", "inflate_resolve": "k16", "adler32": "k16_adler32",
+                   "png_expand": "k17"}
 
 
 class PngLaunchCheck:
@@ -1449,10 +1709,14 @@ class PngLaunchCheck:
 
     def __call__(self, name, args, kw, res):
         from zpix_tpu_torch.ops.defilter import png_defilter_plain
-        from zpix_tpu_torch.ops.inflate import inflate_resolve_plain
+        from zpix_tpu_torch.ops.inflate import adler32_plain, inflate_resolve_plain
         from zpix_tpu_torch.ops.png import png_expand_plain
 
-        if name == "inflate_resolve":
+        if name == "adler32":  # the sums, and each equal to its image's trailer
+            flag = torch.zeros(1, dtype=torch.int32, device=args[0].device)
+            err = max(max_abs_err(res, adler32_plain(args[0], args[1], flag)),
+                      max_abs_err(res, args[1]), int(flag))
+        elif name == "inflate_resolve":
             want, moved_plain = inflate_resolve_plain(*args)
             err = max_abs_err(res[0], want)
             self.facts[f"k16_{self.tag}_rounds_moved"] = {
@@ -1528,6 +1792,20 @@ def png_kernel_checks(dev, writer, decs, batch, interlaced):
                         png_defilter_plain(s[:, :, 1:], s[:, :, 0], bpp=bpp, bad=bp)),
             max_abs_err(bk, bp), 1 - int(bk))
         del s
+    # the adler32 check on rows of odd length (every alignment) and 0xFF runs,
+    # on a matching and a wrong trailer
+    from zpix_tpu_torch.ops.inflate import ADLER_BAD, adler32_check, adler32_plain
+    rows = torch.from_numpy(gen.integers(0, 256, (BATCH, 3 * SIZE * SIZE + 7), dtype=np.uint8))
+    rows[1] = 0xFF
+    rows = rows.to(dev)
+    fk, fp = zero(), zero()
+    want = adler32_plain(rows, torch.zeros(BATCH, dtype=torch.int32, device=dev), fp)
+    got = adler32_check(rows, want, fk)
+    off = want.clone()
+    off[3] ^= 1
+    adler32_check(rows, off, fk)
+    errs["k16_adler32_random_rows"] = max(max_abs_err(got, want), abs(int(fk) - ADLER_BAD))
+    del rows
     lens, per = kept["inflate"]["inflate_resolve"][0][0], kept["inflate"]["inflate_resolve"][0][3]
     facts["k16_bench_tokens"] = {"most": lens.shape[1],
                                  "mean": float((lens > 0).sum(1).double().mean())}
@@ -1583,7 +1861,8 @@ def png_phase(dev):
     from zpix_tpu_torch import BatchPngDecoder, runtime
     from zpix_tpu_torch.errors import ZpixError
     from zpix_tpu_torch.ops.defilter import png_defilter, png_defilter_plain
-    from zpix_tpu_torch.ops.inflate import doubling_rounds, inflate_resolve, inflate_resolve_plain
+    from zpix_tpu_torch.ops.inflate import (adler32_check, adler32_plain, doubling_rounds,
+                                            inflate_resolve, inflate_resolve_plain)
     from zpix_tpu_torch.ops.png import png_expand, png_expand_plain
     from zpix_tpu_torch.runtime import host
 
@@ -1657,6 +1936,8 @@ def png_phase(dev):
     # alpha); p8 beside it (library: the gather pal[b, idx])
     raw, ft = kept["defilter"]["png_defilter"][0]
     toks, per = kept["inflate"]["inflate_resolve"][0][:3], kept["inflate"]["inflate_resolve"][0][3]
+    flat_k, trailers = kept["inflate"]["adler32"][0][:2]
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
     nt = toks[0].shape[1]
     rows = kept["host"]["png_expand"][0][0]
     npx = BATCH * SIZE * SIZE
@@ -1691,11 +1972,21 @@ def png_phase(dev):
             "ops": OPS_K16_TOKEN * BATCH * nt + OPS_K16_BYTE * BATCH * per,
             "launches": launches["inflate"]["inflate_resolve"], "library_ms": None,
             "library_note": "no single PyTorch call resolves LZ77 copies",
-            "max_abs_err": max(v for k, v in errs.items() if k.startswith("k16")),
+            "max_abs_err": max(v for k, v in errs.items()
+                               if k.startswith("k16") and not k.startswith("k16_adler32")),
             "rounds_run": min(doubling_rounds(per), moved + 1),
             "rounds_moved": facts["k16_bench_inflate_rounds_moved"],
             "rounds_moved_hand_built": facts["k16_hand_built_rounds_moved"],
-            "tokens": facts["k16_bench_tokens"]},
+            "tokens": facts["k16_bench_tokens"],
+            # the zlib trailer check of K16's output (csrc/adler32.cu): a block
+            # an image reads its bytes once; two adds a byte (A, then B += A)
+            "adler32": with_bound({
+                "source": "zpix_tpu_torch/csrc/adler32.cu",
+                "ms": cuda_ms(lambda: adler32_check(flat_k, trailers, flag), 20),
+                "plain_ms": cuda_ms(lambda: adler32_plain(flat_k, trailers, flag), 1),
+                "bytes": flat_k.numel(), "ops": 2 * flat_k.numel(),
+                "launches": launches["inflate"]["adler32"], "library_ms": None,
+                "max_abs_err": max(v for k, v in errs.items() if k.startswith("k16_adler32"))})},
         "png_expand": {
             "ms": cuda_ms(lambda: png_expand(rows, None, None, cd="tc8", width=SIZE), 20),
             "plain_ms": cuda_ms(lambda: png_expand_plain(rows, None, None, cd="tc8",
@@ -1711,7 +2002,7 @@ def png_phase(dev):
                 "library_ms": cuda_ms(lambda: pal8[bidx, idx_long], 20),
                 "bytes": idx8.numel() + pal8.numel() + 4 * npx, "ops": 0})},
     }
-    del rows, idx8, idx_long, toks, kept
+    del rows, idx8, idx_long, toks, kept, flat_k
     summary = {"content_seconds": content_s, "kernel_checks_seconds": checks_s,
                "max_abs_err": errs, "facts": facts, "routes": routes, "adam7": adam7,
                "damaged": damaged, "inflater": "libdeflate" if host.libdeflate_available()
@@ -1727,6 +2018,8 @@ PNG_DAMAGE_WANT = {  # damage -> (error class, message prefix) on the host-infla
     "short": ("FormatError", "png: not enough image data"),
     "filter": ("FormatError", "png: invalid filter type"),
     "deflate": ("FormatError", "png: inflate failed"),
+    "adler": ("FormatError", "png: inflate failed: Error -3 while decompressing data: "
+              "incorrect data check"),
 }
 PNG_DAMAGE_WANT_INFLATE = {**PNG_DAMAGE_WANT, "short": ("FormatError",
                                                         "png: inflated size mismatch"),
@@ -1740,7 +2033,8 @@ def png_check(pg, paths) -> None:
     if (min(p["png_expand"] for p in paths.values()) == 0
             or min(paths[p]["png_defilter"] for p in ("png_defilter", "png_inflate",
                                                       "png_adam7")) == 0
-            or paths["png_inflate"]["inflate_resolve"] == 0):
+            or paths["png_inflate"]["inflate_resolve"] == 0
+            or paths["png_inflate"]["adler32"] == 0):
         raise SystemExit("chip_smoke: a PNG route skipped its kernel")
     r = pg["routes"]
     if (not all(r["host"]["equal_pillow_images_0_1"])
@@ -2073,6 +2367,12 @@ def main() -> int:
     if rf["corrupt"].get("ok", True):
         raise SystemExit("chip_smoke: a corrupt restart-free stream was not flagged")
 
+    # ------------------------------------- restart-free, wholly on the card
+    t0 = time.perf_counter()
+    sy = sync_phase(batches_rf, hplan, mpix)  # hplan: the host index scan of batch 0
+    emit({"phase": "sync", "seconds": time.perf_counter() - t0, **sy})
+    sync_check(sy)
+
     # ------------------------------------------------------ progressive
     pg, prog_entries = progressive(dev)
     emit({"phase": "progressive", **pg})
@@ -2156,8 +2456,8 @@ def main() -> int:
         "backend": cuda_ms(lambda: kb.backend(hac, hdc_p, hbufs[3],
                                               kb.BackendGeometry.of(hplan), planar=False), 20),
     }
-    paths = {"dri8": launches, "native": ln, "host_index": lh, "progressive": lp,
-             **raster_paths}
+    paths = {"dri8": launches, "native": ln, "host_index": lh, "sync": sy["launches"],
+             "progressive": lp, **raster_paths}
     by_path = {k: {p: counts[k] for p, counts in paths.items()} for k in KERNELS}
     kernels = []
     for kname, (fk, fp, nbytes, nops) in timing.items():
@@ -2224,6 +2524,7 @@ def main() -> int:
             **{k: v for k, v in e.items() if k not in (
                 "ms", "plain_ms", "bytes", "ops", "launches", "library_ms", "max_abs_err")},
         })
+    kernels.append(sync_entry(batches_rf[0], hplan, hac, sy, by_path["sync_decode"]))
     emit({"phase": "serial_chain", "max_symbols_per_segment": seg_syms,
           "max_symbols_per_block": blk_syms, "symbols": n_syms,
           "index_pass_ns_per_symbol": kernels[0]["ms"] * 1e6 / seg_syms,

@@ -33,15 +33,15 @@ def synth_jpeg(w=48, h=32, mode="420", dri_blocks=2, phase=0.0, quality=60,
     return buf.getvalue()
 
 
-def synth_cmyk(transform=None, w=40, h=24, seed=0):
-    """Pillow CMYK JPEG with restarts; ``transform`` patches the Adobe
-    APP14 transform byte (2 = YCCK) so both 4-component arms share one
-    entropy stream."""
+def synth_cmyk(transform=None, w=40, h=24, seed=0, dri_blocks=3):
+    """Pillow CMYK JPEG with a restart marker every ``dri_blocks`` MCUs (or
+    none for None); ``transform`` patches the Adobe APP14 transform byte
+    (2 = YCCK) so both 4-component arms share one entropy stream."""
     rng = np.random.default_rng(seed)
     rgb = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
     buf = io.BytesIO()
-    Image.fromarray(rgb).convert("CMYK").save(
-        buf, format="JPEG", quality=75, restart_marker_blocks=3)
+    kw = {} if dri_blocks is None else {"restart_marker_blocks": dri_blocks}
+    Image.fromarray(rgb).convert("CMYK").save(buf, format="JPEG", quality=75, **kw)
     data = bytearray(buf.getvalue())
     if transform is not None:
         at = data.find(b"Adobe")
@@ -49,14 +49,15 @@ def synth_cmyk(transform=None, w=40, h=24, seed=0):
     return bytes(data)
 
 
-def synth_rgb(w=40, h=24, seed=0):
+def synth_rgb(w=40, h=24, seed=0, dri_blocks=3):
     """An RGB-colorspace JPEG: JFIF renamed away and component ids
-    R, G, B in both SOF and SOS."""
+    R, G, B in both SOF and SOS; a restart marker every ``dri_blocks``
+    MCUs, or none for None."""
     rng = np.random.default_rng(seed)
     rgb = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
     buf = io.BytesIO()
-    Image.fromarray(rgb).save(buf, format="JPEG", quality=75, subsampling=0,
-                              restart_marker_blocks=3)
+    kw = {} if dri_blocks is None else {"restart_marker_blocks": dri_blocks}
+    Image.fromarray(rgb).save(buf, format="JPEG", quality=75, subsampling=0, **kw)
     data = bytearray(buf.getvalue())
     at = data.find(b"JFIF\x00")
     data[at : at + 4] = b"XXXX"

@@ -6,7 +6,7 @@ installed).
 filter type chosen per row and applied for real (all five filters), PLTE
 (short palettes too) and tRNS, Adam7, IDAT split across chunks, and the
 deflate modes stored (level 0), Z_FIXED, Z_RLE and default dynamic; it can
-damage the file in four ways (``DAMAGE``).  ``random_pixels`` makes the
+damage the file in five ways (``DAMAGE``).  ``random_pixels`` makes the
 samples of a depth from a numpy generator.
 """
 
@@ -26,7 +26,7 @@ ADAM7 = [(0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (
          (0, 1, 1, 2)]  # (x offset, y offset, x step, y step)
 STRATEGIES = {"stored": (0, zlib.Z_DEFAULT_STRATEGY), "fixed": (6, zlib.Z_FIXED),
               "rle": (6, zlib.Z_RLE), "default": (6, zlib.Z_DEFAULT_STRATEGY)}
-DAMAGE = ("crc", "short", "filter", "deflate")
+DAMAGE = ("crc", "short", "filter", "deflate", "adler")
 
 
 def random_pixels(rng, cd: str, w: int, h: int, *, hi: int | None = None):
@@ -96,7 +96,8 @@ def encode_png(pix, cd: str, *, palette=None, trns: bytes | None = None,
     (cycled over each pass's rows) or None for a seeded random choice of
     0-4; ``damage``: one of DAMAGE (a CRC mismatch in IDAT, a stream 3
     rows short, filter type 7 on the stream's row 2, a first deflate block
-    of type 3)."""
+    of type 3, the zlib adler32 trailer's last byte XORed with 0xFF, the
+    chunk CRC written for the damaged bytes)."""
     ctype, bits, n = DEPTHS[cd]
     h, w = pix.shape[:2]
     bpp = max(1, bits * n // 8)
@@ -125,6 +126,8 @@ def encode_png(pix, cd: str, *, palette=None, trns: bytes | None = None,
     idat = bytearray(comp.compress(raw.tobytes()) + comp.flush())
     if damage == "deflate":
         idat[2] = 0xFF  # BFINAL 1, BTYPE 3: no such block type
+    if damage == "adler":
+        idat[-1] ^= 0xFF
     out = b"\x89PNG\r\n\x1a\n" + chunk(
         b"IHDR", struct.pack(">IIBBBBB", w, h, bits, ctype, 0, 0, int(interlace)))
     if palette is not None:

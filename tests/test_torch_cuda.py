@@ -563,12 +563,13 @@ def test_png_routes_match_cpu_run(cuda, cd, interlace):
         assert runtime.LAUNCHES["png_defilter"] == (passes if on_card else 0), front
         assert runtime.LAUNCHES["png_expand"] == passes, front
         assert (runtime.LAUNCHES["inflate_resolve"] > 0) == (front == "inflate"), front
+        assert runtime.LAUNCHES["adler32"] == (front == "inflate"), front
 
 
 @pytest.mark.parametrize("interlace", [False, True], ids=["plain", "adam7"])
 def test_png_damaged_streams_raise_as_on_cpu(cuda, interlace):
-    """The four damaged streams raise the same error by every route on the
-    card as on the CPU."""
+    """The damaged streams (a wrong adler32 trailer among them) raise the
+    same error by every route on the card as on the CPU."""
     from _torch_png import DAMAGE, encode_png, random_pixels
 
     from zpix_tpu_torch import BatchPngDecoder
@@ -583,3 +584,138 @@ def test_png_damaged_streams_raise_as_on_cpu(cuda, interlace):
             with pytest.raises(type(want.value)) as got:
                 BatchPngDecoder(**kw).decode([good, bad])
             assert str(got.value) == str(want.value), (damage, front)
+
+
+@pytest.mark.parametrize("per", [1, 17, 4096, 3 * 1024 * 1024 + 7])
+def test_adler32_kernel_matches_plain(cuda, per):
+    """The trailer check on rows of every alignment (odd row lengths move
+    each image's start off the 16-byte boundary), runs of 0xFF included:
+    the sums, and the flag on a matching and a wrong trailer."""
+    from zpix_tpu_torch.ops.inflate import ADLER_BAD, adler32_check, adler32_plain
+
+    rng = np.random.default_rng(per % 1000)
+    rows = torch.from_numpy(rng.integers(0, 256, (3, per), dtype=np.uint8))
+    rows[1] = 0xFF
+    want = adler32_plain(rows, torch.zeros(3, dtype=torch.int32), torch.zeros(1, dtype=torch.int32))
+    bad = torch.zeros(1, dtype=torch.int32, device=cuda)
+    got = _counted("adler32", 1, adler32_check, rows.to(cuda), want.to(cuda), bad)
+    assert torch.equal(got.cpu(), want) and int(bad) == 0
+    off = want.clone()
+    off[2] ^= 1 << 20
+    adler32_check(rows.to(cuda), off.to(cuda), bad)
+    assert int(bad) == ADLER_BAD
+
+
+# ------------------------------------------------------- K19, the chunk sync
+
+
+def _sync_batches():
+    """Restart-free batches of every sampling the sync route covers, as
+    (name, datas, chunk_bytes, sync_bytes)."""
+    from _torch_jpeg import synth_cmyk, synth_plain_jpeg, synth_ratio_jpeg, synth_rgb
+
+    def two(mode, w=96, h=72):
+        return [synth_plain_jpeg(w=w, h=h, mode=mode, phase=p) for p in (0.0, 0.3)]
+
+    return [("gray_bpm1", two("gray"), 32, None), ("444_bpm3", two("444"), 32, None),
+            ("422_bpm4", two("422"), 32, None), ("420_bpm6", two("420"), 32, None),
+            ("420_chunk256", two("420", 160, 120), 256, None),
+            ("420_links_on_chunks", two("420"), 32, 32),
+            ("411_bpm6", [synth_ratio_jpeg(((4, 1), (1, 1), (1, 1)), 64, 32, s) for s in (0, 1)],
+             32, None),
+            ("cmyk_bpm4", [synth_cmyk(None, 48, 32, s, dri_blocks=None) for s in (0, 1)], 32, None),
+            ("rgb_bpm3", [synth_rgb(48, 32, s, dri_blocks=None) for s in (0, 1)], 32, None)]
+
+
+@pytest.mark.parametrize("case", range(9))
+def test_sync_kernel_matches_plain(cuda, case):
+    """K19 against its plain version: ends, ok, the entries and the link
+    misses, exactly, on bpm 1, 3, 4 and 6, 256-byte chunks, and links on
+    the 32-byte chunks themselves (many misses); the launches counted."""
+    from zpix_tpu_torch import SyncJpegDecoder, prep_batch_sync
+    from zpix_tpu_torch.ops import sync as ksync
+
+    name, datas, cb, sb = _sync_batches()[case]
+    plan = prep_batch_sync(datas, cb)
+    kw = dict(chunk_bytes=cb, n_chunks=plan.n_chunks, bpm=plan.bpm,
+              nblk=plan.n_mcu * plan.bpm, sync_bytes=sb)
+    b = SyncJpegDecoder(chunk_bytes=cb).upload(plan)
+    before = runtime.LAUNCHES["sync_decode"]
+    ends, ok, entries, misses = ksync.sync_ends(b[0], b[1], b[4], b[3], **kw)
+    # guesses, links, resolve, the refine where a sync chunk holds several
+    # chunks, record and assembly
+    m = ksync.sync_factor(cb, sb)
+    assert runtime.LAUNCHES["sync_decode"] - before == 3 + (m > 1) + 2, name
+    bc = [x.cpu() for x in b]
+    pe, pok, pent, pmisses = ksync.sync_ends_plain(bc[0], bc[1], bc[4], bc[3], **kw)
+    assert bool(ok) and bool(pok), name
+    assert torch.equal(ends.cpu(), pe) and torch.equal(entries.cpu(), pent), name
+    assert int(misses) == pmisses, name
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_sync_kernel_matches_plain_on_corrupt_streams(cuda, seed):
+    """Random damage to the destuffed streams: K19 agrees with its plain
+    version on ends, ok and entries, not only on valid data."""
+    from zpix_tpu_torch import SyncJpegDecoder, prep_batch_sync
+    from zpix_tpu_torch.ops import sync as ksync
+
+    _name, datas, cb, sb = _sync_batches()[3]
+    plan = prep_batch_sync(datas, cb)
+    rng = np.random.default_rng(seed)
+    plan.stream = plan.stream.copy()
+    at = rng.integers(0, int(plan.img_bit_end.max()) // 8, 12)
+    plan.stream[at] = rng.integers(0, 256, 12, dtype=np.uint8)
+    kw = dict(chunk_bytes=cb, n_chunks=plan.n_chunks, bpm=plan.bpm,
+              nblk=plan.n_mcu * plan.bpm, sync_bytes=sb)
+    b = SyncJpegDecoder().upload(plan)
+    ends, ok, entries, misses = ksync.sync_ends(b[0], b[1], b[4], b[3], **kw)
+    bc = [x.cpu() for x in b]
+    pe, pok, pent, pmisses = ksync.sync_ends_plain(bc[0], bc[1], bc[4], bc[3], **kw)
+    assert torch.equal(ends.cpu(), pe) and torch.equal(ok.cpu(), pok)
+    assert torch.equal(entries.cpu(), pent) and int(misses) == pmisses
+
+
+@pytest.mark.parametrize("case", [0, 1, 2, 3, 4, 7, 8])
+def test_sync_decoder_matches_host_index(cuda, case):
+    """SyncJpegDecoder on the card: the pixels of HostIndexJpegDecoder
+    (interleaved) and of its own run on the CPU, ok True, and the kernels
+    of its path (K19, K2, K3, K4; no K1)."""
+    from zpix_tpu_torch import HostIndexJpegDecoder, SyncJpegDecoder
+
+    _name, datas, cb, _sb = _sync_batches()[case]
+    want, want_ok = HostIndexJpegDecoder(planar=False).decode(datas)
+    runtime.reset_launches()
+    got, ok = SyncJpegDecoder(chunk_bytes=cb).decode(datas)
+    torch.cuda.synchronize()
+    launches = dict(runtime.LAUNCHES)
+    cpu, cpu_ok = SyncJpegDecoder(chunk_bytes=cb, device="cpu").decode(datas)
+    assert bool(ok) and bool(want_ok) and bool(cpu_ok)
+    assert torch.equal(got, want) and torch.equal(got.cpu(), cpu)
+    assert launches["index_pass"] == 0 and launches["sync_decode"] > 0
+    assert launches["value_pass"] == launches["dc_restore"] == launches["backend"] == 1
+
+
+def test_sync_decoder_flags_damaged_streams(cuda):
+    """Invalid codes, a cut scan and flipped bytes: ok False on the card as
+    on the CPU (or the same refusal in prep)."""
+    from _torch_jpeg import synth_plain_jpeg, truncate_scan
+
+    from zpix_tpu_torch import SyncJpegDecoder
+
+    good = [synth_plain_jpeg(w=160, h=120, mode="420", phase=p) for p in (0.0, 0.3)]
+    sos = good[0].find(b"\xff\xda")
+    mid = (sos + len(good[0])) // 2
+    inject = bytearray(good[0])
+    inject[mid : mid + 8] = b"\xff\x00" * 4
+    flipped = bytearray(good[0])
+    for i in range(len(flipped) - 300, len(flipped) - 260):
+        flipped[i] ^= 0x55
+    for bad in (bytes(inject), truncate_scan(good[0], 10), bytes(flipped)):
+        outcome = []
+        for dec in (SyncJpegDecoder(), SyncJpegDecoder(device="cpu")):
+            try:
+                outcome.append(bool(dec.decode([bad, good[1]])[1]))
+            except Exception as exc:  # noqa: BLE001 -- a refusal, compared below
+                outcome.append(type(exc).__name__)
+        assert outcome[0] == outcome[1] and outcome[0] is not True

@@ -37,7 +37,8 @@ from zpix_tpu.parallel import png_batch as jpb
 from zpix_tpu_torch import BatchPngDecoder
 from zpix_tpu_torch import errors as terr
 from zpix_tpu_torch.ops.defilter import png_defilter, png_defilter_plain
-from zpix_tpu_torch.ops.inflate import doubling_rounds, inflate_resolve
+from zpix_tpu_torch.ops.inflate import (ADLER_BAD, adler32_check, adler32_plain,
+                                        doubling_rounds, inflate_resolve)
 from zpix_tpu_torch.ops.png import png_expand
 from zpix_tpu_torch.parallel import png_batch as tpb
 from zpix_tpu_torch.parallel.png_batch import _segments, palettes, parse_filtered, parse_tokens
@@ -308,18 +309,19 @@ def _error(fn, errors):
 
 
 @pytest.mark.parametrize("interlace", [False, True], ids=["plain", "adam7"])
-@pytest.mark.parametrize("damage", ["crc", "short", "filter", "deflate"])
+@pytest.mark.parametrize("damage", ["crc", "short", "filter", "deflate", "adler"])
 def test_decoder_damaged_streams(damage, interlace):
     """Every front-end raises: the host decoder's error where the port
     repairs zpix_tpu's batch path (a short stream, a filter type above 4, a
     corrupt deflate stream on the host-inflate front-ends; the filter type
-    with device_inflate too), zpix_tpu's batch path's error elsewhere."""
+    and a wrong adler32 trailer with device_inflate too), zpix_tpu's batch
+    path's error elsewhere."""
     pix = random_pixels(np.random.default_rng(1), "tc8", 16, 8)
     good = encode_png(pix, "tc8", interlace=interlace)
     bad = encode_png(pix, "tc8", interlace=interlace, filters=[0], damage=damage)
     for front, dec in _decoders().items():
         got = _error(lambda: dec.decode([good, bad]), terr)
-        repaired = damage == "filter" or (damage != "crc" and front != "inflate")
+        repaired = damage in ("filter", "adler") or (damage != "crc" and front != "inflate")
         if repaired:
             want = _error(lambda: jax_png.decode(bad), jerr)
         else:
@@ -354,12 +356,14 @@ def test_run_reports_each_kernel(front):
     plan = dec.prep(datas)
     px, _bad = dec.run(plan, dec.upload(plan), on_kernel=lambda *call: seen.append(call))
     names = [name for name, *_ in seen]
-    assert names == ["inflate_resolve"] * (front == "inflate") + ["png_defilter",
-                                                                   "png_expand"] * 7
+    assert names == ["inflate_resolve", "adler32"] * (front == "inflate") + [
+        "png_defilter", "png_expand"] * 7
     for name, args, kw, res in seen:
-        fn = {"inflate_resolve": inflate_resolve, "png_defilter": png_defilter,
-              "png_expand": png_expand}[name]
-        if name == "png_expand":  # placed on the canvas: this pass's pixels
+        fn = {"inflate_resolve": inflate_resolve, "adler32": adler32_check,
+              "png_defilter": png_defilter, "png_expand": png_expand}[name]
+        if name == "adler32":  # each image's sum, equal to its trailer
+            assert torch.equal(res, args[1]) and torch.equal(res, fn(*args[:2], args[2].clone()))
+        elif name == "png_expand":  # placed on the canvas: this pass's pixels
             xo, yo, xf, yf = kw["place"]
             h, w = args[0].shape[1], kw["width"]
             assert torch.equal(res[:, yo : yo + h * yf : yf, xo : xo + w * xf : xf],
@@ -425,3 +429,64 @@ def test_decoder_needs_cuda_unless_cpu():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         BatchPngDecoder()
+
+
+# ---------------------------------------------- the adler32 trailer check
+
+
+def _u32_as_i32(values):
+    return torch.tensor([v - (1 << 32) if v >= 1 << 31 else v for v in values],
+                        dtype=torch.int32)
+
+
+@pytest.mark.parametrize("per", [1, 15, 16, 17, 1000, 65_537])
+def test_adler32_plain_matches_zlib(per):
+    """The plain adler32 of random streams (and of runs of 0xFF, the largest
+    sums) against zlib.adler32; a mismatch sets only ADLER_BAD."""
+    import zlib
+
+    rng = np.random.default_rng(per)
+    rows = rng.integers(0, 256, (3, per), dtype=np.uint8)
+    rows[2] = 0xFF
+    want = _u32_as_i32([zlib.adler32(r.tobytes()) for r in rows])
+    bad = torch.zeros(1, dtype=torch.int32)
+    got = adler32_plain(torch.from_numpy(rows), want, bad)
+    assert torch.equal(got, want) and int(bad) == 0
+    off = want.clone()
+    off[1] ^= 1
+    assert torch.equal(adler32_check(torch.from_numpy(rows), off, bad), want)
+    assert int(bad) == ADLER_BAD
+
+
+def test_valid_batch_passes_the_trailer_check():
+    """device_inflate on valid files of every deflate mode: the trailers
+    uploaded are zlib's adler32 of each image, the flag stays 0, and the
+    pixels are the host decoder's."""
+    import zlib
+
+    rng = np.random.default_rng(4)
+    datas = [encode_png(random_pixels(rng, "tc8", 23, 9), "tc8", strategy=s, seed=i)
+             for i, s in enumerate(("stored", "fixed", "rle", "default"))]
+    dec = BatchPngDecoder(device="cpu", device_inflate=True, n_threads=2)
+    plan = dec.prep(datas)
+    want = [zlib.adler32(zlib.decompress(tpb._walk_idat(d)[1])) for d in datas]
+    assert plan.main[3].tolist() == want
+    px, bad = dec.run(plan, dec.upload(plan))
+    assert int(bad) == 0 and np.array_equal(px.numpy(), _host(datas))
+    dec.close()
+
+
+@pytest.mark.parametrize("cut", [1, 3, 4])
+def test_short_trailer_raises_as_host(cut):
+    """A zlib stream with fewer than four bytes after its final block:
+    device_inflate raises the host decoder's error, as the other routes."""
+    from _torch_png import chunk
+
+    pix = random_pixels(np.random.default_rng(7), "tc8", 16, 8)
+    good = encode_png(pix, "tc8")
+    _st, idat, _n = tpb._walk_idat(good)
+    bad = good[:33] + chunk(b"IDAT", idat[:-cut]) + chunk(b"IEND", b"")
+    want = _error(lambda: jax_png.decode(bad), jerr)
+    assert "incomplete or truncated stream" in want[1]
+    for front, dec in _decoders().items():
+        assert _error(lambda: dec.decode([good, bad]), terr) == want, front

@@ -124,6 +124,25 @@ def test_inflate_tokens_wrapper_matches(name):
     assert host.inflate_tokens(data, expected, out=short) is None
 
 
+@pytest.mark.parametrize("name", ["stored_noise", "fixed_flat", "rle_noise", "default_noise"])
+def test_inflate_tokens_trailer(name):
+    """The trailer the tokenizer returns: zlib's adler32 of the stream
+    (the four bytes after the final block, byte-aligned); None when fewer
+    than four follow or the stream is raw deflate.  The tokens stay those
+    of zpix_tpu's tokenizer."""
+    import zlib
+
+    data, expected = _token_streams()[name]
+    got = host.inflate_tokens(data, expected)
+    assert got[4] == zlib.adler32(zlib.decompress(data))
+    want = jrt.inflate_tokens(data, expected)
+    assert got[3] == want[3] and all(np.array_equal(a, b) for a, b in zip(got[:3], want[:3]))
+    for cut in (1, 3):
+        assert host.inflate_tokens(data[:-cut], expected)[4] is None
+    assert host.inflate_tokens(data[:-4] + b"\x01\x02\x03\x04\x05", expected)[4] == 0x01020304
+    assert host.inflate_tokens(data[2:-4], expected, zlib_wrap=False)[4] is None
+
+
 def test_zlib_decompress_sized_matches():
     rng = np.random.default_rng(4)
     _st, idat, expected = jpb._walk_idat(encode_png(random_pixels(rng, "tc8", 30, 7), "tc8"))

@@ -1,8 +1,9 @@
 """zpix_tpu_torch — the PyTorch/CUDA port of zpix_tpu for NVIDIA Hopper.
 
 Baseline JPEG with restart markers (``DeviceJpegDecoder``), restart-free
-baseline JPEG through the host index scan (``HostIndexJpegDecoder``) and
-through the native coefficient front-end (``BatchJpegDecoder``),
+baseline JPEG through the host index scan (``HostIndexJpegDecoder``),
+through the native coefficient front-end (``BatchJpegDecoder``) and wholly
+on the card by speculative chunk sync (``SyncJpegDecoder``),
 progressive JPEG (``OnchipProgressiveDecoder``, host index walks), QOI
 (``HostIndexQoiDecoder``; ``encode_device``, ``encode_device_batch``), BMP
 (``BatchBmpDecoder``) and PNG (``BatchPngDecoder``, three front-ends, Adam7)
@@ -18,9 +19,11 @@ from .parallel.bmp_batch import BatchBmpDecoder
 from .parallel.png_batch import BatchPngDecoder
 from .parallel.device_entropy import (DeviceJpegDecoder, HostIndexJpegDecoder,
                                       prep_batch, prep_batch_host_index)
+from .parallel.device_entropy_sync import SyncJpegDecoder, prep_batch_sync
 from .parallel.progressive_onchip import OnchipProgressiveDecoder
 from .parallel.qoi_batch import HostIndexQoiDecoder, encode_device, encode_device_batch
 
 __all__ = ["BatchBmpDecoder", "BatchJpegDecoder", "BatchPngDecoder", "DeviceJpegDecoder",
-           "HostIndexJpegDecoder", "HostIndexQoiDecoder", "OnchipProgressiveDecoder", "encode_device",
-           "encode_device_batch", "prep_batch", "prep_batch_host_index", "errors"]
+           "HostIndexJpegDecoder", "HostIndexQoiDecoder", "OnchipProgressiveDecoder",
+           "SyncJpegDecoder", "encode_device", "encode_device_batch", "prep_batch",
+           "prep_batch_host_index", "prep_batch_sync", "errors"]

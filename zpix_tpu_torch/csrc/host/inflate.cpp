@@ -6,7 +6,9 @@
 // window, so the host does only the bit-serial Huffman work.
 //
 // A whole copy, with the same C ABI, of zpix_tpu/runtime/inflate.cpp
-// (zpix_inflate_tokens :208; return codes -101 and -102).  Reference
+// (zpix_inflate_tokens :208; return codes -101 and -102), plus one entry
+// of its own, zpix_inflate_tokens_trailer, which also gives where the
+// adler32 trailer starts, so that the port can check it.  Reference
 // semantics: the zlib stream zpix inflates with std.compress.flate (the
 // reference's src/png/decoder.zig:513-518).  Token validity rules
 // (dist <= bytes produced, lengths 3..258, dist 1..32768) follow RFC 1951
@@ -196,22 +198,12 @@ void fixed_lit_lens(uint8_t* l) {
   for (int i = 280; i <= 287; i++) l[i] = 8;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Tokenize one DEFLATE (zlib_wrap=1: zlib-wrapped) stream.
-//   lens[t]  — bytes this token produces (1 for a literal, 3..258 copy)
-//   dists[t] — 0 for a literal, else back-reference distance
-//   lits[t]  — the literal byte (0 for copies)
-// Returns n_tokens >= 0, or -error (-101 bad stream, -102 token/output
-// overflow against the caller's caps).  *out_bytes gets the total
-// inflated size.  The adler32 trailer is NOT verified (the output is
-// never materialized here; PNG chunk CRCs already cover transport).
-int64_t zpix_inflate_tokens(const uint8_t* src, int64_t n, int zlib_wrap,
-                            int32_t* lens, int32_t* dists, uint8_t* lits,
-                            int64_t max_tokens, int64_t max_out,
-                            int64_t* out_bytes) {
+// The tokenizer behind both entry points below; trailer_off, when not
+// null, gets the byte offset just past the final block (byte-aligned):
+// where a zlib stream's adler32 trailer starts.
+int64_t inflate_tokens(const uint8_t* src, int64_t n, int zlib_wrap, int32_t* lens,
+                       int32_t* dists, uint8_t* lits, int64_t max_tokens, int64_t max_out,
+                       int64_t* out_bytes, int64_t* trailer_off) {
   BitIn in{src, n};
   if (zlib_wrap) {
     if (n < 2) return -kErrFormat;
@@ -376,7 +368,42 @@ int64_t zpix_inflate_tokens(const uint8_t* src, int64_t n, int zlib_wrap,
     if (bfinal) break;
   }
   *out_bytes = produced;
+  if (trailer_off != nullptr) {
+    in.align();
+    *trailer_off = in.pos;
+  }
   return nt;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Tokenize one DEFLATE (zlib_wrap=1: zlib-wrapped) stream.
+//   lens[t]  — bytes this token produces (1 for a literal, 3..258 copy)
+//   dists[t] — 0 for a literal, else back-reference distance
+//   lits[t]  — the literal byte (0 for copies)
+// Returns n_tokens >= 0, or -error (-101 bad stream, -102 token/output
+// overflow against the caller's caps).  *out_bytes gets the total
+// inflated size.  The adler32 trailer is NOT verified (the output is
+// never materialized here; PNG chunk CRCs already cover transport).
+int64_t zpix_inflate_tokens(const uint8_t* src, int64_t n, int zlib_wrap,
+                            int32_t* lens, int32_t* dists, uint8_t* lits,
+                            int64_t max_tokens, int64_t max_out,
+                            int64_t* out_bytes) {
+  return inflate_tokens(src, n, zlib_wrap, lens, dists, lits, max_tokens, max_out, out_bytes,
+                        nullptr);
+}
+
+// zpix_inflate_tokens that also gives *trailer_off, the byte offset just
+// past the final block, where a zlib stream's adler32 trailer starts (the
+// port's device_inflate route checks it against K16's output on the card).
+int64_t zpix_inflate_tokens_trailer(const uint8_t* src, int64_t n, int zlib_wrap,
+                                    int32_t* lens, int32_t* dists, uint8_t* lits,
+                                    int64_t max_tokens, int64_t max_out, int64_t* out_bytes,
+                                    int64_t* trailer_off) {
+  return inflate_tokens(src, n, zlib_wrap, lens, dists, lits, max_tokens, max_out, out_bytes,
+                        trailer_off);
 }
 
 }  // extern "C"

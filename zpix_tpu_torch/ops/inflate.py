@@ -13,6 +13,11 @@ Tokens come from the host symbol-resolve pass (``runtime.host.
 inflate_tokens``): lens and dists int32, lits u8, [B, NT], zero-length
 padding after each image's last token.  Domain: lengths >= 1 summing to
 ``per``, 1 <= dist <= the bytes produced before the token.
+
+``adler32_check`` wraps the zlib trailer check of K16's output
+(csrc/adler32.cu; the JAX package checks no trailer on this route), with
+``adler32_plain`` its plain version: RFC 1950's adler32 of each image's
+bytes, A = 1 + sum d_i and B = n + sum (n - i) d_i, both mod 65521.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ import torch
 from .. import runtime
 
 SCAN_TILE = 4096  # tokens a tile of K16's scan (csrc/inflate_resolve.cu kTile)
+ADLER_MOD = 65521
+ADLER_BAD = 2  # the bit adler32_check ORs into its flag on a mismatch
 
 
 def doubling_rounds(per: int) -> int:
@@ -82,3 +89,40 @@ def inflate_resolve(lens, dists, lits, per: int):
                        src.data_ptr(), tile_sum.data_ptr(), moved.data_ptr(), out.data_ptr(),
                        B, per, rounds, kernels=rounds + 4)
     return out, moved
+
+
+def adler32_plain(flat, want, bad):
+    B, per = flat.shape
+    d = flat.to(torch.int64)
+    w = (per - torch.arange(per, dtype=torch.int64, device=flat.device)) % ADLER_MOD
+    a = (1 + d.sum(1)) % ADLER_MOD
+    b = (per + (w * d).sum(1)) % ADLER_MOD
+    sums = (b << 16) | a
+    mismatch = (sums != (want.to(torch.int64) & 0xFFFFFFFF)).any()
+    bad |= ADLER_BAD * mismatch.to(torch.int32)
+    return _as_int32(sums)
+
+
+def _as_int32(x):
+    """uint32 values held in int64 -> the same 32 bits as int32."""
+    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+
+
+def adler32_check(flat, want, bad):
+    """flat u8 [B, per] (K16's output, contiguous), want int32 [B] (each
+    image's zlib trailer, uint32 bits), bad int32 [1] -> the adler32 of
+    each image's bytes, int32 [B] (uint32 bits); ORs ADLER_BAD into
+    ``bad`` when any differs from ``want``."""
+    if flat.dtype != torch.uint8 or want.dtype != torch.int32 or bad.dtype != torch.int32:
+        raise TypeError("adler32: expected u8 bytes, int32 trailers and an int32 flag")
+    if flat.dim() != 2 or tuple(want.shape) != (flat.shape[0],) or bad.numel() != 1:
+        raise ValueError("adler32: bytes must be [B, per], trailers [B], the flag [1]")
+    if flat.device.type == "cpu":
+        return adler32_plain(flat, want, bad)
+    runtime.require_cuda(flat, want, bad)
+    B, per = flat.shape
+    sums = torch.empty(B, dtype=torch.int32, device=flat.device)
+    if B:
+        runtime.launch("adler32", flat.device, "zpix_adler32_check", "plpppl",
+                       flat.data_ptr(), per, want.data_ptr(), sums.data_ptr(), bad.data_ptr(), B)
+    return sums

@@ -323,8 +323,8 @@ def _batch_streams(datas: list[bytes], *, restarts: bool):
         stream, seg_starts = _destuff(data, scan_start)
         if not restarts and (len(seg_starts) != 1 or int(seg_starts[0]) != 0):
             raise UnsupportedError(
-                "jpeg: host-index path covers restart-free streams "
-                "(use prep_batch/DeviceJpegDecoder for DRI > 0)"
+                "jpeg: the restart-free paths cover streams without restart "
+                "markers (use prep_batch/DeviceJpegDecoder for DRI > 0)"
             )
         streams.append(stream)
         seg_pos_all.append(seg_starts)

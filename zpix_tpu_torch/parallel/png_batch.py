@@ -19,7 +19,9 @@ Every route raises a FormatError where the host decoder does, on the same
 bytes: an inflated stream too short for the IHDR and a filter type above 4
 (checked on the host from the inflated bytes; with ``device_inflate`` the
 size by the tokenizer and the filter types by K15's flag, read once a
-call), and a corrupt zlib stream.  The JAX batch path lets the first two
+call), and a corrupt zlib stream, its adler32 trailer included (with
+``device_inflate``, a trailer cut short by the tokenizer and a wrong one by
+the adler32 check of K16's output on the card, into the same flag).  The JAX batch path lets the first two
 through on some routes and ``zlib.error`` escape (ROADMAP queue 3).  Not
 ported: ``mesh`` and ``_shard`` (the multi-GPU slice), ``utils.trace`` and
 ``metrics.count`` (the routing slice), the ``ZPIX_DEVICE_*`` environment
@@ -53,18 +55,30 @@ from ..codecs.png.decode import (
 )
 from ..errors import FormatError, UnsupportedError
 from ..ops.defilter import png_defilter
-from ..ops.inflate import inflate_resolve
+from ..ops.inflate import ADLER_BAD, adler32_check, inflate_resolve
 from ..ops.png import ARMS, WHOLE, png_expand, row_bytes
 from ..runtime import host
 from .device_entropy import PinnedUpload, resolve_device
 
 TOKEN_ALIGN = 4096  # token rows of the staging buffer grow in these steps
+# zlib's message for a wrong adler32 trailer, as the host decoder gives it
+ADLER_MESSAGE = "png: inflate failed: Error -3 while decompressing data: incorrect data check"
 
 
 def _token_specs(B: int, cap: int) -> list:
-    """The staging layout of the inflate route's tokens: lens and dists
-    int32, lits u8, [B, cap] each, in that order."""
-    return [((B, cap), np.int32), ((B, cap), np.int32), ((B, cap), np.uint8)]
+    """The staging layout of the inflate route: lens and dists int32, lits
+    u8, [B, cap] each, then the zlib trailers uint32 [B], in that order."""
+    return [((B, cap), np.int32), ((B, cap), np.int32), ((B, cap), np.uint8),
+            ((B,), np.uint32)]
+
+
+def _zlib_failure(idat: bytes) -> FormatError:
+    """The host decoder's error for a zlib stream that its inflate refuses."""
+    try:
+        zlib.decompress(idat)
+    except zlib.error as e:
+        return FormatError(f"png: inflate failed: {e}")
+    return FormatError("png: inflate failed")
 
 
 def _walk_idat(data: bytes):
@@ -136,7 +150,7 @@ def parse_tokens(data: bytes):
     """Chunk walk + DEFLATE symbol resolve, the host half of the two-pass
     inflate: returns (state, lens, dists, lits)."""
     st, idat, expected = _walk_idat(data)
-    lens, dists, lits, out_bytes = host.inflate_tokens(idat, expected)
+    lens, dists, lits, out_bytes, _adler = host.inflate_tokens(idat, expected)
     if out_bytes != expected:
         raise FormatError("png: inflated size mismatch")
     return st, lens, dists, lits
@@ -191,7 +205,7 @@ class PngPlan:
     st: _State  # the first image's (the batch shares geometry and depth)
     route: str  # "host", "defilter" or "inflate"
     main: list  # host: rows [B, H, row_bytes] u8; defilter: stream [B, per] u8;
-    #             inflate: lens, dists int32 and lits u8 [B, cap]
+    #             inflate: lens, dists int32 and lits u8 [B, cap], trailers uint32 [B]
     pal: np.ndarray | None  # [B, 256, 4] u8 (paletted depths)
     key: np.ndarray | None  # [B, 3] int32
     per: int  # inflated bytes an image
@@ -287,11 +301,14 @@ class BatchPngDecoder:
 
         def fill(i, out=None):
             toks = host.inflate_tokens(walked[i][1], per, out=out)
+            if toks is not None and toks[4] is None:  # the trailer is cut short
+                raise _zlib_failure(walked[i][1])
             if toks is not None and toks[3] != per:
                 raise FormatError("png: inflated size mismatch")
-            return None if toks is None else toks[:3]
+            return None if toks is None else toks[:3] + toks[4:]
 
-        toks = list(self._pool.map(lambda i: fill(i, [a[i] for a in plan.main]), range(B)))
+        toks = list(self._pool.map(lambda i: fill(i, [a[i] for a in plan.main[:3]]),
+                                   range(B)))
         over = [i for i, t in enumerate(toks) if t is None]
         if over:
             for i, t in zip(over, self._pool.map(fill, over)):
@@ -301,6 +318,7 @@ class BatchPngDecoder:
         plan.nt = max(counts)
         for i, n in enumerate(counts):
             plan.main[0][i, n : plan.nt] = 0  # zero-length padding
+        plan.main[3][:] = [t[3] for t in toks]
         self._tok_cap = min(per + 1, -(-(plan.nt + plan.nt // 16) // TOKEN_ALIGN) * TOKEN_ALIGN)
         return plan
 
@@ -348,8 +366,9 @@ class BatchPngDecoder:
         return self._upload(plan.parts)
 
     def run(self, plan: PngPlan, bufs, on_kernel=None):
-        """The kernels -> (RGBA8 [B, H, W, 4], the invalid-filter flag int32
-        [1] of the inflate route, else None).  ``on_kernel(name, args, kw,
+        """The kernels -> (RGBA8 [B, H, W, 4], the flag int32 [1] of the
+        inflate route, else None: 1 for a filter type above 4 (K15),
+        ADLER_BAD for a wrong adler32 trailer).  ``on_kernel(name, args, kw,
         result)``, when given, is called after each kernel wrapper returns,
         with the wrapper's arguments (chip_smoke.py times each stage and
         holds each launch against its plain version through it)."""
@@ -371,6 +390,7 @@ class BatchPngDecoder:
             lens, dists, lits = (b[:, : plan.nt] for b in bufs[:3])
             flat, _moved = call("inflate_resolve", inflate_resolve, lens, dists, lits, plan.per)
             bad = torch.zeros(1, dtype=torch.int32, device=flat.device)
+            call("adler32", adler32_check, flat, bufs[3], bad)
         else:
             flat = bufs[0]
         B = flat.shape[0]
@@ -391,6 +411,9 @@ class BatchPngDecoder:
     def decode(self, datas: list[bytes]):
         plan = self.prep(datas)
         px, bad = self.run(plan, self.upload(plan))
-        if bad is not None and bool(bad.item()):  # one sync a call, after the kernels
+        flags = 0 if bad is None else int(bad.item())  # one sync a call, after the kernels
+        if flags & ADLER_BAD:  # the host decoder's inflate fails before its defilter
+            raise FormatError(ADLER_MESSAGE)
+        if flags:
             raise FormatError("png: invalid filter type")
         return px

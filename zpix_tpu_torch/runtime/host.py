@@ -89,6 +89,7 @@ _SIGNATURES = {
     "zpix_qoi_encode": (_I64, [_P, _I64, _I32, _P, _I64]),
     # csrc/host/inflate.cpp and csrc/host/defilter.cpp
     "zpix_inflate_tokens": (_I64, [_P, _I64, _I32, _P, _P, _P, _I64, _I64, _P]),
+    "zpix_inflate_tokens_trailer": (_I64, [_P, _I64, _I32, _P, _P, _P, _I64, _I64, _P, _P]),
     "zpix_defilter": (_I32, [_P, _I64, _I64, _I32, _P]),
     "zpix_defilter_batch": (_I32, [_P, _I64, _I64, _I32, _P, _I32, _I32]),
 }
@@ -145,7 +146,10 @@ def inflate_tokens(data: bytes, expected_out: int, zlib_wrap: bool = True, out=N
     """DEFLATE symbol-resolve pass: bitstream -> LZ77 token arrays (the port
     of zpix_tpu/runtime/__init__.py::inflate_tokens).
 
-    Returns (lens int32[nt], dists int32[nt], lits uint8[nt], out_bytes).
+    Returns (lens int32[nt], dists int32[nt], lits uint8[nt], out_bytes,
+    adler): ``adler`` is the zlib trailer, the big-endian uint32 in the four
+    bytes after the final block, or None when fewer than four follow (or
+    the stream is raw deflate); nothing here checks it.
     ``out``: (lens, dists, lits) numpy arrays to write into (pinned
     staging); the returned arrays are views of them, and None is returned
     when they are shorter than expected_out + 1 and too short for this
@@ -163,15 +167,18 @@ def inflate_tokens(data: bytes, expected_out: int, zlib_wrap: bool = True, out=N
                np.empty(max_tokens, np.uint8))
     lens, dists, lits = out
     room = min(len(lens), len(dists), len(lits), max_tokens)
-    out_bytes = ctypes.c_int64(0)
-    nt = lib().zpix_inflate_tokens(data, len(data), 1 if zlib_wrap else 0,
-                                   lens.ctypes.data, dists.ctypes.data, lits.ctypes.data,
-                                   room, expected_out, ctypes.byref(out_bytes))
+    out_bytes, trailer = ctypes.c_int64(0), ctypes.c_int64(0)
+    nt = lib().zpix_inflate_tokens_trailer(
+        data, len(data), 1 if zlib_wrap else 0, lens.ctypes.data, dists.ctypes.data,
+        lits.ctypes.data, room, expected_out, ctypes.byref(out_bytes), ctypes.byref(trailer))
     if nt == -102 and room < max_tokens:
         return None  # out of room, or past expected_out: the caller retries at full room
     if nt < 0:
         raise FormatError(f"zlib: invalid deflate stream (code {-nt})")
-    return lens[:nt], dists[:nt], lits[:nt], out_bytes.value
+    at = trailer.value
+    adler = (int.from_bytes(data[at : at + 4], "big")
+             if zlib_wrap and len(data) - at >= 4 else None)
+    return lens[:nt], dists[:nt], lits[:nt], out_bytes.value, adler
 
 
 _libdeflate = None
