@@ -25,7 +25,10 @@ through ``encode_device_batch`` (K14, streams byte-identical to the host
 encoder), and 16 distinct 1024x1024 BMPs a batch from the port's numpy
 writer through ``BatchBmpDecoder`` (K18, every bit depth, header and
 orientation).  Then the ``png`` phase: K15-K17 against their plain
-versions at 16 x 1024^2, batches of 16 distinct 1024x1024 RGB8 PNGs of the
+versions at 16 x 1024^2 (K15 also at 1, 31, 32, 33, 1,025 and 1,500 rows at
+every bpp, K16 at every tile size on hand-built chains and at per = T - 1,
+T, T + 1; K15's bands a block and K16's tile size swept on the bench
+batch), batches of 16 distinct 1024x1024 RGB8 PNGs of the
 JAX bench's content (Pillow, compress_level 6) through ``BatchPngDecoder``
 by its three front-ends (host inflate and defilter, K17; host inflate,
 K15, K17; host tokens, K16, K15, K17), two Adam7 batches (RGB8, and
@@ -1608,6 +1611,14 @@ OPS_K16_TOKEN, OPS_K16_BYTE, OPS_K17_PIXEL = 1, 1, 1
 # L1 round trip for the previous step's bytes and a block barrier; taken as
 # 40 cycles at the boost clock (an assumption, not a measurement).
 CHAIN_CYCLES_PER_STEP = 40
+# K15's boundary cases (rows; 4 images of this many pixels a row) and
+# K16's hand-built token kinds (tests/_torch_png.py hand_tokens)
+K15_EDGE_ROWS = (1, 31, 32, 33, 1025, 1500)
+K15_EDGE_WIDTH = 97
+K16_KINDS = ("rle", "overlap", "far", "far_edge")
+# K15 on a grid larger than the card holds at once: images, rows, pixels
+# a row (32 x 128 blocks of 128 threads; 132 SMs hold at most 16 each)
+K15_GRID = (32, 16384, 301)
 
 
 def png_writer():
@@ -1717,10 +1728,7 @@ class PngLaunchCheck:
             err = max(max_abs_err(res, adler32_plain(args[0], args[1], flag)),
                       max_abs_err(res, args[1]), int(flag))
         elif name == "inflate_resolve":
-            want, moved_plain = inflate_resolve_plain(*args)
-            err = max_abs_err(res[0], want)
-            self.facts[f"k16_{self.tag}_rounds_moved"] = {
-                "kernel": int(res[1].sum()), "plain": int(moved_plain.sum())}
+            err = max_abs_err(res, inflate_resolve_plain(*args)[0])
         elif name == "png_defilter":
             flag = torch.zeros(1, dtype=torch.int32, device=args[0].device)
             err = max_abs_err(res, png_defilter_plain(*args, bpp=kw["bpp"], bad=flag))
@@ -1748,8 +1756,8 @@ def png_kernel_checks(dev, writer, decs, batch, interlaced):
     palette, a width that is not a multiple of the pixels a byte, and
     placed as an Adam7 pass.  -> (max abs errors, {front: kept launches},
     facts)"""
-    from zpix_tpu_torch.ops.defilter import png_defilter, png_defilter_plain
-    from zpix_tpu_torch.ops.inflate import inflate_resolve, inflate_resolve_plain
+    from zpix_tpu_torch.ops.defilter import BPPS, png_defilter, png_defilter_plain
+    from zpix_tpu_torch.ops.inflate import TILES, inflate_resolve, inflate_resolve_plain
     from zpix_tpu_torch.ops.png import ARMS, png_expand, png_expand_plain, row_bytes
 
     errs, facts, kept = {}, {}, {}
@@ -1771,7 +1779,7 @@ def png_kernel_checks(dev, writer, decs, batch, interlaced):
     for front, dec in decs.items():
         px[front], kept[front], bufs[front] = checked_run(dec, batch, f"bench_{front}")
     # K16's bytes against the host's inflate, which the defilter route uploads
-    errs["k16_bench_vs_host_inflate"] = max_abs_err(kept["inflate"]["inflate_resolve"][2][0],
+    errs["k16_bench_vs_host_inflate"] = max_abs_err(kept["inflate"]["inflate_resolve"][2],
                                                     bufs["defilter"][0])
     errs["k17_bench_routes_agree"] = max(max_abs_err(px["host"], px[f])
                                          for f in ("defilter", "inflate"))
@@ -1783,7 +1791,7 @@ def png_kernel_checks(dev, writer, decs, batch, interlaced):
     del px, bufs
 
     gen = np.random.default_rng(5)
-    for bpp in (1, 2, 3, 4, 6, 8):
+    for bpp in BPPS:
         s = torch.from_numpy(gen.integers(0, 256, (BATCH, SIZE, 1 + SIZE * bpp),
                                           dtype=np.uint8)).to(dev)
         bk, bp = zero(), zero()
@@ -1792,6 +1800,26 @@ def png_kernel_checks(dev, writer, decs, batch, interlaced):
                         png_defilter_plain(s[:, :, 1:], s[:, :, 0], bpp=bpp, bad=bp)),
             max_abs_err(bk, bp), 1 - int(bk))
         del s
+    # the band design's boundaries: 1, 31, 32, 33 rows (one band and the
+    # first hand-off), 1,025 and 1,500 (33 and 47 bands: 9 and 12 blocks an
+    # image), a random valid filter type a row, stream views of every row
+    # alignment; then a grid of more blocks than the card holds at once
+    for bpp in BPPS:
+        for H in K15_EDGE_ROWS:
+            s = torch.from_numpy(gen.integers(0, 256, (4, H, 1 + K15_EDGE_WIDTH * bpp),
+                                              dtype=np.uint8)).to(dev)
+            s[:, :, 0] %= 5
+            errs[f"k15_edge_bpp{bpp}_h{H}"] = max_abs_err(
+                png_defilter(s[:, :, 1:], s[:, :, 0], bpp=bpp),
+                png_defilter_plain(s[:, :, 1:], s[:, :, 0], bpp=bpp))
+            del s
+    gb, gh, gw = K15_GRID
+    s = torch.from_numpy(gen.integers(0, 256, (gb, gh, 1 + gw * 3), dtype=np.uint8)).to(dev)
+    s[:, :, 0] %= 5
+    errs["k15_grid_beyond_resident"] = max_abs_err(png_defilter(s[:, :, 1:], s[:, :, 0], bpp=3),
+                                                   png_defilter_plain(s[:, :, 1:], s[:, :, 0],
+                                                                      bpp=3))
+    del s
     # the adler32 check on rows of odd length (every alignment) and 0xFF runs,
     # on a matching and a wrong trailer
     from zpix_tpu_torch.ops.inflate import ADLER_BAD, adler32_check, adler32_plain
@@ -1809,16 +1837,28 @@ def png_kernel_checks(dev, writer, decs, batch, interlaced):
     lens, per = kept["inflate"]["inflate_resolve"][0][0], kept["inflate"]["inflate_resolve"][0][3]
     facts["k16_bench_tokens"] = {"most": lens.shape[1],
                                  "mean": float((lens > 0).sum(1).double().mean())}
-    kinds = ("rle", "overlap", "far")
-    hand = writer.stack_tokens([writer.hand_tokens(gen, per, kinds[i % 3])
+    # hand-built chains at full batch, every tile size (per is no multiple
+    # of any): "rle" (every byte past the first tile rooted at byte 0, in
+    # an earlier tile), "overlap" (copies straddling tile boundaries), "far"
+    # (distance 32,768), "far_edge" (distance-32,768 copies starting on
+    # every 8 KiB boundary), token counts that differ from image to image
+    hand = writer.stack_tokens([writer.hand_tokens(gen, per, K16_KINDS[i % 4])
                                 for i in range(BATCH)])
     hand = [torch.from_numpy(a).to(dev) for a in hand]
-    got, moved = inflate_resolve(*hand, per)
-    want, moved_plain = inflate_resolve_plain(*hand, per)
-    errs["k16_hand_built"] = max_abs_err(got, want)
-    facts["k16_hand_built_rounds_moved"] = {"kernel": int(moved.sum()),
-                                            "plain": int(moved_plain.sum())}
-    del hand, got, want
+    want = inflate_resolve_plain(*hand, per)[0]
+    for tile in TILES:
+        errs[f"k16_hand_built_tile{tile}"] = max_abs_err(inflate_resolve(*hand, per, tile=tile),
+                                                         want)
+    del hand, want
+    # per = T - 1, T, T + 1 for each tile size, the four kinds in one batch
+    for tile in TILES:
+        for off in (-1, 0, 1):
+            small = writer.stack_tokens([writer.hand_tokens(gen, tile + off, k)
+                                         for k in K16_KINDS])
+            small = [torch.from_numpy(a).to(dev) for a in small]
+            errs[f"k16_per_tile{tile}_{off:+d}"] = max_abs_err(
+                inflate_resolve(*small, tile + off, tile=tile),
+                inflate_resolve_plain(*small, tile + off)[0])
     # every arm at 16 x 1024 rows of width 1,021, not a multiple of 2, 4 or
     # 8 pixels a byte; placed at Adam7 pass 5's offsets and strides
     w = SIZE - 3
@@ -1860,8 +1900,8 @@ def png_phase(dev):
 
     from zpix_tpu_torch import BatchPngDecoder, runtime
     from zpix_tpu_torch.errors import ZpixError
-    from zpix_tpu_torch.ops.defilter import png_defilter, png_defilter_plain
-    from zpix_tpu_torch.ops.inflate import (adler32_check, adler32_plain, doubling_rounds,
+    from zpix_tpu_torch.ops.defilter import WARPS, png_defilter, png_defilter_plain
+    from zpix_tpu_torch.ops.inflate import (TILE, TILES, adler32_check, adler32_plain,
                                             inflate_resolve, inflate_resolve_plain)
     from zpix_tpu_torch.ops.png import png_expand, png_expand_plain
     from zpix_tpu_torch.runtime import host
@@ -1952,10 +1992,23 @@ def png_phase(dev):
     bidx = torch.arange(BATCH, device=dev)[:, None, None]
     idx_long = idx8.long()
     tc8 = rows.view(BATCH, SIZE, SIZE, 3)
-    moved = facts["k16_bench_inflate_rounds_moved"]["kernel"]
+    # K16's tile sweep on the same inputs, each size checked against the
+    # plain version
+    k16_want = inflate_resolve_plain(*toks, per)[0]
+    tile_sweep = {}
+    for t in TILES:
+        errs[f"k16_bench_tile{t}"] = max_abs_err(inflate_resolve(*toks, per, tile=t), k16_want)
+        tile_sweep[t] = cuda_ms(lambda t=t: inflate_resolve(*toks, per, tile=t), 20)
+    del k16_want
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    inflate_resolve(*toks, per)
+    torch.cuda.synchronize()
+    k16_peak = torch.cuda.max_memory_allocated() - held
     entries = {
         "png_defilter": {
-            "ms": cuda_ms(lambda: png_defilter(raw, ft, bpp=3), 5),
+            "ms": cuda_ms(lambda: png_defilter(raw, ft, bpp=3), 20),
             "plain_ms": cuda_ms(lambda: png_defilter_plain(raw, ft, bpp=3), 1),
             "bytes": 2 * raw.numel() + ft.numel(),
             "ops": sum(OPS_K15_BYTE[t] * n for t, n in enumerate(ftc[:5])) * SIZE * 3,
@@ -1964,9 +2017,9 @@ def png_phase(dev):
             "max_abs_err": max(v for k, v in errs.items() if k.startswith("k15")),
             "chain_bound_ms": (2 * SIZE - 1) * CHAIN_CYCLES_PER_STEP / BOOST_HZ * 1e3,
             "chain_cycles_per_step": CHAIN_CYCLES_PER_STEP,
-            "rows_by_filter_type": ftc},
+            "rows_by_filter_type": ftc, "bands_a_block": WARPS},
         "inflate_resolve": {
-            "ms": cuda_ms(lambda: inflate_resolve(*toks, per), 10),
+            "ms": cuda_ms(lambda: inflate_resolve(*toks, per), 20),
             "plain_ms": cuda_ms(lambda: inflate_resolve_plain(*toks, per), 1),
             "bytes": BATCH * nt * 9 + BATCH * per,
             "ops": OPS_K16_TOKEN * BATCH * nt + OPS_K16_BYTE * BATCH * per,
@@ -1974,9 +2027,7 @@ def png_phase(dev):
             "library_note": "no single PyTorch call resolves LZ77 copies",
             "max_abs_err": max(v for k, v in errs.items()
                                if k.startswith("k16") and not k.startswith("k16_adler32")),
-            "rounds_run": min(doubling_rounds(per), moved + 1),
-            "rounds_moved": facts["k16_bench_inflate_rounds_moved"],
-            "rounds_moved_hand_built": facts["k16_hand_built_rounds_moved"],
+            "tile": TILE, "ms_by_tile": tile_sweep, "peak_mem_bytes": k16_peak,
             "tokens": facts["k16_bench_tokens"],
             # the zlib trailer check of K16's output (csrc/adler32.cu): a block
             # an image reads its bytes once; two adds a byte (A, then B += A)
@@ -2005,7 +2056,8 @@ def png_phase(dev):
     del rows, idx8, idx_long, toks, kept, flat_k
     summary = {"content_seconds": content_s, "kernel_checks_seconds": checks_s,
                "max_abs_err": errs, "facts": facts, "routes": routes, "adam7": adam7,
-               "damaged": damaged, "inflater": "libdeflate" if host.libdeflate_available()
+               "damaged": damaged,
+               "inflater": "libdeflate" if host.libdeflate_available()
                else "zlib", "bytes_per_image": float(np.mean([len(d) for d in batches[0]])),
                "inflated_bytes_per_image": per}
     paths = {"png_host": launches["host"], "png_defilter": launches["defilter"],
@@ -2033,7 +2085,7 @@ def png_check(pg, paths) -> None:
     if (min(p["png_expand"] for p in paths.values()) == 0
             or min(paths[p]["png_defilter"] for p in ("png_defilter", "png_inflate",
                                                       "png_adam7")) == 0
-            or paths["png_inflate"]["inflate_resolve"] == 0
+            or not 0 < paths["png_inflate"]["inflate_resolve"] <= 4
             or paths["png_inflate"]["adler32"] == 0):
         raise SystemExit("chip_smoke: a PNG route skipped its kernel")
     r = pg["routes"]

@@ -172,17 +172,26 @@ def png_batch(cd: str, w: int, h: int, *, batch: int = 2, seed: int = 0,
     return files, pixels
 
 
-def hand_tokens(rng, per: int, kind: str):
+def hand_tokens(rng, per: int, kind: str, edge: int = 8192):
     """Tokens of one image of ``per`` bytes inside K16's domain -> (lens,
     dists, lits): "rle" is a literal then 258-byte copies at distance 1
     (zlib's Z_RLE on flat content: the deepest chains); "overlap" mixes
     literals with copies shorter than, equal to and longer than their
-    distance; "far" adds copies at distance 32,768."""
+    distance, which straddle every boundary they meet; "far" adds copies at
+    distance 32,768; "far_edge" is "overlap" with its tokens cut at every
+    multiple of ``edge`` bytes, where, once 32,768 bytes are out, a copy at
+    distance 32,768 starts (so that it lands on a tile's first byte and
+    reads one)."""
     lens, dists, lits = [1], [0], [int(rng.integers(0, 256))]
     produced = 1
     while produced < per:
         left = per - produced
-        if kind == "rle":
+        if kind == "far_edge":
+            left = min(left, edge - produced % edge)
+        if kind == "far_edge" and produced % edge == 0 and produced >= 32768 and left >= 3:
+            n = int(min(left, rng.integers(3, 259)))
+            lens.append(n), dists.append(32768), lits.append(0)
+        elif kind == "rle":
             n = min(258, left)
             lens.append(n), dists.append(1), lits.append(0)
         elif rng.random() < 0.4 or left < 3:

@@ -459,12 +459,14 @@ def _counted(kernel, n, fn, *args, **kw):
 
 
 @pytest.mark.parametrize("bpp", [1, 2, 3, 4, 6, 8])
-@pytest.mark.parametrize("H,W", [(1, 40), (40, 1), (9, 70), (70, 9), (1500, 3)],
-                         ids=lambda v: str(v))
+@pytest.mark.parametrize("H,W", [(1, 40), (40, 1), (9, 70), (70, 9), (1500, 3), (31, 13),
+                                 (32, 13), (33, 13), (1025, 5)], ids=lambda v: str(v))
 def test_png_defilter_matches_plain(cuda, bpp, H, W):
     """K15 on random rows with random filter bytes 0-255, contiguous and
-    read in place from a filtered stream [B, H, 1 + Wb] (H above the
-    block's 1,024 threads too); the flag of types above 4 as well."""
+    read in place from a filtered stream [B, H, 1 + Wb] (every row start
+    alignment), at the band boundaries (31, 32, 33 rows) and past a block
+    of the default bands (1,025, 1,500 rows); the flag of types above 4 as
+    well."""
     from zpix_tpu_torch.ops.defilter import png_defilter, png_defilter_plain
 
     rng = np.random.default_rng(bpp * 1000 + H)
@@ -483,6 +485,26 @@ def test_png_defilter_matches_plain(cuda, bpp, H, W):
     assert int(bad) == 0
 
 
+@pytest.mark.parametrize("B,H", [(2, 1337), (32, 16384)])
+@pytest.mark.parametrize("bpp", [1, 3, 8])
+def test_png_defilter_bands_across_blocks(cuda, bpp, B, H):
+    """K15's bands hand their last row on within a block (shared ring)
+    and between blocks (a whole row in global memory), on rows longer than
+    the shared ring (32 pixels): 42 bands in 11 blocks an image, and a grid
+    of 4,096 blocks of 128 threads, more than 132 SMs hold at once (16
+    blocks an SM at most), so that blocks wait on blocks that started
+    before them while later ones cannot start."""
+    from zpix_tpu_torch.ops.defilter import png_defilter, png_defilter_plain
+
+    rng = np.random.default_rng(H * 10 + bpp)
+    W = 301
+    stream = torch.from_numpy(rng.integers(0, 256, (B, H, 1 + W * bpp), dtype=np.uint8)).to(cuda)
+    stream[:, :, 0] %= 5
+    raw, ft = stream[:, :, 1:], stream[:, :, 0]
+    got = _counted("png_defilter", 1, png_defilter, raw, ft, bpp=bpp)
+    assert torch.equal(got, png_defilter_plain(raw, ft, bpp=bpp))
+
+
 @pytest.mark.parametrize("case", ["stored", "fixed", "rle", "default", "hand"])
 def test_inflate_resolve_matches_plain(cuda, case):
     """K16 on the tokenizer's output for the four deflate modes (rows read
@@ -491,7 +513,7 @@ def test_inflate_resolve_matches_plain(cuda, case):
     overlapping copies, distance 32,768, zero-length padding."""
     from _torch_png import encode_png, hand_tokens, random_pixels, stack_tokens
 
-    from zpix_tpu_torch.ops.inflate import doubling_rounds, inflate_resolve, inflate_resolve_plain
+    from zpix_tpu_torch.ops.inflate import inflate_resolve, inflate_resolve_plain
     from zpix_tpu_torch.parallel.png_batch import parse_tokens
 
     rng = np.random.default_rng(5)
@@ -506,12 +528,29 @@ def test_inflate_resolve_matches_plain(cuda, case):
     lens, dists, lits = (torch.from_numpy(a).to(cuda) for a in stack_tokens(toks))
     nt = max(len(t[0]) for t in toks)
     views = [a[:, : nt + 2] for a in (lens, dists, lits)]  # strided rows
-    got, moved = _counted("inflate_resolve", doubling_rounds(per) + 4, inflate_resolve, *views,
-                          per)
+    got = _counted("inflate_resolve", 2, inflate_resolve, *views, per)
     assert torch.equal(got, inflate_resolve_plain(*views, per)[0])
-    assert torch.equal(got, inflate_resolve(lens, dists, lits, per)[0])
-    # in place, a round reaches at least as far as a ping-pong round
-    assert int(moved.sum()) <= int(inflate_resolve_plain(*views, per)[1].sum())
+    assert torch.equal(got, inflate_resolve(lens, dists, lits, per))
+
+
+@pytest.mark.parametrize("off", [-1, 0, 1, 40_001])
+@pytest.mark.parametrize("tile", [8192, 16384, 32768])
+def test_inflate_resolve_tiles_match_plain(cuda, tile, off):
+    """K16 at per = T - 1, T, T + 1 and several tiles: distance-32,768
+    copies that start on a tile's first byte, copies straddling tile
+    boundaries, images with different token counts in one batch, and the
+    "rle" image, whose every byte past the first tile has its root (byte
+    0) in an earlier tile."""
+    from _torch_png import hand_tokens, stack_tokens
+
+    from zpix_tpu_torch.ops.inflate import inflate_resolve, inflate_resolve_plain
+
+    rng = np.random.default_rng(tile + off)
+    per = tile + off
+    toks = [hand_tokens(rng, per, k) for k in ("far_edge", "rle", "overlap", "far")]
+    lens, dists, lits = (torch.from_numpy(a).to(cuda) for a in stack_tokens(toks))
+    got = _counted("inflate_resolve", 2, inflate_resolve, lens, dists, lits, per, tile=tile)
+    assert torch.equal(got, inflate_resolve_plain(lens, dists, lits, per)[0])
 
 
 @pytest.mark.parametrize("cd", PNG_DEPTHS)

@@ -38,7 +38,8 @@ from zpix_tpu_torch import BatchPngDecoder
 from zpix_tpu_torch import errors as terr
 from zpix_tpu_torch.ops.defilter import png_defilter, png_defilter_plain
 from zpix_tpu_torch.ops.inflate import (ADLER_BAD, adler32_check, adler32_plain,
-                                        doubling_rounds, inflate_resolve)
+                                        doubling_rounds, inflate_resolve,
+                                        inflate_resolve_plain)
 from zpix_tpu_torch.ops.png import png_expand
 from zpix_tpu_torch.parallel import png_batch as tpb
 from zpix_tpu_torch.parallel.png_batch import _segments, palettes, parse_filtered, parse_tokens
@@ -59,7 +60,7 @@ def _t(a):
 
 
 @pytest.mark.parametrize("bpp,H,W", [(1, 1, 19), (2, 17, 1), (3, 11, 4), (4, 4, 11),
-                                     (6, 9, 7), (8, 6, 9)])
+                                     (6, 9, 7), (8, 6, 9), (1, 33, 6), (3, 33, 5)])
 def test_defilter_plain_matches_jax(bpp, H, W):
     rng = np.random.default_rng(bpp)
     raw = rng.integers(0, 256, (3, H, W * bpp), dtype=np.uint8)
@@ -92,12 +93,19 @@ def _resolve_jax(toks, per):
                                                    jnp.asarray(c), per)) for l, d, c in toks])
 
 
-@pytest.mark.parametrize("case", ["stored", "fixed", "rle", "default", "hand"])
+@pytest.mark.parametrize("case", ["stored", "fixed", "rle", "default", "hand", "edge_32k",
+                                  "edge_64k"])
 def test_inflate_resolve_plain_matches_jax(case):
+    """The edge cases: per around 32 KiB and 64 KiB, distance-32,768 copies
+    starting on every 8 KiB boundary, copies straddling the others, images
+    with different token counts."""
     rng = np.random.default_rng(len(case))
     if case == "hand":
         per = 40_000
         toks = [hand_tokens(rng, per, k) for k in ("rle", "overlap", "far")]
+    elif case.startswith("edge"):
+        per = {"edge_32k": 32_769, "edge_64k": 65_535}[case]
+        toks = [hand_tokens(rng, per, k) for k in ("far_edge", "rle", "overlap")]
     else:
         flat = np.repeat(random_pixels(rng, "tc8", 5, 13, hi=3), 8, axis=1)
         pix = [flat, random_pixels(rng, "tc8", 40, 13)]
@@ -106,10 +114,11 @@ def test_inflate_resolve_plain_matches_jax(case):
         per = 13 * (1 + 40 * 3)
     padded = stack_tokens(toks)
     want = _resolve_jax([tuple(a[i] for a in padded) for i in range(len(toks))], per)
-    got, moved = inflate_resolve(*(_t(a) for a in padded), per)
+    got, moved = inflate_resolve_plain(*(_t(a) for a in padded), per)
     assert np.array_equal(got.numpy(), want)
+    assert torch.equal(inflate_resolve(*(_t(a) for a in padded), per), got)
     assert moved.dtype == torch.int32 and moved.numel() == doubling_rounds(per)
-    if case in ("rle", "hand"):  # runs of copies make chains
+    if case in ("rle", "hand", "edge_32k", "edge_64k"):  # runs of copies make chains
         assert int(moved.sum()) >= 1
 
 
@@ -368,8 +377,6 @@ def test_run_reports_each_kernel(front):
             h, w = args[0].shape[1], kw["width"]
             assert torch.equal(res[:, yo : yo + h * yf : yf, xo : xo + w * xf : xf],
                                fn(*args, **{**kw, "out": None}))
-        elif name == "inflate_resolve":
-            assert torch.equal(res[0], fn(*args, **kw)[0])
         else:
             assert torch.equal(res, fn(*args, **kw))
     assert res is px and np.array_equal(px.numpy(), _host(datas))

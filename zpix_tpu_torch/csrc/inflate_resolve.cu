@@ -9,208 +9,377 @@
 // (exclusive prefix sum of lens) is <= pos; a literal byte is its token's
 // lit, a copy byte is the byte at pos - dist (RFC 1951's overlapping copy:
 // the chain pos -> pos - dist -> ... ends at a literal).  Domain: every
-// real length >= 1, the lengths summing to per, 1 <= dist <= the bytes
-// before the token, lit 0 on copies.  Outside it the kernels stay inside
-// their buffers by clamping (the decoder never passes such tokens).
+// real length in 1..258, the lengths summing to per, 1 <= dist <= 32,768
+// and <= the bytes before the token, lit 0 on copies.  Outside it the
+// kernels stay inside their buffers and never wait on a tile that cannot
+// finish (a byte's value is then unspecified).
 //
-// Kernels, all on the caller's stream:
-//  1. tile_sums: the sum of lens over each 4,096-token tile;
-//  2. tile_offsets: a per-image exclusive scan of the tile sums;
-//  3. fill: a block scans its tile's lens, and a thread a token writes,
-//     over [start, start + len), the source pointer (pos for a literal,
-//     pos - dist for a copy) into src [B, per] int32 and, for a literal,
-//     its byte into out;
-//  4. double (``rounds`` launches): pointer doubling src[q] = src[src[q]],
-//     in place.  In place is exact: every value src[q] ever holds is an
-//     ancestor of q on its chain (or its literal root), so a value read
-//     mid-update is too, and after round k every pointer has moved at
-//     least 2^k steps up its chain (or reached the root), as with ping-pong
-//     buffers.  Chains strictly decrease, so ceil(log2 per) rounds always
-//     reach the fixed point.  Round k sets changed[k] when it moved any
-//     pointer; a round that finds changed[k - 1] == 0 returns at once, so
-//     the rounds after the fixed point cost a launch each and no host sync;
-//  5. gather: out[pos] = out[src[pos]] for copy bytes (src[pos] is then a
-//     literal's position, whose byte is final).
-// Bound on the H100: bytes -- the tokens read (9 bytes a token) and the
-// output written once; the doubling rounds re-read the int32 pointer field
-// (4 bytes a byte of output, a gather and a write a round).
+// Bound on the H100: bytes -- the token rows (9 bytes a token; on the
+// bench content ~2.1 M tokens for 3.1 MB an image, 312 MB a batch) and the
+// output written once.  The old design (a pointer field src [B, per]
+// int32 in device memory, 5-6 working doubling rounds of gather and write
+// over it, 26 launches) took 2.78 ms a call against a 0.108 ms bound.
+//
+// This design keeps every pointer in shared memory.  DEFLATE's window is
+// 32,768 bytes, so if each image's output is cut into tiles of T bytes that
+// finish in order, every source outside a tile lies in a tile that is
+// already final.  A call is one memset and two kernels on the caller's
+// stream:
+//  0. memset: the ticket and the tile flags;
+//  1. sums: the length sum of every chunk of 4,096 tokens (the lens read
+//     once);
+//  2. resolve: blocks take (image, tile) tickets, interleaved over the
+//     images, so that a tile's predecessors are always held by blocks
+//     already running.  A block finds the token that covers its tile's
+//     first byte (warp 0 walks the image's chunk sums, the block scans
+//     that one chunk), then walks its tile's tokens 1,024 at a time (the
+//     next round's tokens load during this one; a block scan of the lens
+//     places them; a warp writes its 32 tokens' bytes together, each lane
+//     finding its byte's token by a binary search over the warp's starts,
+//     so that no warp waits on its longest copy).  Each byte gets an int16
+//     tile-local source pointer in shared memory (itself for a literal,
+//     pos - dist for a copy, negative when before the tile); pointer
+//     doubling in shared memory resolves the in-tile chains (in place:
+//     every value a pointer holds is an ancestor on its chain, so a round
+//     reaches at least as far as a ping-pong round); literal-rooted bytes
+//     are written at once; then, only when some chain left the tile, the
+//     block waits (acquire) for the flags of the tiles that hold those
+//     roots, reads them through L2 (never a stale L1 line), 16 at a time,
+//     and writes them.  Last it sets its own flag (release).
+// The tiles of an image form a chain of hand-offs (a tile's chains nearly
+// always reach into the tile before), so a tile's cost after its wait is
+// what the tile size trades against the number of tiles.
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
-constexpr int kScanThreads = 1024;
-constexpr int kItems = 4;
-constexpr int kTile = kScanThreads * kItems;  // tokens a tile
-constexpr int kThreads = 256;
-constexpr int kMaxGrid = 132 * 16;  // grid-stride kernels: 16 blocks an SM
+// A wait that outlasts this many polls (seconds; a valid input's waits end
+// within microseconds) aborts the kernel with a launch failure rather than
+// hang the card.
+constexpr unsigned kSpinLimit = 1u << 24;
+
+__device__ __forceinline__ void spin_guard(unsigned& polls) {
+  if (++polls > kSpinLimit) __trap();
+}
+
+constexpr int kThreads = 1024;              // a resolve block
+constexpr int kSumThreads = 256, kItems = 16;  // a sums block
+constexpr int kChunk = kSumThreads * kItems;  // tokens a chunk: 4,096
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
 
 // Block-wide exclusive scan of one value a thread (blockDim.x == 1024);
-// *block_total gets the sum.
-__device__ __forceinline__ int32_t block_exclusive_scan(int32_t v, int32_t* warp_sum,
-                                                        int32_t* block_total) {
+// every thread gets the block's total.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sum, int* total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int32_t incl = v;
+  int incl = v;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    const int32_t u = __shfl_up_sync(0xffffffffu, incl, d);
+    const int u = __shfl_up_sync(0xffffffffu, incl, d);
     if (lane >= d) incl += u;
   }
   if (lane == 31) warp_sum[warp] = incl;
   __syncthreads();
   if (warp == 0) {
-    int32_t t = warp_sum[lane];
+    int t = warp_sum[lane];
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
-      const int32_t u = __shfl_up_sync(0xffffffffu, t, d);
+      const int u = __shfl_up_sync(0xffffffffu, t, d);
       if (lane >= d) t += u;
     }
     warp_sum[lane] = t;
   }
   __syncthreads();
-  const int32_t before = (warp ? warp_sum[warp - 1] : 0) + incl - v;
-  *block_total = warp_sum[31];
+  const int before = (warp ? warp_sum[warp - 1] : 0) + incl - v;
+  *total = warp_sum[31];
   __syncthreads();
   return before;
 }
 
-// grid (tiles, B): the sum of each tile's lens.
-__global__ void tile_sums_kernel(const int32_t* __restrict__ lens, int64_t ts, int64_t nt,
-                                 int32_t* __restrict__ tile_sum, int tiles) {
-  __shared__ int32_t warp_sum[32];
+struct Scratch {  // views of the one scratch buffer
+  int* ticket;     // [1], zeroed: the resolve's tickets
+  int* flag;       // [B, tiles], zeroed: 1 once the tile is written
+  int* chunk_sum;  // [B, chunks]: the lengths of each chunk of 4,096 tokens
+};
+
+// grid (chunks, B): the sum of each chunk's lengths.
+__global__ void __launch_bounds__(kSumThreads) sums_kernel(const int32_t* __restrict__ lens,
+                                                           int64_t ts, int64_t nt, int chunks,
+                                                           int* __restrict__ chunk_sum) {
+  __shared__ int warp_sum[kSumThreads / 32];
   const int64_t b = blockIdx.y;
-  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x * kItems;
-  int32_t v = 0;
+  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * kChunk + threadIdx.x * kItems;
+  int v = 0;
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
-    if (i0 + k < nt) v += lens[b * ts + i0 + k];
+    const int len = i0 + k < nt ? lens[b * ts + i0 + k] : 0;
+    v += len > 0 ? len : 0;
   }
-  int32_t total;
-  block_exclusive_scan(v, warp_sum, &total);
-  if (threadIdx.x == 0) tile_sum[b * tiles + blockIdx.x] = total;
-}
-
-// grid B: tile sums -> exclusive tile offsets, in place.
-__global__ void tile_offsets_kernel(int32_t* __restrict__ tile_sum, int tiles) {
-  __shared__ int32_t warp_sum[32];
-  int32_t* t = tile_sum + static_cast<int64_t>(blockIdx.x) * tiles;
-  int32_t carry = 0;
-  for (int base = 0; base < tiles; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    const int32_t v = i < tiles ? t[i] : 0;
-    int32_t sum;
-    const int32_t before = block_exclusive_scan(v, warp_sum, &sum);
-    if (i < tiles) t[i] = carry + before;
-    carry += sum;
-  }
-}
-
-// grid (tiles, B): each token's bytes get their source pointer; literals
-// their byte.
-__global__ void fill_kernel(const int32_t* __restrict__ lens, const int32_t* __restrict__ dists,
-                            const uint8_t* __restrict__ lits, int64_t ts, int64_t nt,
-                            const int32_t* __restrict__ tile_off, int tiles,
-                            int32_t* __restrict__ src, uint8_t* __restrict__ out,
-                            int64_t per) {
-  __shared__ int32_t warp_sum[32];
-  const int64_t b = blockIdx.y;
-  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x * kItems;
-  int32_t len[kItems], v = 0;
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    len[k] = i0 + k < nt ? lens[b * ts + i0 + k] : 0;
-    len[k] = len[k] > 0 ? len[k] : 0;
-    v += len[k];
+  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xffffffffu, v, d);
+  if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+#pragma unroll
+    for (int w = 0; w < kSumThreads / 32; ++w) total += warp_sum[w];
+    chunk_sum[b * chunks + blockIdx.x] = total;
   }
-  int32_t total;
-  int64_t start =
-      tile_off[b * tiles + blockIdx.x] + block_exclusive_scan(v, warp_sum, &total);
-  int32_t* s = src + b * per;
+}
+
+// A tile-local source pointer: -32,768 (a copy 32,768 back from the tile's
+// first byte) to T - 1 fits int16 for T <= 32,768.
+template <int T>
+__global__ void __launch_bounds__(kThreads) resolve_kernel(
+    const int32_t* __restrict__ lens, const int32_t* __restrict__ dists,
+    const uint8_t* __restrict__ lits, int64_t ts, int64_t nt, uint8_t* out, int batch,
+    int64_t per, int tiles, int chunks, Scratch s) {
+  static_assert(T <= 32768 && T % kThreads == 0, "tile-local pointers are int16");
+  extern __shared__ int16_t sp[];                                // [T] tile-local source
+  uint8_t* val = reinterpret_cast<uint8_t*>(sp + T);             // [T] literal bytes
+  __shared__ int warp_sum[32];
+  __shared__ int ticket, lo_root, n_cross, first_tok;
+  __shared__ int64_t chunk_off, first_start;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    ticket = atomicAdd(s.ticket, 1);
+    lo_root = 0x7fffffff;
+    n_cross = 0;
+  }
+  __syncthreads();
+  const int b = ticket % batch, k = ticket / batch;
+  const int64_t t0 = static_cast<int64_t>(k) * T;
+  const int n = static_cast<int>(per - t0 < T ? per - t0 : T);
+  const int32_t* L = lens + b * ts;
+  const int32_t* D = dists + b * ts;
+  const uint8_t* C = lits + b * ts;
   uint8_t* o = out + b * per;
-  for (int k = 0; k < kItems; ++k) {
-    if (len[k] > 0) {
-      const int32_t d = dists[b * ts + i0 + k];
-      // [lo, end) within the image, also where lengths past the domain
-      // wrapped the int32 scan
-      const int64_t lo = start > 0 ? start : 0;
-      const int64_t end = start + len[k] < per ? start + len[k] : per;
-      if (d > 0) {
-        for (int64_t pos = lo; pos < end; ++pos) {
-          s[pos] = static_cast<int32_t>(pos - d > 0 ? pos - d : 0);
-        }
-      } else {
-        const uint8_t lit = lits[b * ts + i0 + k];
-        for (int64_t pos = lo; pos < end; ++pos) {
-          s[pos] = static_cast<int32_t>(pos);
-          o[pos] = lit;
+  const int64_t slot = static_cast<int64_t>(b) * tiles + k;
+
+  // 1. the tile's bytes -> local pointers and literal bytes
+  for (int q = threadIdx.x; q < n; q += kThreads) {  // bytes no token reaches
+    sp[q] = static_cast<int16_t>(q);
+  }
+  __syncthreads();
+  // 0. the token that covers the tile's first byte: warp 0 finds its chunk
+  // over the image's chunk sums, then the block scans that chunk
+  if (threadIdx.x < 32) {
+    const int* cs = s.chunk_sum + static_cast<int64_t>(b) * chunks;
+    int64_t carry = 0;
+    int found = chunks;  // t0 past the lengths' total: outside the domain
+    for (int c0 = 0; c0 < chunks && found == chunks; c0 += 32) {
+      const int v = c0 + lane < chunks ? cs[c0 + lane] : 0;
+      int incl = v;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int u = __shfl_up_sync(0xffffffffu, incl, d);
+        if (lane >= d) incl += u;
+      }
+      const unsigned hit = __ballot_sync(0xffffffffu, v > 0 && carry + incl > t0);
+      if (hit) {  // the first chunk whose end passes t0 holds it
+        const int at = __ffs(hit) - 1;
+        const int before = __shfl_sync(0xffffffffu, incl - v, at);
+        found = c0 + at;
+        if (lane == 0) chunk_off = carry + before;
+      }
+      carry += __shfl_sync(0xffffffffu, incl, 31);
+    }
+    if (lane == 0) {
+      first_tok = found * kChunk;
+      if (found == chunks) chunk_off = carry;
+    }
+  }
+  __syncthreads();
+  {
+    const int64_t c0 = first_tok;
+    const int64_t i0 = c0 + threadIdx.x * (kChunk / kThreads);
+    int len[kChunk / kThreads], v = 0;
+#pragma unroll
+    for (int k = 0; k < kChunk / kThreads; ++k) {
+      len[k] = i0 + k < nt && i0 + k < c0 + kChunk ? L[i0 + k] : 0;
+      len[k] = len[k] > 0 ? len[k] : 0;
+      v += len[k];
+    }
+    int total;
+    int64_t st = chunk_off + block_exclusive_scan(v, warp_sum, &total);
+#pragma unroll
+    for (int k = 0; k < kChunk / kThreads; ++k) {
+      if (len[k] > 0 && st <= t0 && t0 < st + len[k]) {
+        first_tok = static_cast<int>(i0 + k);
+        first_start = st;
+      }
+      st += len[k];
+    }
+    if (threadIdx.x == 0 && c0 >= static_cast<int64_t>(chunks) * kChunk) first_start = t0;
+  }
+  __syncthreads();
+  int64_t tok = first_tok;
+  int64_t base = first_start;
+  // a round's tokens are loaded during the round before it
+  int64_t i = tok + threadIdx.x;
+  int next_len = i < nt ? L[i] : 0, next_dist = i < nt ? D[i] : 0, next_lit = i < nt ? C[i] : 0;
+  while (base < t0 + n && tok < nt) {
+    const int len = next_len > 0 ? next_len : 0;
+    const int dist = len > 0 ? next_dist : 0;
+    const int lit = len > 0 ? next_lit : 0;
+    i += kThreads;
+    next_len = i < nt ? L[i] : 0;
+    next_dist = i < nt ? D[i] : 0;
+    next_lit = i < nt ? C[i] : 0;
+    int total;
+    const int64_t start = base + block_exclusive_scan(len, warp_sum, &total);
+    // the warp's 32 tokens cover [w_lo, w_hi): lanes take its bytes inside the tile
+    const int64_t w_lo = __shfl_sync(0xffffffffu, start, 0);
+    const int64_t w_hi = __shfl_sync(0xffffffffu, start + len, 31);
+    const int64_t a = w_lo > t0 ? w_lo : t0;
+    const int64_t e = w_hi < t0 + n ? w_hi : t0 + n;
+    for (int64_t q0 = a; q0 < e; q0 += 32) {
+      const int64_t q = q0 + lane;
+      int owner = 0;  // the last lane whose token starts at or before q
+#pragma unroll
+      for (int step = 16; step > 0; step >>= 1) {
+        const int cand = owner + step;
+        const int64_t sc = __shfl_sync(0xffffffffu, start, cand & 31);
+        if (cand < 32 && sc <= q) owner = cand;
+      }
+      const int d = __shfl_sync(0xffffffffu, dist, owner);
+      const int v = __shfl_sync(0xffffffffu, lit, owner);
+      if (q < e) {
+        const int ql = static_cast<int>(q - t0);
+        if (d > 0) {
+          const int64_t src = q - d > 0 ? q - d : 0;
+          const int64_t lp = src - t0;  // below -32,768 only outside the domain
+          sp[ql] = static_cast<int16_t>(lp < -32768 ? -32768 : lp);
+        } else {
+          sp[ql] = static_cast<int16_t>(ql);
+          val[ql] = static_cast<uint8_t>(v);
         }
       }
     }
-    start += len[k];
+    tok += kThreads;
+    base += total;
   }
-}
+  __syncthreads();
 
-// One doubling round over the batch's pointer field, in place.
-__global__ void double_kernel(int32_t* src, int64_t per, int64_t n, int* changed, int round) {
-  if (round > 0 && changed[round - 1] == 0) return;  // the fixed point was reached
-  bool moved = false;
-  for (int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; t < n;
-       t += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t base = t / per * per;
-    int32_t s = src[t];
-    s = s < 0 ? 0 : (s >= per ? static_cast<int32_t>(per - 1) : s);
-    int32_t s2 = src[base + s];
-    s2 = s2 < 0 ? 0 : (s2 >= per ? static_cast<int32_t>(per - 1) : s2);
-    if (s2 != s) {
-      src[t] = s2;
-      moved = true;
+  // 2. pointer doubling in shared memory; a negative pointer is a root
+  // outside the tile, a self-pointer a literal
+  for (;;) {
+    bool moved = false;
+    for (int q = threadIdx.x; q < n; q += kThreads) {
+      const int p = sp[q];
+      if (p >= 0 && p != q) {
+        const int p2 = sp[p];
+        if (p2 != p) {
+          sp[q] = p2;
+          moved = true;
+        }
+      }
+    }
+    if (!__syncthreads_or(moved)) break;
+  }
+
+  // 3. literal-rooted bytes now; note the roots outside the tile
+  int lo = 0x7fffffff, cnt = 0;
+  for (int q = threadIdx.x; q < n; q += kThreads) {
+    const int p = sp[q];
+    if (p >= 0) {
+      o[t0 + q] = val[p];
+    } else {
+      lo = min(lo, p);
+      ++cnt;
     }
   }
-  if (__syncthreads_or(moved) && threadIdx.x == 0) changed[round] = 1;
-}
+  if (cnt) {
+    atomicMin(&lo_root, lo);
+    atomicAdd(&n_cross, cnt);
+  }
+  __syncthreads();
 
-// Copy bytes take their literal root's byte.
-__global__ void gather_kernel(const int32_t* __restrict__ src, uint8_t* out, int64_t per,
-                              int64_t n) {
-  for (int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; t < n;
-       t += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t pos = t % per;
-    int32_t s = src[t];
-    s = s < 0 ? 0 : (s >= per ? static_cast<int32_t>(per - 1) : s);
-    if (s != pos) out[t] = out[t - pos + s];
+  // 4. roots before the tile: wait until the tiles holding them are
+  // written, then read them through L2, kBatch loads in flight a thread
+  // at a time, each landing in a register of its own (a load whose
+  // register is copied or spilled before it lands holds the thread)
+  if (n_cross) {
+    if (threadIdx.x == 0) {
+      const int64_t first = (t0 + lo_root) / T;
+      for (int64_t j = first; j < k; ++j) {
+        const int* f = &s.flag[static_cast<int64_t>(b) * tiles + j];
+        for (unsigned polls = 0; ld_acquire(f) == 0; spin_guard(polls)) {
+        }
+      }
+      __threadfence();
+    }
+    __syncthreads();
+    constexpr int kBatch = T / kThreads < 16 ? T / kThreads : 16;
+#pragma unroll 1
+    for (int j0 = 0; j0 < T / kThreads; j0 += kBatch) {
+      uint32_t got[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int q = threadIdx.x + (j0 + j) * kThreads;
+        const int p = q < n ? sp[q] : 0;
+        got[j] = p < 0 ? __ldcg(o + t0 + p) : 0;
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int q = threadIdx.x + (j0 + j) * kThreads;
+        if (q < n && sp[q] < 0) o[t0 + q] = static_cast<uint8_t>(got[j]);
+      }
+    }
+  }
+  __syncthreads();  // every thread's bytes, then (cumulative) thread 0's fence
+  if (threadIdx.x == 0) {
+    __threadfence();
+    st_release(&s.flag[slot], 1);
   }
 }
 
 }  // namespace
 
 // lens, dists int32 and lits u8 [B, nt] with row stride ts (elements);
-// scratch: src int32 [B, per], tile_sum int32 [B, ceil(nt / 4096)],
-// changed int32 [rounds] zeroed; out u8 [B, per].
+// scratch int32 [1 + B * (tiles + chunks)] (ops/inflate.py scratch_words):
+// a ticket, a flag a tile, a sum a chunk; out u8 [B, per]; tile in {8192,
+// 16384, 32768}.
 extern "C" int zpix_inflate_resolve(const void* lens, const void* dists, const void* lits,
-                                    int64_t ts, int64_t nt, void* src, void* tile_sum,
-                                    void* changed, void* out, int64_t batch, int64_t per,
-                                    int rounds, void* stream) {
-  if (batch > 0 && per > 0 && nt > 0) {
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int tiles = static_cast<int>((nt + kTile - 1) / kTile);
-    const dim3 grid(tiles, static_cast<unsigned>(batch));
-    auto* tsum = static_cast<int32_t*>(tile_sum);
-    auto* s = static_cast<int32_t*>(src);
-    auto* o = static_cast<uint8_t*>(out);
-    tile_sums_kernel<<<grid, kScanThreads, 0, st>>>(static_cast<const int32_t*>(lens), ts, nt,
-                                                     tsum, tiles);
-    tile_offsets_kernel<<<static_cast<unsigned>(batch), kScanThreads, 0, st>>>(tsum, tiles);
-    fill_kernel<<<grid, kScanThreads, 0, st>>>(
-        static_cast<const int32_t*>(lens), static_cast<const int32_t*>(dists),
-        static_cast<const uint8_t*>(lits), ts, nt, tsum, tiles, s, o, per);
-    const int64_t n = batch * per;
-    const int64_t want = (n + kThreads - 1) / kThreads;
-    const unsigned blocks = static_cast<unsigned>(want < kMaxGrid ? want : kMaxGrid);
-    for (int r = 0; r < rounds; ++r) {
-      double_kernel<<<blocks, kThreads, 0, st>>>(s, per, n, static_cast<int*>(changed), r);
-    }
-    gather_kernel<<<blocks, kThreads, 0, st>>>(s, o, per, n);
-  }
-  return static_cast<int>(cudaGetLastError());
+                                    int64_t ts, int64_t nt, void* scratch, void* out,
+                                    int64_t batch, int64_t per, int tile, void* stream) {
+  if (tile != 8192 && tile != 16384 && tile != 32768) return cudaErrorInvalidValue;
+  if (batch <= 0 || per <= 0 || nt <= 0) return cudaSuccess;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int chunks = static_cast<int>((nt + kChunk - 1) / kChunk);
+  const int tiles = static_cast<int>((per + tile - 1) / tile);
+  int* w = static_cast<int*>(scratch);
+  const Scratch s{w, w + 1, w + 1 + batch * tiles};
+  cudaError_t err = cudaMemsetAsync(w, 0, 4 * (1 + batch * tiles), st);
+  if (err != cudaSuccess) return err;
+  const auto* l = static_cast<const int32_t*>(lens);
+  sums_kernel<<<dim3(chunks, static_cast<unsigned>(batch)), kSumThreads, 0, st>>>(
+      l, ts, nt, chunks, s.chunk_sum);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const auto go = [&](auto tile_const) {
+    constexpr int T = decltype(tile_const)::value;
+    constexpr int smem = T * 2 + T;  // int16 pointers, literal bytes
+    cudaError_t e = cudaFuncSetAttribute(resolve_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    resolve_kernel<T><<<static_cast<unsigned>(batch) * tiles, kThreads, smem, st>>>(
+        l, static_cast<const int32_t*>(dists), static_cast<const uint8_t*>(lits), ts, nt,
+        static_cast<uint8_t*>(out), static_cast<int>(batch), per, tiles, chunks, s);
+    return cudaGetLastError();
+  };
+  if (tile == 8192) return go(std::integral_constant<int, 8192>{});
+  if (tile == 16384) return go(std::integral_constant<int, 16384>{});
+  return go(std::integral_constant<int, 32768>{});
 }

@@ -1,10 +1,12 @@
 """K15, the PNG defilter: filtered rows and filter bytes -> decoded rows.
 
 ``png_defilter`` wraps K15 (csrc/png_defilter.cu), the port of
-zpix_tpu/ops/defilter.py::defilter_jnp (:35).  ``png_defilter_plain`` is
-the same function in plain PyTorch, on the same anti-diagonal schedule as
-the kernel: at step c every row r decodes its pixel c - r from pixels of
-steps c - 1 and c - 2.  The dispatch takes it for CPU tensors only.
+zpix_tpu/ops/defilter.py::defilter_jnp (:35): a register wavefront, a warp
+a band of 32 rows, 4 bands a block and further blocks of an image below
+them.  ``png_defilter_plain`` is the same function in plain PyTorch,
+on the anti-diagonal schedule: at step c every row r decodes its pixel
+c - r from pixels of steps c - 1 and c - 2.  The dispatch takes it for
+CPU tensors only.
 
 Semantics (the reference's src/png/decoder.zig:806-842, Paeth :1152-1182),
 per row, mod 256, out-of-image neighbours 0, on decoded bytes: None raw,
@@ -21,6 +23,7 @@ import torch
 from .. import runtime
 
 BPPS = (1, 2, 3, 4, 6, 8)
+WARPS = 4  # bands (warps) a block of K15 (csrc/png_defilter.cu kWarps)
 
 
 def png_defilter_plain(raw, ftypes, *, bpp: int, bad=None):
@@ -52,6 +55,16 @@ def png_defilter_plain(raw, ftypes, *, bpp: int, bad=None):
     return out.to(torch.uint8).reshape(B, H, Wb)
 
 
+def scratch_words(batch: int, H: int, W: int) -> int:
+    """K15's scratch (csrc/png_defilter.cu scratch_words): a ticket and a
+    word of padding, and for each (image, part of up to WARPS bands) the
+    part's last row of W pixels, two 64-bit slots a pixel, which the part
+    below reads."""
+    bands = -(-H // 32)
+    parts = -(-bands // min(WARPS, bands))
+    return 2 + batch * parts * W * 4
+
+
 def png_defilter(raw, ftypes, *, bpp: int, bad=None):
     """K15: raw u8 [B, H, Wb] (rows may be strided views, e.g. of the
     inflated stream [B, H, 1 + Wb]), ftypes u8 [B, H] -> decoded u8
@@ -74,8 +87,10 @@ def png_defilter(raw, ftypes, *, bpp: int, bad=None):
         raise ValueError("png defilter: rows, filter types and flag on one CUDA device")
     out = torch.empty(B, H, Wb, dtype=torch.uint8, device=raw.device)
     if out.numel():
-        runtime.launch("png_defilter", raw.device, "zpix_png_defilter", "pllpllpiiiip",
+        scratch = torch.empty(scratch_words(B, H, Wb // bpp), dtype=torch.int32,
+                              device=raw.device)
+        runtime.launch("png_defilter", raw.device, "zpix_png_defilter", "pllpllpiiiipp",
                        raw.data_ptr(), raw.stride(0), raw.stride(1), ftypes.data_ptr(),
                        ftypes.stride(0), ftypes.stride(1), out.data_ptr(), B, H, Wb, bpp,
-                       0 if bad is None else bad.data_ptr())
+                       0 if bad is None else bad.data_ptr(), scratch.data_ptr())
     return out

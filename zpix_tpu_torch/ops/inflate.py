@@ -2,7 +2,9 @@
 
 ``inflate_resolve`` wraps K16 (csrc/inflate_resolve.cu), the port of
 zpix_tpu/ops/inflate.py::resolve_tokens_jnp (:33) vmapped an image
-(zpix_tpu/parallel/png_batch.py:498-500).  ``inflate_resolve_plain`` is
+(zpix_tpu/parallel/png_batch.py:498-500): the lengths summed a chunk of
+tokens, then each image's output in tiles of ``tile`` bytes resolved in
+order, every pointer in shared memory.  ``inflate_resolve_plain`` is
 the same function in plain PyTorch, written as the JAX graph is: token
 starts by an exclusive cumsum, each byte's token by searchsorted (side
 "right", minus 1), a source pointer (pos for a literal, pos - dist for a
@@ -26,7 +28,9 @@ import torch
 
 from .. import runtime
 
-SCAN_TILE = 4096  # tokens a tile of K16's scan (csrc/inflate_resolve.cu kTile)
+SCAN_CHUNK = 4096  # tokens a chunk of K16's length sums (csrc/inflate_resolve.cu kChunk)
+TILES = (8192, 16384, 32768)  # output bytes a tile of K16's resolve
+TILE = 32768  # the default (the fastest of chip_smoke.py's sweep of TILES)
 ADLER_MOD = 65521
 ADLER_BAD = 2  # the bit adler32_check ORs into its flag on a mismatch
 
@@ -58,37 +62,39 @@ def inflate_resolve_plain(lens, dists, lits, per: int):
     return torch.gather(val, 1, src), moved
 
 
-def inflate_resolve(lens, dists, lits, per: int):
+def scratch_words(batch: int, nt: int, per: int, tile: int) -> int:
+    """K16's scratch (csrc/inflate_resolve.cu zpix_inflate_resolve's layout):
+    a ticket, a flag a tile, a length sum a chunk of tokens."""
+    chunks, tiles = -(-nt // SCAN_CHUNK), -(-per // tile)
+    return 1 + batch * tiles + batch * chunks
+
+
+def inflate_resolve(lens, dists, lits, per: int, *, tile: int = TILE):
     """K16: lens, dists int32 and lits u8 [B, NT] (each row contiguous; rows
-    may be strided views of a wider staging buffer) -> (u8 [B, per], moved
-    int32 [doubling_rounds(per)]: entry k is 1 when doubling round k moved
-    a pointer).  The kernel doubles in place and may reach the fixed point
-    a round sooner than the plain version's ping-pong, so the two ``moved``
-    can differ; the bytes cannot."""
+    may be strided views of a wider staging buffer) -> u8 [B, per];
+    ``tile`` is the output bytes a tile on the card."""
     if lens.dtype != torch.int32 or dists.dtype != torch.int32 or lits.dtype != torch.uint8:
         raise TypeError("inflate resolve: expected int32 lens and dists, u8 lits")
     if lens.dim() != 2 or dists.shape != lens.shape or lits.shape != lens.shape:
         raise ValueError("inflate resolve: lens, dists and lits must be [B, NT]")
     if per < 1 or per >= 2**31:
         raise ValueError("inflate resolve: output size out of range")
+    if tile not in TILES:
+        raise ValueError(f"inflate resolve: tile {tile} not one of {TILES}")
     if lens.device.type == "cpu":
-        return inflate_resolve_plain(lens, dists, lits, per)
+        return inflate_resolve_plain(lens, dists, lits, per)[0]
     runtime.require_cuda(lens, dists, lits, rows=True)
     if not lens.stride(0) == dists.stride(0) == lits.stride(0):
         raise ValueError("inflate resolve: lens, dists and lits must share a row stride")
     B, nt = lens.shape
     dev = lens.device
-    rounds = doubling_rounds(per)
-    moved = torch.zeros(rounds, dtype=torch.int32, device=dev)
-    src = torch.empty(B, per, dtype=torch.int32, device=dev)
-    tile_sum = torch.empty(B, max(1, -(-nt // SCAN_TILE)), dtype=torch.int32, device=dev)
+    scratch = torch.empty(scratch_words(B, nt, per, tile), dtype=torch.int32, device=dev)
     out = torch.empty(B, per, dtype=torch.uint8, device=dev)
     if B and nt:
-        runtime.launch("inflate_resolve", dev, "zpix_inflate_resolve", "pppllpppplli",
+        runtime.launch("inflate_resolve", dev, "zpix_inflate_resolve", "pppllpplli",
                        lens.data_ptr(), dists.data_ptr(), lits.data_ptr(), lens.stride(0), nt,
-                       src.data_ptr(), tile_sum.data_ptr(), moved.data_ptr(), out.data_ptr(),
-                       B, per, rounds, kernels=rounds + 4)
-    return out, moved
+                       scratch.data_ptr(), out.data_ptr(), B, per, tile, kernels=2)
+    return out
 
 
 def adler32_plain(flat, want, bad):

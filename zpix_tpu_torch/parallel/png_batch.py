@@ -388,7 +388,7 @@ class BatchPngDecoder:
         bad = None
         if plan.route == "inflate":
             lens, dists, lits = (b[:, : plan.nt] for b in bufs[:3])
-            flat, _moved = call("inflate_resolve", inflate_resolve, lens, dists, lits, plan.per)
+            flat = call("inflate_resolve", inflate_resolve, lens, dists, lits, plan.per)
             bad = torch.zeros(1, dtype=torch.int32, device=flat.device)
             call("adler32", adler32_check, flat, bufs[3], bad)
         else:
