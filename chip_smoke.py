@@ -22,7 +22,8 @@ distinct 1024x1024 QOI streams (the JAX bench's "noise" and "screen"
 content, made by the port's host encoder) through ``HostIndexQoiDecoder``
 (host lane fill, K12; host records, K13), the decoded batches back
 through ``encode_device_batch`` (K14, streams byte-identical to the host
-encoder), and 16 distinct 1024x1024 BMPs a batch from the port's numpy
+encoder; K14 also on 64 images, a grid of tiles beyond what the card holds
+at once), and 16 distinct 1024x1024 BMPs a batch from the port's numpy
 writer through ``BatchBmpDecoder`` (K18, every bit depth, header and
 orientation).  Then the ``png`` phase: K15-K17 against their plain
 versions at 16 x 1024^2 (K15 also at 1, 31, 32, 33, 1,025 and 1,500 rows at
@@ -537,6 +538,13 @@ def sync_kernel_checks(batch, hplan):
             "misses": int(res[3]), "ms": cuda_ms(lambda: ksync.sync_ends(
                 b[0], b[1], b[4], b[3], sync_bytes=sb, **kw), 3),
             "max_abs_err_vs_default": max(max_abs_err(x, y) for x, y in zip(res[:3], ref[:3]))}
+    # misses forced (links on the 32-byte chunks): K19 against its plain version
+    forced = ksync.sync_ends(b[0], b[1], b[4], b[3], sync_bytes=32, **kw)
+    pf = ksync.sync_ends_plain(b[0], b[1], b[4], b[3], sync_bytes=32, **kw)
+    out["k19_forced_misses"] = {
+        "misses": int(forced[3]), "plain_misses": pf[3], "default_misses": int(ref[3]),
+        "max_abs_err": max(max(max_abs_err(x, y) for x, y in zip(forced[:3], pf[:3])),
+                           abs(int(forced[3]) - pf[3]))}
     for cb in SYNC_CHUNKS:
         plan = prep_batch_sync(batch, cb)
         b = SyncJpegDecoder(chunk_bytes=cb).upload(plan)
@@ -560,9 +568,9 @@ def sync_kernel_checks(batch, hplan):
 def sync_stages(dec, datas):
     """One batch through SyncJpegDecoder's stages -> (pixels, ok, {stage:
     ms}, K19's link misses): prep (host clock), then CUDA events around
-    the upload, after each K19 stage (guesses, links, resolve, refine,
-    record with the assembly; the wrapper's ``on_stage`` hook), K2, K3 and
-    K4."""
+    the upload, after each of K19's four launches (guesses and links;
+    resolve, which writes every chunk's entry, the refine; record;
+    assembly: the wrapper's ``on_stage`` hook), K2, K3 and K4."""
     from zpix_tpu_torch.ops import backend as kb
 
     t0 = time.perf_counter()
@@ -744,6 +752,9 @@ def sync_check(sy) -> None:
     if any(v["max_abs_err_vs_default"] for k, v in sy["kernel_checks"].items()
            if k.startswith("sync_bytes")):
         raise SystemExit("chip_smoke: K19's result depends on its sync chunk")
+    fm = sy["kernel_checks"]["k19_forced_misses"]
+    if fm["max_abs_err"] or fm["misses"] <= fm["default_misses"]:
+        raise SystemExit("chip_smoke: K19 disagrees with its plain version where misses are forced")
     if any(v["max_abs_err"] for v in kc.values()) or not all(
             v["ok"] and v["plain_ok"] and v["ends_equal_host_index_scan"] for v in kc.values()):
         raise SystemExit("chip_smoke: K19 disagrees with its plain version")
@@ -1397,13 +1408,40 @@ def qoi_phase(dev):
     return summary, entries, launches, lane_decs
 
 
+K14_GRID_BATCHES = 4  # 4 x 16 = 64 images of 1024^2: 32,768 tiles of K14
+
+
+def k14_grid_beyond_resident(dev) -> bool:
+    """K14 on 64 x 1024^2 images (noise and screen content in turns), a
+    grid of tiles far larger than the card holds at once (the tiles take
+    tickets, so every look-back waits on a tile already running): the ops
+    equal the plain version's and each source stream's."""
+    from zpix_tpu_torch.codecs.qoi.encode import Desc
+    from zpix_tpu_torch.ops import qoi as kq
+    from zpix_tpu_torch.parallel.qoi_batch import _pack_px
+
+    d = Desc(SIZE, SIZE, 4, 0)
+    datas = [s for i in range(K14_GRID_BATCHES) for s in make_qoi_batches(
+        "screen" if i % 2 else "noise", [50 + i])[0]]
+    px = torch.from_numpy(qoi_host_pixels(datas)).to(dev)
+    packed = torch.stack([_pack_px(px[i], d, dev) for i in range(px.shape[0])])
+    del px
+    out, tot = kq.encode(packed)
+    out_p, tot_p = kq.encode_plain(packed)
+    same = bool(torch.equal(out, out_p) and torch.equal(tot, tot_p))
+    del out_p, packed
+    out, tot = out.cpu().numpy(), tot.cpu().numpy()
+    return same and all(out[i, : tot[i]].tobytes() == s[14:-8] for i, s in enumerate(datas))
+
+
 def qoi_encode_phase(dev, lane_decs):
     """encode_device_batch on the decoded batch 0 of each profile (a tensor
     on the card) and encode_device on one 3-channel image: every stream
     byte-identical to the host encoder, equal to the source stream and
     decoding back to its input; K14 against its plain version on both full
-    batches; 10 timed noise batches (pack, K14, download).  -> (summary,
-    timing entry, launches of one encode_device_batch)"""
+    batches and on 64 images (k14_grid_beyond_resident); 10 timed noise
+    batches (pack, K14, download).  -> (summary, timing entry, launches of
+    one encode_device_batch)"""
     from zpix_tpu_torch import encode_device, encode_device_batch, runtime
     from zpix_tpu_torch.codecs.qoi.decode import decode
     from zpix_tpu_torch.codecs.qoi.encode import Desc, encode
@@ -1433,6 +1471,7 @@ def qoi_encode_phase(dev, lane_decs):
     rgb = lane_decs["noise"][2][0, ..., :3]
     d3 = Desc(SIZE, SIZE, 3, 0)
     check["rgb_equal_host_encoder"] = encode_device(rgb, d3) == encode(rgb.cpu().numpy(), d3)
+    check["k14_grid_beyond_resident"] = k14_grid_beyond_resident(dev)
 
     # timed: decoded noise batches (decoded outside the clock) encoded end to end
     dec, batches, _ = lane_decs["noise"]

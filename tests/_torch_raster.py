@@ -61,6 +61,31 @@ def structured_pixels(rng, h, w, alpha=True):
     return rgba.reshape(h, w, 4)
 
 
+def bench_pixels(size: int, seed: int, content: str) -> np.ndarray:
+    """RGBA [size, size, 4] of the JAX bench's QOI content (bench.py:855-888,
+    as chip_smoke.py makes it): "noise" (noise over a sinusoid field, nearly
+    one op a pixel) or "screen" (flat panels, a gradient band, 2% speckle;
+    run-heavy, runs across the device encoder's tiles)."""
+    rng = np.random.RandomState(seed)
+    if content == "screen":
+        rgba = np.zeros((size, size, 4), np.uint8)
+        rgba[..., 3] = 255
+        for _ in range(24):
+            y, x = rng.randint(0, size, 2)
+            h, w = rng.randint(size // 16, size // 3, 2)
+            rgba[y : y + h, x : x + w, :3] = rng.randint(30, 226, 3)
+        gy = rng.randint(0, size - size // 8)
+        grad = np.linspace(40, 215, size).astype(np.uint8)
+        rgba[gy : gy + size // 8, :, :3] = grad[None, :, None]
+        m = rng.rand(size, size) < 0.02
+        rgba[..., :3][m] = rng.randint(0, 256, (int(m.sum()), 3))
+        return rgba
+    x = np.linspace(0, 20, size)
+    base = (128 + 100 * np.sin(x[None, :] * np.cos(x[:, None]) + seed)).astype(np.uint8)
+    noise = rng.randint(0, 8, (size, size)).astype(np.uint8)
+    return np.stack([base ^ noise, base.T, base // 2 + 64, np.full_like(base, 255)], -1)
+
+
 def encode_cases():
     """(pixels, channels) cases of the device encoder: every op class,
     alpha, 3 channels, tail flush, runs of 62, 63 and 124, single pixels,

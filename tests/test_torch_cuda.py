@@ -389,10 +389,81 @@ def test_qoi_encode_matches_plain_and_host(cuda):
         px = torch.stack([_pack_px(img, d, cuda), _pack_px(img[::-1].copy(), d, cuda)])
         before = runtime.LAUNCHES["qoi_encode"]
         out, tot = kq.encode(px)
-        assert runtime.LAUNCHES["qoi_encode"] == before + 5  # summary, carry, walk, offsets, write
+        assert runtime.LAUNCHES["qoi_encode"] == before + 1  # one pass (and a memset)
         out_p, tot_p = kq.encode_plain(px)
         assert torch.equal(tot, tot_p) and torch.equal(out, out_p), i
         assert encode_device(img, d) == encode(img, d), i
+
+
+def _k14_against_plain_and_host(cuda, imgs):
+    """K14 on RGBA [B, h, w, 4]: its bytes and totals equal encode_plain's,
+    and each image's ops the host encoder's (its stream less the 14-byte
+    header and the 8-byte padding)."""
+    from zpix_tpu_torch.codecs.qoi.encode import Desc, encode
+    from zpix_tpu_torch.ops import qoi as kq
+    from zpix_tpu_torch.parallel.qoi_batch import _pack_px
+
+    h, w = imgs.shape[1:3]
+    d = Desc(w, h, 4, 0)
+    px = torch.stack([_pack_px(torch.from_numpy(im).to(cuda), d, cuda) for im in imgs])
+    out, tot = kq.encode(px)
+    out_p, tot_p = kq.encode_plain(px)
+    assert torch.equal(tot, tot_p) and torch.equal(out, out_p)
+    out, tot = out.cpu().numpy(), tot.cpu().numpy()
+    for i, im in enumerate(imgs):
+        assert out[i, : tot[i]].tobytes() == encode(im, d)[14:-8], i
+
+
+@pytest.mark.parametrize("shape", [(3, 1, 1), (3, 1, 31), (3, 1, 1025), (3, 1, 2049),
+                                   (2, 1024, 1024)],
+                         ids=["n1", "n31", "n1025", "n2049", "n1024sq"])
+def test_qoi_encode_sizes_match_plain_and_host(cuda, shape):
+    """K14 at n = 1, 31, 1,025, 2,049 (a second tile of one pixel) and
+    1,024^2: structured content with runs of 1-130 pixels, one of them a
+    flat image."""
+    from _torch_raster import structured_pixels
+
+    B, h, w = shape
+    rng = np.random.default_rng(h * w)
+    imgs = np.stack([structured_pixels(rng, h, w) for _ in range(B - 1)]
+                    + [np.full((h, w, 4), 200, np.uint8)])
+    _k14_against_plain_and_host(cuda, imgs)
+
+
+@pytest.mark.parametrize("content", ["one_colour", "long_runs", "screen", "noise"])
+def test_qoi_encode_content_matches_plain_and_host(cuda, content):
+    """K14 on 4 x 1024^2: one colour a image (a run over every tile; the
+    first a colour equal to the initial previous pixel), runs of 1-5,000
+    pixels across tiles, and the bench's screen and noise content."""
+    from _torch_raster import bench_pixels
+
+    rng = np.random.default_rng(11)
+    if content == "one_colour":
+        imgs = np.zeros((4, 1024, 1024, 4), np.uint8)
+        imgs[0, ..., 3] = 255
+        imgs[1:] = rng.integers(0, 256, (3, 1, 1, 4), dtype=np.uint8)
+    elif content == "long_runs":
+        n = 1024 * 1024
+        cuts = np.sort(rng.choice(np.arange(1, n), 600, replace=False))
+        lengths = np.diff(np.concatenate([[0], cuts, [n]]))
+        cols = rng.integers(0, 2**32, (4, lengths.size), dtype=np.uint64).astype(np.uint32)
+        px = np.repeat(cols, lengths, axis=1)
+        imgs = np.stack([(px >> s) & 0xFF for s in (24, 16, 8, 0)], -1).astype(np.uint8)
+        imgs = imgs.reshape(4, 1024, 1024, 4)
+    else:
+        imgs = np.stack([bench_pixels(1024, s, content) for s in range(4)])
+    _k14_against_plain_and_host(cuda, imgs)
+
+
+def test_qoi_encode_grid_beyond_resident(cuda):
+    """K14 on 64 x 1024^2 (32,768 tiles, more blocks than the card holds at
+    once): tiles are taken by ticket, so every look-back waits on a tile
+    already running, and the streams still equal the plain version's and
+    the host encoder's."""
+    from _torch_raster import bench_pixels
+
+    imgs = np.stack([bench_pixels(1024, s, "screen" if s % 2 else "noise") for s in range(64)])
+    _k14_against_plain_and_host(cuda, imgs)
 
 
 def test_qoi_decoder_and_batch_encode_match_cpu_run(cuda):
@@ -663,30 +734,60 @@ def _sync_batches():
             ("411_bpm6", [synth_ratio_jpeg(((4, 1), (1, 1), (1, 1)), 64, 32, s) for s in (0, 1)],
              32, None),
             ("cmyk_bpm4", [synth_cmyk(None, 48, 32, s, dri_blocks=None) for s in (0, 1)], 32, None),
-            ("rgb_bpm3", [synth_rgb(48, 32, s, dri_blocks=None) for s in (0, 1)], 32, None)]
+            ("rgb_bpm3", [synth_rgb(48, 32, s, dri_blocks=None) for s in (0, 1)], 32, None),
+            ("420_sync512", two("420", 160, 120), 32, 512),
+            ("one_sync_chunk", two("420", 8, 8), 32, None)]
 
 
-@pytest.mark.parametrize("case", range(9))
-def test_sync_kernel_matches_plain(cuda, case):
-    """K19 against its plain version: ends, ok, the entries and the link
-    misses, exactly, on bpm 1, 3, 4 and 6, 256-byte chunks, and links on
-    the 32-byte chunks themselves (many misses); the launches counted."""
+def _sync_against_plain(cuda, datas, cb, sb):
+    """K19 on the card and its plain version on the CPU -> (ends, ok,
+    entries, misses) of each, the plan."""
     from zpix_tpu_torch import SyncJpegDecoder, prep_batch_sync
     from zpix_tpu_torch.ops import sync as ksync
 
-    name, datas, cb, sb = _sync_batches()[case]
     plan = prep_batch_sync(datas, cb)
     kw = dict(chunk_bytes=cb, n_chunks=plan.n_chunks, bpm=plan.bpm,
               nblk=plan.n_mcu * plan.bpm, sync_bytes=sb)
     b = SyncJpegDecoder(chunk_bytes=cb).upload(plan)
-    before = runtime.LAUNCHES["sync_decode"]
-    ends, ok, entries, misses = ksync.sync_ends(b[0], b[1], b[4], b[3], **kw)
-    # guesses, links, resolve, the refine where a sync chunk holds several
-    # chunks, record and assembly
-    m = ksync.sync_factor(cb, sb)
-    assert runtime.LAUNCHES["sync_decode"] - before == 3 + (m > 1) + 2, name
+    got = ksync.sync_ends(b[0], b[1], b[4], b[3], **kw)
     bc = [x.cpu() for x in b]
-    pe, pok, pent, pmisses = ksync.sync_ends_plain(bc[0], bc[1], bc[4], bc[3], **kw)
+    return got, ksync.sync_ends_plain(bc[0], bc[1], bc[4], bc[3], **kw), plan
+
+
+@pytest.mark.parametrize("case", range(11))
+def test_sync_kernel_matches_plain(cuda, case):
+    """K19 against its plain version: ends, ok, the entries and the link
+    misses, exactly, on bpm 1, 3, 4 and 6, 256-byte chunks, links on the
+    32-byte chunks themselves (many misses) and on 512-byte sync chunks,
+    and an image of one sync chunk; the launches counted."""
+    from zpix_tpu_torch.ops import sync as ksync
+
+    name, datas, cb, sb = _sync_batches()[case]
+    before = runtime.LAUNCHES["sync_decode"]
+    (ends, ok, entries, misses), (pe, pok, pent, pmisses), plan = _sync_against_plain(
+        cuda, datas, cb, sb)
+    # guesses and links, resolve, refine and record, assembly
+    assert runtime.LAUNCHES["sync_decode"] - before == 4, name
+    assert bool(ok) and bool(pok), name
+    assert torch.equal(ends.cpu(), pe) and torch.equal(entries.cpu(), pent), name
+    assert int(misses) == pmisses, name
+    if name == "one_sync_chunk":
+        assert -(-plan.n_chunks // ksync.sync_factor(cb, sb)) == 1
+    if name == "420_bpm6":
+        assert plan.n_chunks % ksync.sync_factor(cb, sb), "n_chunks a multiple of m"
+
+
+@pytest.mark.parametrize("case", [3, 4, 5])
+def test_sync_resolve_in_global_memory(cuda, case, monkeypatch):
+    """With no shared memory for the links, the resolve walks them in
+    global memory: the same ends, ok, entries and misses as the plain
+    version (links on chunks: misses on the walk in global memory)."""
+    from zpix_tpu_torch.ops import sync as ksync
+
+    monkeypatch.setattr(ksync, "LINK_SMEM_BYTES", 0)
+    name, datas, cb, sb = _sync_batches()[case]
+    (ends, ok, entries, misses), (pe, pok, pent, pmisses), _plan = _sync_against_plain(
+        cuda, datas, cb, sb)
     assert bool(ok) and bool(pok), name
     assert torch.equal(ends.cpu(), pe) and torch.equal(entries.cpu(), pent), name
     assert int(misses) == pmisses, name

@@ -259,3 +259,101 @@ def test_encode_device_errors():
         encode_device(img[:3], Desc(40, 24, 4, 0), device="cpu")
     with pytest.raises(UnsupportedError):
         encode_device_batch([img, img], [Desc(40, 24, 4, 0), Desc(24, 40, 4, 0)], device="cpu")
+
+
+# ------------------------------------------- K14's first prefix, the combine
+
+
+def _combine_px(kind: str) -> np.ndarray:
+    """Packed pixels [2, n] (uint32) of each kind, n = 3,000."""
+    from _torch_raster import structured_pixels
+
+    rng = np.random.default_rng(5)
+    n = 3000
+    if kind == "structured":  # runs of 1-130, palette hits
+        rgba = np.stack([structured_pixels(rng, 1, n) for _ in range(2)])[:, 0]
+    elif kind == "long_runs":  # runs of 100-900 pixels: over 62, across tiles
+        lengths = rng.integers(100, 900, 20)
+        cols = rng.integers(0, 2**32, (2, 20), dtype=np.uint64).astype(np.uint32)
+        px = np.repeat(cols, lengths, axis=1)[:, :n]
+        px = np.concatenate([px, np.repeat(px[:, -1:], n - px.shape[1], 1)], 1)
+        return px
+    elif kind == "one_colour":  # the second equal to the initial previous pixel
+        return np.stack([np.full(n, 0x11223344, np.uint32), np.full(n, 0xFF, np.uint32)])
+    else:  # all literals
+        rgba = rng.integers(0, 256, (2, n, 4), dtype=np.uint8)
+    r, g, b, a = (rgba[..., i].astype(np.uint32) for i in range(4))
+    return (r << 24) | (g << 16) | (b << 8) | a
+
+
+def _serial_entering(px: np.ndarray, tile: int):
+    """The table and last literal entering each tile, by the serial walk."""
+    B, n = px.shape
+    tabs, lasts = [], []
+    for b in range(B):
+        tab, last, prev = np.zeros(64, np.int64), -1, 0xFF
+        t_rows, l_rows = [], []
+        for i, v in enumerate(px[b].tolist()):
+            if i % tile == 0:
+                t_rows.append(tab.copy())
+                l_rows.append(last)
+            if v != prev:
+                tab[((v >> 24) * 3 + ((v >> 16) & 255) * 5 + ((v >> 8) & 255) * 7
+                     + (v & 255) * 11) & 63] = v
+                last = i
+            prev = v
+        tabs.append(t_rows)
+        lasts.append(l_rows)
+    return np.array(tabs), np.array(lasts)
+
+
+COMBINE_KINDS = ["structured", "long_runs", "one_colour", "noise"]
+
+
+@pytest.mark.parametrize("tile", [256, 333, 2048])
+@pytest.mark.parametrize("kind", COMBINE_KINDS)
+def test_entering_tables_match_serial_walk(kind, tile):
+    """The serial carry of the tile aggregates gives the table and last
+    literal the serial encoder has at each tile's start, for a tile size
+    that divides n or not (333 does not divide 3,000; 2,048 leaves a
+    short last tile)."""
+    px = _combine_px(kind)
+    tabs, lasts = kq.entering_tables(_t(px), tile)
+    want_tabs, want_lasts = _serial_entering(px, tile)
+    assert np.array_equal(tabs.numpy(), want_tabs) and np.array_equal(lasts.numpy(), want_lasts)
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("kind", COMBINE_KINDS)
+def test_aggregate_combine_any_grouping(kind, seed):
+    """Any grouping of the combines (random binary trees over the tiles,
+    as a look-back takes tiles in groups) gives the serial carry's
+    inclusive prefix at every tile: the combine is associative."""
+    px = _t(_combine_px(kind))
+    tile = 128
+    vals, pres, last = kq.tile_aggregates(px, tile)
+    T = vals.shape[1]
+    aggs = [(vals[:, t], pres[:, t], last[:, t]) for t in range(T)]
+    tabs, lasts = kq.entering_tables(px, tile)
+    rng = np.random.default_rng(seed)
+
+    def tree(lo, hi):  # the aggregate of tiles [lo, hi), split at random
+        if hi - lo == 1:
+            return aggs[lo]
+        mid = int(rng.integers(lo + 1, hi))
+        return kq.combine_aggregates(tree(lo, mid), tree(mid, hi))
+
+    for t in range(1, T):
+        v, p, lt = tree(0, t)
+        assert torch.equal(torch.where(p, v, 0), tabs[:, t]) and torch.equal(lt, lasts[:, t]), t
+
+
+@pytest.mark.parametrize("kind", COMBINE_KINDS)
+def test_encode_plain_on_combine_content_matches_host(kind):
+    """encode_plain on the same content: the host encoder's streams."""
+    px = _combine_px(kind)
+    out, total = kq.encode(_t(px))
+    for b in range(px.shape[0]):
+        rgba = np.stack([(px[b] >> s) & 0xFF for s in (24, 16, 8, 0)], -1).astype(np.uint8)
+        want = jax_encode(rgba.reshape(1, -1, 4), JDesc(px.shape[1], 1, 4, 0))
+        assert out[b, : int(total[b])].numpy().tobytes() == want[14:-8]

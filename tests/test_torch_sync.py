@@ -294,3 +294,23 @@ def test_decoder_needs_cuda_unless_cpu():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SyncJpegDecoder()
+
+
+@pytest.mark.parametrize("name", ["batch_420", "gray_bpm1", "cmyk", "flat"])
+def test_forced_misses_leave_entries_and_ends(batch, name):
+    """Links on the 32-byte chunks themselves (sync_bytes 32) miss often:
+    the walk puts in and scans each missed entry, and the entries, ends
+    and ok do not move from the default sync chunks' or 512-byte ones'."""
+    datas = batch if name == "batch_420" else HOST_CASES[name]()
+    plan = prep_batch_sync(datas)
+    b = SyncJpegDecoder(device="cpu").upload(plan)
+    kw = dict(chunk_bytes=32, n_chunks=plan.n_chunks, bpm=plan.bpm, nblk=plan.n_mcu * plan.bpm)
+    runs = {sb: ksync.sync_ends(b[0], b[1], b[4], b[3], sync_bytes=sb, **kw)
+            for sb in (None, 32, 512)}
+    base = runs[None]
+    assert bool(base[1])
+    for sb, (ends, ok, entries, _misses) in runs.items():
+        assert torch.equal(ends, base[0]) and torch.equal(entries, base[2]), sb
+        assert torch.equal(ok, base[1]), sb
+    if name == "batch_420":
+        assert runs[32][3] > runs[None][3]

@@ -25,7 +25,7 @@ import torch
 
 from .. import runtime
 
-ENC_TILE = 1024  # pixels a tile of K14 (csrc/qoi_encode.cu kTile)
+ENC_TILE = 2048  # pixels a tile of K14 (csrc/qoi_encode.cu kTile)
 SCAN_TILE = 4096  # counts a tile of K13's scans (csrc/qoi_expand.cu kTile)
 _SIZES = (0, 1, 1, 2, 4, 5)  # bytes of an op, by kind
 
@@ -262,10 +262,63 @@ def encode(px):
     B, n = px.shape
     cap = encode_cap(n)
     tiles = B * -(-n // ENC_TILE)
-    scratch = torch.empty(tiles * 133 + B, dtype=torch.int32, device=px.device)
+    # per tile: flags and byte words, the aggregate and inclusive tables
+    # (csrc/qoi_encode.cu, zpix_qoi_encode_batch)
+    scratch = torch.empty(tiles * 135 + 2, dtype=torch.int32, device=px.device)
     out = torch.zeros(B, cap, dtype=torch.uint8, device=px.device)
     total = torch.empty(B, dtype=torch.int32, device=px.device)
     runtime.launch("qoi_encode", px.device, "zpix_qoi_encode_batch", "pppplll",
                    px.data_ptr(), out.data_ptr(), total.data_ptr(), scratch.data_ptr(),
-                   B, n, cap, kernels=5)
+                   B, n, cap)
     return out, total
+
+
+# K14's first prefix, in plain PyTorch for the tests: a tile's aggregate is
+# its last literal of each hash bucket and the index of its last literal;
+# aggregates combine associatively, and the combine of every tile before
+# tile t is the table and last literal entering it.
+
+
+def tile_aggregates(px, tile: int = ENC_TILE):
+    """[B, n] packed pixels -> (values int64 [B, T, 64] (uint32), present
+    bool [B, T, 64], last literal int64 [B, T] (image index, -1: none)) of
+    the T = ceil(n / tile) tiles of each image."""
+    B, n = px.shape
+    T = -(-n // tile)
+    v = _u32(px)
+    prev = torch.cat([torch.full((B, 1), 0xFF, dtype=torch.int64, device=px.device),
+                      v[:, :-1]], 1)
+    lit = v != prev
+    r, g, b, a = [(v >> sh) & 0xFF for sh in (24, 16, 8, 0)]
+    h = (r * 3 + g * 5 + b * 7 + a * 11) & 63
+    idx = torch.arange(n, device=px.device).expand(B, n)
+    key = torch.where(lit, h, 64) + 65 * (idx // tile)  # (tile, bucket), 64: none
+    last = torch.full((B, T * 65), -1, dtype=torch.int64, device=px.device)
+    last.scatter_reduce_(1, key, torch.where(lit, idx, -1), "amax")
+    last = last.view(B, T, 65)
+    at = last[..., :64]
+    vals = torch.where(at >= 0, v.gather(1, at.clamp(min=0).view(B, -1)).view(B, T, 64), 0)
+    return vals, at >= 0, at.max(2).values
+
+
+def combine_aggregates(first, second):
+    """The aggregate of two runs of pixels, ``first`` before ``second``:
+    per bucket the later present literal, and the later last literal."""
+    (v1, p1, l1), (v2, p2, l2) = first, second
+    return torch.where(p2, v2, v1), p1 | p2, torch.maximum(l1, l2)
+
+
+def entering_tables(px, tile: int = ENC_TILE):
+    """The table and last literal entering each tile -> (values int64 [B, T,
+    64], last literal int64 [B, T]), by the serial carry of the aggregates
+    from the image's start (the zero table, no literal)."""
+    vals, pres, last = tile_aggregates(px, tile)
+    B, T, _ = vals.shape
+    acc = (torch.zeros_like(vals[:, 0]), torch.zeros_like(pres[:, 0]),
+           torch.full_like(last[:, 0], -1))
+    tabs, lasts = [], []
+    for t in range(T):
+        tabs.append(acc[0])
+        lasts.append(acc[2])
+        acc = combine_aggregates(acc, (vals[:, t], pres[:, t], last[:, t]))
+    return torch.stack(tabs, 1), torch.stack(lasts, 1)

@@ -20,15 +20,19 @@ chunks (SYNC_BYTES):
   guesses at its start (chunk 0 from the image's start); the exits
   X[v][j] are chunk j + 1's candidate entries.  A wrong guess merges with
   the serial decode within a few symbols more often than not, so one of
-  the candidates is almost always the true entry.
-* links: chunk j + 1 is scanned from each candidate X[v][j]; its exit
-  Y[v][j + 1] is looked up among chunk j + 2's candidates.
+  the candidates is almost always the true entry, and most candidates of a
+  chunk are equal.
+* links: chunk j + 1 is scanned once from each distinct candidate X[v][j]
+  (and stops where it joins a guess's path); its exit Y[v][j + 1] is
+  looked up among chunk j + 2's candidates.  The states at the starts of
+  the chunks inside the sync chunk are taken on the way (the refine).  A
+  missed exit is put in at once as the next chunk's extra candidate.
 * resolve: from chunk 1's entry (chunk 0's exit, exact) the links give
-  each sync chunk's entry in turn.  Where the true entry is not among a
-  chunk's candidates (a miss), that chunk is scanned from it and the walk
-  goes on; a miss costs one scan, never a wrong entry.
-* refine: each sync chunk's lane walks on from its entry and takes the
-  state at each of its chunks' starts: the chunks' entries.
+  each sync chunk's entry in turn (composed in shared memory, a 32nd of the
+  chunks a lane).  Where the true entry is not among a chunk's candidates
+  and was not put in (a miss), that chunk is scanned from it and the walk
+  goes on; a miss costs one scan, never a wrong entry.  Every chunk's
+  entry then comes from its sync chunk's candidate.
 * record (K19d): from the entries each chunk counts the blocks that end in
   it and records the first ``mb`` end bits; a block past ``mb``, or a code
   no table holds, sets the chunk's error bit.
@@ -38,9 +42,9 @@ chunks (SYNC_BYTES):
   past that end, and no lane read past the stream buffer.
 
 ``sync_ends_plain`` is the same function in plain PyTorch: the guesses,
-links and record lane-parallel with one symbol an iteration (as
-ops/entropy.py's plain passes), the resolve a walk over the sync chunks,
-all images at once.  The dispatch takes it for CPU tensors only.  Its
+links (every candidate), refine and record lane-parallel with one symbol
+an iteration (as ops/entropy.py's plain passes), the resolve a walk over
+the sync chunks, all images at once.  The dispatch takes it for CPU tensors only.  Its
 ``ok`` also holds K19's read check, which the JAX package does not make
 (it clips reads; on valid streams the two agree).  Entry states travel
 packed in one int64: bit << 32 | slot << 16 | k << 8 | phase.
@@ -59,6 +63,11 @@ ERR_NONE = 2**31 - 1  # the error bit of a lane that met no error
 # than not, so on 128 bytes one of the bpm guesses is the true entry
 # almost always (PERF.md, K19), and a pass over a sync chunk stays short.
 SYNC_BYTES = 128
+# The most shared memory an image's links and candidate indices (sync
+# chunks x (bpm + 2) bytes) take in K19's resolve; an image with more is
+# resolved in global memory.
+LINK_SMEM_BYTES = 96 * 1024
+LUT_WORDS = 4096  # K19's 10-bit lookahead table, 8 tables of u16 (csrc/sync_entropy.cu)
 
 
 def chunk_bounds(starts, ends, *, n_chunks: int, chunk_bytes: int):
@@ -210,8 +219,8 @@ def sync_ends(stream, starts, ends, tables, *, chunk_bytes: int, n_chunks: int, 
     the CPU and an int32 [1] tensor on the card, so that the call makes no
     host sync).  The links run on sync chunks of ``sync_factor(chunk_bytes,
     sync_bytes)`` chunks.  ``on_stage(name)``, when given, is called after
-    the "guesses", "links", "resolve", "refine" and "record" (with the
-    assembly) stages are queued."""
+    each of K19's four launches is queued: "guesses_links", "resolve"
+    (with the refine: every chunk's entry), "record" and "assemble"."""
     if stream.dtype != torch.uint8 or starts.dtype != torch.int32 or (
             ends.dtype != torch.int32 or tables.dtype != torch.int32):
         raise TypeError("sync: expected a u8 stream and int32 bounds and tables")
@@ -224,6 +233,8 @@ def sync_ends(stream, starts, ends, tables, *, chunk_bytes: int, n_chunks: int, 
     if stream.device.type == "cpu":
         return sync_ends_plain(stream, starts, ends, tables, **kw)
     runtime.require_cuda(stream, starts, ends, tables)
+    if stream.data_ptr() % 4 or stream.shape[0] >= 2**28:
+        raise ValueError("sync: the stream must be 4-byte aligned and under 256 MiB")
     dev = stream.device
     B, F, mb = starts.shape[0], n_chunks, 4 * chunk_bytes
     m = sync_factor(chunk_bytes, sync_bytes)
@@ -236,39 +247,42 @@ def sync_ends(stream, starts, ends, tables, *, chunk_bytes: int, n_chunks: int, 
         if on_stage is not None:
             on_stage(name)
 
-    # candidates X and link exits Y, [bpm + 1, L] (row bpm: the entries that
-    # misses put in); links [L, bpm + 1] u8; the resolve's maps, 2 x [L, W]
-    X = torch.full((W, L), -1, dtype=torch.int64, device=dev)
-    Y = torch.empty(W, L, dtype=torch.int64, device=dev)
-    links = torch.empty(L, W, dtype=torch.uint8, device=dev)
-    maps = torch.empty(2, L, W, dtype=torch.uint8, device=dev)
-    entries = torch.empty(L, dtype=torch.int64, device=dev)
-    misses = torch.zeros(1, dtype=torch.int32, device=dev)
-    coarse = (B, Fc, 8 * m * chunk_bytes, bpm)
-    runtime.launch("sync_decode", dev, "zpix_sync_guess", "plppp" + "p" + "iiii",
-                   *ptrs, X.data_ptr(), *coarse)
-    stage("guesses")
-    runtime.launch("sync_decode", dev, "zpix_sync_link", "plppp" + "ppp" + "iiii",
-                   *ptrs, X.data_ptr(), Y.data_ptr(), links.data_ptr(), *coarse)
-    stage("links")
-    runtime.launch("sync_decode", dev, "zpix_sync_resolve", "plppp" + "pppppp" + "iiii",
-                   *ptrs, X.data_ptr(), Y.data_ptr(), links.data_ptr(), maps.data_ptr(),
-                   entries.data_ptr(), misses.data_ptr(), *coarse)
+    # one scratch tensor: candidates X, link exits Y [W, L] (column bpm: the
+    # exits misses put in), the states inside each sync chunk [m - 1, W, L],
+    # the guesses' [m - 1, bpm, L] and their checkpoint states [bpm, L] (int64); the lookahead table; links [L, W] and each sync chunk's
+    # candidate index [L] (u8); the recorded ends [B * F, mb], counts and
+    # error bits [B * F] (int32)
+    n64 = (m + 1) * W * L + m * bpm * L
+    n8 = -(-(L * (W + 1)) // 8)
+    n32 = -(-(B * F * (mb + 2)) // 2)
+    scratch = torch.empty(n64 + LUT_WORDS // 2 + n8 + n32, dtype=torch.int64, device=dev)
+    X, Y = scratch[: W * L], scratch[W * L : 2 * W * L]
+    S, SG = scratch[2 * W * L : (m + 1) * W * L], scratch[(m + 1) * W * L : n64 - bpm * L]
+    CP = scratch[n64 - bpm * L : n64]
+    lut = scratch[n64 : n64 + LUT_WORDS // 2]
+    links, tj = scratch[n64 + LUT_WORDS // 2 :][:n8].view(torch.uint8)[: L * (W + 1)].split(
+        [L * W, L])
+    rec, cnt, err = scratch[n64 + LUT_WORDS // 2 + n8 :].view(torch.int32)[
+        : B * F * (mb + 2)].split([B * F * mb, B * F, B * F])
+    fine = torch.empty(B * F, dtype=torch.int64, device=dev)
+    out = torch.empty(B, nblk, dtype=torch.int32, device=dev)
+    flags = torch.empty(2, dtype=torch.int32, device=dev)  # ok, misses: set by the kernels
+    geom = (B, Fc, 8 * chunk_bytes, m, bpm)
+    runtime.launch("sync_decode", dev, "zpix_sync_guess_link", "plppp" + "pppppppp" + "iiiii",
+                   *ptrs, lut.data_ptr(), X.data_ptr(), Y.data_ptr(), S.data_ptr(), SG.data_ptr(),
+                   CP.data_ptr(), links.data_ptr(), flags.data_ptr(), *geom)
+    stage("guesses_links")
+    runtime.launch("sync_decode", dev, "zpix_sync_resolve", "plppp" + "pppppppppp" + "iiiiiii",
+                   *ptrs, lut.data_ptr(), X.data_ptr(), Y.data_ptr(), S.data_ptr(), SG.data_ptr(),
+                   CP.data_ptr(), links.data_ptr(), tj.data_ptr(), fine.data_ptr(), flags.data_ptr(), B, Fc, F,
+                   8 * chunk_bytes, m, bpm, LINK_SMEM_BYTES)
     stage("resolve")
-    if m > 1:
-        fine = torch.empty(B * F, dtype=torch.int64, device=dev)
-        runtime.launch("sync_decode", dev, "zpix_sync_refine", "plppp" + "pp" + "iiiii",
-                       *ptrs, entries.data_ptr(), fine.data_ptr(), B, F, 8 * chunk_bytes, bpm, m)
-    else:
-        fine = entries
-    stage("refine")
-    rec = torch.empty(B * F, mb, dtype=torch.int32, device=dev)
-    scratch = torch.empty(3, B * F, dtype=torch.int32, device=dev)  # counts, errors, bases
-    ok = torch.ones(1, dtype=torch.int32, device=dev)
-    out = torch.zeros(B, nblk, dtype=torch.int32, device=dev)
-    runtime.launch("sync_decode", dev, "zpix_sync_record", "plppp" + "ppppppp" + "iiiiii",
-                   *ptrs, fine.data_ptr(), rec.data_ptr(), scratch[0].data_ptr(),
-                   scratch[1].data_ptr(), scratch[2].data_ptr(), out.data_ptr(), ok.data_ptr(),
-                   B, F, 8 * chunk_bytes, bpm, mb, nblk, kernels=2)
+    runtime.launch("sync_decode", dev, "zpix_sync_record", "plppp" + "pppppp" + "iiiii",
+                   *ptrs, lut.data_ptr(), fine.data_ptr(), rec.data_ptr(), cnt.data_ptr(),
+                   err.data_ptr(), flags.data_ptr(), B, F, 8 * chunk_bytes, bpm, mb)
     stage("record")
-    return out, ok, fine.view(B, F), misses
+    runtime.launch("sync_decode", dev, "zpix_sync_assemble", "pppppp" + "iiii",
+                   ends.data_ptr(), rec.data_ptr(), cnt.data_ptr(), err.data_ptr(),
+                   out.data_ptr(), flags.data_ptr(), B, F, mb, nblk)
+    stage("assemble")
+    return out, flags[:1], fine.view(B, F), flags[1:]
