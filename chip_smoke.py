@@ -7,7 +7,9 @@ Run from the repository root on a machine with a CUDA card:
 
 It builds the CUDA kernels from zpix_tpu_torch/csrc (nvcc) and the host
 library from zpix_tpu_torch/csrc/host (g++), checks each kernel against
-its plain PyTorch version on the card (exact equality), decodes batches
+its plain PyTorch version on the card (exact equality; K4 and K6 on every
+colour arm and sampling ratio, both layouts, odd crops, wrapping products,
+and 64 x 1024^2 batches), decodes batches
 of 16 distinct 1024x1024 baseline 4:2:0 JPEGs (quality 50) through the
 port's four baseline routes -- ``DeviceJpegDecoder`` on streams with a
 restart marker every 8 MCUs, and ``BatchJpegDecoder`` (native front-end,
@@ -322,6 +324,74 @@ def small_kernel_checks(dev):
             got = ks.unpack_sparse(bm, vals, bv=bv, bh=bh, perm=perm)
             want = ks.unpack_sparse_plain(bm, vals, bv=bv, bh=bh, perm=perm)
             errs[f"unpack_{hv[0]}{hv[1]}_cap{cap}"] = max_abs_err(got, want)
+    torch.cuda.synchronize()
+    return errs
+
+
+def backend_checks(dev):
+    """K4 against its plain version on every colour arm and ratio of
+    _SMALL_PLANES, planar and interleaved, cropped to a size that is no
+    multiple of the MCU or of 4, with padding lanes after each image (m_pad
+    > n_mcu), in the JPEG range and with values and quants whose products
+    wrap; then K4 (both layouts) and K6 (int16 and int32) on 64 x 1024^2
+    4:2:0, far more strips than the persistent grid holds.
+    -> {case: max_abs_err}."""
+    from zpix_tpu_torch.ops import backend as kb
+    from zpix_tpu_torch.ops import planes as kp
+    from zpix_tpu_torch.ops.entropy import TAB_WORDS
+
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    errs = {}
+    mxx, myy, B = 7, 5, 3
+    for color, hv, ratio in _SMALL_PLANES:
+        geom = kb.BackendGeometry(B, 8 * hv[0][0] * mxx - 5, 8 * hv[0][1] * myy - 3, tuple(hv),
+                                  mxx, myy, mxx * myy + 5, color)
+        n = B * geom.m_pad * geom.bpm
+        pattern = ratio or "".join(f"{h}{v}" for h, v in hv)
+        for wide in (False, True):
+            lim = 2**15 if wide else 1024
+            ac = torch.randint(-lim, lim, (n, 64), generator=gen, dtype=torch.int16)
+            ac = (ac * (torch.rand(ac.shape, generator=gen) < 0.3)).to(dev)
+            dc = (torch.randint(-2**31, 2**31 - 1, (n,), generator=gen, dtype=torch.int64)
+                  if wide else torch.randint(-2000, 2000, (n,), generator=gen))
+            dc = dc.to(torch.int32).to(dev)
+            tables = torch.randint(1, 2**16 if wide else 64, (TAB_WORDS,), generator=gen,
+                                   dtype=torch.int32).to(dev)
+            for planar in (True, False):
+                got = kb.backend(ac, dc, tables, geom, planar=planar)
+                want = kb.backend_plain(ac, dc, tables, geom, planar=planar)
+                layout = "planar" if planar else "interleaved"
+                errs[f"backend_{color}_{pattern}_{layout}_{'wide' if wide else 'jpeg'}"] = (
+                    max_abs_err(got, want))
+    big = 4 * BATCH
+    hv = ((2, 2), (1, 1), (1, 1))
+    geom = kb.BackendGeometry(big, SIZE, SIZE, hv, SIZE // 16, SIZE // 16, (SIZE // 16) ** 2,
+                              "ycbcr")
+    cgen = torch.Generator(device=dev).manual_seed(3)
+    n = big * geom.m_pad * geom.bpm
+    ac = torch.randint(-1024, 1024, (n, 64), generator=cgen, device=dev, dtype=torch.int16)
+    ac *= torch.rand(ac.shape, generator=cgen, device=dev) < 0.1
+    dc = torch.randint(-2000, 2000, (n,), generator=cgen, device=dev, dtype=torch.int32)
+    tables = torch.randint(1, 64, (TAB_WORDS,), generator=cgen, device=dev, dtype=torch.int32)
+    want = kb.backend_plain(ac, dc, tables, geom, planar=True)
+    errs[f"backend_{big}x{SIZE}_planar"] = max_abs_err(
+        kb.backend(ac, dc, tables, geom, planar=True), want)
+    errs[f"backend_{big}x{SIZE}_interleaved"] = max_abs_err(
+        kb.backend(ac, dc, tables, geom, planar=False), want.permute(0, 2, 3, 1))
+    del ac, dc, want
+    grids = []
+    for h, v in hv:
+        g = torch.randint(-1024, 1024, (big, SIZE // 16 * v, SIZE // 16 * h, 64), generator=cgen,
+                          device=dev, dtype=torch.int16)
+        grids.append(g * (torch.rand(g.shape, generator=cgen, device=dev) < 0.1))
+    quants = [torch.randint(1, 64, (big, 64), generator=cgen, device=dev, dtype=torch.int32)
+              for _ in hv]
+    kw = dict(color="ycbcr", height=SIZE, width=SIZE, factors=[(1, 1), (2, 2), (2, 2)])
+    want = kp.component_planes_plain(grids, quants, **kw)
+    errs[f"planes_{big}x{SIZE}_int16"] = max_abs_err(kp.component_planes(grids, quants, **kw),
+                                                     want)
+    errs[f"planes_{big}x{SIZE}_int32"] = max_abs_err(
+        kp.component_planes([g.to(torch.int32) for g in grids], quants, **kw), want)
     torch.cuda.synchronize()
     return errs
 
@@ -2317,6 +2387,10 @@ def main() -> int:
     for k, err in small.items():
         key = "component_planes" if k.startswith("planes") else "unpack_sparse"
         results[key] = max(results[key], err)
+    k4k6 = backend_checks(dev)
+    for k, err in k4k6.items():
+        key = "backend" if k.startswith("backend") else "component_planes"
+        results[key] = max(results[key], err)
     # K3's two forms on the host-index batch's whole-image chains
     hplan, hbufs, hac, hdc = host_index_inputs(batches_rf[0])
     hdc_p = ke.dc_restore_plain(hdc, hv=hplan.hv, seg_mcus=hplan.seg_mcus)
@@ -2330,7 +2404,7 @@ def main() -> int:
     torch.cuda.synchronize()
     emit({"phase": "kernel_checks", "max_abs_err": results,
           "k1_k2_batches": [2, BATCH], "k3_k4_k5_shapes": {"lanes": L2, "blocks": L2},
-          "k6_k7_small_cases": small, "k3_forms": long_errs,
+          "k6_k7_small_cases": small, "k4_k6_cases": k4k6, "k3_forms": long_errs,
           "k6_k7_full_batch": {"images": BATCH, "size": SIZE, "ratio": packed.ratio,
                                "value_caps": fe.val_caps, "nnz_max": fe.nnz.max(0).tolist()},
           "k3_host_index_chains": {"chains": BATCH * len(hplan.hv),

@@ -1,18 +1,39 @@
 """K4, the back-end: the port's pixels from random coefficients against
 the JAX package's ``_soa_backend`` for the gray, ycbcr, rgb, cmyk and
-ycck arms, planar and interleaved.  ``_soa_backend`` runs op by op here:
-the same XLA operations as under jit, without the 10-20 s compile of
-each arm's whole program on the CPU.  Exact: tolerance 0."""
+ycck arms and for every sampling ratio the plans carry (4:4:4, 4:2:2,
+4:4:0, 4:1:1 and 4:1:0 from the tests' own encoder, cropped to 43 x 27),
+planar and interleaved.  ``_soa_backend`` runs op by op here: the same
+XLA operations as under jit, without the 10-20 s compile of each arm's
+whole program on the CPU.  Exact: tolerance 0."""
 
 import numpy as np
 import pytest
 import torch
-from _torch_jpeg import ARMS
+from _torch_jpeg import ARMS, jax_native_lib, synth_ratio_jpeg
 
 from zpix_tpu.parallel.device_entropy import _soa_backend
 from zpix_tpu.parallel.device_entropy import prep_batch as jax_prep
-from zpix_tpu_torch import prep_batch
+from zpix_tpu.parallel.device_entropy import prep_batch_host_index as jax_prep_host_index
+from zpix_tpu_torch import prep_batch, prep_batch_host_index
 from zpix_tpu_torch.ops import backend as kb
+
+# Restart-free streams at each ratio (the arms above cover 4:2:0): plans by
+# the host index scan in both packages.
+RATIOS = {"444": [(1, 1)] * 3, "422": [(2, 1), (1, 1), (1, 1)],
+          "440": [(1, 2), (1, 1), (1, 1)], "411": [(4, 1), (1, 1), (1, 1)],
+          "410": [(4, 2), (1, 1), (1, 1)]}
+CASES = list(ARMS) + [f"ycbcr-{r}" for r in RATIOS]
+
+
+def _plans(case):
+    """(zpix_tpu's plan, the port's plan, colour arm) of a two-image batch."""
+    if case in ARMS:
+        data = ARMS[case]()
+        return jax_prep([data, data]), prep_batch([data, data]), case
+    hv = RATIOS[case.split("-")[1]]
+    datas = [synth_ratio_jpeg(hv, width=43, height=27, seed=s) for s in (0, 1)]
+    jax_native_lib()
+    return jax_prep_host_index(datas), prep_batch_host_index(datas), "ycbcr"
 
 
 def _coefficients(plan, seed):
@@ -30,12 +51,11 @@ def _coefficients(plan, seed):
 
 
 @pytest.mark.parametrize("planar", [True, False], ids=["planar", "interleaved"])
-@pytest.mark.parametrize("arm", list(ARMS))
+@pytest.mark.parametrize("arm", CASES)
 def test_backend_matches_soa_backend(arm, planar):
-    data = ARMS[arm]()
-    datas = [data, data]
-    jplan, plan = jax_prep(datas), prep_batch(datas)
-    assert plan.color == jplan.color == arm
+    jplan, plan, color = _plans(arm)
+    assert plan.color == jplan.color == color
+    assert tuple(plan.hv) == tuple(tuple(x) for x in jplan.hv)
     ac, dc = _coefficients(plan, seed=len(arm) + planar)
     dcv = np.ascontiguousarray(dc.transpose(2, 0, 1).reshape(-1))  # slot-major
     ac16 = np.ascontiguousarray(ac.transpose(3, 2, 0, 1).reshape(64, -1))

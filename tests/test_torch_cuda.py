@@ -12,7 +12,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
-from _torch_jpeg import ARMS, synth_jpeg
+from _torch_jpeg import ARMS, random_grids, synth_jpeg
 
 from zpix_tpu_torch import DeviceJpegDecoder, prep_batch, runtime
 from zpix_tpu_torch.ops import entropy as ke
@@ -128,8 +128,6 @@ _PLANE_CASES = [("gray", [(1, 1)], None), ("ycbcr", [(2, 2), (1, 1), (1, 1)], "4
 @pytest.mark.parametrize("color,hv,ratio", _PLANE_CASES,
                          ids=[f"{c}-{r or len(h)}-{i}" for i, (c, h, r) in enumerate(_PLANE_CASES)])
 def test_planes_kernel_matches_plain(cuda, color, hv, ratio, wide):
-    from _torch_jpeg import random_grids
-
     from zpix_tpu_torch.parallel.batch import decode_batch_planes
 
     rng = np.random.default_rng(2)
@@ -145,6 +143,131 @@ def test_planes_kernel_matches_plain(cuda, color, hv, ratio, wide):
     got = decode_batch_planes([g.to(cuda) for g in grids], [q.to(cuda) for q in quants], **kw)
     assert runtime.LAUNCHES["component_planes"] == before + 1
     assert torch.equal(got.cpu(), decode_batch_planes(grids, quants, **kw))
+
+
+def _backend_inputs(rng, hv, B, mxx, myy, m_pad, wide):
+    """Random K4 inputs: sparse AC int16, DC int32 and quant tables, whose
+    products wrap when ``wide``."""
+    from zpix_tpu_torch.ops.entropy import TAB_WORDS
+
+    n = B * m_pad * sum(h * v for h, v in hv)
+    lim = 2**15 if wide else 1024
+    ac = rng.integers(-lim, lim, (n, 64)) * (rng.random((n, 64)) < 0.3)
+    dc = rng.integers(-2**31, 2**31 - 1, n) if wide else rng.integers(-2000, 2000, n)
+    tables = rng.integers(1, 2**16 if wide else 64, TAB_WORDS)
+    return (torch.from_numpy(ac.astype(np.int16)), torch.from_numpy(dc.astype(np.int32)),
+            torch.from_numpy(tables.astype(np.int32)))
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["jpeg-range", "wrapping"])
+@pytest.mark.parametrize("planar", [True, False], ids=["planar", "interleaved"])
+@pytest.mark.parametrize("color,hv,ratio", _PLANE_CASES,
+                         ids=[f"{c}-{r or len(h)}-{i}" for i, (c, h, r) in enumerate(_PLANE_CASES)])
+def test_backend_kernel_matches_plain(cuda, color, hv, ratio, planar, wide):
+    """K4 on every arm and ratio, cropped to a size that is no multiple of
+    the MCU or of 4, with padding lanes after each image (m_pad > n_mcu)."""
+    from zpix_tpu_torch.ops import backend as kb
+
+    rng = np.random.default_rng(5)
+    mxx, myy, B = 5, 3, 2
+    geom = kb.BackendGeometry(B, 8 * hv[0][0] * mxx - 5, 8 * hv[0][1] * myy - 3, tuple(hv),
+                              mxx, myy, mxx * myy + 4, color)
+    ac, dc, tables = _backend_inputs(rng, hv, B, mxx, myy, geom.m_pad, wide)
+    before = runtime.LAUNCHES["backend"]
+    got = kb.backend(ac.to(cuda), dc.to(cuda), tables.to(cuda), geom, planar=planar)
+    assert runtime.LAUNCHES["backend"] == before + 1
+    assert torch.equal(got.cpu(), kb.backend_plain(ac, dc, tables, geom, planar=planar))
+
+
+@pytest.mark.parametrize("planar", [True, False], ids=["planar", "interleaved"])
+def test_backend_kernel_grid_beyond_resident(cuda, planar):
+    """K4 on 8 x 1024^2 4:2:0: 4,096 strips, more than the persistent grid
+    holds, so each CTA walks many."""
+    from zpix_tpu_torch.ops import backend as kb
+
+    rng = np.random.default_rng(6)
+    hv = ((2, 2), (1, 1), (1, 1))
+    geom = kb.BackendGeometry(8, 1024, 1024, hv, 64, 64, 64 * 64, "ycbcr")
+    ac, dc, tables = (t.to(cuda) for t in _backend_inputs(rng, hv, 8, 64, 64, geom.m_pad, False))
+    before = runtime.LAUNCHES["backend"]
+    got = kb.backend(ac, dc, tables, geom, planar=planar)
+    assert runtime.LAUNCHES["backend"] == before + 1
+    assert torch.equal(got, kb.backend_plain(ac, dc, tables, geom, planar=planar))
+
+
+@pytest.mark.parametrize("hv,color", [(((1, 3), (1, 1), (1, 1)), "ycbcr"),
+                                      (((3, 1), (1, 1), (1, 1)), "ycbcr"),
+                                      (((2, 2), (1, 1), (2, 2)), "ycbcr")],
+                         ids=["v3", "h3", "chroma-unlike"])
+def test_strip_kernels_refuse_unsupported_sampling(cuda, hv, color):
+    """The strip stage takes replication factors of 1, 2 or 4 and chroma
+    planes replicated alike, as every plan does: K4 and K6 refuse any
+    other sampling on the card and launch nothing (their plain versions,
+    on the CPU, take it)."""
+    from zpix_tpu_torch.ops import backend as kb
+    from zpix_tpu_torch.ops.planes import component_planes
+
+    rng = np.random.default_rng(8)
+    mxx, myy, B = 5, 3, 2
+    geom = kb.BackendGeometry(B, 8 * hv[0][0] * mxx - 5, 8 * hv[0][1] * myy - 3, hv, mxx, myy,
+                              mxx * myy + 2, color)
+    ac, dc, tables = _backend_inputs(rng, hv, B, mxx, myy, geom.m_pad, False)
+    before = dict(runtime.LAUNCHES)
+    with pytest.raises(RuntimeError, match="zpix_backend failed"):
+        kb.backend(ac.to(cuda), dc.to(cuda), tables.to(cuda), geom, planar=True)
+    grids = [torch.from_numpy(g).to(cuda) for g in random_grids(rng, hv, mxx, myy, B)]
+    quants = [torch.from_numpy(rng.integers(1, 100, (B, 64)).astype(np.int32)).to(cuda)
+              for _ in hv]
+    factors = [(hv[0][0] // h, hv[0][1] // v) for h, v in hv]
+    with pytest.raises(RuntimeError, match="zpix_component_planes failed"):
+        component_planes(grids, quants, color=color, height=geom.height, width=geom.width,
+                         factors=factors)
+    assert runtime.LAUNCHES == before
+
+
+def test_strip_kernels_with_unaligned_coefficients(cuda):
+    """Coefficients that start 2 bytes past a 16-byte boundary (a
+    contiguous view into a larger buffer) take plain loads, not cp.async."""
+    from zpix_tpu_torch.ops import backend as kb
+    from zpix_tpu_torch.ops.planes import component_planes, component_planes_plain
+
+    rng = np.random.default_rng(9)
+    hv = ((2, 2), (1, 1), (1, 1))
+    geom = kb.BackendGeometry(2, 75, 45, hv, 5, 3, 16, "ycbcr")
+    ac, dc, tables = _backend_inputs(rng, hv, 2, 5, 3, geom.m_pad, False)
+    store = torch.zeros(ac.numel() + 1, dtype=torch.int16, device=cuda)
+    ac_view = store[1:].view(ac.shape)
+    ac_view.copy_(ac.to(cuda))
+    assert ac_view.data_ptr() % 16
+    got = kb.backend(ac_view, dc.to(cuda), tables.to(cuda), geom, planar=True)
+    assert torch.equal(got.cpu(), kb.backend_plain(ac, dc, tables, geom, planar=True))
+    grids = []
+    for g in random_grids(rng, hv, 5, 3, 2):
+        s16 = torch.zeros(g.size + 1, dtype=torch.int16, device=cuda)
+        grids.append(s16[1:].view(g.shape))
+        grids[-1].copy_(torch.from_numpy(g).to(cuda))
+    quants = [torch.from_numpy(rng.integers(1, 100, (2, 64)).astype(np.int32)) for _ in hv]
+    kw = dict(color="ycbcr", height=45, width=75, factors=[(1, 1), (2, 2), (2, 2)])
+    got = component_planes(grids, [q.to(cuda) for q in quants], **kw)
+    assert torch.equal(got.cpu(), component_planes_plain([g.cpu() for g in grids], quants, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32], ids=["int16", "int32"])
+def test_planes_kernel_grid_beyond_resident(cuda, dtype):
+    """K6 on 8 x 1024^2 4:2:0 grids: more strips than the persistent grid
+    holds."""
+    from zpix_tpu_torch.ops.planes import component_planes, component_planes_plain
+
+    rng = np.random.default_rng(7)
+    hv = [(2, 2), (1, 1), (1, 1)]
+    grids = [torch.from_numpy(g).to(dtype).to(cuda) for g in random_grids(rng, hv, 64, 64, 8)]
+    quants = [torch.from_numpy(rng.integers(1, 100, (8, 64)).astype(np.int32)).to(cuda)
+              for _ in hv]
+    kw = dict(color="ycbcr", height=1024, width=1024, factors=[(1, 1), (2, 2), (2, 2)])
+    before = runtime.LAUNCHES["component_planes"]
+    got = component_planes(grids, quants, **kw)
+    assert runtime.LAUNCHES["component_planes"] == before + 1
+    assert torch.equal(got, component_planes_plain(grids, quants, **kw))
 
 
 @pytest.mark.parametrize("form", ["thread", "block"])

@@ -6,13 +6,21 @@
 // (ops/ycbcr.py::upsample_chroma_jnp) and the exact YCbCr->RGB
 // (ycbcr_to_rgb8_jnp), with the gray, ycbcr, rgb, cmyk and ycck arms.
 // The JAX back-end builds full-size planes and then upsamples and
-// converts them; here one CUDA block takes one MCU: its blocks are
-// dequantised and transformed in shared memory, and each output pixel of
-// the MCU is computed from the MCU's own blocks (chroma replication never
-// crosses an MCU) and written once, cropped, to [B,C,H,W] or [B,H,W,C].
-// The IDCT and pixel stage is mcu_pixels.cuh, which K6 (planes.cu) shares.
+// converts them; here each output pixel is computed from its MCU's own
+// blocks (chroma replication never crosses an MCU) and written once,
+// cropped, to [B,C,H,W] or [B,H,W,C].
 //
-// Bound on the H100: bytes (128 + 4 per block in, the pixels out).
+// A persistent grid of 256-thread CTAs walks strips of MCUs along MCU
+// rows (mcu_pixels.cuh).  A strip's coefficients are one contiguous run
+// of strip * bpm lanes (MCU m of image b starts at lane (b*m_pad + m)*bpm):
+// strip * bpm * 128 bytes of AC by 16-byte cp.async and the lanes' DC by
+// 4-byte cp.async, into one of two buffers while the CTA computes the
+// other.  The quant rows are staged once a CTA.
+//
+// Bound on the H100: bytes (128 + 4 per block in, the pixels out); the
+// exact integer work is about 70% of that time at the main shapes, so the
+// design spends few instructions on anything but the butterflies and the
+// colour arithmetic.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -22,41 +30,53 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-using zpix::kMaxBpm;
+using zpix::StripGeo;
 
-__global__ void backend_kernel(const int16_t* __restrict__ ac,
-                               const int32_t* __restrict__ dc,
-                               const int32_t* __restrict__ tables,
-                               uint8_t* __restrict__ out, int n_mcu, int m_pad,
-                               int mxx, int bpm, int height, int width,
-                               int ncomp, int c0, int c1, int c2, int c3,
-                               int mode, int nchan, int planar) {
-  __shared__ int32_t blk[kMaxBpm * 64];
-  __shared__ uint8_t pix[kMaxBpm * 64];
-  __shared__ zpix::McuGeo g;
-
-  const int tid = threadIdx.x;
-  if (tid == 0) zpix::load_geo(g, ncomp, c0, c1, c2, c3);
+__global__ void __launch_bounds__(zpix::kStripThreads)
+    backend_kernel(const int16_t* __restrict__ ac, const int32_t* __restrict__ dc,
+                   const int32_t* __restrict__ tables, uint8_t* __restrict__ out,
+                   const __grid_constant__ StripGeo g, int64_t m_pad, int vec) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int nb = g.strip * g.bpm;
+  const zpix::StripSmem L = zpix::strip_smem(nb, 2, nb * 4);
+  int32_t* tab = reinterpret_cast<int32_t*>(smem + L.tab);
+  int32_t* quant = tab + zpix::align16(nb * 4) / 4;  // [4][64]
+  zpix::build_block_table(g, tab);
+  for (int i = threadIdx.x; i < 4 * 64; i += zpix::kStripThreads)
+    quant[i] = tables[zpix::kTabQuant + i];
   __syncthreads();
 
-  const int64_t mcu = blockIdx.x;  // over batch * n_mcu
-  const int64_t b = mcu / n_mcu;
-  const int m = static_cast<int>(mcu - b * n_mcu);
-  const int64_t lane0 = (b * m_pad + m) * bpm;  // block of slot 0
+  auto issue = [&](int64_t s, int buf) {
+    const zpix::Strip t = zpix::strip_at(g, s);
+    const int64_t lane0 = (t.b * m_pad + static_cast<int64_t>(t.my) * g.mxx + t.mx0) * g.bpm;
+    const int n = t.nm * g.bpm;  // this strip's blocks
+    int16_t* dst = reinterpret_cast<int16_t*>(smem + L.coef + buf * L.coef_bytes);
+    int32_t* ddc = reinterpret_cast<int32_t*>(smem + L.aux + buf * L.aux_bytes);
+    const int16_t* src = ac + lane0 * 64;
+    if (vec) {
+      for (int i = threadIdx.x; i < n * 8; i += zpix::kStripThreads)
+        zpix::cp_async16(dst + i * 8, src + i * 8);
+    } else {  // an AC base that is not 16-byte aligned: plain loads
+      for (int i = threadIdx.x; i < n * 64; i += zpix::kStripThreads) dst[i] = src[i];
+    }
+    for (int i = threadIdx.x; i < n; i += zpix::kStripThreads)
+      zpix::cp_async4(ddc + i, dc + lane0 + i);
+  };
+  zpix::run_strips<int16_t, true>(g, L, smem, quant, issue, out);
+}
 
-  // dequant (natural order, per-component quant); int32 wraps
-  for (int i = tid; i < bpm * 64; i += blockDim.x) {
-    const int slot = i >> 6, p = i & 63;
-    const int32_t v = p == 0 ? dc[lane0 + slot] : ac[(lane0 + slot) * 64 + p];
-    const int32_t q = tables[zpix::kTabQuant + g.comp_of_slot[slot] * 64 + p];
-    blk[i] = static_cast<int32_t>(static_cast<uint32_t>(v) * static_cast<uint32_t>(q));
-  }
-  __syncthreads();
-  zpix::idct_to_pixels(blk, pix, bpm);
-  const int my = m / mxx;
-  zpix::write_mcu(pix, g, b, my, m - my * mxx, height, width, ncomp, mode, nchan,
-                  planar, out);
+zpix::StripSmem smem_of(int nb) { return zpix::strip_smem(nb, 2, nb * 4); }
+
+void launch(const StripGeo& g, const void* ac, const void* dc, const void* tables, void* out,
+            int64_t m_pad, cudaStream_t stream) {
+  static zpix::GridCache cache;
+  const int nb = g.strip * g.bpm, smem = smem_of(nb).total;
+  const int grid = zpix::strip_grid(cache, backend_kernel, nb, smem,
+                                    smem_of(zpix::kStripBlocks).total, g.n_strips);
+  const int vec = reinterpret_cast<uintptr_t>(ac) % 16 == 0;
+  backend_kernel<<<grid, zpix::kStripThreads, smem, stream>>>(
+      static_cast<const int16_t*>(ac), static_cast<const int32_t*>(dc),
+      static_cast<const int32_t*>(tables), static_cast<uint8_t*>(out), g, m_pad, vec);
 }
 
 }  // namespace
@@ -66,15 +86,13 @@ extern "C" int zpix_backend(const void* ac, const void* dc, const void* tables,
                             int bpm, int height, int width, int ncomp, int c0,
                             int c1, int c2, int c3, int mode, int nchan,
                             int planar, void* stream) {
-  const int64_t grid = static_cast<int64_t>(batch) * n_mcu;
-  if (bpm > kMaxBpm) return static_cast<int>(cudaErrorInvalidValue);
-  if (grid > 0) {
-    backend_kernel<<<static_cast<unsigned>(grid), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int16_t*>(ac), static_cast<const int32_t*>(dc),
-        static_cast<const int32_t*>(tables), static_cast<uint8_t*>(out), n_mcu,
-        m_pad, mxx, bpm, height, width, ncomp, c0, c1, c2, c3, mode, nchan,
-        planar);
-  }
+  const int packed[4] = {c0, c1, c2, c3};
+  StripGeo g;
+  if (mxx < 1 || n_mcu % mxx) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = zpix::make_strip_geo(g, batch, mxx, n_mcu / mxx, bpm, ncomp, packed,
+                                               height, width, mode, nchan, planar);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (g.n_strips > 0)
+    launch(g, ac, dc, tables, out, m_pad, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

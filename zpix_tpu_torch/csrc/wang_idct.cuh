@@ -1,5 +1,6 @@
 // Exact Wang (1984) fixed-point 8x8 IDCT butterflies, shared by the
-// back-end kernel (backend.cu) and the standalone IDCT kernel (idct.cu).
+// strip pixel stage of K4 and K6 (mcu_pixels.cuh) and the standalone IDCT
+// kernel (idct.cu).
 //
 // The device form of zpix_tpu/ops/idct.py::_butterfly_row_list and
 // _butterfly_col_list (the reference's idct.zig:77-201).  numpy and XLA
@@ -18,8 +19,8 @@ __device__ __forceinline__ int32_t asr(uint32_t x, int n) {
   return static_cast<int32_t>(x) >> n;
 }
 
-// One row: v[0..7] in place (idct.zig:79-145).
-__device__ __forceinline__ void wang_row(int32_t* v) {
+// One row in registers: v[0..7] in place (idct.zig:79-145).
+__device__ __forceinline__ void wang_row_regs(int32_t (&v)[8]) {
   uint32_t x0 = (static_cast<uint32_t>(v[0]) << 11) + 128u;
   uint32_t x1 = static_cast<uint32_t>(v[4]) << 11;
   uint32_t x2 = v[6], x3 = v[2], x4 = v[1], x5 = v[7], x6 = v[5], x7 = v[3];
@@ -54,12 +55,11 @@ __device__ __forceinline__ void wang_row(int32_t* v) {
   v[7] = asr(x7 - x1, 8);
 }
 
-// One column: v[0], v[stride], ..., v[7*stride] in place (idct.zig:148-200).
-__device__ __forceinline__ void wang_col(int32_t* v, int stride) {
+// One column in registers: v[0..7] (rows 0..7) in place (idct.zig:148-200).
+__device__ __forceinline__ void wang_col_regs(int32_t (&v)[8]) {
   uint32_t y0 = (static_cast<uint32_t>(v[0]) << 8) + 8192u;
-  uint32_t y1 = static_cast<uint32_t>(v[4 * stride]) << 8;
-  uint32_t y2 = v[6 * stride], y3 = v[2 * stride], y4 = v[1 * stride],
-           y5 = v[7 * stride], y6 = v[5 * stride], y7 = v[3 * stride];
+  uint32_t y1 = static_cast<uint32_t>(v[4]) << 8;
+  uint32_t y2 = v[6], y3 = v[2], y4 = v[1], y5 = v[7], y6 = v[5], y7 = v[3];
   uint32_t y8 = kW7 * (y4 + y5) + 4u;
   y4 = static_cast<uint32_t>(asr(y8 + (kW1 - kW7) * y4, 3));
   y5 = static_cast<uint32_t>(asr(y8 - (kW1 + kW7) * y5, 3));
@@ -82,13 +82,29 @@ __device__ __forceinline__ void wang_col(int32_t* v, int stride) {
   y2 = static_cast<uint32_t>(asr(kR2 * (y4 + y5) + 128u, 8));
   y4 = static_cast<uint32_t>(asr(kR2 * (y4 - y5) + 128u, 8));
   v[0] = asr(y7 + y1, 14);
-  v[1 * stride] = asr(y3 + y2, 14);
-  v[2 * stride] = asr(y0 + y4, 14);
-  v[3 * stride] = asr(y8 + y6, 14);
-  v[4 * stride] = asr(y8 - y6, 14);
-  v[5 * stride] = asr(y0 - y4, 14);
-  v[6 * stride] = asr(y3 - y2, 14);
-  v[7 * stride] = asr(y7 - y1, 14);
+  v[1] = asr(y3 + y2, 14);
+  v[2] = asr(y0 + y4, 14);
+  v[3] = asr(y8 + y6, 14);
+  v[4] = asr(y8 - y6, 14);
+  v[5] = asr(y0 - y4, 14);
+  v[6] = asr(y3 - y2, 14);
+  v[7] = asr(y7 - y1, 14);
+}
+
+// The same butterflies on memory: a row v[0..7], a column v[0], v[stride],
+// ..., v[7 * stride], each in place (idct.cu's form).
+__device__ __forceinline__ void wang_row(int32_t* v) {
+  int32_t r[8];
+  for (int i = 0; i < 8; ++i) r[i] = v[i];
+  wang_row_regs(r);
+  for (int i = 0; i < 8; ++i) v[i] = r[i];
+}
+
+__device__ __forceinline__ void wang_col(int32_t* v, int stride) {
+  int32_t c[8];
+  for (int i = 0; i < 8; ++i) c[i] = v[i * stride];
+  wang_col_regs(c);
+  for (int i = 0; i < 8; ++i) v[i * stride] = c[i];
 }
 
 }  // namespace zpix
