@@ -17,12 +17,16 @@ K7, K6), ``HostIndexJpegDecoder`` (host index scan, K2, K3, K4) and
 ``SyncJpegDecoder`` (K19's chunk sync, K2, K3, K4; the ``sync`` phase) on
 streams with none -- and batches of 16 copies of one 1024x1024 4:2:0
 progressive JPEG (a new image each batch) through
-``OnchipProgressiveDecoder`` (host index walks, K8-K11, K3, K6), times
+``OnchipProgressiveDecoder`` (host index walks, K8-K11, K3, K6; K8-K11
+also at q90 and q25, 4:4:4, gray and a 999x997 crop, on damaged copies,
+and K10 on streams cut inside its scans), times
 them with CUDA events, checks that corrupt streams are flagged, and
 prints one JSON object per line.  Then the raster slice: batches of 16
 distinct 1024x1024 QOI streams (the JAX bench's "noise" and "screen"
 content, made by the port's host encoder) through ``HostIndexQoiDecoder``
-(host lane fill, K12; host records, K13), the decoded batches back
+(host lane fill, K12; host records, K13, also on its edges: counts of
+255, zero runs longer than a tile, an image all fill, 64 x 1024^2 noise
+records), the decoded batches back
 through ``encode_device_batch`` (K14, streams byte-identical to the host
 encoder; K14 also on 64 images, a grid of tiles beyond what the card holds
 at once), and 16 distinct 1024x1024 BMPs a batch from the port's numpy
@@ -137,12 +141,13 @@ QOI_PROFILES = {"noise": 16, "screen": 256}
 #   set): an add at the clamped start and a subtract at the clamped end
 #   per entry slot, a prefix add per pixel (the kernel itself does two
 #   compares and an add per (pixel, entry slot));
-# - K13: an add per record (the prefix sum), a compare per search step;
+# - K13: an add per record (the prefix sum), a select and a store per
+#   pixel (the function's least work, whatever implements it);
 # - K14: hash (4 multiplies, 3 adds, a mask), run test, 5 differences, 16
 #   range compares, bucket compare, size and scan adds;
 # - K18: index extract (shift, mask) or swizzle, 3 x 4 for the premultiply.
 OPS_K12_SLOT, OPS_K12_PIXEL = 2, 1
-OPS_K13_RECORD, OPS_K13_STEP, OPS_K14_PIXEL = 1, 1, 32
+OPS_K13_RECORD, OPS_K13_PIXEL, OPS_K14_PIXEL = 1, 2, 32
 OPS_K18_PIXEL = {1: 2, 2: 2, 4: 2, 8: 1, 24: 1, 32: 12}
 
 
@@ -955,6 +960,85 @@ def prog_mixed_checks(dec, prep, kw6):
     return errs
 
 
+REFINE_CASES = (  # name, width, height, quality, sampling, copies
+    ("q90", SIZE, SIZE, 90, "420", BATCH), ("q25", SIZE, SIZE, 25, "420", BATCH),
+    ("444", SIZE, SIZE, QUALITY, "444", 4), ("gray", SIZE, SIZE, QUALITY, "gray", 4),
+    ("crop_999x997", 999, 997, QUALITY, "420", 4))
+DAMAGE_SEEDS = range(6)
+
+
+def make_prog_image(w: int, h: int, quality: int, mode: str, seed: int) -> bytes:
+    """The bench's content (make_bench_jpeg) as a progressive JPEG of any
+    size, quality and sampling ("420", "444", "gray")."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    x = np.linspace(0, 20, max(w, h))
+    base = (128 + 100 * np.sin(x[None, :w] * np.cos(x[:h, None]) + seed)).astype(np.uint8)
+    noise = rng.randint(0, 24, (h, w)).astype(np.uint8)
+    buf = BytesIO()
+    if mode == "gray":
+        Image.fromarray(base ^ noise, "L").save(buf, format="JPEG", quality=quality,
+                                                progressive=True)
+    else:
+        rgb = np.stack([base ^ noise, base[::-1], base // 2 + 64], -1)
+        Image.fromarray(rgb).save(buf, format="JPEG", quality=quality, progressive=True,
+                                  subsampling={"444": 0, "420": 2}[mode])
+    return buf.getvalue()
+
+
+def prog_refine_checks(dec, data) -> dict:
+    """K10's edges (K8, K9 and K11 on the way), each kernel against its
+    plain version scan by scan, store and ok: REFINE_CASES (q90 and q25
+    at the bench's batch, 4:4:4, gray, a crop whose width is not a
+    multiple of 8), 2 copies of ``data`` with 6 random bytes written into
+    every scan after the host walk (DAMAGE_SEEDS), and each refinement
+    scan's buffer cut at 24 places over its data (reads stop on the cap,
+    inside grouped correction-bit reads among them) -> {case: max_abs_err,
+    "<case>_ok": ok after the scans, "cut_flagged": cuts that cleared ok}."""
+    from zpix_tpu_torch.ops import progressive as kp
+    from zpix_tpu_torch.parallel import progressive_onchip as po
+
+    out = {}
+    for name, w, h, q, mode, n in REFINE_CASES:
+        prep = dec.prep([make_prog_image(w, h, q, mode, 2000 + q)] * n)
+        _, ok, errs, _, _ = prog_scan_checks(prep, dec.upload(prep))
+        out[name] = max(errs.values())
+        out[f"{name}_ok"] = int(ok)
+    prep2 = dec.prep([data] * 2)
+    for seed in DAMAGE_SEEDS:
+        rng = np.random.default_rng(seed)
+        scans = []
+        for sc in prep2.scans:
+            flat = sc.stream.copy().reshape(-1)
+            at = rng.integers(0, flat.shape[0], 6)
+            flat[at] = rng.integers(0, 256, 6, dtype=np.uint8)
+            scans.append(dataclasses.replace(sc, stream=flat.reshape(sc.stream.shape)))
+        dprep = dataclasses.replace(prep2, scans=scans)
+        _, _, errs, _, _ = prog_scan_checks(dprep, dec.upload(dprep))
+        out[f"damaged_{seed}"] = max(errs.values())
+    bufs = dec.upload(prep2)
+    grids, ok = po.new_store(prep2, bufs[1].device)
+    out["cut"], out["cut_flagged"] = 0, 0
+    for sc, t in zip(prep2.scans, bufs[0]):
+        if sc.kind == "ac_refine":
+            c = sc.comps[0]
+            kw = dict(valid=po.valid_grid(prep2, c), ss=sc.ss, se=sc.se, al=sc.al)
+            lo = int(sc.starts.min()) // 8
+            hi = min(int(sc.ends.max()) // 8 + 9, t["stream"].shape[0])
+            for cap in np.linspace(max(lo, 5), hi, 24).astype(int):
+                args = (t["stream"][:cap], t["starts"], t["ends"], t["flags"], t["tables"])
+                got, want = grids[c].clone(), grids[c].clone()
+                ok_k, ok_p = torch.ones_like(ok), torch.ones_like(ok)
+                kp.ac_refine(*args, ok_k, got, **kw)
+                kp.ac_refine_plain(*args, ok_p, want, **kw)
+                out["cut"] = max(out["cut"], max_abs_err(got, want), max_abs_err(ok_k, ok_p))
+                out["cut_flagged"] += int(ok_k) == 0
+        po.apply_scan(po.SCAN_KERNELS[sc.kind], sc, t, grids, prep2, ok)
+    torch.cuda.synchronize()
+    return out
+
+
 def prog_stages(dec, datas, plain=None):
     """One 4:2:0 batch through OnchipProgressiveDecoder's stages -> (pixels,
     ok, {stage: ms}): parse and index walks (host clock), then CUDA events
@@ -1044,6 +1128,9 @@ def progressive(dev):
                                                                                 **kw6))
     # the same at full width on images made to differ
     mixed = prog_mixed_checks(dec, prep, kw6)
+    refine = prog_refine_checks(dec, batches[0][0])
+    errs["ac_refine"] = max(errs["ac_refine"], *(v for k, v in refine.items()
+                                                 if not k.endswith(("_ok", "_flagged"))))
     torch.cuda.synchronize()
 
     # the main path: one decode, launches counted
@@ -1056,7 +1143,8 @@ def progressive(dev):
     # images 0 and 1 against the plain path on the card, image 0 against Pillow
     ref2, ok2, _ = prog_stages(dec, batches[0][:2], plain=prog_plain())
     pil = np.asarray(Image.open(BytesIO(batches[0][0])).convert("RGB"))
-    check = {"max_abs_err": errs, "mixed_batch": mixed, "kernels_ok": bool(ok_k),
+    check = {"max_abs_err": errs, "mixed_batch": mixed, "refine_edges": refine,
+             "kernels_ok": bool(ok_k),
              "main_ok": bool(ok),
              "main_vs_plain": max_abs_err(px[:2], ref2), "plain_ok": ok2,
              "mean_abs_diff_vs_pillow": float(np.abs(px[0].cpu().numpy().astype(np.int32)
@@ -1297,6 +1385,58 @@ def route_summary(walls, peak, mean, launches) -> dict:
             "launches_per_call": {k: v for k, v in launches.items() if v}}
 
 
+def k13_hand_records(gen, dev):
+    """Hand-built K13 records for BATCH images of SIZE^2: 65,536 counts
+    0-62 an image, a third of them zero, the even images cut short of the
+    pixel count (their tails take the fill) -> (cols, cnts, fill) on dev."""
+    hcnt = gen.integers(0, 63, (BATCH, 65536)).astype(np.uint8)
+    hcnt[gen.random(hcnt.shape) < 0.33] = 0  # zero counts inside the records
+    hcnt[::2, 40000:] = 0  # even images fall short of the pixel count: fill
+    return (dev_t(gen.integers(0, 2**32, hcnt.shape, dtype=np.uint64).astype(np.uint32), dev),
+            dev_t(hcnt, dev),
+            dev_t(gen.integers(0, 2**32, BATCH, dtype=np.uint64).astype(np.uint32), dev))
+
+
+def k13_edge_checks(dev) -> dict:
+    """K13 against its plain version on its edges -> {case: max_abs_err}:
+    counts of 255 (totals 16 times the pixel count), one record covering
+    a whole image, zero runs longer than a tile with rcap a multiple of
+    neither the tile nor 16 (word loads) and an image all fill beside one
+    half fill, and 64 x 1024^2 noise images' host records (a grid of tiles
+    far beyond what the card holds at once)."""
+    from zpix_tpu_torch.ops import qoi as kq
+    from zpix_tpu_torch.parallel import qoi_batch as tq
+
+    gen = np.random.default_rng(13)
+
+    def u32(*shape):
+        return gen.integers(0, 2**32, shape, dtype=np.uint64).astype(np.uint32)
+
+    shape = (BATCH, SIZE, SIZE)
+    one = np.zeros((BATCH, 16), np.uint8)
+    one[:, 0] = 255
+    rcap = (1 << 20) + 100
+    runs = gen.integers(0, 3, (BATCH, rcap)).astype(np.uint8)
+    runs[:, 5000 : 5000 + 2 * max(kq.REC_TILES)] = 0
+    runs[1] = 0
+    runs[2] = gen.integers(0, 2, rcap)
+    cases = {"counts_255": (u32(BATCH, 65536), np.full((BATCH, 65536), 255, np.uint8),
+                            u32(BATCH), shape),
+             "one_record": (u32(BATCH, 16), one, u32(BATCH), (BATCH, 15, 17)),
+             "zero_runs": (u32(BATCH, rcap), runs, u32(BATCH), shape)}
+    datas = [d for b in make_qoi_batches("noise", range(70, 74)) for d in b]
+    plan = tq.prep_qoi_records(datas)
+    cases["grid_64_noise"] = (plan.cols, plan.cnts, plan.fill, (len(datas), SIZE, SIZE))
+    out = {}
+    for name, (c, n, f, shp) in cases.items():
+        rec = [dev_t(a, dev) for a in (c, n, f)]
+        out[name] = max_abs_err(kq.sorted_expand(*rec, shape=shp),
+                                kq.sorted_expand_plain(*rec, shape=shp))
+        del rec
+    torch.cuda.synchronize()
+    return out
+
+
 def qoi_phase(dev):
     """The QOI decode routes: K12 and K13 against their plain versions on
     full batches (both profiles, alpha content, hand-built entries and
@@ -1349,15 +1489,15 @@ def qoi_phase(dev):
     errs["sorted_noise"] = max_abs_err(kq.sorted_expand(*rec, shape=shape),
                                        kq.sorted_expand_plain(*rec, shape=shape))
     layouts["records"] = qoi_plan_layout(rplan)
-    hcnt = gen.integers(0, 63, (BATCH, 65536)).astype(np.uint8)
-    hcnt[gen.random(hcnt.shape) < 0.33] = 0  # zero counts inside the records
-    hcnt[::2, 40000:] = 0  # even images fall short of the pixel count: fill
-    hrec = [dev_t(gen.integers(0, 2**32, hcnt.shape, dtype=np.uint64).astype(np.uint32), dev),
-            dev_t(hcnt, dev),
-            dev_t(gen.integers(0, 2**32, BATCH, dtype=np.uint64).astype(np.uint32), dev)]
+    hrec = k13_hand_records(gen, dev)
     errs["sorted_hand_built"] = max_abs_err(kq.sorted_expand(*hrec, shape=shape),
                                             kq.sorted_expand_plain(*hrec, shape=shape))
     del hrec
+    srplan = tq.prep_qoi_records(batches["screen"][0])
+    srec = [dev_t(a, dev) for a in (srplan.cols, srplan.cnts, srplan.fill)]
+    errs["sorted_screen"] = max_abs_err(kq.sorted_expand(*srec, shape=shape),
+                                        kq.sorted_expand_plain(*srec, shape=shape))
+    errs.update({f"sorted_edge_{k}": v for k, v in k13_edge_checks(dev).items()})
     torch.cuda.synchronize()
 
     def check_host(n):
@@ -1441,7 +1581,6 @@ def qoi_phase(dev):
     total = int(rcnt.sum())
     lib_ms = cuda_ms(lambda: torch.repeat_interleave(rcols, rcnt, output_size=total), 20)
     out_bytes = BATCH * npx * 4
-    steps = int(np.ceil(np.log2(rplan.rcap + 1)))
 
     def k12_ops(P, R):  # entry slots of the batch's lanes, and its pixels
         return OPS_K12_SLOT * R * (BATCH * npx // P) + OPS_K12_PIXEL * BATCH * npx
@@ -1466,10 +1605,15 @@ def qoi_phase(dev):
             "ms": cuda_ms(lambda: kq.sorted_expand(*rec, shape=shape), 20),
             "plain_ms": cuda_ms(lambda: kq.sorted_expand_plain(*rec, shape=shape), 1),
             "bytes": sum(x.numel() * x.element_size() for x in rec) + out_bytes,
-            "ops": OPS_K13_RECORD * BATCH * rplan.rcap + OPS_K13_STEP * steps * BATCH * npx,
+            "ops": OPS_K13_RECORD * BATCH * rplan.rcap + OPS_K13_PIXEL * BATCH * npx,
             "launches": launches["sorted"]["qoi_sorted_expand"], "library_ms": lib_ms,
-            "max_abs_err": max(errs["sorted_noise"], errs["sorted_hand_built"]),
-            "layout": {"rcap": rplan.rcap, "records": total}},
+            "max_abs_err": max(v for k, v in errs.items() if k.startswith("sorted")),
+            "layout": {"rcap": rplan.rcap, "records": total},
+            "screen": with_bound({
+                "ms": cuda_ms(lambda: kq.sorted_expand(*srec, shape=shape), 20),
+                "rcap": srplan.rcap, "bytes": sum(x.numel() * x.element_size() for x in srec)
+                + out_bytes, "ops": OPS_K13_RECORD * BATCH * srplan.rcap
+                + OPS_K13_PIXEL * BATCH * npx})},
     }
     summary = {"content_seconds": content_s, "max_abs_err": errs, "layouts": layouts,
                "routes": routes, "damaged": damaged,
@@ -2549,6 +2693,11 @@ def main() -> int:
             or mx["images_differ_store"] < len(MIXED_STREAMS)
             or mx["images_differ_pixels"] < len(MIXED_STREAMS) + len(MIXED_QUANTS)):
         raise SystemExit("chip_smoke: a progressive kernel disagrees on a mixed batch")
+    re = pc["refine_edges"]
+    if (any(v for k, v in re.items() if not k.endswith(("_ok", "_flagged")))
+            or not all(v == 1 for k, v in re.items() if k.endswith("_ok"))
+            or re["cut_flagged"] == 0):
+        raise SystemExit("chip_smoke: K10 disagrees with its plain version on an edge case")
     if (any(pc["max_abs_err"].values()) or not pc["kernels_ok"] or not pc["main_ok"]
             or pc["main_vs_plain"] or not pc["plain_ok"] or pc["mean_abs_diff_vs_pillow"] > 8
             or pc["shape"] != [BATCH, SIZE, SIZE, 3] or not pg["all_ok"]):

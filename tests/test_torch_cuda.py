@@ -303,12 +303,13 @@ def test_restart_free_routes_agree(cuda, mode):
 # ------------------------------------------------- progressive slice (K8-K11)
 
 
-def _prog_prep(mode, w, h, batch=3):
+def _prog_prep(mode, w, h, batch=3, **kw):
     from _torch_jpeg import synth_progressive
 
     from zpix_tpu_torch import OnchipProgressiveDecoder
 
-    return OnchipProgressiveDecoder(device="cpu").prep([synth_progressive(w, h, mode)] * batch)
+    return OnchipProgressiveDecoder(device="cpu").prep([synth_progressive(w, h, mode, **kw)]
+                                                       * batch)
 
 
 def _prog_stores(prep, n_scans=None):
@@ -349,6 +350,87 @@ def test_progressive_kernels_match_plain_on_damaged_streams(cuda, seed):
     assert int(ok_k) == int(ok_p)
     for a, b in zip(g_k, g_p):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("mode,w,h,quality", [("420", 200, 120, 90), ("420", 200, 120, 25),
+                                               ("444", 200, 120, 90), ("gray", 200, 120, 25),
+                                               ("420", 199, 45, 75), ("444", 301, 37, 90)])
+def test_progressive_kernels_match_plain_at_other_qualities(cuda, mode, w, h, quality):
+    """K8-K11 at q90 (many refinement corrections) and q25 (few), 4:4:4
+    and gray, and crops whose width is not a multiple of 8 with more valid
+    blocks a row than a warp's 32 (K10's warps span block rows): the store
+    and ok after every scan equal the plain versions'."""
+    prep = _prog_prep(mode, w, h, quality=quality)
+    assert any(sc.kind == "ac_refine" for sc in prep.scans)
+    (g_k, ok_k), (g_p, ok_p) = _prog_stores(prep)
+    assert int(ok_k) == int(ok_p) == 1
+    for a, b in zip(g_k, g_p):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_progressive_refine_on_unaligned_store(cuda):
+    """K10 on a grid whose rows are not 16-byte aligned (a view one word
+    into its storage: word loads and stores): the store and ok equal the
+    plain version's after every refinement scan."""
+    from zpix_tpu_torch import OnchipProgressiveDecoder
+    from zpix_tpu_torch.ops import progressive as kp
+    from zpix_tpu_torch.parallel import progressive_onchip as po
+
+    prep = _prog_prep("420", 200, 120, quality=90)
+    scans, _ = OnchipProgressiveDecoder(device="cpu").upload(prep)
+    grids, ok = po.new_store(prep, "cpu")
+    n = 0
+    for sc, t in zip(prep.scans, scans):
+        if sc.kind == "ac_refine":
+            c = sc.comps[0]
+            kw = dict(valid=po.valid_grid(prep, c), ss=sc.ss, se=sc.se, al=sc.al)
+            args = (t["stream"], t["starts"], t["ends"], t["flags"], t["tables"])
+            want, want_ok = grids[c].clone(), torch.ones(1, dtype=torch.int32)
+            kp.ac_refine_plain(*args, want_ok, want, **kw)
+            flat = torch.empty(grids[c].numel() + 1, dtype=torch.int32, device=cuda)
+            got = flat[1:].view(grids[c].shape)
+            got.copy_(grids[c])
+            assert got.data_ptr() % 16
+            got_ok = torch.ones(1, dtype=torch.int32, device=cuda)
+            kp.ac_refine(*(a.to(cuda) for a in args), got_ok, got, **kw)
+            assert torch.equal(got.cpu(), want) and int(got_ok) == int(want_ok) == 1
+            n += 1
+        po.apply_scan(po.SCAN_KERNELS[sc.kind], sc, t, grids, prep, ok)
+    assert n > 0
+
+
+@pytest.mark.parametrize("quality", [90, 50])
+def test_progressive_refine_streams_cut_short(cuda, quality):
+    """Each refinement scan's stream buffer cut at about 48 places over the
+    scan's data (its cap moved): blocks stop where a read would pass the
+    buffer, inside grouped correction-bit reads among them; K10's store
+    and ok equal the plain version's at every cut."""
+    from zpix_tpu_torch import OnchipProgressiveDecoder
+    from zpix_tpu_torch.ops import progressive as kp
+    from zpix_tpu_torch.parallel import progressive_onchip as po
+
+    prep = _prog_prep("420", 96, 64, batch=2, quality=quality)
+    scans, _ = OnchipProgressiveDecoder(device="cpu").upload(prep)
+    grids, ok = po.new_store(prep, "cpu")
+    cuts = 0
+    for sc, t in zip(prep.scans, scans):
+        if sc.kind == "ac_refine":
+            c = sc.comps[0]
+            kw = dict(valid=po.valid_grid(prep, c), ss=sc.ss, se=sc.se, al=sc.al)
+            lo = int(t["starts"].min()) // 8
+            hi = min(int(t["ends"].max()) // 8 + 9, t["stream"].shape[0])
+            step = max(1, (hi - lo) // 48)
+            for cap in range(max(lo, 5), hi + 1, step):  # the plain window needs 5 bytes
+                args = (t["stream"][:cap], t["starts"], t["ends"], t["flags"], t["tables"])
+                want, want_ok = grids[c].clone(), torch.ones(1, dtype=torch.int32)
+                kp.ac_refine_plain(*args, want_ok, want, **kw)
+                got, got_ok = grids[c].to(cuda, copy=True), torch.ones(1, dtype=torch.int32,
+                                                                       device=cuda)
+                kp.ac_refine(*(a.to(cuda) for a in args), got_ok, got, **kw)
+                assert torch.equal(got.cpu(), want) and int(got_ok) == int(want_ok), cap
+                cuts += int(want_ok) == 0
+        po.apply_scan(po.SCAN_KERNELS[sc.kind], sc, t, grids, prep, ok)
+    assert int(ok) == 1 and cuts > 0
 
 
 @pytest.mark.parametrize("mode", ["gray", "420"])
@@ -492,7 +574,98 @@ def test_qoi_sorted_expand_matches_plain(cuda, case):
     cols, cnts, fill = (_dev(a, cuda) for a in arrs)
     before = runtime.LAUNCHES["qoi_sorted_expand"]
     got = kq.sorted_expand(cols, cnts, fill, shape=shape)
-    assert runtime.LAUNCHES["qoi_sorted_expand"] == before + 4  # three scans, expand
+    assert runtime.LAUNCHES["qoi_sorted_expand"] == before + 2  # tile sums, expand
+    assert torch.equal(got, kq.sorted_expand_plain(cols, cnts, fill, shape=shape))
+
+
+def _k13_edge(case):
+    """(cols, cnts, fill, shape) of one of K13's edge cases."""
+    from _torch_raster import record_entries
+
+    from zpix_tpu_torch.ops.qoi import REC_TILES
+
+    tile = max(REC_TILES)
+    rng = np.random.default_rng(len(case))
+    if case == "counts_255":  # every count 255: the totals pass the pixel count
+        cols, cnts, fill = record_entries(rng, 3, 100)
+        return cols, np.full_like(cnts, 255), fill, (3, 60, 100)
+    if case == "one_record":  # one record of 255 covers the whole image
+        cols, cnts, fill = record_entries(rng, 3, 16)
+        cnts[:] = 0
+        cnts[:, 0] = 255
+        return cols, cnts, fill, (3, 15, 17)
+    if case == "past_total":
+        cols, cnts, fill = record_entries(rng, 2, 5000)
+        return cols, rng.integers(1, 256, cnts.shape).astype(np.uint8), fill, (2, 100, 100)
+    if case == "zero_runs":  # zero runs longer than a tile; rcap not a multiple of it
+        rcap = 3 * tile + 100
+        cols, _, fill = record_entries(rng, 2, rcap)
+        cnts = rng.integers(0, 8, (2, rcap)).astype(np.uint8)
+        cnts[0, : tile + 7] = 0
+        cnts[1, 3000 : 3000 + tile + 900] = 0
+        cnts[:, -50:] = 0
+        return cols, cnts, fill, (2, 200, 150)
+    if case == "all_fill":  # image 1's records are all zero: all fill
+        cols, cnts, fill = record_entries(rng, 3, 6000)
+        cnts[1] = 0
+        return cols, cnts, fill, (3, 90, 100)
+    # "odd_sizes": rcap and the pixel count not multiples of 16 or 4 (word
+    # loads and stores)
+    cols, cnts, fill = record_entries(rng, 3, tile + 1)
+    return cols, cnts, fill, (3, 33, 31)
+
+
+@pytest.mark.parametrize("case", ["counts_255", "one_record", "past_total", "zero_runs",
+                                  "all_fill", "odd_sizes", "unaligned"])
+def test_qoi_sorted_expand_edges_match_plain(cuda, case):
+    """K13 on its edges: counts of 255, one record a whole image, totals
+    past the pixel count, zero runs longer than a tile, rcap not a multiple
+    of the tile, an image all fill, odd sizes, and records whose rows are
+    not 16-byte aligned (a view 4 bytes into its storage)."""
+    from zpix_tpu_torch.ops import qoi as kq
+
+    cols, cnts, fill, shape = _k13_edge("zero_runs" if case == "unaligned" else case)
+    cols, cnts, fill = (_dev(a, cuda) for a in (cols, cnts, fill))
+    if case == "unaligned":
+        c4 = torch.empty(cols.numel() + 1, dtype=torch.int32, device=cuda)
+        n4 = torch.empty(cnts.numel() + 4, dtype=torch.uint8, device=cuda)
+        c4[1:].copy_(cols.view(-1))
+        n4[4:].copy_(cnts.view(-1))
+        cols, cnts = c4[1:].view(cols.shape), n4[4:].view(cnts.shape)
+        assert cols.data_ptr() % 16 and cnts.data_ptr() % 16
+    before = runtime.LAUNCHES["qoi_sorted_expand"]
+    got = kq.sorted_expand(cols, cnts, fill, shape=shape)
+    assert runtime.LAUNCHES["qoi_sorted_expand"] == before + 2
+    assert torch.equal(got, kq.sorted_expand_plain(cols, cnts, fill, shape=shape))
+
+
+@pytest.mark.parametrize("tile", [1024, 2048, 4096])
+@pytest.mark.parametrize("case", ["zero_runs", "all_fill", "odd_sizes"])
+def test_qoi_sorted_expand_every_tile_matches_plain(cuda, case, tile, monkeypatch):
+    """K13 at each record tile it takes (rec_tile chooses among them)."""
+    from zpix_tpu_torch.ops import qoi as kq
+
+    monkeypatch.setattr(kq, "rec_tile", lambda rcap, npx: tile)
+    cols, cnts, fill, shape = _k13_edge(case)
+    cols, cnts, fill = (_dev(a, cuda) for a in (cols, cnts, fill))
+    got = kq.sorted_expand(cols, cnts, fill, shape=shape)
+    assert torch.equal(got, kq.sorted_expand_plain(cols, cnts, fill, shape=shape))
+
+
+def test_qoi_sorted_expand_grid_beyond_resident(cuda):
+    """K13 on 64 images of 1024^2 with about one record a pixel: 16,384
+    record tiles and 1,024 fill tiles, far more than the card holds at
+    once."""
+    from zpix_tpu_torch.ops import qoi as kq
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    B, n = 64, 1 << 20
+    cnts = torch.randint(0, 3, (B, n), generator=g, device=cuda, dtype=torch.uint8)
+    cnts[5, n // 2 :] = 0  # a short image: half fill
+    cols = torch.randint(-2**31, 2**31 - 1, (B, n), generator=g, device=cuda, dtype=torch.int32)
+    fill = torch.randint(-2**31, 2**31 - 1, (B,), generator=g, device=cuda, dtype=torch.int32)
+    shape = (B, 1024, 1024)
+    got = kq.sorted_expand(cols, cnts, fill, shape=shape)
     assert torch.equal(got, kq.sorted_expand_plain(cols, cnts, fill, shape=shape))
 
 
@@ -603,7 +776,7 @@ def test_qoi_decoder_and_batch_encode_match_cpu_run(cuda):
     want = np.stack([decode(d) for d in datas])
     for impl, fmt, kernel, n in (("lane", "auto", "qoi_lane_expand", 1),
                                  ("lane", "wide", "qoi_lane_expand", 1),
-                                 ("sorted", "auto", "qoi_sorted_expand", 4)):
+                                 ("sorted", "auto", "qoi_sorted_expand", 2)):
         runtime.reset_launches()
         got = HostIndexQoiDecoder(impl=impl, lane_fmt=fmt).decode(datas)
         assert runtime.LAUNCHES[kernel] == n and got.device.type == "cuda"

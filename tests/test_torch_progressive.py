@@ -82,13 +82,26 @@ def test_value_passes_match_jax_builders(mode, w, h):
     """Every scan of a batch of two: the port's plain K8-K11 on zpix_tpu's
     prep arrays give zpix_tpu's values and ok; K10 starts from the host
     decoder's store before its scan, K9 from zeros."""
+    _value_passes_vs_jax(synth_progressive(w, h, mode))
+
+
+@pytest.mark.parametrize("mode,quality", [("420", 90), ("444", 75), ("444", 90)])
+def test_refine_passes_match_jax_builders(mode, quality):
+    """K10's plain version against zpix_tpu's build_ac_refine_fn on every
+    refinement scan at q90 (more correction bits) and on 4:4:4."""
+    _value_passes_vs_jax(synth_progressive(48, 40, mode, phase=0.2, quality=quality),
+                         kinds=("ac_refine",))
+
+
+def _value_passes_vs_jax(data, kinds=None):
     jax_native_lib()
-    data = synth_progressive(w, h, mode)
     B = 2
     jdec = jpo.OnchipProgressiveDecoder(**_KW)
     pr = jdec.prep([data] * B)
     plan = tpo.parse_progressive(data)
     for si, sc in enumerate(plan.scans):
+        if kinds is not None and sc.kind not in kinds:
+            continue
         ri, meta = pr["preps"][si]
         port = _scan_from_jax(sc, meta, B)
         ok = torch.ones(1, dtype=torch.int32)
@@ -137,6 +150,33 @@ def test_value_passes_match_jax_builders(mode, w, h):
                 kp.ac_refine_plain(*args, **kw)
             assert np.array_equal(grid.numpy().reshape(B, -1, 64)[:, vidx], want)
         assert bool(want_ok) and int(ok) == 1, (si, sc.kind)
+
+
+@pytest.mark.parametrize("mode,quality", [("420", 50), ("420", 90), ("444", 25), ("gray", 75)])
+def test_refine_lut_matches_decode_on_every_lookahead(mode, quality):
+    """K10's lookahead table (refine_lut_plain, the copy of the kernel's
+    builder) for the AC table of every refinement scan of a Pillow image:
+    on all 65,536 16-bit lookaheads an entry that is not 0 gives the
+    limit-compare decode's length and symbol, or its invalid code."""
+    from zpix_tpu_torch.ops.entropy import _Tables
+
+    prep = _cpu().prep([synth_progressive(64, 48, mode, phase=0.5, quality=quality)])
+    look = torch.arange(1 << 16, dtype=torch.int64)
+    n = 0
+    for sc in prep.scans:
+        if sc.kind != "ac_refine":
+            continue
+        tables = _t(sc.tables)
+        tab = _Tables(tables)
+        ln, sym, bad = tab.decode(look, tab.slot_ac[torch.zeros_like(look)])
+        e = kp.refine_lut_plain(tables).to(torch.int64)[look >> (16 - kp.LUT_BITS)]
+        inv = e == kp.LUT_BAD
+        one = (e != 0) & ~inv
+        assert bool(bad[inv].all()) and not bool(bad[one].any())
+        assert torch.equal(e[one] >> 8, ln[one]) and torch.equal(e[one] & 255, sym[one])
+        n += 1
+        assert float(one.double().mean()) > 0.9  # most lookaheads take one lookup
+    assert n >= 1
 
 
 @pytest.mark.parametrize("w,h", SIZES)

@@ -127,6 +127,21 @@ def test_sorted_expand_plain_matches_jax_on_zero_counts(rcap):
     assert np.array_equal(got, want)
 
 
+@pytest.mark.parametrize("case", ["counts_255", "past_total"])
+def test_sorted_expand_plain_matches_jax_on_full_counts(case):
+    """Counts of 255 (the largest a record holds) and totals far past the
+    pixel count: the pixels past it are never written."""
+    rng = np.random.default_rng(7)
+    cols, cnts, fill = record_entries(rng, 3, 120)
+    if case == "counts_255":
+        cnts[:] = 255
+        cnts[1, 5:40] = 0  # zero counts between full ones
+    else:
+        cnts = rng.integers(100, 256, cnts.shape).astype(np.uint8)
+    got, want = _sorted_both(jq.QoiRecordPlan(40, 24, cols, cnts, fill, 3, 120))
+    assert np.array_equal(got, want)
+
+
 # ------------------------------------------------------------------ decoder
 
 

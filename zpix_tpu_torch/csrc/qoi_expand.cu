@@ -26,13 +26,18 @@
 // (zero past each image's records), and fill u32 [B].  Pixel p of image
 // b takes cols[b, op] with op = the number of inclusive prefix sums of
 // cnts that are <= p (searchsorted side "right"), clipped to rcap - 1;
-// pixels at or past the image's total take fill[b].  Four kernels: the
-// per-tile sums of the counts, a per-image scan of the tile sums, the
-// per-tile scan that writes the inclusive prefix sums (int32 scratch the
-// wrapper owns), and a thread per pixel that binary-searches them.  Zero
-// counts give repeated prefix sums, which the search skips exactly as
-// searchsorted does.  Bound on the H100: bytes (5 bytes a record in, 4 a
-// pixel out); the search reads the prefix sums from L2.
+// pixels at or past the image's total take fill[b].  Two kernels, no
+// scratch but a tile sum a tile: the sums of tiles of records, then a CTA
+// a tile that puts its counts and colours into shared memory (cp.async),
+// adds the sums of the tiles before it for its pixel offset (no wait on
+// another CTA: the decoupled look-back of a one-pass design cost more than
+// the second read of the counts, PERF.md, K13), scans its counts and
+// writes its pixels with 16-byte stores, each pixel's record found in the
+// tile's prefix in shared memory; then fill tiles for the pixels past each
+// image's total (sorted_expand_kernel below).  Bound on the H100: bytes
+// (5 bytes a record in, 4 a pixel out; the counts are read twice, the
+// second time mostly from L2: no prefix array in device memory, no search
+// outside the tile).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -95,112 +100,280 @@ __global__ void lane_expand_kernel(const uint32_t* __restrict__ cols,
   }
 }
 
-constexpr int kScanThreads = 1024;
-constexpr int kItems = 4;
-constexpr int kTile = kScanThreads * kItems;  // counts a tile
+// ------------------------------------------------------------- K13
 
-// Block-wide exclusive scan of one value a thread; *block_total gets the sum.
-__device__ __forceinline__ int32_t block_exclusive_scan(int32_t v, int32_t* warp_sum,
-                                                        int32_t* block_total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// Records a tile: 1024, 2048 or 4096, chosen by the caller
+// (ops/qoi.py::rec_tile, from the sweep in PERF.md): a tile's pixels are
+// written by its own CTA, so run-heavy records take small tiles.
+constexpr int kRecThreads = 256;
+constexpr int kSumTiles = kRecThreads / 32;  // tiles a CTA of tile_sums_kernel, a warp each
+constexpr int kFillPx = 65536;               // pixels a fill tile
+constexpr unsigned kFull = 0xffffffffu;
+
+// Dynamic shared memory of a tile: its colours, the inclusive prefix of
+// its counts (tile-local, a pad word after every 32 so that a thread's
+// run of stores is free of bank conflicts), its counts.
+__host__ __device__ constexpr int inc_words(int tile) { return tile + tile / 32; }
+__host__ __device__ constexpr int rec_smem(int tile) {
+  return 4 * tile + 4 * inc_words(tile) + tile;
+}
+
+__device__ __forceinline__ int inc_at(int j) { return j + (j >> 5); }
+__device__ __forceinline__ int64_t lmin(int64_t a, int64_t b) { return a < b ? a : b; }
+__device__ __forceinline__ int64_t lmax(int64_t a, int64_t b) { return a > b ? a : b; }
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int kPending>  // until at most kPending groups are in flight
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
+}
+
+// The sum over the CTA of one value a thread (s_warp: kRecThreads / 32
+// words of shared memory); every thread gets it.
+__device__ __forceinline__ int64_t block_sum(int64_t v, int64_t* s_warp) {
+#pragma unroll
+  for (int d = 16; d; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
+  if ((threadIdx.x & 31) == 0) s_warp[threadIdx.x >> 5] = v;
+  __syncthreads();
+  int64_t t = 0;
+#pragma unroll
+  for (int w = 0; w < kRecThreads / 32; ++w) t += s_warp[w];
+  return t;
+}
+
+// The sum of tile_sum[0, n) (one image's tiles), over the CTA.
+__device__ __forceinline__ int64_t tiles_before(const int32_t* tile_sum, int n, int64_t* s_warp) {
+  int64_t v = 0;
+  for (int i = threadIdx.x; i < n; i += kRecThreads) v += __ldg(tile_sum + i);
+  return block_sum(v, s_warp);
+}
+
+// Pixels [lo, hi) of one image's output row: each value from ``px(p)``,
+// 16-byte stores where a 4-pixel group lies wholly inside (kVecOut: the
+// row is 16-byte aligned and npx % 4 == 0), word stores at the ends.
+template <bool kVecOut, typename Px>
+__device__ __forceinline__ void write_span(uint32_t* row, int64_t lo, int64_t hi, Px px) {
+  if (kVecOut) {
+    for (int64_t g = (lo >> 2) + threadIdx.x; g < (hi + 3) >> 2; g += blockDim.x) {
+      const int64_t p0 = g << 2;
+      if (p0 >= lo && p0 + 4 <= hi) {
+        uint4 v;
+        v.x = px(p0);
+        v.y = px(p0 + 1);
+        v.z = px(p0 + 2);
+        v.w = px(p0 + 3);
+        *reinterpret_cast<uint4*>(row + p0) = v;
+      } else {
+        for (int64_t p = lmax(p0, lo); p < lmin(p0 + 4, hi); ++p) row[p] = px(p);
+      }
+    }
+  } else {
+    for (int64_t p = lo + threadIdx.x; p < hi; p += blockDim.x) row[p] = px(p);
+  }
+}
+
+// K13, step 1: the sum of each tile's counts, a warp a tile (16-byte
+// loads where kVecIn), into tile_sum [B, tpi].
+template <int kRecTile, bool kVecIn>
+__global__ void __launch_bounds__(kRecThreads)
+tile_sums_kernel(const uint8_t* __restrict__ cnts, int32_t* __restrict__ tile_sum,
+                 int64_t tiles, int tpi, int64_t rcap) {
+  const int lane = threadIdx.x & 31;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kSumTiles + (threadIdx.x >> 5);
+  if (t >= tiles) return;
+  const int64_t b = t / tpi, r0 = (t - b * tpi) * kRecTile;
+  const int n = static_cast<int>(lmin(kRecTile, rcap - r0));
+  const uint8_t* cg = cnts + b * rcap + r0;
+  unsigned v = 0;
+  if (kVecIn) {  // n is a multiple of 16
+    for (int i = lane; i < n / 16; i += 32) {
+      const uint4 x = __ldg(reinterpret_cast<const uint4*>(cg) + i);
+      v = __dp4a(x.x, 0x01010101u, v);
+      v = __dp4a(x.y, 0x01010101u, v);
+      v = __dp4a(x.z, 0x01010101u, v);
+      v = __dp4a(x.w, 0x01010101u, v);
+    }
+  } else {
+    for (int i = lane; i < n; i += 32) v += cg[i];
+  }
+#pragma unroll
+  for (int d = 16; d; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
+  if (lane == 0) tile_sum[t] = static_cast<int32_t>(v);
+}
+
+// K13, step 2.  CTAs [0, B * tpi) are record tiles (CTA = image * tpi +
+// tile), the rest fill tiles (CTA - B * tpi = image * F + f, the pixels
+// [f * kFillPx, (f + 1) * kFillPx) of the image).  A record tile puts its
+// counts and colours on their way (cp.async, two groups), sums the tile
+// sums before it for its pixel offset (no wait on another CTA), scans its
+// counts in shared memory, and writes its pixels [off, off + sum)
+// clipped to npx: a thread a 4-pixel group, the record of a pixel by a
+// search of the tile's prefix (the next record first, then a binary
+// search: zero counts are skipped as searchsorted skips them).  A fill
+// tile sums all of its image's tile sums (the total) and writes fill
+// over its pixels at or past it.
+template <int kRecTile, bool kVecIn, bool kVecOut>
+__global__ void __launch_bounds__(kRecThreads)
+sorted_expand_kernel(const uint32_t* __restrict__ cols, const uint8_t* __restrict__ cnts,
+                     const uint32_t* __restrict__ fill, const int32_t* __restrict__ tile_sum,
+                     uint32_t* __restrict__ out, int B, int64_t rcap, int tpi, int64_t npx,
+                     int fpi) {
+  constexpr int kRecItems = kRecTile / kRecThreads;  // counts a thread scans
+  static_assert(kRecItems % 4 == 0 && (kRecTile & (kRecTile - 1)) == 0, "tile");
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint32_t* s_col = reinterpret_cast<uint32_t*>(smem);
+  int32_t* s_inc = reinterpret_cast<int32_t*>(smem + 4 * kRecTile);
+  uint8_t* s_cnt = smem + 4 * kRecTile + 4 * inc_words(kRecTile);
+  __shared__ int64_t s_warp[kRecThreads / 32];
+  __shared__ int32_t s_scan[kRecThreads / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t n_rec = static_cast<int64_t>(B) * tpi;
+
+  if (blockIdx.x >= n_rec) {  // a fill tile
+    const int64_t f = blockIdx.x - n_rec;
+    const int64_t b = f / fpi;
+    const int64_t lo = (f - b * fpi) * kFillPx, hi = lmin(lo + kFillPx, npx);
+    const int64_t total = tiles_before(tile_sum + b * tpi, tpi, s_warp);
+    const uint32_t v = rgba_bytes(fill[b]);
+    write_span<kVecOut>(out + b * npx, lmax(lo, total), hi, [v](int64_t) { return v; });
+    return;
+  }
+
+  const int64_t b = blockIdx.x / tpi;
+  const int ti = static_cast<int>(blockIdx.x - b * tpi);
+  const int64_t r0 = static_cast<int64_t>(ti) * kRecTile;
+  const int n = static_cast<int>(lmin(kRecTile, rcap - r0));
+  const uint8_t* cg = cnts + b * rcap + r0;
+  const uint32_t* colg = cols + b * rcap + r0;
+
+  // the counts (zero past the records) and the colours on their way, the
+  // offset meanwhile
+  if (kVecIn) {  // n is a multiple of 16
+    for (int i = tid; i < kRecTile / 16; i += kRecThreads) {
+      if (16 * i < n) cp_async16(s_cnt + 16 * i, cg + 16 * i);
+      else reinterpret_cast<uint4*>(s_cnt)[i] = make_uint4(0, 0, 0, 0);
+    }
+    cp_async_commit();
+    for (int i = tid; i < n / 4; i += kRecThreads) cp_async16(s_col + 4 * i, colg + 4 * i);
+    cp_async_commit();
+  } else {
+    for (int i = tid; i < kRecTile; i += kRecThreads) s_cnt[i] = i < n ? cg[i] : 0;
+    for (int i = tid; i < n; i += kRecThreads) s_col[i] = colg[i];
+  }
+  const int64_t off = tiles_before(tile_sum + b * tpi, ti, s_warp);
+  if (kVecIn) cp_async_wait<1>();
+  __syncthreads();
+
+  // a thread's kRecItems counts (16-byte reads where they fit), scanned
+  uint32_t words[kRecItems / 4];
+  if (kRecItems % 16 == 0) {
+#pragma unroll
+    for (int k = 0; k < kRecItems / 16; ++k) {
+      const uint4 x = reinterpret_cast<const uint4*>(s_cnt + tid * kRecItems)[k];
+      words[4 * k] = x.x;
+      words[4 * k + 1] = x.y;
+      words[4 * k + 2] = x.z;
+      words[4 * k + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kRecItems / 4; ++k)
+      words[k] = reinterpret_cast<const uint32_t*>(s_cnt + tid * kRecItems)[k];
+  }
+  int32_t c[kRecItems], v = 0;
+#pragma unroll
+  for (int k = 0; k < kRecItems / 4; ++k) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      v += (words[k] >> (8 * q)) & 0xFF;
+      c[4 * k + q] = v;
+    }
+  }
   int32_t incl = v;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    const int32_t u = __shfl_up_sync(0xffffffffu, incl, d);
+    const int32_t u = __shfl_up_sync(kFull, incl, d);
     if (lane >= d) incl += u;
   }
-  if (lane == 31) warp_sum[warp] = incl;
+  if (lane == 31) s_scan[warp] = incl;
   __syncthreads();
-  if (warp == 0) {
-    int32_t t = lane < static_cast<int>(blockDim.x >> 5) ? warp_sum[lane] : 0;
+  int32_t before = incl - v, sum = 0;
 #pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int32_t u = __shfl_up_sync(0xffffffffu, t, d);
-      if (lane >= d) t += u;
+  for (int w = 0; w < kRecThreads / 32; ++w) {
+    const int32_t x = s_scan[w];
+    before += w < warp ? x : 0;
+    sum += x;
+  }
+#pragma unroll
+  for (int k = 0; k < kRecItems; ++k) s_inc[inc_at(tid * kRecItems + k)] = before + c[k];
+  if (kVecIn) cp_async_wait<0>();
+  __syncthreads();
+
+  // the pixels [off, off + sum) that lie inside the image
+  const int64_t hi = lmin(off + sum, npx);
+  if (off >= hi) return;
+  // A thread's pixels come in increasing order, so the record of the last
+  // one is where the next one's search starts.
+  int j = 0;
+  write_span<kVecOut>(out + b * npx, off, hi, [&](int64_t p) {
+    const int32_t q = static_cast<int32_t>(p - off);
+    if (s_inc[inc_at(j)] <= q) {
+      if (j + 1 < kRecTile && s_inc[inc_at(j + 1)] > q) {
+        ++j;
+      } else {  // the number of prefix sums <= q (< kRecTile: q < sum)
+        j = 0;
+#pragma unroll
+        for (int step = kRecTile / 2; step; step >>= 1) {
+          if (s_inc[inc_at(j + step - 1)] <= q) j += step;
+        }
+      }
     }
-    warp_sum[lane] = t;
-  }
-  __syncthreads();
-  const int32_t before = (warp ? warp_sum[warp - 1] : 0) + incl - v;
-  *block_total = warp_sum[31];
-  __syncthreads();
-  return before;
+    return rgba_bytes(s_col[j]);
+  });
 }
 
-// grid (tiles, B): the sum of each tile's counts.
-__global__ void tile_sums_kernel(const uint8_t* __restrict__ cnts,
-                                 int32_t* __restrict__ tile_sum, int64_t rcap, int tiles) {
-  __shared__ int32_t warp_sum[32];
-  const int64_t b = blockIdx.y;
-  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x * kItems;
-  int32_t v = 0;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    if (i0 + k < rcap) v += cnts[b * rcap + i0 + k];
-  }
-  int32_t total;
-  block_exclusive_scan(v, warp_sum, &total);
-  if (threadIdx.x == 0) tile_sum[b * tiles + blockIdx.x] = total;
+struct SortedArgs {
+  const uint32_t* cols;
+  const uint8_t* cnts;
+  const uint32_t* fill;
+  int32_t* tile_sum;
+  uint32_t* out;
+  int B, tpi, fpi;
+  int64_t rcap, npx;
+};
+
+template <int kRecTile, bool kVecIn, bool kVecOut>
+void launch_sorted(const SortedArgs& a, cudaStream_t st) {
+  const int64_t tiles = static_cast<int64_t>(a.B) * a.tpi;
+  tile_sums_kernel<kRecTile, kVecIn>
+      <<<static_cast<unsigned>((tiles + kSumTiles - 1) / kSumTiles), kRecThreads, 0, st>>>(
+          a.cnts, a.tile_sum, tiles, a.tpi, a.rcap);
+  constexpr int kSmem = rec_smem(kRecTile);
+  static_assert(kSmem <= 48 * 1024, "a tile's shared memory");
+  const unsigned grid = static_cast<unsigned>(tiles + static_cast<int64_t>(a.B) * a.fpi);
+  sorted_expand_kernel<kRecTile, kVecIn, kVecOut><<<grid, kRecThreads, kSmem, st>>>(
+      a.cols, a.cnts, a.fill, a.tile_sum, a.out, a.B, a.rcap, a.tpi, a.npx, a.fpi);
 }
 
-// grid B: tile sums -> exclusive tile offsets in place; total[b] = the sum.
-__global__ void tile_offsets_kernel(int32_t* __restrict__ tile_sum,
-                                    int32_t* __restrict__ total, int tiles) {
-  __shared__ int32_t warp_sum[32];
-  int32_t* ts = tile_sum + static_cast<int64_t>(blockIdx.x) * tiles;
-  int32_t carry = 0;
-  for (int base = 0; base < tiles; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    const int32_t v = i < tiles ? ts[i] : 0;
-    int32_t sum;
-    const int32_t before = block_exclusive_scan(v, warp_sum, &sum);
-    if (i < tiles) ts[i] = carry + before;
-    carry += sum;
+template <int kRecTile>
+void launch_sorted(const SortedArgs& a, bool vin, bool vout, cudaStream_t st) {
+  if (vin) {
+    if (vout) launch_sorted<kRecTile, true, true>(a, st);
+    else launch_sorted<kRecTile, true, false>(a, st);
+  } else {
+    if (vout) launch_sorted<kRecTile, false, true>(a, st);
+    else launch_sorted<kRecTile, false, false>(a, st);
   }
-  if (threadIdx.x == 0) total[blockIdx.x] = carry;
-}
-
-// grid (tiles, B): the inclusive prefix sums of the counts.
-__global__ void tile_scan_kernel(const uint8_t* __restrict__ cnts,
-                                 const int32_t* __restrict__ tile_off,
-                                 int32_t* __restrict__ cum, int64_t rcap, int tiles) {
-  __shared__ int32_t warp_sum[32];
-  const int64_t b = blockIdx.y;
-  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x * kItems;
-  int32_t c[kItems], v = 0;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    c[k] = i0 + k < rcap ? cnts[b * rcap + i0 + k] : 0;
-    v += c[k];
-  }
-  int32_t total;
-  int32_t run = tile_off[b * tiles + blockIdx.x] + block_exclusive_scan(v, warp_sum, &total);
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    run += c[k];
-    if (i0 + k < rcap) cum[b * rcap + i0 + k] = run;
-  }
-}
-
-// a thread per pixel: searchsorted(cum[b], p, side="right"), gather, tail fill
-__global__ void sorted_expand_kernel(const uint32_t* __restrict__ cols,
-                                     const int32_t* __restrict__ cum,
-                                     const int32_t* __restrict__ total,
-                                     const uint32_t* __restrict__ fill,
-                                     uint32_t* __restrict__ out, int64_t batch, int64_t npx,
-                                     int64_t rcap) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= batch * npx) return;
-  const int64_t b = t / npx;
-  const int32_t p = static_cast<int32_t>(t - b * npx);
-  const int32_t* c = cum + b * rcap;
-  int64_t lo = 0, hi = rcap;
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    if (c[mid] <= p) lo = mid + 1; else hi = mid;
-  }
-  const int64_t op = lo < rcap ? lo : rcap - 1;
-  out[t] = rgba_bytes(p < total[b] ? cols[b * rcap + op] : fill[b]);
 }
 
 }  // namespace
@@ -229,30 +402,33 @@ extern "C" int zpix_qoi_lane_expand(const void* cols, const void* s, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
-// cols u32 [B, rcap], cnts u8 [B, rcap], fill u32 [B]; scratch: cum i32
-// [B, rcap], tile_sum i32 [B, ceil(rcap / 4096)], total i32 [B];
-// out u8 [B, npx * 4].
+// cols u32 [B, rcap], cnts u8 [B, rcap], fill u32 [B]; out u8 [B, npx * 4];
+// tile: records a tile (1024, 2048 or 4096); tile_sum: scratch of
+// B * ceil(rcap / tile) int32 (ops/qoi.py::sorted_expand allocates it).
+// Two kernels.
 extern "C" int zpix_qoi_sorted_expand(const void* cols, const void* cnts, const void* fill,
-                                      void* cum, void* tile_sum, void* total, void* out,
-                                      int64_t batch, int64_t rcap, int64_t npx, void* stream) {
+                                      void* tile_sum, void* out, int64_t batch, int64_t rcap,
+                                      int64_t npx, int tile, void* stream) {
+  if (tile != 1024 && tile != 2048 && tile != 4096) return static_cast<int>(cudaErrorInvalidValue);
   if (batch > 0 && rcap > 0 && npx > 0) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int tiles = static_cast<int>((rcap + kTile - 1) / kTile);
-    const dim3 grid(tiles, static_cast<unsigned>(batch));
-    tile_sums_kernel<<<grid, kScanThreads, 0, st>>>(static_cast<const uint8_t*>(cnts),
-                                                     static_cast<int32_t*>(tile_sum), rcap,
-                                                     tiles);
-    tile_offsets_kernel<<<static_cast<unsigned>(batch), kScanThreads, 0, st>>>(
-        static_cast<int32_t*>(tile_sum), static_cast<int32_t*>(total), tiles);
-    tile_scan_kernel<<<grid, kScanThreads, 0, st>>>(
-        static_cast<const uint8_t*>(cnts), static_cast<const int32_t*>(tile_sum),
-        static_cast<int32_t*>(cum), rcap, tiles);
-    const int64_t n = batch * npx;
-    sorted_expand_kernel<<<static_cast<unsigned>((n + kExpandThreads - 1) / kExpandThreads),
-                           kExpandThreads, 0, st>>>(
-        static_cast<const uint32_t*>(cols), static_cast<const int32_t*>(cum),
-        static_cast<const int32_t*>(total), static_cast<const uint32_t*>(fill),
-        static_cast<uint32_t*>(out), batch, npx, rcap);
+    SortedArgs a;
+    a.cols = static_cast<const uint32_t*>(cols);
+    a.cnts = static_cast<const uint8_t*>(cnts);
+    a.fill = static_cast<const uint32_t*>(fill);
+    a.tile_sum = static_cast<int32_t*>(tile_sum);
+    a.out = static_cast<uint32_t*>(out);
+    a.B = static_cast<int>(batch);
+    a.tpi = static_cast<int>((rcap + tile - 1) / tile);
+    a.fpi = static_cast<int>((npx + kFillPx - 1) / kFillPx);
+    a.rcap = rcap;
+    a.npx = npx;
+    const bool vin = reinterpret_cast<uintptr_t>(cols) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(cnts) % 16 == 0 && rcap % 16 == 0;
+    const bool vout = reinterpret_cast<uintptr_t>(out) % 16 == 0 && npx % 4 == 0;
+    if (tile == 1024) launch_sorted<1024>(a, vin, vout, st);
+    else if (tile == 2048) launch_sorted<2048>(a, vin, vout, st);
+    else launch_sorted<4096>(a, vin, vout, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,8 +13,10 @@ with its plain PyTorch version.
   :866): one thread per valid block with data adds ``val << Al`` to its
   row.
 * ``ac_refine`` is K10 (csrc/prog_entropy.cu, ``build_ac_refine_fn``,
-  :937): one thread per valid block applies the refinement to its row in
-  place.
+  :937): a warp takes 32 valid blocks' rows into shared memory, each lane
+  walks its block a symbol at a time on a mask of its nonzeros (symbols
+  from a 9-bit lookahead table, ``refine_lut_plain``'s copy), and the
+  changed pieces go back in place.
 * ``dc_refine`` is K11: ``store_blocks`` in or mode (the "dcr" arm of
   ``_make_update``, :1713-1745): one raw bit per block ORs ``1 << Al``
   into coefficient 0.
@@ -195,6 +197,29 @@ def ac_first_plain(stream, starts, ends, hasdata, tables, ok, grid, *, valid, ss
     nvy, nvx = valid
     rows = _valid_rows(grid, valid).to(torch.int64) + (vals << al)
     grid[:, :nvy, :nvx] = _wrap32(rows).view(grid.shape[0], nvy, nvx, 64)
+
+
+LUT_BITS = 9  # K10's lookahead table: codes of up to 9 bits in one lookup
+LUT_BAD = 0x8000
+
+
+def refine_lut_plain(tables):
+    """K10's lookahead table of the scan's AC table (slot 0), as each CTA
+    of csrc/prog_entropy.cu builds it -> int32 [2^LUT_BITS]: entry p is
+    LUT_BAD where every 16-bit lookahead whose top LUT_BITS bits are p is
+    an invalid code, ``len << 8 | sym`` where all of them decode to one
+    code of at most LUT_BITS bits, 0 where the kernel decodes in full.
+    Each limit compare is monotone in the lookahead, so the two ends of
+    p's range decide."""
+    tab = _Tables(tables)
+    low = 16 - LUT_BITS
+    p = torch.arange(1 << LUT_BITS, dtype=torch.int64, device=tables.device)
+    tid = tab.slot_ac[torch.zeros_like(p)]
+    ln0, sym0, bad0 = tab.decode(p << low, tid)
+    ln1, _, bad1 = tab.decode((p << low) | ((1 << low) - 1), tid)
+    one = ~bad0 & ~bad1 & (ln0 == ln1) & (ln0 <= LUT_BITS)
+    lut = torch.where(one, (ln0 << 8) | sym0, 0)
+    return torch.where(bad0 & bad1, LUT_BAD, lut).to(torch.int32)
 
 
 def ac_refine_plain(stream, starts, ends, eob_entry, tables, ok, grid, *, valid, ss: int,

@@ -8,7 +8,8 @@
   (uint32, wrapping) -> bytes R, G, B, A.
 * ``sorted_expand`` wraps K13 (csrc/qoi_expand.cu), the port of
   ``build_qoi_expand_fn`` (:818): per-image cumsum of the counts,
-  searchsorted side "right", gather, and the stream-exhausted fill.
+  searchsorted side "right", gather, and the stream-exhausted fill; on
+  the card the tiles' sums, then a pass over tiles of records.
 * ``encode`` wraps K14 (csrc/qoi_encode.cu), the port of ``_encode_core``
   (:1423) under ``_encode_fn``'s vmap (:1542): packed pixels -> the op
   bytes, byte-identical to the serial encoder, and each image's total.
@@ -26,7 +27,7 @@ import torch
 from .. import runtime
 
 ENC_TILE = 2048  # pixels a tile of K14 (csrc/qoi_encode.cu kTile)
-SCAN_TILE = 4096  # counts a tile of K13's scans (csrc/qoi_expand.cu kTile)
+REC_TILES = (1024, 2048, 4096)  # the record tiles K13 takes (csrc/qoi_expand.cu)
 _SIZES = (0, 1, 1, 2, 4, 5)  # bytes of an op, by kind
 
 
@@ -132,6 +133,18 @@ def sorted_expand_plain(cols, cnts, fill, *, shape):
     return _rgba(_u32(packed), shape)
 
 
+def rec_tile(rcap: int, npx: int) -> int:
+    """K13's record tile, about 4,096 * rcap / npx records within
+    REC_TILES: a tile's pixels are written by its own CTA, so records of
+    about a pixel each (noise) take 4,096 and records of long runs 1,024
+    (rcap is at least every image's record count; PERF.md §6: K13's
+    tile sweep)."""
+    tile = REC_TILES[0]
+    while tile < REC_TILES[-1] and tile * npx < 4096 * rcap:
+        tile *= 2
+    return tile
+
+
 def sorted_expand(cols, cnts, fill, *, shape):
     """K13: records cols int32 (uint32 bits) [B, rcap], cnts u8 [B, rcap],
     fill int32 [B] -> RGBA8 [B, H, W, 4] for ``shape`` = (B, H, W)."""
@@ -146,14 +159,13 @@ def sorted_expand(cols, cnts, fill, *, shape):
         return sorted_expand_plain(cols, cnts, fill, shape=shape)
     runtime.require_cuda(cols, cnts, fill)
     dev = cols.device
-    cum = torch.empty(B, rcap, dtype=torch.int32, device=dev)
-    tile_sum = torch.empty(B, -(-rcap // SCAN_TILE), dtype=torch.int32, device=dev)
-    total = torch.empty(B, dtype=torch.int32, device=dev)
+    npx = shape[1] * shape[2]
+    tile = rec_tile(rcap, npx)
+    tile_sum = torch.empty(B * -(-rcap // tile), dtype=torch.int32, device=dev)
     out = torch.empty(*shape, 4, dtype=torch.uint8, device=dev)
-    runtime.launch("qoi_sorted_expand", dev, "zpix_qoi_sorted_expand", "ppppppplll",
-                   cols.data_ptr(), cnts.data_ptr(), fill.data_ptr(), cum.data_ptr(),
-                   tile_sum.data_ptr(), total.data_ptr(), out.data_ptr(), B, rcap,
-                   shape[1] * shape[2], kernels=4)
+    runtime.launch("qoi_sorted_expand", dev, "zpix_qoi_sorted_expand", "pppppllli",
+                   cols.data_ptr(), cnts.data_ptr(), fill.data_ptr(), tile_sum.data_ptr(),
+                   out.data_ptr(), B, rcap, npx, tile, kernels=2)
     return out
 
 
