@@ -9,7 +9,10 @@ It builds the CUDA kernels from zpix_tpu_torch/csrc (nvcc) and the host
 library from zpix_tpu_torch/csrc/host (g++), checks each kernel against
 its plain PyTorch version on the card (exact equality; K4 and K6 on every
 colour arm and sampling ratio, both layouts, odd crops, wrapping products,
-and 64 x 1024^2 batches), decodes batches
+and 64 x 1024^2 batches; K1 and K2 on their edges, on segments coded
+with tables no Pillow image has, and on damaged streams;
+every component sampled 3 x 1 or 1 x 3 through the three baseline
+decoders), decodes batches
 of 16 distinct 1024x1024 baseline 4:2:0 JPEGs (quality 50) through the
 port's four baseline routes -- ``DeviceJpegDecoder`` on streams with a
 restart marker every 8 MCUs, and ``BatchJpegDecoder`` (native front-end,
@@ -398,6 +401,144 @@ def backend_checks(dev):
     errs[f"planes_{big}x{SIZE}_int32"] = max_abs_err(
         kp.component_planes([g.to(torch.int32) for g in grids], quants, **kw), want)
     torch.cuda.synchronize()
+    return errs
+
+
+def jpeg_writer():
+    """tests/_torch_jpeg_writer.py, the tests' JPEG inputs (Pillow, a
+    baseline writer of any sampling, entropy segments coded with any
+    tables; it imports nothing of the JAX package), loaded by path."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "_torch_jpeg_writer.py")
+    spec = importlib.util.spec_from_file_location("_torch_jpeg_writer", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def k1_k2_edge_checks(dev, writer, hplan, hbufs, hac, hdc, rf_batch):
+    """K1 and K2 against their plain versions on the card, on
+    tests/_torch_jpeg_writer.py::k1_k2_edges at 512 x 307 (segments of one
+    MCU, a partial last segment, lane counts no multiple of a CTA or a
+    warp group, 63-coefficient blocks, ZRL runs, EOB at k = 1, DC sizes up
+    to 11, optimised tables with long codes, 1, 3, 4, 6, 9 and 10 blocks
+    an MCU), on its ``coded_segments`` (2,000 segments coded with tables
+    no Pillow image has: 16-bit codes, more long-code prefixes than a
+    CTA's second-level blocks, six table pairs; each also under random,
+    unsorted limits), three kinds of damage (an invalid code, a read past
+    the buffer, a block ending off ``ends``), and K2 on the host-index and sync
+    routes' whole-image chains at 16 x 1024^2 (``hplan``, ``hbufs``, K2's
+    ``hac``, ``hdc``: the host-index inputs of ``rf_batch``; the sync
+    route's from K19 on the same batch).  -> {case: {"index_pass", "value_pass":
+    max_abs_err, ok equality included; "ok": the kernels' ok}}."""
+    from zpix_tpu_torch import DeviceJpegDecoder, SyncJpegDecoder, prep_batch
+    from zpix_tpu_torch.ops import entropy as ke
+    from zpix_tpu_torch.ops import sync as ksync
+
+    dec = DeviceJpegDecoder()
+    out = {}
+
+    def both(bufs, bpm, nblk, shift_end=None):
+        kw = dict(bpm=bpm, nblk=nblk)
+        ends, ok = ke.index_pass(*bufs, **kw)
+        ends_p, ok_p = ke.index_pass_plain(*bufs, **kw)
+        row = {"index_pass": max(max_abs_err(ends, ends_p), max_abs_err(ok, ok_p))}
+        if shift_end is not None:
+            ends.view(-1)[shift_end] += 1
+        ok_k, ok_q = ok.clone(), ok.clone()
+        ac, dc = ke.value_pass(*bufs, ends, ok_k, bpm=bpm)
+        ac_p, dc_p = ke.value_pass_plain(*bufs, ends, ok_q, bpm=bpm)
+        row["value_pass"] = max(max_abs_err(ac, ac_p), max_abs_err(dc, dc_p),
+                                max_abs_err(ok_k, ok_q))
+        row["ok"] = [int(ok), int(ok_k)]
+        return row
+
+    def both_plan(plan, shift_end=None):
+        return both(dec.upload(plan), plan.bpm, plan.seg_mcus * plan.bpm, shift_end)
+
+    edges = writer.k1_k2_edges(512)
+    for name, datas in edges.items():
+        out[name] = both_plan(prep_batch(datas))
+        if out[name]["ok"] != [1, 1]:
+            raise SystemExit(f"chip_smoke: the K1/K2 edge case {name} did not verify")
+    for name in writer.CODED_CASES:
+        c = writer.coded_segments(name, n_segs=2000)
+        for limits in ("as_coded", "random_limits"):
+            if limits == "random_limits":
+                c["tables"] = writer.random_limits(c["tables"])
+            bufs = [torch.from_numpy(c[k]).to(dev)
+                    for k in ("stream", "seg_pos", "seg_nmcu", "tables")]
+            row = out[f"coded_{name}_{limits}"] = both(bufs, c["bpm"], c["nblk"])
+            if limits == "as_coded" and row["ok"] != [1, 1]:
+                raise SystemExit(f"chip_smoke: the K1/K2 coded case {name} did not verify")
+    for name in ("dri1", "optimized_bpm6"):
+        plan = prep_batch(edges[name])
+        for kind in ("invalid_code", "past_buffer"):
+            out[f"{name}_{kind}"] = both_plan(writer.damage_plan(plan, kind))
+        out[f"{name}_end_off"] = both_plan(plan, shift_end=7)
+    # K2 on whole-image chains: the host index scan's ends and K19's
+    ok_q = torch.ones(1, dtype=torch.int32, device=dev)
+    ac_p, dc_p = ke.value_pass_plain(*hbufs[:4], hbufs[4], ok_q, bpm=hplan.bpm)
+    out["host_index_16x1024"] = {"value_pass": max(max_abs_err(hac, ac_p),
+                                                   max_abs_err(hdc, dc_p)),
+                                 "ok": [int(ok_q)]}
+    sdec = SyncJpegDecoder()
+    splan = sdec.prep(rf_batch)
+    sb = sdec.upload(splan)
+    sends = ksync.sync_ends(sb[0], sb[1], sb[4], sb[3], chunk_bytes=splan.chunk_bytes,
+                            n_chunks=splan.n_chunks, bpm=splan.bpm,
+                            nblk=splan.n_mcu * splan.bpm)[0]
+    ok_k, ok_q = (torch.ones(1, dtype=torch.int32, device=dev) for _ in range(2))
+    ac, dc = ke.value_pass(*sb[:4], sends, ok_k, bpm=splan.bpm)
+    ac_p, dc_p = ke.value_pass_plain(*sb[:4], sends, ok_q, bpm=splan.bpm)
+    out["sync_16x1024"] = {"value_pass": max(max_abs_err(ac, ac_p), max_abs_err(dc, dc_p),
+                                             max_abs_err(ok_k, ok_q)), "ok": [int(ok_k)]}
+    for name in ("host_index_16x1024", "sync_16x1024"):
+        if out[name]["ok"] != [1]:
+            raise SystemExit(f"chip_smoke: K2 on {name} did not verify")
+    torch.cuda.synchronize()
+    return out
+
+
+def factor3_checks(dev, writer):
+    """Every component sampled 3 x 1 (or 1 x 3), which every baseline prep
+    admits: HostIndexJpegDecoder, SyncJpegDecoder and DeviceJpegDecoder
+    (a restart marker every 2 MCUs) on the card against the same decoders'
+    plain paths, at 40 x 24 and 203 x 117 (K4 through its hmax-3 pixel
+    stage where the MCU is 3 blocks wide); K6 on the restart batch's
+    coefficient planes (replication 1).  -> {case: max_abs_err}; raises
+    where ok is not True."""
+    from zpix_tpu_torch import (DeviceJpegDecoder, HostIndexJpegDecoder, SyncJpegDecoder,
+                                prep_batch)
+    from zpix_tpu_torch.ops import planes as kp
+
+    errs = {}
+    for tag, hv in (("h3", ((3, 1),) * 3), ("v3", ((1, 3),) * 3)):
+        for w, h in ((40, 24), (203, 117)):
+            plain = [writer.synth_ratio_jpeg(hv, w, h, s) for s in (0, 1)]
+            dri = [writer.synth_ratio_jpeg(hv, w, h, s, dri=2) for s in (0, 1)]
+            for make, datas in ((HostIndexJpegDecoder, plain), (SyncJpegDecoder, plain),
+                                (DeviceJpegDecoder, dri)):
+                got, ok = make(device=dev).decode(datas)
+                want, want_ok = make(device="cpu").decode(datas)
+                if not (bool(ok) and bool(want_ok)):
+                    raise SystemExit(f"chip_smoke: factor-3 {tag} {make.__name__} not ok")
+                errs[f"backend_{tag}_{w}x{h}_{make.__name__}"] = max_abs_err(got.cpu(), want)
+            plan = prep_batch(dri)
+            coeffs, _ = DeviceJpegDecoder(device="cpu").decode_coefficients(plan)
+            x = coeffs.view(2, plan.n_segs * plan.seg_mcus, plan.bpm, 64)[:, : plan.n_mcu]
+            hc, vc = hv[0]
+            grids = [x[:, :, 3 * c : 3 * c + 3].reshape(2, plan.myy, plan.mxx, vc, hc, 64)
+                     .permute(0, 1, 3, 2, 4, 5).reshape(2, plan.myy * vc, plan.mxx * hc, 64)
+                     .contiguous() for c in range(3)]
+            quants = [torch.from_numpy(np.tile(np.asarray(q, np.int32), (2, 1)))
+                      for q in plan.quants]
+            kw = dict(color="ycbcr", height=h, width=w, factors=[(1, 1)] * 3)
+            errs[f"planes_{tag}_{w}x{h}"] = max_abs_err(
+                kp.component_planes([g.to(dev) for g in grids], [q.to(dev) for q in quants],
+                                    **kw).cpu(), kp.component_planes_plain(grids, quants, **kw))
     return errs
 
 
@@ -2545,10 +2686,20 @@ def main() -> int:
         ke.dc_restore(dc_diff, hv=plan.hv, seg_mcus=plan.seg_mcus, form=form), dc_p)
         for form in ("block", "thread")})
     results["dc_restore"] = max(results["dc_restore"], *long_errs.values())
+    writer = jpeg_writer()
+    edges = k1_k2_edge_checks(dev, writer, hplan, hbufs, hac, hdc, batches_rf[0])
+    for row in edges.values():
+        for k in ("index_pass", "value_pass"):
+            results[k] = max(results[k], row.get(k, 0))
+    f3 = factor3_checks(dev, writer)
+    for k, err in f3.items():
+        key = "backend" if k.startswith("backend") else "component_planes"
+        results[key] = max(results[key], err)
     torch.cuda.synchronize()
     emit({"phase": "kernel_checks", "max_abs_err": results,
           "k1_k2_batches": [2, BATCH], "k3_k4_k5_shapes": {"lanes": L2, "blocks": L2},
           "k6_k7_small_cases": small, "k4_k6_cases": k4k6, "k3_forms": long_errs,
+          "k1_k2_edge_checks": edges, "factor3_checks": f3,
           "k6_k7_full_batch": {"images": BATCH, "size": SIZE, "ratio": packed.ratio,
                                "value_caps": fe.val_caps, "nnz_max": fe.nnz.max(0).tolist()},
           "k3_host_index_chains": {"chains": BATCH * len(hplan.hv),

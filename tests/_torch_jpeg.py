@@ -1,7 +1,8 @@
 """Synthetic JPEG inputs and shared helpers for the zpix_tpu_torch tests.
 
-Every input is made here with Pillow from numpy seeds; no test of the
-port reads the reference corpus.
+Every input is made here or in tests/_torch_jpeg_writer.py (re-exported
+below) with Pillow from numpy seeds; no test of the port reads the
+reference corpus.
 """
 
 from __future__ import annotations
@@ -11,26 +12,11 @@ import io
 import numpy as np
 import torch
 from PIL import Image
+from _torch_jpeg_writer import (  # noqa: F401  (the inputs the tests share)
+    CODED_CASES, _noise_jpeg, coded_segments, damage_plan, encode_baseline, k1_k2_edges,
+    random_limits, synth_jpeg, synth_plain_jpeg, synth_ratio_jpeg)
 
 torch.set_num_threads(2)  # the suite runs with several workers
-
-
-def synth_jpeg(w=48, h=32, mode="420", dri_blocks=2, phase=0.0, quality=60,
-               restart_marker_rows=None):
-    """Structured image -> baseline JPEG with restart markers."""
-    x = np.linspace(0, 17, w)
-    y = np.linspace(0, 13, h)
-    base = (128 + 100 * np.sin(x[None, :] * np.cos(y[:, None]) + phase)).astype(np.uint8)
-    kw = {"restart_marker_rows": restart_marker_rows} if restart_marker_rows else {
-        "restart_marker_blocks": dri_blocks}
-    buf = io.BytesIO()
-    if mode == "gray":
-        Image.fromarray(base, "L").save(buf, format="JPEG", quality=quality, **kw)
-    else:
-        rgb = np.stack([base, base[::-1], base // 2 + 32], -1)
-        Image.fromarray(rgb).save(buf, format="JPEG", quality=quality,
-                                  subsampling={"444": 0, "422": 1, "420": 2}[mode], **kw)
-    return buf.getvalue()
 
 
 def synth_cmyk(transform=None, w=40, h=24, seed=0, dri_blocks=3):
@@ -117,21 +103,6 @@ def host_pixels(data: bytes):
     return img.pix
 
 
-def synth_plain_jpeg(w=48, h=32, mode="420", phase=0.0, quality=60):
-    """Structured image -> baseline JPEG with no restart markers."""
-    x = np.linspace(0, 17, w)
-    y = np.linspace(0, 13, h)
-    base = (128 + 100 * np.sin(x[None, :] * np.cos(y[:, None]) + phase)).astype(np.uint8)
-    buf = io.BytesIO()
-    if mode == "gray":
-        Image.fromarray(base, "L").save(buf, format="JPEG", quality=quality)
-    else:
-        rgb = np.stack([base, base[::-1], base // 2 + 32], -1)
-        Image.fromarray(rgb).save(buf, format="JPEG", quality=quality,
-                                  subsampling={"444": 0, "422": 1, "420": 2}[mode])
-    return buf.getvalue()
-
-
 def random_grids(rng, hv, mxx, myy, batch, lo=-1024, hi=1024):
     """Random int16 coefficient grids [B, myy*v, mxx*h, 64] per component,
     mostly zeros, as numpy arrays."""
@@ -167,116 +138,6 @@ def truncate_scan(data: bytes, n: int) -> bytes:
     while body[-1] == 0xFF:
         body = body[:-1]
     return body + data[-2:]
-
-
-def _segments(data: bytes, marker: int):
-    """The whole segments (marker included) of one kind, before SOS."""
-    out, pos = [], 2
-    while pos + 4 <= len(data) and data[pos + 1] != 0xDA:
-        ln = (data[pos + 2] << 8) | data[pos + 3]
-        if data[pos + 1] == marker:
-            out.append(data[pos : pos + 2 + ln])
-        pos += 2 + ln
-    return out
-
-
-def _codes(dht: bytes):
-    """{(class, id): {symbol: (code, length)}} from DHT segments."""
-    out, body = {}, dht[4:]
-    while body:
-        counts, o = body[1:17], 17
-        table, code = {}, 0
-        for ln, n in enumerate(counts, 1):
-            for _ in range(n):
-                table[body[o]] = (code, ln)
-                code += 1
-                o += 1
-            code <<= 1
-        out[(body[0] >> 4, body[0] & 15)] = table
-        body = body[o:]
-    return out
-
-
-def encode_baseline(grids, hv, width, height):
-    """Quantized coefficient grids (per component [myy*v, mxx*h, 64] int,
-    natural order) -> a baseline YCbCr JPEG with sampling ``hv``, no
-    restart markers, Pillow's quant and Huffman tables.  Pillow writes
-    only 4:4:4, 4:2:2 and 4:2:0; this writes any ratio."""
-    from zpix_tpu_torch.codecs.jpeg.tables import UNZIG
-
-    template = synth_plain_jpeg(w=16, h=16, mode="444")
-    dqt, dhts = b"".join(_segments(template, 0xDB)), _segments(template, 0xC4)
-    codes = {}
-    for seg in dhts:
-        codes.update(_codes(seg))
-    nc = len(hv)
-    mxx, myy = grids[0].shape[1] // hv[0][0], grids[0].shape[0] // hv[0][1]
-    bits, nbits = [], 0
-    acc = 0
-
-    def put(value, n):
-        nonlocal acc, nbits
-        acc, nbits = (acc << n) | (value & ((1 << n) - 1)), nbits + n
-        while nbits >= 8:
-            nbits -= 8
-            byte = (acc >> nbits) & 0xFF
-            bits.append(byte)
-            if byte == 0xFF:
-                bits.append(0)
-
-    def sym(table, s, value=0, size=0):
-        code, ln = codes[table][s]
-        put(code, ln)
-        if size:
-            put(value if value > 0 else value + (1 << size) - 1, size)
-
-    pred = [0] * nc
-    for my in range(myy):
-        for mx in range(mxx):
-            for c, (h, v) in enumerate(hv):
-                t = 0 if c == 0 else 1
-                for j in range(h * v):
-                    zz = np.asarray(grids[c][v * my + j // h, h * mx + j % h])[UNZIG]
-                    diff = int(zz[0]) - pred[c]
-                    pred[c] = int(zz[0])
-                    s = abs(diff).bit_length()
-                    sym((0, t), s, diff, s)
-                    run = 0
-                    for k in range(1, 64):
-                        val = int(zz[k])
-                        if val == 0:
-                            run += 1
-                            continue
-                        while run > 15:
-                            sym((1, t), 0xF0)
-                            run -= 16
-                        s = abs(val).bit_length()
-                        sym((1, t), (run << 4) | s, val, s)
-                        run = 0
-                    if run:
-                        sym((1, t), 0x00)
-    if nbits:
-        put((1 << (8 - nbits)) - 1, 8 - nbits)
-    sof = bytes([0xFF, 0xC0, 0, 8 + 3 * nc, 8, height >> 8, height & 255, width >> 8,
-                 width & 255, nc]) + b"".join(
-        bytes([c + 1, h << 4 | v, 0 if c == 0 else 1]) for c, (h, v) in enumerate(hv))
-    sos = bytes([0xFF, 0xDA, 0, 6 + 2 * nc, nc]) + b"".join(
-        bytes([c + 1, 0x00 if c == 0 else 0x11]) for c in range(nc)) + bytes([0, 63, 0])
-    return b"\xff\xd8" + dqt + sof + b"".join(dhts) + sos + bytes(bits) + b"\xff\xd9"
-
-
-def synth_ratio_jpeg(hv, width=40, height=24, seed=0):
-    """encode_baseline of random sparse coefficients at sampling ``hv``."""
-    rng = np.random.default_rng(seed)
-    mxx = (width + 8 * hv[0][0] - 1) // (8 * hv[0][0])
-    myy = (height + 8 * hv[0][1] - 1) // (8 * hv[0][1])
-    grids = []
-    for h, v in hv:
-        g = rng.integers(-40, 40, (myy * v, mxx * h, 64))
-        g[rng.random(g.shape) < 0.8] = 0
-        g[..., 0] = rng.integers(-300, 300, g.shape[:2])
-        grids.append(g)
-    return encode_baseline(grids, hv, width, height)
 
 
 def synth_progressive(w=64, h=48, mode="420", phase=0.0, quality=75, **kw):
@@ -333,3 +194,5 @@ def host_coeffs(data: bytes, n_scans: int):
     dec = _Prefix()
     dec.decode_inner(False)
     return [dec.coeff[c] for c in range(dec.num_components)]
+
+

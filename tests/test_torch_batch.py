@@ -167,6 +167,25 @@ def test_failed_builds_raise(monkeypatch, tmp_path):
         runtime.lib()
 
 
+def test_chip_smoke_inputs_load_neither_jax_nor_the_jax_package():
+    """chip_smoke.py's JPEG inputs (tests/_torch_jpeg_writer.py, loaded by
+    path) are made without the JAX package."""
+    code = (
+        "import sys, chip_smoke\n"
+        "w = chip_smoke.jpeg_writer()\n"
+        "assert len(w.k1_k2_edges(64)) == 11\n"
+        "w.random_limits(w.coded_segments('six_table_pairs', n_segs=2)['tables'])\n"
+        "w.synth_ratio_jpeg(((3, 1),) * 3, 40, 24, 0)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax') "
+        "or m == 'zpix_tpu' or m.startswith('zpix_tpu.')]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def test_imports_load_neither_jax_nor_the_jax_package():
     code = (
         "import sys, zpix_tpu_torch.parallel.batch, zpix_tpu_torch.parallel.device_entropy, "

@@ -91,6 +91,207 @@ def test_corrupt_lane_clears_ok(cuda):
     assert not bool(ok) and not bool(ok_p)
 
 
+# ------------------------------------------------- K1 and K2 on their edges
+
+
+def _k1_k2_against_plain(plan, *, shift_end=None):
+    """K1 and K2 on the card against their plain versions on the same
+    device tensors: ends, ok, coefficients and DC diffs, exactly, and one
+    counted launch each.  ``shift_end``: the block whose end K2 is given
+    one bit late.  -> (ok after K1, ok after K2)."""
+    bufs = DeviceJpegDecoder().upload(plan)
+    return _k1_k2_on(bufs, bpm=plan.bpm, nblk=plan.seg_mcus * plan.bpm, shift_end=shift_end)
+
+
+def _k1_k2_on(bufs, *, bpm, nblk, shift_end=None):
+    """_k1_k2_against_plain on device tensors (stream, seg_pos, seg_nmcu,
+    tables)."""
+    kw = dict(bpm=bpm, nblk=nblk)
+    before = dict(runtime.LAUNCHES)
+    ends, ok = ke.index_pass(*bufs, **kw)
+    ends_p, ok_p = ke.index_pass_plain(*bufs, **kw)
+    assert torch.equal(ends, ends_p) and torch.equal(ok, ok_p)
+    if shift_end is not None:
+        ends.view(-1)[shift_end] += 1
+    ok1 = bool(ok)
+    ok_k, ok_q = ok.clone(), ok.clone()
+    ac, dc = ke.value_pass(*bufs, ends, ok_k, bpm=bpm)
+    ac_p, dc_p = ke.value_pass_plain(*bufs, ends, ok_q, bpm=bpm)
+    assert torch.equal(ac, ac_p) and torch.equal(dc, dc_p) and torch.equal(ok_k, ok_q)
+    assert runtime.LAUNCHES["index_pass"] == before["index_pass"] + 1
+    assert runtime.LAUNCHES["value_pass"] == before["value_pass"] + 1
+    return ok1, bool(ok_k)
+
+
+_EDGES = ["dri1", "partial_last_segment", "q100_noise_444", "zrl_eob_dc11", "optimized_bpm1",
+          "optimized_bpm3", "optimized_bpm4", "optimized_bpm6", "bpm10", "factor3_h",
+          "factor3_v"]
+
+
+@pytest.mark.parametrize("case", _EDGES)
+def test_entropy_kernels_match_plain_on_edges(cuda, case):
+    """K1 and K2 on segments of one MCU, a partial last segment, lane
+    counts no multiple of a CTA or a warp group, 63-coefficient blocks,
+    ZRL runs, EOB at k = 1, DC sizes up to 11, optimised tables with long
+    codes, 1-10 blocks an MCU and factor-3 samplings."""
+    from _torch_jpeg import k1_k2_edges
+
+    plan = prep_batch(k1_k2_edges()[case])
+    assert _k1_k2_against_plain(plan) == (True, True)
+
+
+@pytest.mark.parametrize("limits", ["as_coded", "random"])
+@pytest.mark.parametrize("case", ["sixteen_bit_codes", "many_second_level_blocks",
+                                  "six_table_pairs"])
+def test_entropy_kernels_match_plain_on_coded_tables(cuda, case, limits):
+    """K1 and K2 on segments coded with tables no Pillow image has: codes
+    of 11-16 bits, more second-level blocks than a CTA holds (decoded in
+    full past them), six (table, role) pairs (more than the lookahead
+    regions); and the same streams under random, unsorted limits (the
+    table built by the full decode, ok cleared as the plain version
+    clears it).  As coded, the ends and coefficients are the writer's."""
+    from _torch_jpeg import coded_segments, random_limits
+
+    c = coded_segments(case, n_segs=1000)
+    if limits == "random":
+        c["tables"] = random_limits(c["tables"])
+    bufs = [torch.from_numpy(c[k]).to(cuda) for k in ("stream", "seg_pos", "seg_nmcu", "tables")]
+    ok1, ok2 = _k1_k2_on(bufs, bpm=c["bpm"], nblk=c["nblk"])
+    if limits == "as_coded":
+        assert ok1 and ok2
+        ends, _ = ke.index_pass(*bufs, bpm=c["bpm"], nblk=c["nblk"])
+        assert torch.equal(ends.cpu(), torch.from_numpy(c["ends"]))
+
+
+@pytest.mark.parametrize("kind", ["invalid_code", "past_buffer", "end_off"])
+@pytest.mark.parametrize("case", ["dri1", "optimized_bpm6"])
+def test_entropy_kernels_match_plain_on_damage(cuda, case, kind):
+    """An invalid code, a read past the buffer, and a block that does not
+    end where ``ends`` says: ok cleared as the plain version clears it,
+    every output equal."""
+    from _torch_jpeg import damage_plan, k1_k2_edges
+
+    plan = prep_batch(k1_k2_edges()[case])
+    if kind == "end_off":
+        assert _k1_k2_against_plain(plan, shift_end=7) == (True, False)
+    else:
+        assert not any(_k1_k2_against_plain(damage_plan(plan, kind)))
+
+
+def _bench_jpegs(n, size, dri):
+    """n distinct size x size 4:2:0 q50 JPEGs of chip_smoke.py's bench
+    content (a sine pattern with seeded noise)."""
+    import io
+
+    from PIL import Image
+
+    out = []
+    for seed in range(n):
+        rng = np.random.RandomState(seed)
+        x = np.linspace(0, 20, size)
+        base = (128 + 100 * np.sin(x[None, :] * np.cos(x[:, None]) + seed)).astype(np.uint8)
+        noise = rng.randint(0, 24, (size, size)).astype(np.uint8)
+        buf = io.BytesIO()
+        kw = {} if dri is None else {"restart_marker_blocks": dri}
+        Image.fromarray(np.stack([base ^ noise, base.T, base // 2 + 64], -1)).save(
+            buf, format="JPEG", quality=50, subsampling=2, **kw)
+        out.append(buf.getvalue())
+    return out
+
+
+def test_value_pass_matches_plain_on_whole_image_chains(cuda):
+    """K2 on 16 x 1024^2 restart-free images, from the host index scan's
+    ends and from K19's (the sync route's stream layout)."""
+    from zpix_tpu_torch import (HostIndexJpegDecoder, SyncJpegDecoder,
+                                prep_batch_host_index)
+    from zpix_tpu_torch.ops import sync as ksync
+
+    datas = _bench_jpegs(16, 1024, None)
+    hplan = prep_batch_host_index(datas)
+    hb = HostIndexJpegDecoder().upload(hplan)
+    sdec = SyncJpegDecoder()
+    splan = sdec.prep(datas)
+    sb = sdec.upload(splan)
+    sends = ksync.sync_ends(sb[0], sb[1], sb[4], sb[3], chunk_bytes=splan.chunk_bytes,
+                            n_chunks=splan.n_chunks, bpm=splan.bpm,
+                            nblk=splan.n_mcu * splan.bpm)[0]
+    for b, ends in ((hb, hb[4]), (sb, sends)):
+        assert ends.shape == (16, 4096 * 6)
+        ok_k = torch.ones(1, dtype=torch.int32, device=cuda)
+        ok_q = ok_k.clone()
+        ac, dc = ke.value_pass(*b[:4], ends, ok_k, bpm=6)
+        ac_p, dc_p = ke.value_pass_plain(*b[:4], ends, ok_q, bpm=6)
+        assert torch.equal(ac, ac_p) and torch.equal(dc, dc_p) and torch.equal(ok_k, ok_q)
+        assert bool(ok_k)
+
+
+def test_entropy_kernels_match_plain_at_main_shape(cuda):
+    """K1 and K2 on 16 x 1024^2 with a restart marker every 8 MCUs, the
+    main path's inputs."""
+    plan = prep_batch(_bench_jpegs(16, 1024, 8))
+    assert _k1_k2_against_plain(plan) == (True, True)
+
+
+def test_entropy_kernels_on_an_unaligned_stream(cuda):
+    """A stream that starts 1-3 bytes past a 4-byte boundary (a view into
+    a larger buffer): the kernels read words from the aligned base."""
+    from _torch_jpeg import k1_k2_edges
+
+    plan = prep_batch(k1_k2_edges()["partial_last_segment"])
+    bufs = DeviceJpegDecoder().upload(plan)
+    kw = dict(bpm=plan.bpm, nblk=plan.seg_mcus * plan.bpm)
+    want = ke.index_pass_plain(*bufs, **kw)
+    for off in (1, 2, 3):
+        big = torch.zeros(bufs[0].shape[0] + 4, dtype=torch.uint8, device=cuda)
+        big[off : off + bufs[0].shape[0]] = bufs[0]
+        s = big[off : off + bufs[0].shape[0]]
+        ends, ok = ke.index_pass(s, *bufs[1:], **kw)
+        assert torch.equal(ends, want[0]) and torch.equal(ok, want[1])
+        ok_k, ok_q = ok.clone(), ok.clone()
+        ac, dc = ke.value_pass(s, *bufs[1:], ends, ok_k, bpm=plan.bpm)
+        ac_p, dc_p = ke.value_pass_plain(*bufs, ends, ok_q, bpm=plan.bpm)
+        assert torch.equal(ac, ac_p) and torch.equal(dc, dc_p) and torch.equal(ok_k, ok_q)
+
+
+@pytest.mark.parametrize("size", [(40, 24), (203, 117)], ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("hv", [((3, 1),) * 3, ((1, 3),) * 3], ids=["h3", "v3"])
+def test_factor3_sampling_decodes_on_every_baseline_route(cuda, hv, size):
+    """Every component sampled 3 x 1 (or 1 x 3), which every baseline prep
+    admits: HostIndexJpegDecoder, SyncJpegDecoder and DeviceJpegDecoder
+    (restart markers) give ok and the plain path's pixels on the card; K6
+    takes the same images' coefficient planes (replication 1: its MCU is
+    a block)."""
+    from _torch_jpeg import synth_ratio_jpeg
+
+    from zpix_tpu_torch import HostIndexJpegDecoder, SyncJpegDecoder
+    from zpix_tpu_torch.ops import planes as kp
+
+    w, h = size
+    plain = [synth_ratio_jpeg(hv, w, h, s) for s in (0, 1)]
+    dri = [synth_ratio_jpeg(hv, w, h, s, dri=2) for s in (0, 1)]
+    for make, datas in ((HostIndexJpegDecoder, plain), (SyncJpegDecoder, plain),
+                        (DeviceJpegDecoder, dri)):
+        runtime.reset_launches()
+        got, ok = make(device=cuda).decode(datas)
+        assert runtime.LAUNCHES["backend"] == 1
+        want, want_ok = make(device="cpu").decode(datas)
+        assert bool(ok) and bool(want_ok)
+        assert torch.equal(got.cpu(), want)
+    plan = prep_batch(dri)
+    coeffs, ok = DeviceJpegDecoder(device="cpu").decode_coefficients(plan)
+    x = coeffs.numpy().reshape(2, plan.n_segs * plan.seg_mcus, plan.bpm, 64)[:, : plan.n_mcu]
+    hc, vc = hv[0]
+    grids = [torch.from_numpy(np.ascontiguousarray(
+        x[:, :, 3 * c : 3 * c + 3].reshape(2, plan.myy, plan.mxx, vc, hc, 64)
+        .transpose(0, 1, 3, 2, 4, 5).reshape(2, plan.myy * vc, plan.mxx * hc, 64)))
+        for c in range(3)]
+    quants = [torch.from_numpy(np.tile(np.asarray(q, np.int32), (2, 1))) for q in plan.quants]
+    kw = dict(color="ycbcr", height=h, width=w, factors=[(1, 1)] * 3)
+    want = kp.component_planes_plain(grids, quants, **kw)
+    got = kp.component_planes([g.to(cuda) for g in grids], [q.to(cuda) for q in quants], **kw)
+    assert torch.equal(got.cpu(), want)
+
+
 # ------------------------------------------------- restart-free slice (K3, K6, K7)
 
 

@@ -94,3 +94,26 @@ def test_whole_image_dc_restore_matches_jax(hv, n_mcu):
         jnp, jnp.asarray(dcv), groups=B, n_mcu_grp=n_mcu, bpm=bpm, hv=hv, ncomp=len(hv)))
     want = want.reshape(bpm, B, n_mcu).transpose(1, 2, 0).reshape(-1)
     assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("hv", [((3, 1),) * 3, ((1, 3),) * 3], ids=["h3", "v3"])
+def test_factor3_sampling_matches_jax(hv):
+    """Every component sampled 3 x 1 (or 1 x 3): the baseline preps admit
+    it (the ratio test sees 1), the host decoder refuses it, and zpix_tpu's
+    HostIndexJpegDecoder decodes it.  The port's plain host-index and sync
+    paths give zpix_tpu's pixels, and so does the restart route on the
+    same coefficients written with restart markers."""
+    from _torch_jpeg import synth_ratio_jpeg
+
+    from zpix_tpu_torch import DeviceJpegDecoder, SyncJpegDecoder
+
+    jax_native_lib()
+    datas = [synth_ratio_jpeg(hv, 40, 24, s) for s in (0, 1)]
+    want, want_ok = jde.HostIndexJpegDecoder().decode(datas)
+    want = np.asarray(want)
+    assert bool(want_ok) and want.shape == (2, 24, 40, 3)
+    for px, ok in (_cpu().decode(datas), SyncJpegDecoder(device="cpu").decode(datas),
+                   DeviceJpegDecoder(device="cpu").decode(
+                       [synth_ratio_jpeg(hv, 40, 24, s, dri=2) for s in (0, 1)])):
+        assert bool(ok)
+        assert np.array_equal(px.numpy(), want)

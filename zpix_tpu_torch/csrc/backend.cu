@@ -32,6 +32,7 @@ namespace {
 
 using zpix::StripGeo;
 
+template <bool kThirds>
 __global__ void __launch_bounds__(zpix::kStripThreads)
     backend_kernel(const int16_t* __restrict__ ac, const int32_t* __restrict__ dc,
                    const int32_t* __restrict__ tables, uint8_t* __restrict__ out,
@@ -62,19 +63,20 @@ __global__ void __launch_bounds__(zpix::kStripThreads)
     for (int i = threadIdx.x; i < n; i += zpix::kStripThreads)
       zpix::cp_async4(ddc + i, dc + lane0 + i);
   };
-  zpix::run_strips<int16_t, true>(g, L, smem, quant, issue, out);
+  zpix::run_strips<int16_t, true, kThirds>(g, L, smem, quant, issue, out);
 }
 
 zpix::StripSmem smem_of(int nb) { return zpix::strip_smem(nb, 2, nb * 4); }
 
+template <bool kThirds>
 void launch(const StripGeo& g, const void* ac, const void* dc, const void* tables, void* out,
             int64_t m_pad, cudaStream_t stream) {
   static zpix::GridCache cache;
   const int nb = g.strip * g.bpm, smem = smem_of(nb).total;
-  const int grid = zpix::strip_grid(cache, backend_kernel, nb, smem,
+  const int grid = zpix::strip_grid(cache, backend_kernel<kThirds>, nb, smem,
                                     smem_of(zpix::kStripBlocks).total, g.n_strips);
   const int vec = reinterpret_cast<uintptr_t>(ac) % 16 == 0;
-  backend_kernel<<<grid, zpix::kStripThreads, smem, stream>>>(
+  backend_kernel<kThirds><<<grid, zpix::kStripThreads, smem, stream>>>(
       static_cast<const int16_t*>(ac), static_cast<const int32_t*>(dc),
       static_cast<const int32_t*>(tables), static_cast<uint8_t*>(out), g, m_pad, vec);
 }
@@ -92,7 +94,12 @@ extern "C" int zpix_backend(const void* ac, const void* dc, const void* tables,
   const cudaError_t err = zpix::make_strip_geo(g, batch, mxx, n_mcu / mxx, bpm, ncomp, packed,
                                                height, width, mode, nchan, planar);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (g.n_strips > 0)
-    launch(g, ac, dc, tables, out, m_pad, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (g.n_strips > 0) {
+    if (g.hmax == 3)
+      launch<true>(g, ac, dc, tables, out, m_pad, s);
+    else
+      launch<false>(g, ac, dc, tables, out, m_pad, s);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
-// Bit reading and canonical Huffman decode shared by the index pass (K1)
-// and the value pass (K2), with the packed table layout both read.
+// Bit reading and canonical Huffman decode shared by the entropy kernels
+// (K1, K2, K8-K10, K19), with the packed table layout they read.
 #pragma once
 #include <cstdint>
 
@@ -94,6 +94,37 @@ __device__ __forceinline__ Sym decode_sym_split(const int32_t* lims, const int32
   r.bad = look >= lims[15];
   const int vidx = a + (look >> (16 - len));
   r.sym = (vidx >= 0 && vidx < nvals) ? vals[vidx] : 0;
+  return r;
+}
+
+// Whether table t's limits lims[0..14] never decrease (every table
+// ops/entropy.py::pack_tables writes): then the compares that hold are a
+// prefix of them.
+__device__ __forceinline__ bool lims_sorted(const int32_t* tab, int t) {
+  const int32_t* lims = tab + kTabLims + 16 * t;
+  bool ok = true;
+#pragma unroll
+  for (int i = 1; i < 15; ++i) ok &= lims[i - 1] <= lims[i];
+  return ok;
+}
+
+// decode_sym's result.  With sorted limits (lims_sorted) the compares that
+// hold are a prefix, found by binary search, and the value offset
+// telescopes to aoff[len - 1].
+__device__ __forceinline__ Sym decode_full(const int32_t* tab, bool sorted, int t,
+                                           int32_t look) {
+  if (!sorted) return decode_sym(tab, t, look);
+  const int32_t* lims = tab + kTabLims + 16 * t;
+  int c = 0;  // #{i < 15 : look >= lims[i]}
+#pragma unroll
+  for (int step = 8; step; step >>= 1) {
+    if (c + step <= 15 && look >= lims[c + step - 1]) c += step;
+  }
+  Sym r;
+  r.len = c + 1;
+  r.bad = look >= lims[15];
+  const int vidx = tab[kTabAoff + 16 * t + c] + (look >> (15 - c));
+  r.sym = (vidx >= 0 && vidx < tab[kTabNvals]) ? tab[kTabVals + vidx] : 0;
   return r;
 }
 

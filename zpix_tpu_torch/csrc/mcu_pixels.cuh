@@ -29,9 +29,16 @@
 //   colour arm is a uniform branch, and a tile row leaves as one 32-bit
 //   store a channel (planar, gray), three (interleaved RGB) or one 16-byte
 //   store (four channels).  Bytes are stored only where W % 4 != 0 (a
-//   row's start is not word aligned) and at the right edge.  The C
-//   entries refuse any other factor (no plan carries one; the plain
-//   versions take any sampling on the CPU).
+//   row's start is not word aligned) and at the right edge.
+// Factors of 3: the baseline preps admit every component sampled 3 x 1
+// (or 1 x 3), where hmax (vmax) is 3 and every replication factor is 1.
+// vmax 3 needs no division (tile rows are counted by shifts); hmax 3
+// takes a second instantiation of the pixel stage (kThirds, picked at
+// launch from the geometry) whose tile index divides by 3 with a
+// multiply-high, so the power-of-two path is unchanged (K4 only: K6's
+// layout gives such images one block an MCU).  The C entries
+// refuse any other factor, and a replication factor of 3 (no plan
+// carries one; the plain versions take any sampling on the CPU).
 //
 // The colour arithmetic is the reference's (util.zig:40-86), as
 // zpix_tpu/ops/ycbcr.py computes it; the arms follow
@@ -65,7 +72,7 @@ struct StripGeo {
   int64_t n_strips;
   int mxx, myy, bpm, ncomp;
   int strip, lstrip, spr;  // MCUs a strip, its log2, strips an MCU row
-  int hmax, vmax, lqpm;    // lqpm = log2(2 hmax)
+  int hmax, vmax, lqpm;    // lqpm = log2(2 hmax); 0 when hmax is 3
   int h[4], v[4], first[4], fh[4], fv[4], lfh[4], lfv[4];
   uint32_t sel[4];  // byte-permute selector of a quad's samples
   int height, width, mode, nchan, planar, words;  // words: W % 4 == 0
@@ -81,8 +88,9 @@ inline int exact_log2(int x) {
 inline int factor_log2(int x) { return x == 1 ? 0 : (x == 2 ? 1 : (x == 4 ? 2 : -1)); }
 
 // Component c packed by the host as h | v << 4 | fh << 8 | fv << 12.
-// Refused: a block count or replication factor other than 1, 2 or 4, and
-// chroma planes of YCbCr (YCCK) replicated unlike each other.
+// Refused: an MCU of other than 1, 2, 3 or 4 blocks across or down, a
+// replication factor other than 1, 2 or 4, and chroma planes of YCbCr
+// (YCCK) replicated unlike each other.
 inline cudaError_t make_strip_geo(StripGeo& g, int batch, int mxx, int myy, int bpm,
                                   int ncomp, const int* packed, int height, int width,
                                   int mode, int nchan, int planar) {
@@ -96,7 +104,8 @@ inline cudaError_t make_strip_geo(StripGeo& g, int batch, int mxx, int myy, int 
   g.strip = strip, g.lstrip = exact_log2(strip), g.spr = (mxx + strip - 1) / strip;
   g.hmax = packed[0] & 15, g.vmax = (packed[0] >> 4) & 15;
   const int lh = factor_log2(g.hmax);
-  if (lh < 0 || factor_log2(g.vmax) < 0) return cudaErrorInvalidValue;
+  if ((lh < 0 && g.hmax != 3) || (factor_log2(g.vmax) < 0 && g.vmax != 3))
+    return cudaErrorInvalidValue;
   int s0 = 0;
   for (int c = 0; c < ncomp; ++c) {
     const int h = packed[c] & 15, v = (packed[c] >> 4) & 15;
@@ -111,7 +120,7 @@ inline cudaError_t make_strip_geo(StripGeo& g, int batch, int mxx, int myy, int 
   // the pixel stage shares Cr's chroma terms by Cb's replication
   if (s0 != bpm || (ycc && (g.fh[2] != g.fh[1] || g.fv[2] != g.fv[1])))
     return cudaErrorInvalidValue;
-  g.lqpm = lh + 1;
+  g.lqpm = lh + 1;  // 0 for hmax 3: the kThirds pixel stage divides instead
   g.height = height, g.width = width, g.mode = mode, g.nchan = nchan, g.planar = planar;
   g.words = width % 4 == 0;
   g.n_strips = static_cast<int64_t>(batch) * myy * g.spr;
@@ -393,17 +402,30 @@ __device__ __forceinline__ void store4(const StripGeo& g, uint8_t* out, int64_t 
   }
 }
 
+// x / 3 for any 32-bit x, by a multiply-high.
+__device__ __forceinline__ uint32_t div3(uint32_t x) { return __umulhi(x, 0xAAAAAAABu) >> 1; }
+
 // Pixels: every 4 x 2 tile of the strip's region, cropped to H x W.  The
 // chroma terms of a tile are computed once per distinct sample (once for
-// both rows where the chroma is replicated vertically).
+// both rows where the chroma is replicated vertically).  kThirds: hmax is
+// 3, so a tile row of the strip holds strip * 6 tiles, not a power of two.
+template <bool kThirds>
 __device__ __forceinline__ void pixel_stage(const uint8_t* pix, const StripGeo& g,
                                             const Strip& t, uint8_t* out) {
   const int rw = 8 * g.hmax, rh = 8 * g.vmax, qpm = 2 * g.hmax, qrow = g.strip * qpm;
   const bool ycc = g.mode == kYcbcr || g.mode == kYcck;
   const int lf = g.lfh[1];
   for (int i = threadIdx.x; i < (rh >> 1) * qrow; i += kStripThreads) {
-    const int ly = (i >> (g.lstrip + g.lqpm)) * 2, qx = i & (qrow - 1);
-    const int m = qx >> g.lqpm, lx0 = (qx & (qpm - 1)) * 4;
+    int ly, m, lx0;
+    if (kThirds) {  // i / (strip * 6), then the tile's MCU and column
+      const int row = static_cast<int>(div3(static_cast<uint32_t>(i) >> (g.lstrip + 1)));
+      const int qx = i - row * qrow;
+      m = static_cast<int>(div3(static_cast<uint32_t>(qx) >> 1));
+      ly = row * 2, lx0 = (qx - m * 6) * 4;
+    } else {
+      const int qx = i & (qrow - 1);
+      ly = (i >> (g.lstrip + g.lqpm)) * 2, m = qx >> g.lqpm, lx0 = (qx & (qpm - 1)) * 4;
+    }
     const int y = t.my * rh + ly, x = (t.mx0 + m) * rw + lx0;
     if (m >= t.nm || y >= g.height || x >= g.width) continue;
     uint32_t a0[4] = {0, 0, 0, 0}, a1[4] = {0, 0, 0, 0};
@@ -432,7 +454,7 @@ __device__ __forceinline__ void pixel_stage(const uint8_t* pix, const StripGeo& 
 // CTA computes the strip in the other buffer; with kDc, the side buffer
 // holds the strip's DC and ``quant`` the fixed quant rows, else the side
 // buffer holds the strip's quant rows.
-template <typename T, bool kDc, typename Issue>
+template <typename T, bool kDc, bool kThirds, typename Issue>
 __device__ __forceinline__ void run_strips(const StripGeo& g, const StripSmem& L,
                                            uint8_t* smem, const int32_t* quant, Issue issue,
                                            uint8_t* out) {
@@ -456,7 +478,7 @@ __device__ __forceinline__ void run_strips(const StripGeo& g, const StripSmem& L
     __syncthreads();
     col_pass(words, coef, nrows);  // the pixel blocks overwrite the read coefficients
     __syncthreads();
-    pixel_stage(coef, g, t, out);
+    pixel_stage<kThirds>(coef, g, t, out);
   }
 }
 

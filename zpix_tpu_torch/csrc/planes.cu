@@ -73,7 +73,7 @@ __global__ void __launch_bounds__(zpix::kStripThreads)
     for (int i = threadIdx.x; i < g.ncomp * 64; i += zpix::kStripThreads)
       zpix::cp_async4(q + i, in.quant[i >> 6] + t.b * 64 + (i & 63));
   };
-  zpix::run_strips<T, false>(g, L, smem, nullptr, issue, out);
+  zpix::run_strips<T, false, false>(g, L, smem, nullptr, issue, out);
 }
 
 template <typename T>
@@ -109,6 +109,9 @@ extern "C" int zpix_component_planes(const void* g0, const void* g1, const void*
   const cudaError_t err = zpix::make_strip_geo(g, batch, mxx, myy, bpm, ncomp, packed, height,
                                                width, mode, nchan, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
+  // ops/planes.py::mcu_layout gives the least replicated component one
+  // block across, so an MCU 3 blocks wide means a replication of 3
+  if (g.hmax == 3) return static_cast<int>(cudaErrorInvalidValue);
   const void* gp[4] = {g0, g1, g2, g3};
   const void* qp[4] = {q0, q1, q2, q3};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -127,23 +127,8 @@ struct Tabs {
   uint64_t dc_of, ac_of;  // each slot's DC and AC table, 4 bits a slot
 };
 
-// zpix::decode_sym's result.  With sorted limits the compares that hold
-// are a prefix, found by binary search, and the value offset telescopes
-// to aoff[len - 1].
 __device__ __forceinline__ Sym decode_full(const Tabs& T, int t, int32_t look) {
-  if (!((T.sorted >> t) & 1u)) return zpix::decode_sym(T.tab, t, look);
-  const int32_t* lims = T.tab + zpix::kTabLims + 16 * t;
-  int c = 0;  // #{i < 15 : look >= lims[i]}
-#pragma unroll
-  for (int step = 8; step; step >>= 1) {
-    if (c + step <= 15 && look >= lims[c + step - 1]) c += step;
-  }
-  Sym r;
-  r.len = c + 1;
-  r.bad = look >= lims[15];
-  const int vidx = T.tab[zpix::kTabAoff + 16 * t + c] + (look >> (15 - c));
-  r.sym = (vidx >= 0 && vidx < T.tab[zpix::kTabNvals]) ? T.tab[zpix::kTabVals + vidx] : 0;
-  return r;
+  return zpix::decode_full(T.tab, (T.sorted >> t) & 1u, t, look);
 }
 
 // The packed tables into shared memory, with which tables the bpm slots
@@ -154,11 +139,7 @@ __device__ void stage_tabs(Tabs& T, const int32_t* tables, int bpm) {
   __syncthreads();
   const int t = threadIdx.x;
   if (t < kTables) {
-    bool ok = true;
-    for (int i = 1; i < 15; ++i) {
-      ok &= T.tab[zpix::kTabLims + 16 * t + i - 1] <= T.tab[zpix::kTabLims + 16 * t + i];
-    }
-    if (ok) atomicOr(&T.sorted, 1u << t);
+    if (zpix::lims_sorted(T.tab, t)) atomicOr(&T.sorted, 1u << t);
   } else if (t == kTables) {
     uint64_t dc = 0, ac = 0;
     unsigned u = 0;

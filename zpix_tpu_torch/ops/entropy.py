@@ -7,6 +7,8 @@ and K3 (DC restore), each a CUDA kernel with its plain PyTorch version.
 * ``value_pass`` wraps K2 (csrc/entropy.cu), the port of ``_value_pass``
   (:611-766) and its agree/ok check (:1143-1150): one lane per block
   decodes the DC diff and the natural-order AC row.
+* K1 and K2 read each symbol through a lookahead table that every CTA
+  builds from the packed tables; ``index_lut_plain`` is its copy.
 * ``dc_restore`` wraps K3 (csrc/dc_restore.cu), the port of
   ``_restore_dc_T_split`` (:836-851), in a thread-per-chain form for
   restart segments and a block-per-chain form for whole-image chains.
@@ -34,6 +36,14 @@ TAB_SLOT_DC, TAB_SLOT_AC, TAB_NVALS = 2304, 2320, 2336
 TAB_QUANT = 2368
 TAB_WORDS = TAB_QUANT + 4 * 64
 MAX_TABLES, MAX_VALS, MAX_SLOTS = 8, 2048, 16
+
+# K1 and K2's lookahead table (csrc/entropy.cu): codes of up to LUT_BITS
+# bits in one lookup; an entry is LUT_BAD where every lookahead it covers
+# is invalid, 0 where the kernels decode in full.
+LUT_BITS = 10
+LUT_BAD = 0x80000000
+# The kernels' bit positions are int32: streams up to this many bytes.
+MAX_STREAM = (1 << 28) - 1024
 
 
 def pack_tables(tabs, slot_dc, slot_ac, quants=()) -> np.ndarray:
@@ -94,6 +104,43 @@ class _Tables:
         inside = (vidx >= 0) & (vidx < self.nvals)
         sym = torch.where(inside, self.vals[vidx.clamp(0, MAX_VALS - 1)], 0)
         return ln, sym, bad
+
+
+def lut_entry(ln, sym, ac):
+    """The kernels' lookahead entry of a code of ``ln`` bits for ``sym``,
+    in the DC (ac 0) or AC (1) role: adv | step << 9 | len << 16 | size <<
+    21, where adv = len + size bits, size = sym (DC) or sym & 15 (AC), and
+    step = 1 (DC), run + 1 (size > 0), 16 (ZRL) or 64 (EOB): the block ends
+    where the zigzag index k, 0 at the DC symbol, reaches 64."""
+    size = torch.where(ac != 0, sym & 15, sym)
+    r = sym >> 4
+    step = torch.where(ac == 0, 1, torch.where(size > 0, r + 1, torch.where(r == 15, 16, 64)))
+    return (ln + size) | (step << 9) | (ln << 16) | (size << 21)
+
+
+def index_lut_plain(tables):
+    """K1 and K2's lookahead table, as each CTA of csrc/entropy.cu builds
+    it for the (table, role) pairs its slots use -> int64 [2, MAX_TABLES,
+    2^LUT_BITS] (role: 0 DC, 1 AC).  Entry p is LUT_BAD where every 16-bit
+    lookahead whose top LUT_BITS bits are p is an invalid code,
+    ``lut_entry`` where all of them decode to one code of at most LUT_BITS
+    bits, and 0 elsewhere: there the kernels read a second-level block,
+    the ``lut_entry`` of each of the 64 lookaheads under p (0 for an
+    invalid code), or decode in full.  Each limit compare is monotone in
+    the lookahead, so the two ends of p's range decide."""
+    tab = _Tables(tables)
+    low = 16 - LUT_BITS
+    p = torch.arange(1 << LUT_BITS, dtype=torch.int64, device=tables.device)
+    out = torch.zeros(2, MAX_TABLES, 1 << LUT_BITS, dtype=torch.int64, device=tables.device)
+    for t in range(MAX_TABLES):
+        tid = torch.full_like(p, t)
+        ln0, sym0, bad0 = tab.decode(p << low, tid)
+        ln1, _, bad1 = tab.decode((p << low) | ((1 << low) - 1), tid)
+        one = ~bad0 & ~bad1 & (ln0 == ln1) & (ln0 <= LUT_BITS)
+        for ac in (0, 1):
+            e = torch.where(one, lut_entry(ln0, sym0, torch.full_like(p, ac)), 0)
+            out[ac, t] = torch.where(bad0 & bad1, LUT_BAD, e)
+    return out
 
 
 def _window(stream64, pos):
@@ -246,6 +293,13 @@ def _check_entropy_inputs(stream, seg_pos, seg_nmcu, tables):
         raise ValueError("entropy: table or lane shapes disagree")
 
 
+def _check_kernel_inputs(stream, bpm, nblk):
+    if stream.shape[0] > MAX_STREAM:
+        raise ValueError("entropy: the stream must be under 256 MiB")
+    if not 1 <= bpm <= MAX_SLOTS or nblk < 1:
+        raise ValueError("entropy: bpm or block count out of range")
+
+
 def index_pass(stream, seg_pos, seg_nmcu, tables, *, bpm: int, nblk: int):
     """K1: -> (ends int32 [L1, nblk] absolute end bit of each block, 0 for
     padding blocks; ok int32 [1], 0 if a lane hit a bad code or ran past
@@ -254,6 +308,7 @@ def index_pass(stream, seg_pos, seg_nmcu, tables, *, bpm: int, nblk: int):
     if stream.device.type == "cpu":
         return index_pass_plain(stream, seg_pos, seg_nmcu, tables, bpm=bpm, nblk=nblk)
     runtime.require_cuda(stream, seg_pos, seg_nmcu, tables)
+    _check_kernel_inputs(stream, bpm, nblk)
     n = seg_pos.shape[0]
     ends = torch.empty(n, nblk, dtype=torch.int32, device=stream.device)
     ok = torch.ones(1, dtype=torch.int32, device=stream.device)
@@ -275,6 +330,7 @@ def value_pass(stream, seg_pos, seg_nmcu, tables, ends, ok, *, bpm: int):
     if stream.device.type == "cpu":
         return value_pass_plain(stream, seg_pos, seg_nmcu, tables, ends, ok, bpm=bpm)
     runtime.require_cuda(stream, seg_pos, seg_nmcu, tables, ends, ok)
+    _check_kernel_inputs(stream, bpm, ends.shape[1])
     n = ends.numel()
     ac = torch.empty(n, 64, dtype=torch.int16, device=stream.device)
     dc = torch.empty(n, dtype=torch.int32, device=stream.device)
