@@ -27,9 +27,10 @@ them with CUDA events, checks that corrupt streams are flagged, and
 prints one JSON object per line.  Then the raster slice: batches of 16
 distinct 1024x1024 QOI streams (the JAX bench's "noise" and "screen"
 content, made by the port's host encoder) through ``HostIndexQoiDecoder``
-(host lane fill, K12; host records, K13, also on its edges: counts of
-255, zero runs longer than a tile, an image all fill, 64 x 1024^2 noise
-records), the decoded batches back
+(host lane fill, K12, also on hand-built entries and on lanes wider than
+its window, P = 5,000 and 32,767; host records, K13, also on its edges:
+counts of 255, zero runs longer than a tile, an image all fill, 64 x
+1024^2 noise records), the decoded batches back
 through ``encode_device_batch`` (K14, streams byte-identical to the host
 encoder; K14 also on 64 images, a grid of tiles beyond what the card holds
 at once), and 16 distinct 1024x1024 BMPs a batch from the port's numpy
@@ -43,7 +44,8 @@ JAX bench's content (Pillow, compress_level 6) through ``BatchPngDecoder``
 by its three front-ends (host inflate and defilter, K17; host inflate,
 K15, K17; host tokens, K16, K15, K17), two Adam7 batches (RGB8, and
 paletted with tRNS, from the tests' PNG writer, tests/_torch_png.py) by
-every front-end, and five kinds of damaged stream (a wrong adler32
+every front-end (K17's seven pass launches each timed with its bound),
+and five kinds of damaged stream (a wrong adler32
 trailer among them, checked on the card by ``device_inflate``).  The
 last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero.  Without
@@ -142,8 +144,7 @@ QOI_PROFILES = {"noise": 16, "screen": 256}
 # The least operations of each function, a pixel (or a record):
 # - K12's masked sum, as a per-lane difference array (exact on any entry
 #   set): an add at the clamped start and a subtract at the clamped end
-#   per entry slot, a prefix add per pixel (the kernel itself does two
-#   compares and an add per (pixel, entry slot));
+#   per entry slot, a prefix add per pixel (the kernel's own algorithm);
 # - K13: an add per record (the prefix sum), a select and a store per
 #   pixel (the function's least work, whatever implements it);
 # - K14: hash (4 multiplies, 3 adds, a mask), run test, 5 differences, 16
@@ -1578,6 +1579,34 @@ def k13_edge_checks(dev) -> dict:
     return out
 
 
+K12_WINDOW_CASES = ((5000, 64, 64), (32767, 32, 4))  # P, R, rows an image of BATCH
+
+
+def k12_window_checks(gen, dev) -> dict:
+    """K12's wide form on lanes wider than one of its windows (P = 5,000
+    and 32,767, the int16 limit), against its plain version: spans that
+    overlap, leave gaps or run past the lane, and the int16 extremes s =
+    -32,768, e = 32,767 in slot 0 of every other lane -> {case:
+    max_abs_err}."""
+    from zpix_tpu_torch.ops import qoi as kq
+
+    out = {}
+    for P, R, rows in K12_WINDOW_CASES:
+        lanes = BATCH * rows
+        s = gen.integers(-3, P + 3, (lanes, R)).astype(np.int16)
+        e = (s + gen.integers(-2, P // 2 + 2, (lanes, R))).astype(np.int16)
+        s[::2, 0], e[::2, 0] = -32768, 32767
+        w = [dev_t(gen.integers(0, 2**32, (lanes, R), dtype=np.uint64).astype(np.uint32), dev),
+             dev_t(s, dev), dev_t(e, dev)]
+        shape = (BATCH, rows, P)
+        out[f"lane_wide_window_P{P}"] = max_abs_err(kq.lane_expand_wide(*w, P=P, shape=shape),
+                                                    kq.lane_expand_wide_plain(*w, P=P,
+                                                                              shape=shape))
+        del w
+    torch.cuda.synchronize()
+    return out
+
+
 def qoi_phase(dev):
     """The QOI decode routes: K12 and K13 against their plain versions on
     full batches (both profiles, alpha content, hand-built entries and
@@ -1625,6 +1654,7 @@ def qoi_phase(dev):
     errs["lane_p4_hand_built"] = max_abs_err(kq.lane_expand_p4(hp4, P=P, shape=shape),
                                              kq.lane_expand_p4_plain(hp4, P=P, shape=shape))
     del hand, hp4
+    errs.update(k12_window_checks(gen, dev))
     rplan = tq.prep_qoi_records(batches["noise"][0])
     rec = [dev_t(a, dev) for a in (rplan.cols, rplan.cnts, rplan.fill)]
     errs["sorted_noise"] = max_abs_err(kq.sorted_expand(*rec, shape=shape),
@@ -2027,32 +2057,46 @@ def png_writer():
     return mod
 
 
+ADAM7_KINDS = ("tc8", "p8_trns")
+
+
+def make_adam7_png(writer, j: int, kind: str):
+    """Image j of an Adam7 batch -> (file, source RGBA8 [H, W, 4]): "tc8"
+    the JAX bench's content, "p8_trns" its first channel as indices into a
+    random palette with a random tRNS alpha."""
+    if kind == "tc8":
+        rgb = writer.bench_rgb(SIZE, 500 + j)
+        data = writer.encode_png(rgb, "tc8", interlace=True, seed=j)
+        return data, np.concatenate([rgb, np.full_like(rgb[..., :1], 255)], -1)
+    rng = np.random.default_rng(600 + j)
+    idx = writer.bench_rgb(SIZE, 600 + j)[..., 0]
+    pal = rng.integers(0, 256, (256, 3), dtype=np.uint8)
+    alpha = rng.integers(0, 256, 256, dtype=np.uint8)
+    data = writer.encode_png(idx, "p8", palette=pal, trns=alpha.tobytes(), interlace=True,
+                             seed=j)
+    c, a = pal.astype(np.uint32), alpha.astype(np.uint32)[:, None]
+    table = np.concatenate([(((c | c << 8) * a) // 0xFF) >> 8, a], 1).astype(np.uint8)
+    return data, table[idx]  # the premultiplied NRGBA palette entry
+
+
+def make_adam7_batches(writer, ex) -> dict:
+    """{kind: (files, source RGBA8 [B, H, W, 4])} of both Adam7 batches,
+    made on the thread pool ``ex``."""
+    out = {}
+    for kind in ADAM7_KINDS:
+        made = list(ex.map(lambda j, k=kind: make_adam7_png(writer, j, k), range(BATCH)))
+        out[kind] = ([m[0] for m in made], np.stack([m[1] for m in made]))
+    return out
+
+
 def make_png_content(writer):
     """-> (bench batches: batch s holds the JAX bench's PNGs of seeds
     s * BATCH + j; the Adam7 batches {name: (files, source RGBA8 [B, H, W,
     4])}), made on a thread pool."""
-    def adam7(j, kind):
-        if kind == "tc8":
-            rgb = writer.bench_rgb(SIZE, 500 + j)
-            data = writer.encode_png(rgb, "tc8", interlace=True, seed=j)
-            return data, np.concatenate([rgb, np.full_like(rgb[..., :1], 255)], -1)
-        rng = np.random.default_rng(600 + j)
-        idx = writer.bench_rgb(SIZE, 600 + j)[..., 0]
-        pal = rng.integers(0, 256, (256, 3), dtype=np.uint8)
-        alpha = rng.integers(0, 256, 256, dtype=np.uint8)
-        data = writer.encode_png(idx, "p8", palette=pal, trns=alpha.tobytes(), interlace=True,
-                                 seed=j)
-        c, a = pal.astype(np.uint32), alpha.astype(np.uint32)[:, None]
-        table = np.concatenate([(((c | c << 8) * a) // 0xFF) >> 8, a], 1).astype(np.uint8)
-        return data, table[idx]  # the premultiplied NRGBA palette entry
-
     with ThreadPoolExecutor(os.cpu_count() or 2) as ex:
         batches = [list(ex.map(lambda j, s=s: writer.make_bench_png(SIZE, s * BATCH + j),
                                range(BATCH))) for s in range(TIMED_BATCHES + 2)]
-        interlaced = {}
-        for kind in ("tc8", "p8_trns"):
-            made = list(ex.map(lambda j, k=kind: adam7(j, k), range(BATCH)))
-            interlaced[kind] = ([m[0] for m in made], np.stack([m[1] for m in made]))
+        interlaced = make_adam7_batches(writer, ex)
     return batches, interlaced
 
 
@@ -2107,10 +2151,11 @@ class PngLaunchCheck:
     the upload that run passes, K16's output, each Adam7 pass and its
     placement on the canvas), the largest error a kernel under
     ``{k15,k16,k17}_{tag}``.  ``kept`` gets each kernel's first (args, kw,
-    result), for the timing entries."""
+    result), ``expands`` every K17 launch's (args, kw), for the timing
+    entries."""
 
     def __init__(self, errs: dict, facts: dict, tag: str):
-        self.errs, self.facts, self.tag, self.kept = errs, facts, tag, {}
+        self.errs, self.facts, self.tag, self.kept, self.expands = errs, facts, tag, {}, []
 
     def __call__(self, name, args, kw, res):
         from zpix_tpu_torch.ops.defilter import png_defilter_plain
@@ -2129,6 +2174,7 @@ class PngLaunchCheck:
             if kw["bad"] is not None:  # valid streams: never set
                 err = max(err, max_abs_err(kw["bad"], flag))
         else:
+            self.expands.append((args, kw))
             rows, width = args[0], kw["width"]
             got = res
             if kw.get("out") is not None:  # the pass's pixels, where K17 placed them
@@ -2148,8 +2194,8 @@ def png_kernel_checks(dev, writer, decs, batch, interlaced):
     random filter bytes 0-255 at every bpp; K16 against the host's inflate
     and on hand-built chains; K17 on every arm, keyed or not, a short
     palette, a width that is not a multiple of the pixels a byte, and
-    placed as an Adam7 pass.  -> (max abs errors, {front: kept launches},
-    facts)"""
+    placed as an Adam7 pass.  -> (max abs errors, {front: kept launches,
+    adam7_{kind}: each pass's K17 (args, kw)}, facts)"""
     from zpix_tpu_torch.ops.defilter import BPPS, png_defilter, png_defilter_plain
     from zpix_tpu_torch.ops.inflate import TILES, inflate_resolve, inflate_resolve_plain
     from zpix_tpu_torch.ops.png import ARMS, png_expand, png_expand_plain, row_bytes
@@ -2167,11 +2213,12 @@ def png_kernel_checks(dev, writer, decs, batch, interlaced):
         torch.cuda.synchronize()
         if bad is not None and int(bad):
             raise SystemExit(f"chip_smoke: K15 flagged a filter type in {tag}")
-        return px, check.kept, bufs
+        return px, check, bufs
 
     px, bufs = {}, {}
     for front, dec in decs.items():
-        px[front], kept[front], bufs[front] = checked_run(dec, batch, f"bench_{front}")
+        px[front], check, bufs[front] = checked_run(dec, batch, f"bench_{front}")
+        kept[front] = check.kept
     # K16's bytes against the host's inflate, which the defilter route uploads
     errs["k16_bench_vs_host_inflate"] = max_abs_err(kept["inflate"]["inflate_resolve"][2],
                                                     bufs["defilter"][0])
@@ -2180,8 +2227,9 @@ def png_kernel_checks(dev, writer, decs, batch, interlaced):
     ft = kept["defilter"]["png_defilter"][0][1]
     facts["k15_bench_rows_by_type"] = torch.bincount(ft.reshape(-1).long(), minlength=5).tolist()
     for kind, (datas, src) in interlaced.items():
-        got, _kept, _bufs = checked_run(decs["inflate"], datas, f"adam7_{kind}")
+        got, check, _bufs = checked_run(decs["inflate"], datas, f"adam7_{kind}")
         errs[f"k17_adam7_{kind}_vs_source"] = max_abs_err(got, torch.from_numpy(src).to(dev))
+        kept[f"adam7_{kind}"] = check.expands  # the seven passes' K17 launches
     del px, bufs
 
     gen = np.random.default_rng(5)
@@ -2279,6 +2327,26 @@ def png_kernel_checks(dev, writer, decs, batch, interlaced):
         del rows
     torch.cuda.synchronize()
     return errs, kept, facts
+
+
+def k17_adam7_timing(passes) -> dict:
+    """The seven K17 launches of an Adam7 decode, each timed alone on the
+    rows, palette, key, canvas and placement the decoder gave it, with its
+    bound (its rows and palette in, 4 bytes a pixel of the pass out) ->
+    {"passes": [...], "ms_sum", "bound_ms_sum"}."""
+    from zpix_tpu_torch.ops.png import png_expand
+
+    rows_out = []
+    for (rows, pal, key), kw in passes:
+        B, h = rows.shape[:2]
+        rows_out.append(with_bound({
+            "ms": cuda_ms(lambda: png_expand(rows, pal, key, **kw), 20),
+            "width": kw["width"], "rows": h, "place": list(kw["place"]),
+            "bytes": rows.numel() + (pal.numel() if pal is not None else 0)
+            + 4 * B * h * kw["width"], "ops": 0}))
+    return {"passes": rows_out, "launches": len(rows_out),
+            "ms_sum": sum(r["ms"] for r in rows_out),
+            "bound_ms_sum": sum(r["bound_ms"] for r in rows_out)}
 
 
 def png_phase(dev):
@@ -2394,6 +2462,7 @@ def png_phase(dev):
         errs[f"k16_bench_tile{t}"] = max_abs_err(inflate_resolve(*toks, per, tile=t), k16_want)
         tile_sweep[t] = cuda_ms(lambda t=t: inflate_resolve(*toks, per, tile=t), 20)
     del k16_want
+    adam7_ms = {kind: k17_adam7_timing(kept[f"adam7_{kind}"]) for kind in ADAM7_KINDS}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
@@ -2445,7 +2514,8 @@ def png_phase(dev):
                 "plain_ms": cuda_ms(lambda: png_expand_plain(idx8, pal8, None, cd="p8",
                                                              width=SIZE), 1),
                 "library_ms": cuda_ms(lambda: pal8[bidx, idx_long], 20),
-                "bytes": idx8.numel() + pal8.numel() + 4 * npx, "ops": 0})},
+                "bytes": idx8.numel() + pal8.numel() + 4 * npx, "ops": 0}),
+            "adam7": adam7_ms},
     }
     del rows, idx8, idx_long, toks, kept, flat_k
     summary = {"content_seconds": content_s, "kernel_checks_seconds": checks_s,

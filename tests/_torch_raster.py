@@ -64,8 +64,9 @@ def structured_pixels(rng, h, w, alpha=True):
 def bench_pixels(size: int, seed: int, content: str) -> np.ndarray:
     """RGBA [size, size, 4] of the JAX bench's QOI content (bench.py:855-888,
     as chip_smoke.py makes it): "noise" (noise over a sinusoid field, nearly
-    one op a pixel) or "screen" (flat panels, a gradient band, 2% speckle;
-    run-heavy, runs across the device encoder's tiles)."""
+    one op a pixel), "screen" (flat panels, a gradient band, 2% speckle;
+    run-heavy, runs across the device encoder's tiles) or chip_smoke.py's
+    "alpha" (the noise image with an alpha that varies)."""
     rng = np.random.RandomState(seed)
     if content == "screen":
         rgba = np.zeros((size, size, 4), np.uint8)
@@ -83,7 +84,8 @@ def bench_pixels(size: int, seed: int, content: str) -> np.ndarray:
     x = np.linspace(0, 20, size)
     base = (128 + 100 * np.sin(x[None, :] * np.cos(x[:, None]) + seed)).astype(np.uint8)
     noise = rng.randint(0, 8, (size, size)).astype(np.uint8)
-    return np.stack([base ^ noise, base.T, base // 2 + 64, np.full_like(base, 255)], -1)
+    alpha = 255 - 16 * noise if content == "alpha" else np.full_like(base, 255)
+    return np.stack([base ^ noise, base.T, base // 2 + 64, alpha], -1)
 
 
 def encode_cases():
@@ -119,6 +121,77 @@ def lane_entries(rng, lanes, R, P):
 def p4_entries(rng, lanes, R):
     """Hand-built p4 granules: any bytes, so starts fall anywhere in 0-255."""
     return rng.integers(0, 256, (lanes, R * 4), dtype=np.uint8)
+
+
+def p4_spans(p4, P):
+    """p4 granules -> (cols u32, s, e int32) [Lt, R]: colour r<<24 | g<<16 |
+    b<<8 | 0xFF, the start byte, the next slot's start (P after the last)."""
+    t = p4.reshape(p4.shape[0], -1, 4).astype(np.uint32)
+    cols = (t[..., 0] << 24) | (t[..., 1] << 16) | (t[..., 2] << 8) | np.uint32(0xFF)
+    s = t[..., 3].astype(np.int32)
+    e = np.concatenate([s[:, 1:], np.full_like(s[:, :1], P)], 1)
+    return cols, s, e
+
+
+def lane_expand_diff(cols, s, e, P, win):
+    """K12's algorithm as csrc/qoi_expand.cu walks it, in numpy: [Lt, R]
+    entries -> [Lt, P] uint32 sums.  A CTA takes win // P consecutive lanes
+    (one lane when P > win) as one span of pixels, walked in windows of
+    ``win`` words; each entry adds its colour at lo = max(s, 0) and
+    subtracts it at hi = min(e, P) (if lo < hi), where those fall in the
+    window -- a subtract at hi = P lands on the next lane's pixel 0 of the
+    span -- and the window's inclusive scan, carried on from the last
+    window, is the output (uint32, wrapping)."""
+    Lt, R = cols.shape
+    lpc = win // P if P <= win else 1
+    lo = np.maximum(s.astype(np.int64), 0)
+    hi = np.minimum(e.astype(np.int64), P)
+    live = lo < hi
+    out = np.zeros(Lt * P, np.uint32)
+    for lane0 in range(0, Lt, lpc):
+        nl = min(lpc, Lt - lane0)
+        span = nl * P
+        at = (np.arange(nl, dtype=np.int64) * P)[:, None]  # each lane's pixel 0
+        c = cols[lane0 : lane0 + nl].astype(np.uint32)
+        carry = np.uint32(0)
+        for w0 in range(0, span, win):
+            wlen = min(win, span - w0)
+            pl, ph = at + lo[lane0 : lane0 + nl] - w0, at + hi[lane0 : lane0 + nl] - w0
+            m = live[lane0 : lane0 + nl]
+            add, sub = m & (pl >= 0) & (pl < wlen), m & (ph >= 0) & (ph < wlen)
+            d = np.zeros(wlen, np.uint32)
+            np.add.at(d, pl[add], c[add])
+            np.subtract.at(d, ph[sub], c[sub])
+            inc = np.cumsum(d, dtype=np.uint32) + carry
+            carry = inc[-1]
+            out[lane0 * P + w0 : lane0 * P + w0 + wlen] = inc
+    return out.reshape(Lt, P)
+
+
+# K12's edge cases: name -> (P, R, lanes); p4 too where P <= 255.  The
+# lane counts are no multiple of the kernel's lanes a CTA (LANE_WIN // P).
+K12_CASES = {"P1_R1": (1, 1, 37), "P3": (3, 5, 29), "P16_R2100": (16, 2100, 4),
+             "P16_lanes600": (16, 16, 600), "P60_lanes200": (60, 9, 200),
+             "P128": (128, 72, 6), "P255": (255, 9, 5), "P300_int16_ends": (300, 7, 5),
+             "P5000_windows": (5000, 40, 3), "P32767_windows": (32767, 30, 2)}
+
+
+def k12_entries(case, seed=0):
+    """Entries of a K12 edge case -> (P, wide (cols, s, e), p4 or None):
+    lane_entries (overlaps, gaps, s >= e, spans past [0, P)) with the
+    int16 extremes s = -32768, e = 32767 in slot 0 of every other lane and
+    the last lane all empty (s = e); p4 granules of random bytes
+    (non-monotone starts) with the first lane all pad (s = P)."""
+    P, R, lanes = K12_CASES[case]
+    rng = np.random.default_rng(seed + P * 7 + R)
+    cols, s, e = lane_entries(rng, lanes, R, P)
+    s[::2, 0], e[::2, 0] = -32768, 32767
+    e[-1] = s[-1]
+    p4 = None
+    if P <= 255:
+        p4 = p4_entries(rng, lanes, R)
+        p4[0, 3::4] = P
+    return P, (cols, s, e), p4
 
 
 def record_entries(rng, B, rcap):

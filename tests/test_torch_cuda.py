@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 from _torch_jpeg import ARMS, random_grids, synth_jpeg
+from _torch_raster import K12_CASES
 
 from zpix_tpu_torch import DeviceJpegDecoder, prep_batch, runtime
 from zpix_tpu_torch.ops import entropy as ke
@@ -753,6 +754,59 @@ def test_qoi_lane_expand_matches_plain_on_any_entries(cuda, P, R):
         assert torch.equal(got, kq.lane_expand_p4_plain(p4, P=P, shape=shape))
 
 
+@pytest.mark.parametrize("offset", [0, 4, 8])
+@pytest.mark.parametrize("case", list(K12_CASES))
+def test_qoi_lane_expand_matches_plain_on_edge_cases(cuda, case, offset):
+    """K12 on its edge cases (_torch_raster.K12_CASES: P from 1 to 32,767,
+    windows, R = 1 and 2,100, int16 extremes, s >= e, empty and all-pad
+    lanes, non-monotone p4 starts, lane counts no multiple of a CTA's),
+    the p4 granules a view ``offset`` bytes past a 16-byte boundary; one
+    launch a call."""
+    from _torch_raster import k12_entries
+
+    from zpix_tpu_torch.ops import qoi as kq
+
+    P, wide, p4 = k12_entries(case)
+    lanes = wide[0].shape[0]
+    shape = (1, lanes, P)
+    cols, s, e = (_dev(a, cuda) for a in wide)
+    got = _lane_counted(kq.lane_expand_wide, cols, s, e, P=P, shape=shape)
+    assert torch.equal(got, kq.lane_expand_wide_plain(cols, s, e, P=P, shape=shape))
+    if p4 is not None:
+        big = torch.zeros(p4.size + 64, dtype=torch.uint8, device=cuda)
+        base = (-big.data_ptr()) % 16 + offset
+        t = big[base : base + p4.size].view(p4.shape)
+        t.copy_(torch.from_numpy(p4))
+        assert t.data_ptr() % 16 == offset
+        got = _lane_counted(kq.lane_expand_p4, t, P=P, shape=shape)
+        assert torch.equal(got, kq.lane_expand_p4_plain(t, P=P, shape=shape))
+
+
+@pytest.mark.parametrize("content", ["noise", "screen", "alpha"])
+def test_qoi_lane_expand_matches_plain_on_smoke_content(cuda, content):
+    """K12 on two 1024^2 images of chip_smoke.py's QOI content through the
+    host lane passes at its lane widths: noise (p4, P = 16), screen (p4,
+    lane_p 256, so P = 128) and alpha (wide, P = 16)."""
+    from _torch_raster import bench_pixels, qoi_enc
+
+    from zpix_tpu_torch.ops import qoi as kq
+    from zpix_tpu_torch.parallel import qoi_batch as tq
+
+    datas = [qoi_enc(bench_pixels(1024, 900 + j, content)) for j in range(2)]
+    shape = (2, 1024, 1024)
+    if content == "alpha":
+        plan = tq.prep_qoi_lanes(datas, 16)
+        cols, s, e = (_dev(a, cuda) for a in (plan.cols, plan.s, plan.e))
+        got = _lane_counted(kq.lane_expand_wide, cols, s, e, P=plan.P, shape=shape)
+        assert torch.equal(got, kq.lane_expand_wide_plain(cols, s, e, P=plan.P, shape=shape))
+    else:
+        plan = tq.prep_qoi_lanes4(datas, {"noise": 16, "screen": 256}[content])
+        assert plan.P == {"noise": 16, "screen": 128}[content]
+        t = torch.from_numpy(plan.p4).to(cuda)
+        got = _lane_counted(kq.lane_expand_p4, t, P=plan.P, shape=shape)
+        assert torch.equal(got, kq.lane_expand_p4_plain(t, P=plan.P, shape=shape))
+
+
 @pytest.mark.parametrize("case", ["host", "short", "long"])
 def test_qoi_sorted_expand_matches_plain(cuda, case):
     """K13 on host records (with a stream cut short) and on hand-built
@@ -1146,6 +1200,65 @@ def test_png_expand_matches_plain(cuda, cd):
                                     place=(4, 1, 8, 2))
             png_expand(rows, pal, key, cd=cd, width=w, out=canvas, place=(4, 1, 8, 2))
             assert torch.equal(canvas, want)
+
+
+@pytest.mark.parametrize("cd", PNG_DEPTHS)
+def test_png_expand_matches_plain_at_group_tails_and_offsets(cuda, cd):
+    """K17 on every arm at widths 1, 3, 4, 5, 17 and 1,024 (the tails of
+    a thread's 4-pixel group, and the main width), rows a view 0, 1, 4 or
+    8 bytes past a 16-byte boundary of a larger buffer, keys that hit,
+    whole images and a placement with xf = 1 off the canvas's 4-pixel
+    grid."""
+    from _torch_png import first_pixel_keys
+
+    from zpix_tpu_torch.ops.png import png_expand, png_expand_plain, row_bytes
+
+    rng = np.random.default_rng(100 + len(cd))
+    pal = torch.from_numpy(rng.integers(0, 256, (2, 256, 4), dtype=np.uint8)).to(cuda)
+    for w in (1, 3, 4, 5, 17, 1024):
+        h = 6
+        rb = row_bytes(cd, w)
+        big = torch.from_numpy(rng.integers(0, 256, 2 * h * rb + 64, dtype=np.uint8)).to(cuda)
+        for offset in (0, 1, 4, 8):
+            base = (-big.data_ptr()) % 16 + offset
+            rows = big[base : base + 2 * h * rb].view(2, h, rb)
+            keys = [None]
+            if cd in PNG_KEYED:
+                keys.append(torch.from_numpy(first_pixel_keys(rows.cpu().numpy(), cd)).to(cuda))
+            for key in keys:
+                got = _counted("png_expand", 1, png_expand, rows, pal, key, cd=cd, width=w)
+                assert torch.equal(got, png_expand_plain(rows, pal, key, cd=cd, width=w)), (
+                    w, offset, key is not None)
+                canvas = torch.zeros(2, h + 1, w + 3, 4, dtype=torch.uint8, device=cuda)
+                want = png_expand_plain(rows, pal, key, cd=cd, width=w, out=canvas.clone(),
+                                        place=(3, 1, 1, 1))
+                png_expand(rows, pal, key, cd=cd, width=w, out=canvas, place=(3, 1, 1, 1))
+                assert torch.equal(canvas, want), (w, offset, key is not None)
+
+
+@pytest.mark.parametrize("cd", ["g1", "g16", "tc8", "tca16", "ga8", "p4", "p8"])
+def test_png_expand_adam7_passes_into_one_canvas(cuda, cd):
+    """K17 a pass of Adam7, the seven placements of a 37 x 29 and of a
+    64 x 64 image into one canvas, against the plain version's canvas;
+    every pixel written (the two canvases start apart)."""
+    from zpix_tpu_torch.codecs.png.decode import INTERLACING, _pass_dims
+    from zpix_tpu_torch.ops.png import png_expand, png_expand_plain, row_bytes
+
+    rng = np.random.default_rng(7 + len(cd))
+    pal = torch.from_numpy(rng.integers(0, 256, (3, 256, 4), dtype=np.uint8)).to(cuda)
+    for W, H in ((37, 29), (64, 64)):
+        canvas = torch.full((3, H, W, 4), 0x5A, dtype=torch.uint8, device=cuda)
+        want = torch.full_like(canvas, 0xA5)
+        for p in range(7):
+            pw, ph = _pass_dims(W, H, p)
+            if not pw or not ph:
+                continue
+            rows = torch.from_numpy(rng.integers(0, 256, (3, ph, row_bytes(cd, pw)),
+                                                 dtype=np.uint8)).to(cuda)
+            _counted("png_expand", 1, png_expand, rows, pal, None, cd=cd, width=pw, out=canvas,
+                     place=INTERLACING[p])
+            png_expand_plain(rows, pal, None, cd=cd, width=pw, out=want, place=INTERLACING[p])
+        assert torch.equal(canvas, want), (W, H)
 
 
 @pytest.mark.parametrize("interlace", [False, True], ids=["plain", "adam7"])

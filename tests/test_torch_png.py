@@ -6,7 +6,8 @@ zpix_tpu.  Exact: tolerance 0.
 * K16's plain version against ``resolve_tokens_jnp``: the tokenizer's
   output of the four deflate modes, hand-built chains, padding.
 * K17's plain version against ``_expand_graph`` on every arm, with and
-  without a key, and against ``_interlaced_graph``.
+  without a key, at widths 1, 3, 4, 5, 11 and 17 (the tails of the
+  kernel's 4-pixel groups), and against ``_interlaced_graph``.
 * ``BatchPngDecoder(device="cpu")`` by all three front-ends, Adam7 or not,
   against ``codecs.png.decode(...).rgba_pixels()`` on the 15 depths, and
   against zpix_tpu's ``BatchPngDecoder``; the colour-key, palette-overflow
@@ -135,12 +136,11 @@ def _keys(rng, cd):
     return key
 
 
-@pytest.mark.parametrize("cd", CDS)
-def test_expand_plain_matches_jax(cd):
-    """Every arm at a width that is not a multiple of the pixels a byte,
-    rows built so that the keys hit, with and without a key."""
-    rng = np.random.default_rng(len(cd) * 7 + 1)
-    w, h = 11, 5
+def _expand_matches_jax(cd, w, seed):
+    """K17's plain version against _expand_graph on 3 images of 5 rows of
+    ``w`` pixels, rows built so that the keys hit, with and without a key."""
+    rng = np.random.default_rng(seed)
+    h = 5
     bits, n = DEPTHS[cd][1], DEPTHS[cd][2]
     pix = random_pixels(rng, cd, w, h * 3, hi=SAFE16 if bits == 16 else None)
     key = _keys(rng, cd) if cd in KEYED else None
@@ -157,6 +157,21 @@ def test_expand_plain_matches_jax(cd):
         assert np.array_equal(got.numpy(), want)
         if k is not None:
             assert (want[0, 0, 0] == 0).all() and (want[1, 0, 0] == 0).all()
+
+
+@pytest.mark.parametrize("cd", CDS)
+def test_expand_plain_matches_jax(cd):
+    """Every arm at a width that is not a multiple of the pixels a byte,
+    rows built so that the keys hit, with and without a key."""
+    _expand_matches_jax(cd, 11, len(cd) * 7 + 1)
+
+
+@pytest.mark.parametrize("cd", CDS)
+def test_expand_plain_matches_jax_at_group_tails(cd):
+    """Every arm, keyed and not, at the widths where a row ends inside the
+    kernel's 4-pixel group or on its edge: 1, 3, 4, 5 and 17."""
+    for w in (1, 3, 4, 5, 17):
+        _expand_matches_jax(cd, w, len(cd) * 7 + w)
 
 
 def test_expand_16bit_follows_host_decoder_where_jax_wraps():

@@ -3,7 +3,9 @@ zpix_tpu on XLA:CPU and the host codec.  Exact: tolerance 0.
 
 * K12's plain version, both formats, against zpix_tpu's
   ``build_qoi_lane_expand_fn`` on zpix_tpu's own host plans and on
-  hand-built entries that overlap, leave gaps or lie outside the lane.
+  hand-built entries that overlap, leave gaps or lie outside the lane;
+  the kernel's difference-array algorithm (windows, clipping) against
+  both on its edge cases.
 * K13's plain version against ``build_qoi_expand_fn`` on host records and
   on hand-built records with zero counts.
 * ``HostIndexQoiDecoder(device="cpu")``, every route and format, against
@@ -15,7 +17,8 @@ zpix_tpu on XLA:CPU and the host codec.  Exact: tolerance 0.
 import numpy as np
 import pytest
 import torch
-from _torch_raster import (encode_cases, lane_entries, p4_entries, qoi_enc, qoi_images,
+from _torch_raster import (K12_CASES, encode_cases, k12_entries, lane_entries,
+                           lane_expand_diff, p4_entries, p4_spans, qoi_enc, qoi_images,
                            record_entries)
 
 from zpix_tpu.codecs.qoi.decode import decode as jax_decode
@@ -91,6 +94,37 @@ def test_lane_expand_plain_matches_jax_on_any_entries(P, R):
         p4 = p4_entries(rng, B * lanes, R)
         plan = jq.QoiLanePlan(P, lanes, P, None, None, None, B, R, fmt="p4", p4=p4)
         assert np.array_equal(_lane_plain(plan).numpy(), _lane_jax(plan))
+
+
+def _packed_bytes(v):
+    """[Lt, P] uint32 0xRRGGBBAA -> [1, Lt, P, 4] bytes R, G, B, A."""
+    return np.stack([(v >> sh) & 0xFF for sh in (24, 16, 8, 0)], -1).astype(np.uint8)[None]
+
+
+@pytest.mark.parametrize("case", list(K12_CASES))
+def test_lane_expand_difference_array_matches_jax(case):
+    """K12's difference-array algorithm as the kernel walks it
+    (_torch_raster.lane_expand_diff: lanes or windows a CTA, ends clipped
+    to the lane, a lane's end at P on the next lane's pixel 0) against the
+    plain version and zpix_tpu's graph, on entries no host fill makes: P
+    from 1 to 5,000 (above one window), R = 1 and R = 2,100, int16
+    extremes, s >= e, all-empty lanes, p4 granules of random bytes
+    (non-monotone starts) and all-pad lanes; again with a window of 64
+    words (several windows a lane, or lanes a window)."""
+    P, (cols, s, e), p4 = k12_entries(case)
+    lanes, R = cols.shape
+    plan = jq.QoiLanePlan(P, lanes, P, cols, s, e, 1, R)
+    want = _lane_jax(plan)
+    assert np.array_equal(_lane_plain(plan).numpy(), want)
+    for win in (kq.LANE_WIN, 64):
+        assert np.array_equal(_packed_bytes(lane_expand_diff(cols, s, e, P, win)), want)
+    if p4 is not None:
+        plan = jq.QoiLanePlan(P, lanes, P, None, None, None, 1, R, fmt="p4", p4=p4)
+        want = _lane_jax(plan)
+        assert np.array_equal(_lane_plain(plan).numpy(), want)
+        for win in (kq.LANE_WIN, 64):
+            got = lane_expand_diff(*p4_spans(p4, P), P, win)
+            assert np.array_equal(_packed_bytes(got), want)
 
 
 def test_lane_expand_checks_shapes():

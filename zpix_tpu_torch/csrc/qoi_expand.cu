@@ -12,14 +12,27 @@
 //   p4:   one [Lt, R * 4] u8 array of (r, g, b, start) granules: col is
 //         r<<24 | g<<16 | b<<8 | 0xFF, e[r] = s[r + 1] and the last slot
 //         ends at P (pad slots carry s = P, so they cover nothing).
-// A CUDA block takes 256 / P lanes (one lane when P > 256), stages their
-// entries in shared memory (in chunks when they do not fit) and gives one
-// thread each output pixel, which loops over its lane's R entries: no
-// assumption that entries tile the lane.  The packed 0xRRGGBBAA sum is
-// stored as the bytes R, G, B, A (a byte swap of the little-endian word).
-// Bound on the H100: bytes (entries in, 4 bytes a pixel out) on dense-op
-// content with small R; operations (R compares and adds a pixel) where R
-// is large (run-heavy content at a large P).
+// The sum is taken as a difference array: each entry slot adds its colour
+// at lo = max(s, 0) and subtracts it at hi = min(e, P) when lo < hi, and
+// an inclusive scan of the lane's P words gives out exactly -- the sum is
+// mod 2^32, where addition commutes, so the order of the shared atomics
+// does not matter (overlaps, s >= e, spans outside [0, P), non-monotone p4
+// starts and all-pad lanes included).  O(P + R) a lane, not O(P * R).
+// A CTA of 256 threads takes kWin / P consecutive lanes (P <= kWin), whose
+// pixels are one contiguous span of the output, or one lane of P > kWin
+// pixels walked in windows of kWin words with the scan's last value
+// carried from one window to the next.  For each window: the difference
+// words are zeroed in shared memory; a thread an entry slot reads its slot
+// (coalesced: a p4 granule is one 4-byte load, its implicit end the start
+// the next thread read, by __shfl_down_sync) and adds the ends that fall in
+// the window with shared atomics -- a lane's subtract at hi = P lands on
+// the next lane's pixel 0, so one scan over the CTA's whole span restarts
+// at every lane; the CTA scans the window (16 words a thread, then the
+// warps' sums), byte-swaps the packed 0xRRGGBBAA sums to the bytes R, G,
+// B, A, and writes the span with 16-byte stores (P % 4 == 0 and an aligned
+// output, picked at launch; word stores otherwise).  A slot's lane and
+// place in it come from a multiply-high by 2^32 / R (one correction step),
+// no division.  Bound on the H100: bytes (entries in, 4 bytes a pixel out).
 //
 // K13 replaces qoi_batch.py::build_qoi_expand_fn (:818): per-image run-
 // length records, cols u32 [B, rcap] (0xRRGGBBAA) and cnts u8 [B, rcap]
@@ -40,63 +53,148 @@
 // outside the tile).
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace {
 
 constexpr int kExpandThreads = 256;
-constexpr int kStage = 2048;  // entries staged at a time per CUDA block
+constexpr int kWin = 4096;                      // pixel words a CTA scans at a time
+constexpr int kScanWords = kWin / kExpandThreads;  // words a thread scans
+constexpr int kSlotUnroll = 4;                  // entry slots a thread loads before it adds
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// The window in shared memory takes a pad of 4 words after every 32, so
+// that a thread's 16 words (the scan) and a warp's 16-byte copies are free
+// of bank conflicts.
+constexpr int kWinSmem = kWin + kWin / 32 * 4;
+__device__ __forceinline__ int win_at(int w) { return w + ((w >> 5) << 2); }
 
 __device__ __forceinline__ uint32_t rgba_bytes(uint32_t packed) {
   return __byte_perm(packed, 0, 0x0123);  // 0xRRGGBBAA -> bytes R, G, B, A
 }
 
-template <bool kP4>
-__global__ void lane_expand_kernel(const uint32_t* __restrict__ cols,
-                                   const int16_t* __restrict__ s_arr,
-                                   const int16_t* __restrict__ e_arr,
-                                   const uint32_t* __restrict__ p4,
-                                   uint32_t* __restrict__ out, int64_t n_lanes, int R,
-                                   int P, int lpb) {
-  __shared__ uint32_t s_col[kStage];
-  __shared__ int32_t s_s[kStage], s_e[kStage];
-  const int64_t lane0 = static_cast<int64_t>(blockIdx.x) * lpb;
-  const int nl = n_lanes - lane0 < lpb ? static_cast<int>(n_lanes - lane0) : lpb;
-  const int chunk = kStage / lpb;  // entries a lane per stage
-  const bool small = P <= static_cast<int>(blockDim.x);
-  const int ll = small ? threadIdx.x / P : 0;
-  const int step = small ? P : blockDim.x;
-  for (int p0 = 0; p0 < P; p0 += step) {
-    const int p = p0 + (small ? threadIdx.x % P : threadIdx.x);
-    const bool active = ll < nl && p < P;
-    uint32_t acc = 0;
-    for (int r0 = 0; r0 < R; r0 += chunk) {
-      const int rc = min(chunk, R - r0);
-      __syncthreads();
-      for (int k = threadIdx.x; k < nl * rc; k += blockDim.x) {
-        const int l = k / rc, r = r0 + k % rc;
-        const int64_t at = (lane0 + l) * R + r;
-        const int slot = l * chunk + k % rc;
-        if (kP4) {
-          const uint32_t w = p4[at];  // bytes r, g, b, start
-          s_col[slot] = (__byte_perm(w, 0, 0x0123) & 0xFFFFFF00u) | 0xFFu;
-          s_s[slot] = static_cast<int32_t>(w >> 24);
-          s_e[slot] = r + 1 < R ? static_cast<int32_t>(p4[at + 1] >> 24) : P;
-        } else {
-          s_col[slot] = cols[at];
-          s_s[slot] = s_arr[at];
-          s_e[slot] = e_arr[at];
+struct LaneArgs {
+  const uint32_t* cols;
+  const int16_t* s;
+  const int16_t* e;
+  const uint32_t* p4;
+  uint32_t* out;
+  int64_t n_lanes;
+  int R, P, lpc;    // entry slots a lane, pixels a lane, lanes a CTA
+  uint32_t rmagic;  // floor(2^32 / R) (2^32 - 1 for R = 1)
+};
+
+template <bool kP4, bool kVecOut>
+__global__ void __launch_bounds__(kExpandThreads)
+lane_expand_kernel(const LaneArgs a) {
+  __shared__ __align__(16) uint32_t s_d[kWinSmem];
+  __shared__ uint32_t s_warp[kExpandThreads / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int R = a.R, P = a.P;
+  const int64_t lane0 = static_cast<int64_t>(blockIdx.x) * a.lpc;
+  const int nl = a.n_lanes - lane0 < a.lpc ? static_cast<int>(a.n_lanes - lane0) : a.lpc;
+  const int span = nl * P;                                 // the CTA's pixels
+  const uint32_t n = static_cast<uint32_t>(nl) * R;        // and entry slots
+  const int64_t slot0 = lane0 * R;
+  uint32_t* const dst = a.out + lane0 * P;
+  uint32_t carry = 0;
+  for (int w0 = 0; w0 < span; w0 += kWin) {
+    const int wlen = min(kWin, span - w0);
+    for (int i = tid; i < kWinSmem / 4; i += kExpandThreads)
+      reinterpret_cast<uint4*>(s_d)[i] = make_uint4(0, 0, 0, 0);
+    __syncthreads();
+
+    // every slot's ends that fall in [w0, w0 + wlen)
+    for (uint32_t k0 = 0; k0 < n; k0 += kExpandThreads * kSlotUnroll) {
+      uint32_t word[kSlotUnroll] = {}, col[kSlotUnroll] = {};
+      int st[kSlotUnroll] = {}, en[kSlotUnroll] = {};
+#pragma unroll
+      for (int u = 0; u < kSlotUnroll; ++u) {
+        const uint32_t k = k0 + u * kExpandThreads + tid;
+        if (k < n) {
+          if (kP4) {
+            word[u] = __ldg(a.p4 + slot0 + k);  // bytes r, g, b, start
+          } else {
+            col[u] = __ldg(a.cols + slot0 + k);
+            st[u] = __ldg(a.s + slot0 + k);
+            en[u] = __ldg(a.e + slot0 + k);
+          }
         }
       }
-      __syncthreads();
-      if (active) {
-        const int base = ll * chunk;
-        for (int j = 0; j < rc; ++j) {
-          if (s_s[base + j] <= p && p < s_e[base + j]) acc += s_col[base + j];
+#pragma unroll
+      for (int u = 0; u < kSlotUnroll; ++u) {
+        const uint32_t k = k0 + u * kExpandThreads + tid;
+        uint32_t q = __umulhi(k, a.rmagic), r = k - q * R;  // k / R, k % R
+        if (r >= static_cast<uint32_t>(R)) {
+          ++q;
+          r -= R;
+        }
+        if (kP4) {
+          st[u] = static_cast<int>(word[u] >> 24);
+          col[u] = (rgba_bytes(word[u]) & 0xFFFFFF00u) | 0xFFu;
+          // the end: the next slot's start (the next thread's, or a load
+          // at the warp's edge), P after a lane's last slot
+          const int next = __shfl_down_sync(kFullMask, st[u], 1);
+          en[u] = P;
+          if (k < n && r + 1 < static_cast<uint32_t>(R))
+            en[u] = lane < 31 ? next : static_cast<int>(__ldg(a.p4 + slot0 + k + 1) >> 24);
+        }
+        const int lo = max(st[u], 0), hi = min(en[u], P);
+        if (k < n && lo < hi) {
+          const int at = static_cast<int>(q) * P - w0;  // the lane's pixel 0, window-relative
+          if (at + lo >= 0 && at + lo < wlen) atomicAdd(s_d + win_at(at + lo), col[u]);
+          if (at + hi >= 0 && at + hi < wlen) atomicSub(s_d + win_at(at + hi), col[u]);
         }
       }
     }
-    if (active) out[(lane0 + ll) * P + p] = rgba_bytes(acc);
+    __syncthreads();
+
+    // the inclusive scan of the window, 16 words a thread
+    uint32_t x[kScanWords];
+    uint4* mine = reinterpret_cast<uint4*>(s_d + win_at(tid * kScanWords));
+#pragma unroll
+    for (int i = 0; i < kScanWords / 4; ++i) {
+      const uint4 v = mine[i];
+      x[4 * i] = v.x;
+      x[4 * i + 1] = v.y;
+      x[4 * i + 2] = v.z;
+      x[4 * i + 3] = v.w;
+    }
+#pragma unroll
+    for (int i = 1; i < kScanWords; ++i) x[i] += x[i - 1];
+    const uint32_t tot = x[kScanWords - 1];
+    uint32_t inc = tot;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const uint32_t u = __shfl_up_sync(kFullMask, inc, d);
+      if (lane >= d) inc += u;
+    }
+    if (lane == 31) s_warp[warp] = inc;
+    __syncthreads();
+    uint32_t before = carry + inc - tot;
+#pragma unroll
+    for (int w = 0; w < kExpandThreads / 32; ++w) {
+      const uint32_t t = s_warp[w];
+      before += w < warp ? t : 0;
+      carry += t;
+    }
+#pragma unroll
+    for (int i = 0; i < kScanWords / 4; ++i) {
+      mine[i] = make_uint4(rgba_bytes(x[4 * i] + before), rgba_bytes(x[4 * i + 1] + before),
+                           rgba_bytes(x[4 * i + 2] + before), rgba_bytes(x[4 * i + 3] + before));
+    }
+    __syncthreads();
+
+    // the window's pixels out: 16-byte stores where kVecOut (wlen % 4 == 0
+    // and dst + w0 16-byte aligned)
+    if (kVecOut) {
+      for (int i = tid; i < wlen / 4; i += kExpandThreads)
+        reinterpret_cast<uint4*>(dst + w0)[i] = *reinterpret_cast<const uint4*>(s_d + win_at(4 * i));
+    } else {
+      for (int i = tid; i < wlen; i += kExpandThreads) dst[w0 + i] = s_d[win_at(i)];
+    }
+    __syncthreads();
   }
 }
 
@@ -379,24 +477,34 @@ void launch_sorted(const SortedArgs& a, bool vin, bool vout, cudaStream_t st) {
 }  // namespace
 
 // fmt 0 (wide): cols u32, s, e i16 [Lt, R]; fmt 1 (p4): p4 u8 [Lt, R * 4]
-// (4-byte aligned).  out u8 [Lt * P * 4].
+// (4-byte aligned).  out u8 [Lt * P * 4] (4-byte aligned).
 extern "C" int zpix_qoi_lane_expand(const void* cols, const void* s, const void* e,
                                     const void* p4, void* out, int64_t n_lanes, int R, int P,
                                     int fmt, void* stream) {
   if (n_lanes > 0 && R > 0 && P > 0) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int lpb = P <= kExpandThreads ? kExpandThreads / P : 1;
-    const int threads = P <= kExpandThreads ? lpb * P : kExpandThreads;
-    const unsigned grid = static_cast<unsigned>((n_lanes + lpb - 1) / lpb);
+    LaneArgs a;
+    a.cols = static_cast<const uint32_t*>(cols);
+    a.s = static_cast<const int16_t*>(s);
+    a.e = static_cast<const int16_t*>(e);
+    a.p4 = static_cast<const uint32_t*>(p4);
+    a.out = static_cast<uint32_t*>(out);
+    a.n_lanes = n_lanes;
+    a.R = R;
+    a.P = P;
+    // lanes a CTA: a window's worth, and few enough that a CTA's slots
+    // count in 31 bits
+    a.lpc = P <= kWin ? kWin / P : 1;
+    a.lpc = static_cast<int>(std::min<int64_t>(a.lpc, ((int64_t{1} << 31) - 1) / R));
+    a.rmagic = R == 1 ? 0xFFFFFFFFu : static_cast<uint32_t>((uint64_t{1} << 32) / R);
+    const unsigned grid = static_cast<unsigned>((n_lanes + a.lpc - 1) / a.lpc);
+    const bool vout = P % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
     if (fmt) {
-      lane_expand_kernel<true><<<grid, threads, 0, st>>>(
-          nullptr, nullptr, nullptr, static_cast<const uint32_t*>(p4),
-          static_cast<uint32_t*>(out), n_lanes, R, P, lpb);
+      if (vout) lane_expand_kernel<true, true><<<grid, kExpandThreads, 0, st>>>(a);
+      else lane_expand_kernel<true, false><<<grid, kExpandThreads, 0, st>>>(a);
     } else {
-      lane_expand_kernel<false><<<grid, threads, 0, st>>>(
-          static_cast<const uint32_t*>(cols), static_cast<const int16_t*>(s),
-          static_cast<const int16_t*>(e), nullptr, static_cast<uint32_t*>(out), n_lanes, R,
-          P, lpb);
+      if (vout) lane_expand_kernel<false, true><<<grid, kExpandThreads, 0, st>>>(a);
+      else lane_expand_kernel<false, false><<<grid, kExpandThreads, 0, st>>>(a);
     }
   }
   return static_cast<int>(cudaGetLastError());

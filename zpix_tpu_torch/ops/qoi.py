@@ -5,7 +5,8 @@
   (csrc/qoi_expand.cu), the port of
   zpix_tpu/parallel/qoi_batch.py::build_qoi_lane_expand_fn (:1174):
   lane-major entries -> ``out[lane, p] = sum_r col[r] * (s[r] <= p < e[r])``
-  (uint32, wrapping) -> bytes R, G, B, A.
+  (uint32, wrapping) -> bytes R, G, B, A; on the card a difference array
+  a lane and its scan, lanes or windows of ``LANE_WIN`` pixels a CTA.
 * ``sorted_expand`` wraps K13 (csrc/qoi_expand.cu), the port of
   ``build_qoi_expand_fn`` (:818): per-image cumsum of the counts,
   searchsorted side "right", gather, and the stream-exhausted fill; on
@@ -27,6 +28,7 @@ import torch
 from .. import runtime
 
 ENC_TILE = 2048  # pixels a tile of K14 (csrc/qoi_encode.cu kTile)
+LANE_WIN = 4096  # pixel words a CTA of K12 scans at a time (csrc/qoi_expand.cu kWin)
 REC_TILES = (1024, 2048, 4096)  # the record tiles K13 takes (csrc/qoi_expand.cu)
 _SIZES = (0, 1, 1, 2, 4, 5)  # bytes of an op, by kind
 
