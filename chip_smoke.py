@@ -35,7 +35,8 @@ through ``encode_device_batch`` (K14, streams byte-identical to the host
 encoder; K14 also on 64 images, a grid of tiles beyond what the card holds
 at once), and 16 distinct 1024x1024 BMPs a batch from the port's numpy
 writer through ``BatchBmpDecoder`` (K18, every bit depth, header and
-orientation).  Then the ``png`` phase: K15-K17 against their plain
+orientation, and widths 1, 3 and 5 at every bit depth; 1, 8, 24 and 32
+bpp timed).  Then the ``png`` phase: K15-K17 against their plain
 versions at 16 x 1024^2 (K15 also at 1, 31, 32, 33, 1,025 and 1,500 rows at
 every bpp, K16 at every tile size on hand-built chains and at per = T - 1,
 T, T + 1; K15's bands a block and K16's tile size swept on the bench
@@ -46,7 +47,9 @@ K15, K17; host tokens, K16, K15, K17), two Adam7 batches (RGB8, and
 paletted with tRNS, from the tests' PNG writer, tests/_torch_png.py) by
 every front-end (K17's seven pass launches each timed with its bound),
 and five kinds of damaged stream (a wrong adler32
-trailer among them, checked on the card by ``device_inflate``).  The
+trailer among them, checked on the card by ``device_inflate``; the
+check also on rows of every alignment, of no bytes, of a span less or
+more one byte, and on 70,000 one-byte images).  The
 last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero.  Without
 CUDA it exits non-zero and prints no result.
@@ -1900,25 +1903,31 @@ def qoi_encode_phase(dev, lane_decs):
 BMP_TIMED = {"24bpp": (24, 40, False, False), "8bpp": (8, 40, False, False)}
 
 
-def make_bmp(seed: int, bpp: int, info: int, top_down: bool, short: bool) -> bytes:
-    """One random 1024^2 BMP from the port's numpy writer: indices and a
-    palette of 2^bpp colours (fewer than half when ``short``, so indices
-    pass its end) for 1-8 bpp, RGB or RGBA pixels for 24 and 32."""
+BMP_WIDTHS = (1, 3, 5)  # widths that end a row inside K18's 4-pixel group
+
+
+def make_bmp(seed: int, bpp: int, info: int, top_down: bool, short: bool,
+             width: int | None = None) -> bytes:
+    """One random BMP of SIZE rows and ``width`` (1024) pixels from the
+    port's numpy writer: indices and a palette of 2^bpp colours (fewer than
+    half when ``short``, so indices pass its end) for 1-8 bpp, RGB or RGBA
+    pixels for 24 and 32."""
     from zpix_tpu_torch.codecs.bmp.encode import encode
 
     rng = np.random.default_rng(seed)
+    width = SIZE if width is None else width
     if bpp <= 8:
         n = max(1, (1 << bpp) // 2 - 1) if short else 1 << bpp
         pal = rng.integers(0, 256, (n, 3), dtype=np.uint8)
-        idx = rng.integers(0, 1 << bpp, (SIZE, SIZE), dtype=np.uint8)
+        idx = rng.integers(0, 1 << bpp, (SIZE, width), dtype=np.uint8)
         return encode(idx, bpp=bpp, info_len=info, top_down=top_down, palette=pal)
-    pix = rng.integers(0, 256, (SIZE, SIZE, 3 if bpp == 24 else 4), dtype=np.uint8)
+    pix = rng.integers(0, 256, (SIZE, width, 3 if bpp == 24 else 4), dtype=np.uint8)
     return encode(pix, bpp=bpp, info_len=info, top_down=top_down)
 
 
-def make_bmp_batch(arm, s: int):
+def make_bmp_batch(arm, s: int, width: int | None = None):
     with ThreadPoolExecutor(os.cpu_count() or 2) as ex:
-        return list(ex.map(lambda j: make_bmp(s * BATCH + j, *arm), range(BATCH)))
+        return list(ex.map(lambda j: make_bmp(s * BATCH + j, *arm, width=width), range(BATCH)))
 
 
 def bmp_stages(dec, datas):
@@ -1962,6 +1971,14 @@ def bmp_phase(dev):
         errs["{}bpp_{}_{}{}".format(arm[0], arm[1], "td" if arm[2] else "bu",
                                     "_short" if arm[3] else "")] = max_abs_err(px, ref)
         del px, ref
+    # rows that end inside a 4-pixel group, every bit depth (32 with the
+    # V5 alpha), at full batch; width 3 top-down
+    for bpp in (1, 2, 4, 8, 24, 32):
+        for w in BMP_WIDTHS:
+            arm = (bpp, 124 if bpp == 32 else 40, w == 3, False)
+            px, ref, _ = bmp_stages(dec, make_bmp_batch(arm, 800 + 10 * bpp + w, width=w))
+            errs[f"{bpp}bpp_w{w}"] = max_abs_err(px, ref)
+            del px, ref
     arms_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     batches = {k: [make_bmp_batch(arm, 900 + s) for s in range(TIMED_BATCHES + 2)]
@@ -2000,6 +2017,25 @@ def bmp_phase(dev):
     rows24, pal24, (w24, _h, td24, bpp24, aa24) = dec.prep(batches["24bpp"][0])
     r24, p24 = dev_t(rows24, dev), dev_t(pal24, dev)
     kw24 = dict(bpp=bpp24, width=w24, top_down=td24, allow_alpha=aa24)
+    # 1 and 32 bpp (V5 alpha) beside them, with one decode's launches
+    arms_timed = {}
+    for k, arm in (("1bpp", (1, 40, False, False)), ("32bpp", (32, 124, False, False))):
+        datas = make_bmp_batch(arm, 990)
+        runtime.reset_launches()
+        dec.decode(datas)
+        torch.cuda.synchronize()
+        n_launch = runtime.LAUNCHES["bmp_unpack"]
+        ra, pa, (wa, _h, tda, bppa, aaa) = dec.prep(datas)
+        rd, pd = dev_t(ra, dev), dev_t(pa, dev)
+        kwa = dict(bpp=bppa, width=wa, top_down=tda, allow_alpha=aaa)
+        errs[f"{k}_timed_inputs"] = max_abs_err(bmp_unpack(rd, pd, **kwa),
+                                                bmp_unpack_plain(rd, pd, **kwa))
+        arms_timed[f"arm_{k}"] = with_bound({
+            "ms": cuda_ms(lambda: bmp_unpack(rd, pd, **kwa), 20),
+            "plain_ms": cuda_ms(lambda: bmp_unpack_plain(rd, pd, **kwa), 1),
+            "bytes": ra.nbytes + (pa.nbytes if bppa <= 8 else 0) + out_bytes,
+            "ops": OPS_K18_PIXEL[bppa] * BATCH * SIZE * SIZE, "launches": n_launch})
+        del rd, pd, datas
     entry = {"ms": cuda_ms(lambda: bmp_unpack(rows_d, pal_d, **kw), 20),
              "plain_ms": cuda_ms(lambda: bmp_unpack_plain(rows_d, pal_d, **kw), 1),
              "bytes": rows.nbytes + pal.nbytes + out_bytes,
@@ -2012,7 +2048,7 @@ def bmp_phase(dev):
                  "plain_ms": cuda_ms(lambda: bmp_unpack_plain(r24, p24, **kw24), 1),
                  "bytes": rows24.nbytes + pal24.nbytes + out_bytes,
                  "ops": OPS_K18_PIXEL[24] * BATCH * SIZE * SIZE,
-                 "launches": launches["24bpp"]["bmp_unpack"]})}
+                 "launches": launches["24bpp"]["bmp_unpack"]}), **arms_timed}
     summary = {"arms_seconds": arms_s, "content_seconds": content_s, "max_abs_err": errs,
                "routes": routes, "truncated": truncated}
     return summary, entry, launches["24bpp"]
@@ -2263,19 +2299,27 @@ def png_kernel_checks(dev, writer, decs, batch, interlaced):
                                                                       bpp=3))
     del s
     # the adler32 check on rows of odd length (every alignment) and 0xFF runs,
-    # on a matching and a wrong trailer
-    from zpix_tpu_torch.ops.inflate import ADLER_BAD, adler32_check, adler32_plain
-    rows = torch.from_numpy(gen.integers(0, 256, (BATCH, 3 * SIZE * SIZE + 7), dtype=np.uint8))
-    rows[1] = 0xFF
-    rows = rows.to(dev)
-    fk, fp = zero(), zero()
-    want = adler32_plain(rows, torch.zeros(BATCH, dtype=torch.int32, device=dev), fp)
-    got = adler32_check(rows, want, fk)
-    off = want.clone()
-    off[3] ^= 1
-    adler32_check(rows, off, fk)
-    errs["k16_adler32_random_rows"] = max(max_abs_err(got, want), abs(int(fk) - ADLER_BAD))
-    del rows
+    # on a matching and a wrong trailer; then rows of no bytes and of a
+    # span less or more one byte, and 70,000 one-byte images (more CTAs
+    # than a grid's y holds), a wrong trailer in the last image only
+    from zpix_tpu_torch.ops.inflate import ADLER_BAD, ADLER_SPAN, adler32_check, adler32_plain
+    for tag, shape in (("random_rows", (BATCH, 3 * SIZE * SIZE + 7)), ("per0", (BATCH, 0)),
+                       ("span_less_one", (BATCH, ADLER_SPAN - 1)),
+                       ("span_more_one", (BATCH, ADLER_SPAN + 1)),
+                       ("70000_images", (70_000, 1))):
+        rows = torch.from_numpy(gen.integers(0, 256, shape, dtype=np.uint8))
+        rows[1] = 0xFF
+        rows = rows.to(dev)
+        fk, fp = zero(), zero()
+        want = adler32_plain(rows, torch.zeros(shape[0], dtype=torch.int32, device=dev), fp)
+        got = adler32_check(rows, want, fk)
+        clear = int(fk)
+        off = want.clone()
+        off[-1] ^= 1
+        adler32_check(rows, off, fk)
+        errs[f"k16_adler32_{tag}"] = max(max_abs_err(got, want), clear,
+                                         abs(int(fk) - ADLER_BAD))
+        del rows
     lens, per = kept["inflate"]["inflate_resolve"][0][0], kept["inflate"]["inflate_resolve"][0][3]
     facts["k16_bench_tokens"] = {"most": lens.shape[1],
                                  "mean": float((lens > 0).sum(1).double().mean())}
@@ -2492,8 +2536,9 @@ def png_phase(dev):
                                if k.startswith("k16") and not k.startswith("k16_adler32")),
             "tile": TILE, "ms_by_tile": tile_sweep, "peak_mem_bytes": k16_peak,
             "tokens": facts["k16_bench_tokens"],
-            # the zlib trailer check of K16's output (csrc/adler32.cu): a block
-            # an image reads its bytes once; two adds a byte (A, then B += A)
+            # the zlib trailer check of K16's output (csrc/adler32.cu): a CTA a
+            # span of ADLER_SPAN bytes reads them once; two adds a byte (A,
+            # then B += A)
             "adler32": with_bound({
                 "source": "zpix_tpu_torch/csrc/adler32.cu",
                 "ms": cuda_ms(lambda: adler32_check(flat_k, trailers, flag), 20),

@@ -257,3 +257,54 @@ def first_pixel_keys(rows: np.ndarray, cd: str) -> np.ndarray:
     key = np.broadcast_to(k, (len(r), 3)).copy()
     key[-1] = -1
     return key
+
+
+ADLER_MOD = 65521
+
+
+def adler32_span_terms(data, addr: int, span: int, threads: int = 256) -> dict:
+    """csrc/adler32.cu's arithmetic in numpy: the adler32 of ``data`` (u8
+    [n]) whose first byte lies ``addr`` bytes past a 16-byte boundary, cut
+    into spans of ``span`` bytes, each read as the kernel's ``threads``
+    threads read it (head bytes, 16-byte groups t, t + threads, ..., tail
+    bytes), each span's (S, B term) mod 65521 and their sum as its last CTA
+    adds them.  -> {"sum": the checksum, and the largest value each
+    accumulator held: "group_s", "group_w" (a group's S and sum k d_k),
+    "thread_s", "thread_w" (a thread's s and w before the mod)}."""
+    d = np.asarray(data, np.uint8).astype(np.int64)
+    n = d.size
+    top = dict.fromkeys(("group_s", "group_w", "thread_s", "thread_w"), 0)
+    a_terms, b_terms = [], []
+    for i0 in range(0, max(n, 1), span):
+        seg = d[i0 : i0 + span]
+        ln = seg.size
+        head = min(ln, (16 - (addr + i0) % 16) % 16)
+        nvec = (ln - head) // 16
+        s = np.zeros(threads, np.int64)
+        w = np.zeros(threads, np.int64)
+        s[:head] += seg[:head]
+        w[:head] += np.arange(head) * seg[:head]
+        groups = seg[head : head + 16 * nvec].reshape(nvec, 16)
+        gs, gw = groups.sum(1), (groups * np.arange(16)).sum(1)
+        lane = np.arange(nvec) % threads
+        np.add.at(s, lane, gs)
+        np.add.at(w, lane, (head + 16 * np.arange(nvec)) * gs + gw)
+        t0 = head + 16 * nvec
+        s[: ln - t0] += seg[t0:]
+        w[: ln - t0] += np.arange(t0, ln) * seg[t0:]
+        for k, v in (("group_s", gs), ("group_w", gw), ("thread_s", s), ("thread_w", w)):
+            top[k] = max(top[k], int(v.max()) if v.size else 0)
+        S = int((s % ADLER_MOD).sum()) % ADLER_MOD
+        T = int((w % ADLER_MOD).sum()) % ADLER_MOD
+        a_terms.append(S)
+        b_terms.append(((n - i0) % ADLER_MOD * S + ADLER_MOD - T) % ADLER_MOD)
+    a = (sum(a_terms) % ADLER_MOD + 1) % ADLER_MOD
+    b = (sum(b_terms) % ADLER_MOD + n % ADLER_MOD) % ADLER_MOD
+    return {"sum": b << 16 | a, **top}
+
+
+def adler32_thread_bounds(span: int, threads: int = 256) -> dict:
+    """The largest values csrc/adler32.cu's header states for an all-0xFF
+    span: a group's S and sum k d_k, a thread's s and w."""
+    s = 255 * (16 * -(-span // (16 * threads)) + 2)
+    return {"group_s": 16 * 255, "group_w": 255 * 120, "thread_s": s, "thread_w": s * (span - 1)}

@@ -8,7 +8,9 @@ Exact: tolerance 0.
   (bpp 1/2/4/8/24/32, headers of 40/108/124 bytes, both orientations, a
   palette shorter than 2^bpp).
 * ``BatchBmpDecoder(device="cpu")`` against
-  ``zpix_tpu.codecs.bmp.decode(...).rgba_pixels()``.
+  ``zpix_tpu.codecs.bmp.decode(...).rgba_pixels()``; at widths 1, 3, 4, 5
+  and 17 (the tails of the kernel's 4-pixel groups) on every bit depth and
+  both orientations, and against zpix_tpu's ``BatchBmpDecoder`` at width 5.
 """
 
 import struct
@@ -119,3 +121,24 @@ def test_decoder_errors():
         dec.decode([datas[0], other])
     with pytest.raises(ValueError):
         dec.decode([])
+
+
+TAIL_ARMS = [(bpp, 40) for bpp in (1, 2, 4, 8, 24, 32)] + [(32, 124)]
+
+
+@pytest.mark.parametrize("top_down", [False, True], ids=["bu", "td"])
+@pytest.mark.parametrize("width", [1, 3, 4, 5, 17])
+@pytest.mark.parametrize("arm", TAIL_ARMS, ids=[f"{b}bpp-{i}" for b, i in TAIL_ARMS])
+def test_group_tails_match_host_decode(arm, width, top_down):
+    """K18's plain version through the decoder at widths around its
+    4-pixel groups (a last group of 1, 3, 4 pixels; rows padded to 4
+    bytes), against the host decoder's premultiplied RGBA; at width 5 also
+    against zpix_tpu's batched decode."""
+    bpp, info = arm
+    datas = bmp_batch((bpp, info, top_down, False), 3, width, batch=2, seed=width)
+    got = BatchBmpDecoder(device="cpu").decode(datas)
+    assert got.shape == (2, 3, width, 4)
+    for k, d in enumerate(datas):
+        assert np.array_equal(got[k].numpy(), jax_decode(d).rgba_pixels().reshape(3, width, 4)), k
+    if width == 5:
+        assert np.array_equal(got.numpy(), np.asarray(JaxBatchBmpDecoder().decode(datas)))

@@ -1042,10 +1042,14 @@ def test_qoi_decoder_and_batch_encode_match_cpu_run(cuda):
     assert encode_device_batch(torch.from_numpy(np.stack(imgs)).to(cuda), descs) == datas
 
 
-@pytest.mark.parametrize("size", [(7, 13), (64, 37)], ids=["7x13", "64x37"])
+BMP_SIZES = [(7, 13), (64, 37), (5, 1), (5, 3), (5, 4), (5, 5), (5, 17), (4, 1024)]
+
+
+@pytest.mark.parametrize("size", BMP_SIZES, ids=[f"{h}x{w}" for h, w in BMP_SIZES])
 def test_bmp_unpack_matches_plain(cuda, size):
     """K18 on every arm (bpp, header, orientation, short palette) through
-    BatchBmpDecoder, against its plain version on the card."""
+    BatchBmpDecoder, against its plain version on the card; widths 1, 3, 4,
+    5 and 17 end a row on every size of the kernel's last 4-pixel group."""
     from _torch_raster import bmp_arms, bmp_batch
 
     from zpix_tpu_torch import BatchBmpDecoder
@@ -1062,6 +1066,47 @@ def test_bmp_unpack_matches_plain(cuda, size):
                                 bpp=bpp, width=width, top_down=top_down,
                                 allow_alpha=allow_alpha)
         assert torch.equal(got, want), arm
+
+
+@pytest.mark.parametrize("offset", [0, 4, 8, 12])
+@pytest.mark.parametrize("bpp", [1, 2, 4, 8, 24, 32])
+def test_bmp_unpack_rows_off_16_bytes(cuda, bpp, offset):
+    """K18 on rows whose data_ptr lies 0, 4, 8 or 12 bytes past a 16-byte
+    boundary (views into a wider buffer), at a width of 1,024 and 5, both
+    orientations, against its plain version."""
+    from zpix_tpu_torch.codecs.bmp.decode import row_bytes
+    from zpix_tpu_torch.ops.bmp import bmp_unpack, bmp_unpack_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(bpp * 16 + offset)
+    pal = torch.randint(0, 256, (3, 256, 4), generator=gen, dtype=torch.uint8, device=cuda)
+    for width in (1024, 5):
+        rb = row_bytes(width, bpp)
+        buf = torch.randint(0, 256, (3 * 6 * rb + 32,), generator=gen, dtype=torch.uint8,
+                            device=cuda)
+        base = (-buf.data_ptr()) % 16
+        rows = buf[base + offset : base + offset + 3 * 6 * rb].view(3, 6, rb)
+        assert rows.data_ptr() % 16 == offset
+        for td in (False, True):
+            kw = dict(bpp=bpp, width=width, top_down=td, allow_alpha=bpp == 32)
+            got = _counted("bmp_unpack", 1, bmp_unpack, rows, pal, **kw)
+            assert torch.equal(got, bmp_unpack_plain(rows, pal, **kw)), (width, td)
+
+
+@pytest.mark.parametrize("bpp", [1, 2, 4, 8, 24, 32])
+def test_bmp_unpack_past_the_grid_limit(cuda, bpp):
+    """70,000 images of 1 x 1, past the 65,535 CTAs of a grid's y: every
+    image through the kernel's image loop, against the plain version."""
+    from zpix_tpu_torch.codecs.bmp.decode import row_bytes
+    from zpix_tpu_torch.ops.bmp import bmp_unpack, bmp_unpack_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(bpp)
+    B = 70_000
+    rows = torch.randint(0, 256, (B, 1, row_bytes(1, bpp)), generator=gen, dtype=torch.uint8,
+                         device=cuda)
+    pal = torch.randint(0, 256, (B, 256, 4), generator=gen, dtype=torch.uint8, device=cuda)
+    kw = dict(bpp=bpp, width=1, top_down=False, allow_alpha=bpp == 32)
+    got = _counted("bmp_unpack", 1, bmp_unpack, rows, pal, **kw)
+    assert torch.equal(got, bmp_unpack_plain(rows, pal, **kw))
 
 
 # ------------------------------------------------------ PNG slice (K15-K17)
@@ -1306,11 +1351,16 @@ def test_png_damaged_streams_raise_as_on_cpu(cuda, interlace):
             assert str(got.value) == str(want.value), (damage, front)
 
 
-@pytest.mark.parametrize("per", [1, 17, 4096, 3 * 1024 * 1024 + 7])
+ADLER_GPU_PERS = [0, 1, 17, 4096, 65535, 65537, 4 * 65536, 3 * 1024 * 1024 + 7]
+
+
+@pytest.mark.parametrize("per", ADLER_GPU_PERS)
 def test_adler32_kernel_matches_plain(cuda, per):
     """The trailer check on rows of every alignment (odd row lengths move
-    each image's start off the 16-byte boundary), runs of 0xFF included:
-    the sums, and the flag on a matching and a wrong trailer."""
+    each image's start off the 16-byte boundary), runs of 0xFF included,
+    at no bytes, a span (``ADLER_SPAN``, 65,536) less or more one byte and
+    a multiple of it: the sums, and the flag on a matching and a wrong
+    trailer (the last image's)."""
     from zpix_tpu_torch.ops.inflate import ADLER_BAD, adler32_check, adler32_plain
 
     rng = np.random.default_rng(per % 1000)
@@ -1322,6 +1372,42 @@ def test_adler32_kernel_matches_plain(cuda, per):
     assert torch.equal(got.cpu(), want) and int(bad) == 0
     off = want.clone()
     off[2] ^= 1 << 20
+    adler32_check(rows.to(cuda), off.to(cuda), bad)
+    assert int(bad) == ADLER_BAD
+
+
+@pytest.mark.parametrize("span", [16, 4096, 1 << 17, 1 << 20])
+def test_adler32_kernel_every_span(cuda, span, monkeypatch):
+    """The check at other spans than the default (the sweep's), on 5
+    images of 2.5 spans and 3 bytes, all-0xFF ones among them."""
+    from zpix_tpu_torch.ops import inflate as ki
+
+    monkeypatch.setattr(ki, "ADLER_SPAN", span)
+    rng = np.random.default_rng(span)
+    rows = torch.from_numpy(rng.integers(0, 256, (5, span * 5 // 2 + 3), dtype=np.uint8))
+    rows[1::2] = 0xFF
+    z = torch.zeros(1, dtype=torch.int32)
+    want = ki.adler32_plain(rows, torch.zeros(5, dtype=torch.int32), z)
+    bad = torch.zeros(1, dtype=torch.int32, device=cuda)
+    got = _counted("adler32", 1, ki.adler32_check, rows.to(cuda), want.to(cuda), bad)
+    assert torch.equal(got.cpu(), want) and int(bad) == 0
+
+
+def test_adler32_kernel_past_the_grid_limit(cuda):
+    """70,000 one-byte images (more CTAs than a grid's y could hold): every
+    sum, the flag clear, then set by a wrong trailer in the last image
+    only."""
+    from zpix_tpu_torch.ops.inflate import ADLER_BAD, adler32_check, adler32_plain
+
+    rng = np.random.default_rng(70)
+    rows = torch.from_numpy(rng.integers(0, 256, (70_000, 1), dtype=np.uint8))
+    want = adler32_plain(rows, torch.zeros(70_000, dtype=torch.int32),
+                         torch.zeros(1, dtype=torch.int32))
+    bad = torch.zeros(1, dtype=torch.int32, device=cuda)
+    got = _counted("adler32", 1, adler32_check, rows.to(cuda), want.to(cuda), bad)
+    assert torch.equal(got.cpu(), want) and int(bad) == 0
+    off = want.clone()
+    off[-1] ^= 1
     adler32_check(rows.to(cuda), off.to(cuda), bad)
     assert int(bad) == ADLER_BAD
 

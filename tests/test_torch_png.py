@@ -5,6 +5,9 @@ zpix_tpu.  Exact: tolerance 0.
   filters and types above 4, H = 1, W = 1, H > W and W > H.
 * K16's plain version against ``resolve_tokens_jnp``: the tokenizer's
   output of the four deflate modes, hand-built chains, padding.
+* The adler32 check's span arithmetic (``_torch_png.adler32_span_terms``,
+  csrc/adler32.cu's in numpy) against ``zlib.adler32`` and
+  ``adler32_plain``, with the accumulator bounds its header states.
 * K17's plain version against ``_expand_graph`` on every arm, with and
   without a key, at widths 1, 3, 4, 5, 11 and 17 (the tails of the
   kernel's 4-pixel groups), and against ``_interlaced_graph``.
@@ -27,8 +30,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_png import (DEPTHS, encode_png, hand_tokens, make_bench_png, pack_samples,
-                        png_batch, random_pixels, stack_tokens)
+from _torch_png import (DEPTHS, adler32_span_terms, adler32_thread_bounds, encode_png,
+                        hand_tokens, make_bench_png, pack_samples, png_batch, random_pixels,
+                        stack_tokens)
 
 from zpix_tpu import errors as jerr
 from zpix_tpu.codecs import png as jax_png
@@ -38,8 +42,8 @@ from zpix_tpu.parallel import png_batch as jpb
 from zpix_tpu_torch import BatchPngDecoder
 from zpix_tpu_torch import errors as terr
 from zpix_tpu_torch.ops.defilter import png_defilter, png_defilter_plain
-from zpix_tpu_torch.ops.inflate import (ADLER_BAD, adler32_check, adler32_plain,
-                                        doubling_rounds, inflate_resolve,
+from zpix_tpu_torch.ops.inflate import (ADLER_BAD, ADLER_SPAN, ADLER_THREADS, adler32_check,
+                                        adler32_plain, doubling_rounds, inflate_resolve,
                                         inflate_resolve_plain)
 from zpix_tpu_torch.ops.png import png_expand
 from zpix_tpu_torch.parallel import png_batch as tpb
@@ -478,6 +482,51 @@ def test_adler32_plain_matches_zlib(per):
     off[1] ^= 1
     assert torch.equal(adler32_check(torch.from_numpy(rows), off, bad), want)
     assert int(bad) == ADLER_BAD
+
+
+ADLER_PERS = [0, 1, 15, 16, 17, ADLER_SPAN - 1, ADLER_SPAN, ADLER_SPAN + 1, 3 * ADLER_SPAN + 7]
+
+
+@pytest.mark.parametrize("content", ["random", "ff"])
+@pytest.mark.parametrize("per", ADLER_PERS)
+def test_adler32_span_terms_match_zlib(per, content):
+    """The kernel's span arithmetic (spans, head, 16-byte groups, tail,
+    the (S, T) terms and their mod-65521 sum) on 16 images: row b of a
+    16-byte aligned [16, per] tensor for odd ``per`` (every start 0-15
+    bytes past a boundary), b bytes past one for even ``per``; all-0xFF
+    images, the largest sums, inside the bounds the kernel states."""
+    import zlib
+
+    rng = np.random.default_rng(per)
+    rows = rng.integers(0, 256, (16, per), dtype=np.uint8)
+    if content == "ff":
+        rows[:] = 0xFF
+    bound = adler32_thread_bounds(ADLER_SPAN, ADLER_THREADS)
+    sums = []
+    for b, row in enumerate(rows):
+        got = adler32_span_terms(row, (b * per) % 16 if per % 2 else b, ADLER_SPAN,
+                                 ADLER_THREADS)
+        assert got["sum"] == zlib.adler32(row.tobytes()), b
+        assert all(got[k] <= v for k, v in bound.items()), (b, got, bound)
+        sums.append(got["sum"])
+    want = adler32_plain(torch.from_numpy(rows), torch.zeros(16, dtype=torch.int32),
+                         torch.zeros(1, dtype=torch.int32))
+    assert torch.equal(_u32_as_i32(sums), want)
+
+
+@pytest.mark.parametrize("span", [16, 4096, 1 << 17, 1 << 20])
+def test_adler32_span_bounds_every_span(span):
+    """Two all-0xFF spans and a tail at each span the kernel takes: the sum
+    is zlib's and no accumulator passes the stated bound (a thread's w
+    passes 2^32 from 2^17 bytes a span, so it is 64 bits wide)."""
+    import zlib
+
+    row = np.full(2 * span + 3, 0xFF, np.uint8)
+    bound = adler32_thread_bounds(span, ADLER_THREADS)
+    got = adler32_span_terms(row, 5, span, ADLER_THREADS)
+    assert got["sum"] == zlib.adler32(row.tobytes())
+    assert all(got[k] <= v for k, v in bound.items()), (got, bound)
+    assert (got["thread_w"] >= 1 << 32) == (span >= 1 << 17)
 
 
 def test_valid_batch_passes_the_trailer_check():

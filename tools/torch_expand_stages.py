@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Device times of zpix_tpu_torch's K12 (QOI lane expansion,
-csrc/qoi_expand.cu) and K17 (PNG expansion, csrc/png_expand.cu) on
-chip_smoke.py's content, with the work each does and its bound.
+csrc/qoi_expand.cu), K17 (PNG expansion, csrc/png_expand.cu) and K18 (BMP
+unpack, csrc/bmp_unpack.cu, K17's sibling) on chip_smoke.py's content,
+with the work each does and its bound.
 
-    python3 tools/torch_expand_stages.py [--root CHECKOUT] [--tag NAME]
+    python3 tools/torch_expand_stages.py [--root CHECKOUT] [--tag NAME] [--parts k18,...]
+                                         [--sweep]
 
 ``--root`` is the checkout whose ``zpix_tpu_torch`` is imported and built
 (default: this one), so that two versions of the kernels can be timed in
@@ -29,6 +31,15 @@ phase (tc8, and p8 with tRNS) decoded by ``device_inflate``: each of the
 seven passes' launch, with its rows as the decoder gave them, timed and
 bounded alone, and the sums.
 
+K18 on every arm at 16 x 1024^2: 1, 2, 4 and 8 bpp (random rows, a random
+palette), 24 bpp, 32 bpp with and without the V4/V5 alpha, bottom-up rows
+as BatchBmpDecoder uploads them; the bound counts the rows, the palettes
+of the paletted arms and 4 bytes a pixel out, and chip_smoke.py's
+operations a pixel.  ``--sweep`` rebuilds csrc/bmp_unpack.cu alone with
+``kRowSteps`` (the rows a thread takes in turn) replaced by each of
+``ROW_STEPS`` into build/bmp_sweep/ (nvcc, sm_90a, all builds together)
+and times K18's arms through the wrapper on each build.
+
 Prints one JSON object, with the card's name and power limit; needs a
 CUDA device, exits 1 without.
 """
@@ -36,9 +47,11 @@ CUDA device, exits 1 without.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -48,6 +61,10 @@ import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K12_WINDOW_LANE = (8192, 64, 2048)  # P, R, lanes of the hand-built wide entries
+K18_ARMS = (("1bpp", 1, False), ("2bpp", 2, False), ("4bpp", 4, False), ("8bpp", 8, False),
+            ("24bpp", 24, False), ("32bpp", 32, False), ("32bpp_alpha", 32, True))
+ROW_STEPS = (1, 2, 4, 8)  # K18's kRowSteps values of --sweep
+STEPS_CONST = re.compile(r"constexpr int kRowSteps = \d+;")
 
 
 def smoke():
@@ -213,10 +230,90 @@ def k17_adam7(cs, dev) -> dict:
     return res
 
 
+# ------------------------------------------------------------------- K18
+
+
+def k18_inputs(cs, dev) -> dict:
+    """{arm: (rows, palettes, bmp_unpack keywords)} at 16 x 1024^2."""
+    from zpix_tpu_torch.codecs.bmp.decode import row_bytes
+
+    B, H, W = cs.BATCH, cs.SIZE, cs.SIZE
+    gen = torch.Generator(device=dev).manual_seed(18)
+    pal = torch.randint(0, 256, (B, 256, 4), generator=gen, dtype=torch.uint8, device=dev)
+    return {name: (torch.randint(0, 256, (B, H, row_bytes(W, bpp)), generator=gen,
+                                 dtype=torch.uint8, device=dev), pal,
+                   dict(bpp=bpp, width=W, top_down=False, allow_alpha=alpha))
+            for name, bpp, alpha in K18_ARMS}
+
+
+def k18_arms(cs, dev) -> dict:
+    from zpix_tpu_torch.ops.bmp import bmp_unpack, bmp_unpack_plain
+
+    npx = cs.BATCH * cs.SIZE * cs.SIZE
+    res = {}
+    for name, (rows, pal, kw) in k18_inputs(cs, dev).items():
+        bpp = kw["bpp"]
+        nbytes = rows.numel() + (pal.numel() if bpp <= 8 else 0) + 4 * npx
+        ops = cs.OPS_K18_PIXEL[bpp] * npx if kw["allow_alpha"] or bpp != 32 else npx
+        same = equal(bmp_unpack(rows, pal, **kw), bmp_unpack_plain(rows, pal, **kw))
+        res[name] = timed(cs, lambda rows=rows, pal=pal, kw=kw: bmp_unpack(rows, pal, **kw),
+                          same, nbytes, ops)
+        res[name]["ns_per_pixel"] = res[name]["ms"] * 1e6 / npx
+    return res
+
+
+def k18_sweep(cs, dev) -> list:
+    """K18's arms on a build of bmp_unpack.cu for each of ROW_STEPS, through
+    the wrapper (the runtime's library swapped for the build's)."""
+    from zpix_tpu_torch import runtime
+    from zpix_tpu_torch.ops.bmp import bmp_unpack, bmp_unpack_plain
+
+    source = open(os.path.join(runtime.CSRC, "bmp_unpack.cu")).read()
+    if not STEPS_CONST.search(source):
+        raise SystemExit("torch_expand_stages: --sweep needs bmp_unpack.cu's kRowSteps")
+    procs = {}
+    for steps in ROW_STEPS:
+        work = os.path.join(HERE, "build", "bmp_sweep", f"steps_{steps}")
+        os.makedirs(work, exist_ok=True)
+        with open(os.path.join(work, "bmp_unpack.cu"), "w") as f:
+            f.write(STEPS_CONST.sub(f"constexpr int kRowSteps = {steps};", source))
+        so = os.path.join(work, "lib.so")
+        procs[steps] = (so, subprocess.Popen(
+            [runtime._nvcc(), *runtime.NVCC_FLAGS, "-shared", "-o", so,
+             os.path.join(work, "bmp_unpack.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    for steps, (so, p) in procs.items():
+        out, _ = p.communicate()
+        if p.returncode:
+            raise RuntimeError(f"nvcc (kRowSteps {steps}) failed:\n{out.decode()}")
+    ins = k18_inputs(cs, dev)
+    want = {name: bmp_unpack_plain(rows, pal, **kw) for name, (rows, pal, kw) in ins.items()}
+    out = []
+    keep = runtime.lib(), runtime._fns
+    try:
+        for steps, (so, _) in procs.items():
+            runtime._lib, runtime._fns = ctypes.CDLL(so), {}
+            row = {"row_steps": steps}
+            for name, (rows, pal, kw) in ins.items():
+                call = lambda rows=rows, pal=pal, kw=kw: bmp_unpack(rows, pal, **kw)  # noqa
+                row[f"{name}_equal_plain"] = equal(call(), want[name])
+                row[f"{name}_ms"] = cs.cuda_ms(call, 20)
+            out.append(row)
+    finally:
+        runtime._lib, runtime._fns = keep
+    return out
+
+
+PARTS = {"k12": k12, "k17": k17_arms, "k17_adam7": k17_adam7, "k18": k18_arms}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--tag", default="tree")
+    ap.add_argument("--parts", default=",".join(PARTS),
+                    help="comma-separated parts to time, of " + ", ".join(PARTS))
+    ap.add_argument("--sweep", action="store_true", help="time K18 at each of ROW_STEPS")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_expand_stages: no CUDA device", file=sys.stderr)
@@ -233,7 +330,9 @@ def main() -> int:
     dev = torch.device("cuda")
     runtime.lib()
     res = {"tag": args.tag, "nvidia_smi": smi, "csrc": runtime.CSRC, "torch": torch.__version__,
-           "k12": k12(cs, dev), "k17": k17_arms(cs, dev), "k17_adam7": k17_adam7(cs, dev)}
+           **{part: PARTS[part](cs, dev) for part in args.parts.split(",")}}
+    if args.sweep:
+        res["k18_row_steps"] = k18_sweep(cs, dev)
     print(json.dumps(res), flush=True)
     return 0
 

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Device times of zpix_tpu_torch's PNG kernels K15 (defilter) and K16
-(LZ77 resolve), launch by launch, on one batch of the JAX bench's PNG
-content (16 distinct 1024x1024 RGB8 files, Pillow at compress_level 6).
+(LZ77 resolve) and of the adler32 trailer check, launch by launch, on one
+batch of the JAX bench's PNG content (16 distinct 1024x1024 RGB8 files,
+Pillow at compress_level 6).
 
-    python3 tools/torch_png_stages.py [--root CHECKOUT] [--tag NAME]
+    python3 tools/torch_png_stages.py [--root CHECKOUT] [--tag NAME] [--sweep]
 
 ``--root`` is the checkout whose ``zpix_tpu_torch`` is imported and built
 (default: this one), so that two versions of the kernels can be timed in
@@ -18,8 +19,15 @@ type; K16's time a call, its launches, its peak memory above the inputs,
 the tokens an image, and the bytes of each image whose copy chain leaves
 its 32 KiB tile (computed from the tokens in plain PyTorch); for each
 kernel, every CUDA kernel and memset of one call in launch order with its
-device time, from ``torch.profiler``.  Needs a CUDA device; exits 1
-without one.
+device time, from ``torch.profiler``.  The adler32 check on K16's output
+of that batch (the bytes the device_inflate route checks, with their
+trailers): the time of a call (CUDA events, mean of 20), its CTAs (one an
+image before the span design, ``ceil(per / ADLER_SPAN)`` an image since)
+and the SMs they can occupy, ns a byte, the bytes bound (the batch read
+once at 3.35 TB/s) and its share of the time, each CUDA kernel and memset
+of a call, and whether the sums equal the plain version's and the flag
+stays 0; with ``--sweep``, the same call at each span of ``SPANS`` (a
+checkout with ``ADLER_SPAN``).  Needs a CUDA device; exits 1 without one.
 """
 
 from __future__ import annotations
@@ -36,6 +44,8 @@ import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCH, SIZE, TILE = 16, 1024, 32768
+HBM_BYTES_PER_S = 3.35e12  # the H100 SXM's memory rate (chip_smoke.py's)
+SPANS = (4096, 16384, 32768, 65536, 131072, 262144, 1 << 20)  # adler32 spans swept
 
 
 def writer():
@@ -92,10 +102,42 @@ def cross_tile_bytes(lens, dists, per: int) -> list:
     return ((src // TILE) != (pos // TILE)).sum(1).tolist()
 
 
+def adler32_stages(ki, flat, trailers, sweep: bool) -> dict:
+    """The trailer check on K16's output ``flat`` [B, per]: time, CTAs, ns
+    a byte, bound, launches; the span sweep where the checkout has one."""
+    B, per = flat.shape
+    bad = torch.zeros(1, dtype=torch.int32, device=flat.device)
+    call = lambda: ki.adler32_check(flat, trailers, bad)  # noqa: E731
+    same = bool(torch.equal(call(), ki.adler32_plain(flat, trailers, torch.zeros_like(bad))))
+    bound_ms = flat.numel() / HBM_BYTES_PER_S * 1e3
+    sms = torch.cuda.get_device_properties(flat.device).multi_processor_count
+
+    def one(span):
+        ms = events_ms(call, 20)
+        ctas = B * (-(-per // span) if span else 1)
+        return {"span": span, "ms": ms, "ctas": ctas, "sms_used": min(ctas, sms),
+                "ns_per_byte": ms * 1e6 / flat.numel(), "share_of_bound": bound_ms / ms}
+
+    span = getattr(ki, "ADLER_SPAN", None)
+    out = {"per": per, "batch": B, "bytes": flat.numel(), "bound_ms": bound_ms, "sms": sms,
+           "equal_plain": same, **one(span), "launches": launches(call)}
+    out["flag_clear"] = int(bad) == 0
+    if sweep and span is not None:
+        out["sweep"] = []
+        for s in SPANS:
+            ki.ADLER_SPAN = s
+            ok = bool(torch.equal(call(), ki.adler32_plain(flat, trailers,
+                                                           torch.zeros_like(bad))))
+            out["sweep"].append({**one(s), "equal_plain": ok})
+        ki.ADLER_SPAN = span
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--tag", default="")
+    ap.add_argument("--sweep", action="store_true", help="time the adler32 check at SPANS")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_png_stages: no CUDA device", file=sys.stderr)
@@ -128,7 +170,8 @@ def main() -> int:
 
     inf = BatchPngDecoder(device_inflate=True)
     plan = inf.prep(datas)
-    toks = [b[:, : plan.nt] for b in inf.upload(plan)[:3]]
+    bufs = inf.upload(plan)
+    toks = [b[:, : plan.nt] for b in bufs[:3]]
     per = plan.per
 
     def k16():
@@ -151,6 +194,9 @@ def main() -> int:
     out["peak_mem_bytes"] = torch.cuda.max_memory_allocated() - base
     out["cross_tile_bytes"] = cross_tile_bytes(toks[0], toks[1], per)
     res["k16"] = out
+    flat = k16()
+    res["adler32"] = adler32_stages(ki, flat, bufs[3], args.sweep)
+    del flat
     inf.close()
     print(json.dumps(res), flush=True)
     return 0

@@ -19,7 +19,10 @@ padding after each image's last token.  Domain: lengths >= 1 summing to
 ``adler32_check`` wraps the zlib trailer check of K16's output
 (csrc/adler32.cu; the JAX package checks no trailer on this route), with
 ``adler32_plain`` its plain version: RFC 1950's adler32 of each image's
-bytes, A = 1 + sum d_i and B = n + sum (n - i) d_i, both mod 65521.
+bytes, A = 1 + sum d_i and B = n + sum (n - i) d_i, both mod 65521.  On
+the card each image is cut into spans of ``ADLER_SPAN`` bytes, a CTA a
+span, and the last CTA of an image adds its spans' terms
+(``tests/_torch_png.py::adler32_span_terms`` is that arithmetic in numpy).
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ TILES = (8192, 16384, 32768)  # output bytes a tile of K16's resolve
 TILE = 32768  # the default (the fastest of chip_smoke.py's sweep of TILES)
 ADLER_MOD = 65521
 ADLER_BAD = 2  # the bit adler32_check ORs into its flag on a mismatch
+ADLER_SPAN = 65536  # bytes a CTA of the adler32 check (a power of two, 16 to 2^20)
+ADLER_THREADS = 256  # threads a CTA (csrc/adler32.cu kThreads)
 
 
 def doubling_rounds(per: int) -> int:
@@ -127,8 +132,21 @@ def adler32_check(flat, want, bad):
         return adler32_plain(flat, want, bad)
     runtime.require_cuda(flat, want, bad)
     B, per = flat.shape
+    span = ADLER_SPAN
+    if span < 16 or span > 1 << 20 or span & (span - 1):
+        raise ValueError(f"adler32: span {span} not a power of two from 16 to 2^20")
     sums = torch.empty(B, dtype=torch.int32, device=flat.device)
     if B:
-        runtime.launch("adler32", flat.device, "zpix_adler32_check", "plpppl",
-                       flat.data_ptr(), per, want.data_ptr(), sums.data_ptr(), bad.data_ptr(), B)
+        scratch = torch.empty(adler32_scratch_words(B, per, span), dtype=torch.int32,
+                              device=flat.device)
+        runtime.launch("adler32", flat.device, "zpix_adler32_check", "plppplip",
+                       flat.data_ptr(), per, want.data_ptr(), sums.data_ptr(), bad.data_ptr(), B,
+                       span.bit_length() - 1, scratch.data_ptr())
     return sums
+
+
+def adler32_scratch_words(batch: int, per: int, span: int) -> int:
+    """The adler32 check's scratch (csrc/adler32.cu zpix_adler32_check's
+    layout): a ticket an image, two terms a span (one empty span for
+    per = 0)."""
+    return batch + 2 * batch * max(1, -(-per // span))
