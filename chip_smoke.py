@@ -20,9 +20,11 @@ K7, K6), ``HostIndexJpegDecoder`` (host index scan, K2, K3, K4) and
 ``SyncJpegDecoder`` (K19's chunk sync, K2, K3, K4; the ``sync`` phase) on
 streams with none -- and batches of 16 copies of one 1024x1024 4:2:0
 progressive JPEG (a new image each batch) through
-``OnchipProgressiveDecoder`` (host index walks, K8-K11, K3, K6; K8-K11
+``OnchipProgressiveDecoder`` (host index walks, K8-K11, K6; K8-K11
 also at q90 and q25, 4:4:4, gray and a 999x997 crop, on damaged copies,
-and K10 on streams cut inside its scans), times
+and K10 on streams cut inside its scans; K8 at batch 1, 4:2:2 and a
+width of 63 MCUs, on streams cut short; K9 on a store holding values in
+its band and on one not 16-byte aligned), times
 them with CUDA events, checks that corrupt streams are flagged, and
 prints one JSON object per line.  Then the raster slice: batches of 16
 distinct 1024x1024 QOI streams (the JAX bench's "noise" and "screen"
@@ -1022,7 +1024,7 @@ def prog_scan_checks(prep, bufs):
     grids, ok = po.new_store(prep, bufs[1].device)
     errs = {k: 0 for k in PROG_KINDS}
     work = {k: {"scans": 0, "lanes": 0, "data_lanes": 0, "stream_bytes": 0, "changed": 0,
-                "band_positions": 0} for k in PROG_KINDS}
+                "band_positions": 0, "sectors": 0} for k in PROG_KINDS}
     refine_inputs = {}
     for si, (sc, t) in enumerate(zip(prep.scans, bufs[0])):
         before = [g.clone() for g in grids]
@@ -1037,6 +1039,9 @@ def prog_scan_checks(prep, bufs):
         w = work[sc.kind]
         w["scans"] += 1
         w["changed"] += sum(int((a != b).sum()) for a, b in zip(grids, before))
+        # 32-byte sectors (8 words of a 64-word row) the scan changed
+        w["sectors"] += sum(int((a != b).view(-1, 8, 8).any(-1).sum())
+                            for a, b in zip(grids, before))
         if sc.kind == "dc_refine":
             g = [grids[c] for c in sc.comps]
             w["lanes"] += prep.batch * kp.scan_blocks(
@@ -1110,11 +1115,15 @@ REFINE_CASES = (  # name, width, height, quality, sampling, copies
     ("444", SIZE, SIZE, QUALITY, "444", 4), ("gray", SIZE, SIZE, QUALITY, "gray", 4),
     ("crop_999x997", 999, 997, QUALITY, "420", 4))
 DAMAGE_SEEDS = range(6)
+# K8 across many tiles: name, width, height, sampling, copies (the main
+# batch, q90, q25, 4:4:4, gray and the 999 x 997 crop run above)
+FIRST_CASES = (("420_batch1", SIZE, SIZE, "420", 1), ("422", SIZE, SIZE, "422", 4),
+               ("420_63_mcus", 1000, SIZE, "420", 4))
 
 
 def make_prog_image(w: int, h: int, quality: int, mode: str, seed: int) -> bytes:
     """The bench's content (make_bench_jpeg) as a progressive JPEG of any
-    size, quality and sampling ("420", "444", "gray")."""
+    size, quality and sampling ("420", "422", "444", "gray")."""
     from PIL import Image
 
     rng = np.random.RandomState(seed)
@@ -1128,7 +1137,7 @@ def make_prog_image(w: int, h: int, quality: int, mode: str, seed: int) -> bytes
     else:
         rgb = np.stack([base ^ noise, base[::-1], base // 2 + 64], -1)
         Image.fromarray(rgb).save(buf, format="JPEG", quality=quality, progressive=True,
-                                  subsampling={"444": 0, "420": 2}[mode])
+                                  subsampling={"444": 0, "422": 1, "420": 2}[mode])
     return buf.getvalue()
 
 
@@ -1184,12 +1193,75 @@ def prog_refine_checks(dec, data) -> dict:
     return out
 
 
+def prog_first_checks(dec, prep, bufs) -> dict:
+    """K8's and K9's edges, each kernel against its plain version (store
+    and ok): FIRST_CASES scan by scan; the main batch's DC-first stream cut
+    at 12 places (blocks past the cap store diff 0); each AC-first scan of
+    the main batch on a store of random values in its band and on one a
+    word off 16-byte alignment -> {case: max_abs_err}, "dc_cut_flagged":
+    cuts that cleared ok."""
+    from zpix_tpu_torch.codecs.jpeg.tables import UNZIG
+    from zpix_tpu_torch.ops import progressive as kp
+    from zpix_tpu_torch.parallel import progressive_onchip as po
+
+    out = {}
+    for name, w, h, mode, n in FIRST_CASES:
+        p = dec.prep([make_prog_image(w, h, QUALITY, mode, 3000 + n)] * n)
+        _, ok, errs, _, _ = prog_scan_checks(p, dec.upload(p))
+        out[name] = max(errs.values())
+        out[f"{name}_ok"] = int(ok)
+    dev = bufs[1].device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    unzig = torch.as_tensor(UNZIG, device=dev)
+    out["dc_cut"], out["dc_cut_flagged"] = 0, 0
+    out["ac_band_store"], out["ac_unaligned"] = 0, 0
+    for sc, t in zip(prep.scans, bufs[0]):
+        if sc.kind == "dc_first":
+            store, _ = po.new_store(prep, dev)
+            grids = [store[c] for c in sc.comps]
+            kw = dict(hv=[prep.hv[c] for c in sc.comps], valid=po.valid_grid(prep, sc.comps[0]),
+                      al=sc.al)
+            for cap in np.linspace(16, t["stream"].shape[0], 12).astype(int):
+                args = (t["stream"][:cap], t["starts"], t["ends"], t["tables"])
+                got, want = [g.clone() for g in grids], [g.clone() for g in grids]
+                ok_k, ok_p = torch.ones(1, dtype=torch.int32, device=dev), torch.ones(
+                    1, dtype=torch.int32, device=dev)
+                kp.dc_first(*args, ok_k, got, **kw)
+                kp.dc_first_plain(*args, ok_p, want, **kw)
+                out["dc_cut"] = max(out["dc_cut"], max_abs_err(ok_k, ok_p),
+                                    *(max_abs_err(a, b) for a, b in zip(got, want)))
+                out["dc_cut_flagged"] += int(ok_k) == 0
+            del store, grids, got, want
+        if sc.kind != "ac_first":
+            continue
+        c = sc.comps[0]
+        shape = (prep.batch, prep.myy * prep.hv[c][1], prep.mxx * prep.hv[c][0], 64)
+        band = torch.zeros(64, dtype=torch.bool, device=dev)
+        band[unzig[sc.ss : sc.se + 1].long()] = True
+        store = torch.randint(-(1 << 24), 1 << 24, shape, generator=gen, device=dev,
+                              dtype=torch.int32) * band.to(torch.int32)
+        kw = dict(valid=po.valid_grid(prep, c), ss=sc.ss, se=sc.se, al=sc.al)
+        args = (t["stream"], t["starts"], t["ends"], t["flags"], t["tables"])
+        want, ok_p = store.clone(), torch.ones(1, dtype=torch.int32, device=dev)
+        kp.ac_first_plain(*args, ok_p, want, **kw)
+        for key, off in (("ac_band_store", 0), ("ac_unaligned", 1)):
+            flat = torch.empty(store.numel() + off, dtype=torch.int32, device=dev)
+            got = flat[off:].view(shape)
+            got.copy_(store)
+            ok_k = torch.ones(1, dtype=torch.int32, device=dev)
+            kp.ac_first(*args, ok_k, got, **kw)
+            out[key] = max(out[key], max_abs_err(got, want), max_abs_err(ok_k, ok_p))
+            del flat, got
+        del store, want
+    torch.cuda.synchronize()
+    return out
+
+
 def prog_stages(dec, datas, plain=None):
     """One 4:2:0 batch through OnchipProgressiveDecoder's stages -> (pixels,
     ok, {stage: ms}): parse and index walks (host clock), then CUDA events
-    around H2D, the store, each scan (summed by kind; K8's include its K3
-    launch) and K6.  ``plain`` (prog_plain()) takes the plain versions,
-    K6's too."""
+    around H2D, the store, each scan (summed by kind) and K6.  ``plain``
+    (prog_plain()) takes the plain versions, K6's too."""
     from zpix_tpu_torch.ops import planes as kp6
     from zpix_tpu_torch.parallel import progressive_onchip as po
     from zpix_tpu_torch.parallel.batch import RATIO_FACTORS
@@ -1276,6 +1348,11 @@ def progressive(dev):
     refine = prog_refine_checks(dec, batches[0][0])
     errs["ac_refine"] = max(errs["ac_refine"], *(v for k, v in refine.items()
                                                  if not k.endswith(("_ok", "_flagged"))))
+    first = prog_first_checks(dec, prep, bufs)
+    errs["dc_first"] = max(errs["dc_first"], first["dc_cut"],
+                           *(first[n] for n, *_ in FIRST_CASES))
+    errs["ac_first"] = max(errs["ac_first"], first["ac_band_store"], first["ac_unaligned"],
+                           *(first[n] for n, *_ in FIRST_CASES))
     torch.cuda.synchronize()
 
     # the main path: one decode, launches counted
@@ -1289,6 +1366,7 @@ def progressive(dev):
     ref2, ok2, _ = prog_stages(dec, batches[0][:2], plain=prog_plain())
     pil = np.asarray(Image.open(BytesIO(batches[0][0])).convert("RGB"))
     check = {"max_abs_err": errs, "mixed_batch": mixed, "refine_edges": refine,
+             "first_edges": first,
              "kernels_ok": bool(ok_k),
              "main_ok": bool(ok),
              "main_vs_plain": max_abs_err(px[:2], ref2), "plain_ok": ok2,
@@ -1394,6 +1472,11 @@ def progressive(dev):
         entries[kind] = {"ms": ms, "plain_ms": plain_ms, "bytes": bytes_ops[kind][0],
                          "ops": bytes_ops[kind][1], "launches": launches[kind],
                          "max_abs_err": errs[kind], "scans": wk[kind]["scans"]}
+    # the store's scattered rows: K8 writes one 32-byte sector a block (row
+    # 0), K9 reads and writes each sector it changes
+    entries["dc_first"]["sector_bound_ms"] = 32 * wk["dc_first"]["lanes"] / HBM_BYTES_PER_S * 1e3
+    entries["ac_first"]["sector_bound_ms"] = (64 * wk["ac_first"]["sectors"]
+                                              / HBM_BYTES_PER_S * 1e3)
     entries["ac_refine"]["restore_ms_taken_off"] = restore_ms
     entries["component_planes_int32"] = {
         "ms": cuda_ms(lambda: kp6.component_planes(grids, quants, **kw6), 20),
@@ -2952,8 +3035,9 @@ def main() -> int:
     pg, prog_entries = progressive(dev)
     emit({"phase": "progressive", **pg})
     lp, pc = pg["launches"], pg["check"]
-    if min(lp[k] for k in PROG_KINDS + ("dc_restore", "component_planes")) == 0:
-        raise SystemExit("chip_smoke: the progressive route skipped a kernel")
+    if (min(lp[k] for k in PROG_KINDS + ("component_planes",)) == 0 or lp["dc_restore"]
+            or lp["dc_first"] != 1 or lp["ac_first"] != 4):
+        raise SystemExit("chip_smoke: the progressive route's launches are not K8 1, K3 0, K9 4")
     mx = pc["mixed_batch"]
     if (any(mx[k] for k in PROG_KINDS + ("component_planes_int32",))
             or mx["images_differ_store"] < len(MIXED_STREAMS)
@@ -2964,6 +3048,11 @@ def main() -> int:
             or not all(v == 1 for k, v in re.items() if k.endswith("_ok"))
             or re["cut_flagged"] == 0):
         raise SystemExit("chip_smoke: K10 disagrees with its plain version on an edge case")
+    fst = pc["first_edges"]
+    if (any(v for k, v in fst.items() if not k.endswith(("_ok", "_flagged")))
+            or not all(v == 1 for k, v in fst.items() if k.endswith("_ok"))
+            or fst["dc_cut_flagged"] == 0):
+        raise SystemExit("chip_smoke: K8 or K9 disagrees with its plain version on an edge case")
     if (any(pc["max_abs_err"].values()) or not pc["kernels_ok"] or not pc["main_ok"]
             or pc["main_vs_plain"] or not pc["plain_ok"] or pc["mean_abs_diff_vs_pillow"] > 8
             or pc["shape"] != [BATCH, SIZE, SIZE, 3] or not pg["all_ok"]):
@@ -3085,8 +3174,7 @@ def main() -> int:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bound_bytes": e["bytes"], "bound_int32_ops": e["ops"], "library_ms": None,
             "scans_per_decode": e["scans"],
-            **({"restore_ms_taken_off": e["restore_ms_taken_off"]}
-               if "restore_ms_taken_off" in e else {}),
+            **{k: e[k] for k in ("restore_ms_taken_off", "sector_bound_ms") if k in e},
         })
     for kname in RASTER_KINDS:
         e = raster_entries[kname]

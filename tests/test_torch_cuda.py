@@ -644,12 +644,157 @@ def test_progressive_decoder_matches_cpu_run(cuda, mode):
     datas = [synth_progressive(200, 120, mode, phase=0.4)] * 3
     runtime.reset_launches()
     px, ok = OnchipProgressiveDecoder().decode(datas)
-    kinds = ("dc_first", "ac_first", "ac_refine", "dc_refine", "dc_restore", "component_planes")
+    kinds = ("dc_first", "ac_first", "ac_refine", "dc_refine", "component_planes")
     assert min(runtime.LAUNCHES[k] for k in kinds) >= 1
+    assert runtime.LAUNCHES["dc_first"] == 1 and runtime.LAUNCHES["dc_restore"] == 0
     assert px.device.type == "cuda" and ok.device.type == "cuda" and bool(ok)
     want, want_ok = OnchipProgressiveDecoder(device="cpu").decode(datas)
     assert bool(want_ok) and torch.equal(px.cpu(), want)
     assert np.array_equal(want[0].numpy(), host_pixels(datas[0]))
+
+
+def _first_scan(prep, kind):
+    from zpix_tpu_torch import OnchipProgressiveDecoder
+
+    scans, _ = OnchipProgressiveDecoder(device="cpu").upload(prep)
+    return [(sc, t) for sc, t in zip(prep.scans, scans) if sc.kind == kind]
+
+
+def _dc_first_both(cuda, prep, sc, t, stream=None):
+    """K8 on the card and its plain version from a zeroed store -> (grids,
+    ok) each, on the CPU; the kernel's launches counted."""
+    from zpix_tpu_torch.parallel import progressive_onchip as po
+
+    t = dict(t, stream=t["stream"] if stream is None else stream)
+    out = []
+    for dev in (cuda, "cpu"):
+        grids, ok = po.new_store(prep, dev)
+        if dev == cuda:
+            runtime.reset_launches()
+        po.apply_scan(po.SCAN_KERNELS["dc_first"], sc, {k: v.to(dev) for k, v in t.items()},
+                      grids, prep, ok)
+        if dev == cuda:
+            assert runtime.LAUNCHES["dc_first"] == 1 and runtime.LAUNCHES["dc_restore"] == 0
+        out.append(([g.cpu() for g in grids], int(ok)))
+    return out
+
+
+@pytest.mark.parametrize("size", [(1024, 768), (1000, 600)], ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("mode", ["gray", "444", "422", "420"])
+def test_dc_first_kernel_chains_across_tiles(cuda, mode, size):
+    """K8 in one launch on images whose chains cross many tiles (3 images,
+    widths a multiple of the MCU or not): the store and ok equal the plain
+    decode, prefix and store."""
+    prep = _prog_prep(mode, *size)
+    (sc, t), = _first_scan(prep, "dc_first")
+    (g_k, ok_k), (g_p, ok_p) = _dc_first_both(cuda, prep, sc, t)
+    assert ok_k == ok_p == 1
+    assert all(torch.equal(a, b) for a, b in zip(g_k, g_p))
+
+
+@pytest.mark.parametrize("tile", [1, 32, 64, 200, 1024])
+@pytest.mark.parametrize("mode", ["gray", "420"])
+def test_dc_first_kernel_every_tile(cuda, mode, tile, monkeypatch):
+    """K8 at tiles of one MCU up to 1,024 blocks (ops/progressive.py's
+    DC_TILE_LANES): every tile size gives the plain store."""
+    from zpix_tpu_torch.ops import progressive as kp
+
+    monkeypatch.setattr(kp, "DC_TILE_LANES", tile)
+    prep = _prog_prep(mode, 301, 203)
+    (sc, t), = _first_scan(prep, "dc_first")
+    (g_k, ok_k), (g_p, ok_p) = _dc_first_both(cuda, prep, sc, t)
+    assert ok_k == ok_p == 1
+    assert all(torch.equal(a, b) for a, b in zip(g_k, g_p))
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_dc_first_kernel_on_damaged_and_short_streams(cuda, seed):
+    """K8 on a stream with random bytes written after the host walk (bad
+    codes, symbols > 16, blocks ending off ``ends``) and on the same
+    stream cut short (blocks past the cap store diff 0): the same store
+    and ok as the plain version."""
+    prep = _prog_prep("420" if seed % 2 else "gray", 320, 200)
+    (sc, t), = _first_scan(prep, "dc_first")
+    rng = np.random.default_rng(seed)
+    bad = t["stream"].clone()
+    at = torch.from_numpy(rng.integers(0, bad.shape[0], 8))
+    bad[at] = torch.from_numpy(rng.integers(0, 256, 8, dtype=np.uint8))
+    cut = t["stream"][: int(rng.integers(8, t["stream"].shape[0]))]
+    for stream in (bad, cut):
+        (g_k, ok_k), (g_p, ok_p) = _dc_first_both(cuda, prep, sc, t, stream)
+        assert ok_k == ok_p
+        assert all(torch.equal(a, b) for a, b in zip(g_k, g_p))
+    assert ok_p == 0  # the cut stream fails
+
+
+def _ac_first_both(cuda, args, grid, kw, offset=0):
+    """K9 on the card (its store ``offset`` words into a buffer) and its
+    plain version from the same store -> ((grid, ok) kernel, (grid, ok)
+    plain), on the CPU."""
+    from zpix_tpu_torch.ops import progressive as kp
+
+    want, want_ok = grid.clone(), torch.ones(1, dtype=torch.int32)
+    kp.ac_first_plain(*args, want_ok, want, **kw)
+    flat = torch.empty(grid.numel() + offset, dtype=torch.int32, device=cuda)
+    got = flat[offset:].view(grid.shape)
+    got.copy_(grid)
+    got_ok = torch.ones(1, dtype=torch.int32, device=cuda)
+    runtime.reset_launches()
+    kp.ac_first(*(a.to(cuda) for a in args), got_ok, got, **kw)
+    assert runtime.LAUNCHES["ac_first"] == 1
+    return (got.cpu(), int(got_ok)), (want, int(want_ok))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 4])
+@pytest.mark.parametrize("case", ["band_1_5", "band_6_63", "zrl_heavy", "band_store",
+                                  "one_position", "no_eob_bits"])
+def test_ac_first_kernel_on_hand_coded_scans(cuda, case, offset):
+    """K9 on hand-coded scans (ZRL, the overflow rule, long EOB runs, codes
+    past the lookahead, blocks an EOB run covers) on a store that already
+    holds values, aligned and not 16-byte aligned: the plain version's
+    store and ok, and the coded values added."""
+    from _torch_prog import ac_first_scan
+
+    kw = dict(dict(batch=4, nvy=19, nvx=45, bv=20, bh=48), **{
+        "band_1_5": dict(ss=1, se=5, al=2), "band_6_63": dict(ss=6, se=63, al=2),
+        "zrl_heavy": dict(ss=1, se=63, al=1, zrl=0.5, overflow=0.1),
+        "band_store": dict(ss=1, se=63, al=1, store="band"),
+        "one_position": dict(ss=9, se=9, al=13),
+        "no_eob_bits": dict(ss=1, se=40, al=1, eob_run_bits=False, covered=0.0)}[case])
+    sc = ac_first_scan(11, **kw)
+    p = sc["prep"]
+    args = tuple(torch.from_numpy(a) for a in (p.stream, p.starts, p.ends, p.flags, p.tables))
+    (got, ok_k), (want, ok_p) = _ac_first_both(
+        cuda, args, torch.from_numpy(sc["grid"]),
+        dict(valid=sc["valid"], ss=p.ss, se=p.se, al=p.al), offset)
+    assert ok_k == ok_p == 1
+    assert torch.equal(got, want) and np.array_equal(want.numpy(), sc["want"])
+
+
+@pytest.mark.parametrize("ctas", [1, 3])
+@pytest.mark.parametrize("quality", [25, 95])
+def test_ac_first_kernel_at_qualities(cuda, quality, ctas, monkeypatch):
+    """K9's four scans at q25 (long EOB runs) and q95 (many values, ZRL),
+    1 and 3 CTAs an SM, on a store of random values: the plain version's
+    store and ok, cut short too."""
+    from zpix_tpu_torch.ops import progressive as kp
+    from zpix_tpu_torch.parallel import progressive_onchip as po
+
+    monkeypatch.setattr(kp, "AC_CTAS_PER_SM", ctas)
+    prep = _prog_prep("420", 640, 480, quality=quality)
+    rng = np.random.default_rng(quality)
+    n = 0
+    for sc, t in _first_scan(prep, "ac_first"):
+        c = sc.comps[0]
+        shape = (prep.batch, prep.myy * prep.hv[c][1], prep.mxx * prep.hv[c][0], 64)
+        grid = torch.from_numpy(rng.integers(-(1 << 20), 1 << 20, shape).astype(np.int32))
+        kw = dict(valid=po.valid_grid(prep, c), ss=sc.ss, se=sc.se, al=sc.al)
+        for cap in (t["stream"].shape[0], t["stream"].shape[0] * 2 // 3):
+            args = (t["stream"][:cap], t["starts"], t["ends"], t["flags"], t["tables"])
+            (got, ok_k), (want, ok_p) = _ac_first_both(cuda, args, grid, kw)
+            assert ok_k == ok_p and torch.equal(got, want)
+            n += 1
+    assert n == 8
 
 
 def test_progressive_damaged_upload_clears_ok(cuda):

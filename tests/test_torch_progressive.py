@@ -179,6 +179,119 @@ def test_refine_lut_matches_decode_on_every_lookahead(mode, quality):
     assert n >= 1
 
 
+def test_fast_div_matches_floor_division():
+    """The kernels' multiply-high division (ops/progressive.py::fast_div, the
+    pair csrc/prog_entropy.cu's FastDiv applies) equals // for divisors 1 to
+    3,000, powers of two, odd widths and the ends of the range, on 0..4,999,
+    random numerators below 2^31 and the values around each multiple."""
+    rng = np.random.default_rng(3)
+    ds = list(range(1, 3001)) + [1 << k for k in range(31)] + [(1 << 31) - 1, 2**30 + 1]
+    ds += [int(d) for d in rng.integers(1, 1 << 31, 500)]
+    for d in ds:
+        magic, shift = kp.fast_div(d)
+        n = np.concatenate([np.arange(5000), rng.integers(0, 1 << 31, 2000),
+                            [d - 1, d, d + 1, 2 * d - 1, 2 * d, (1 << 31) - 1]]).astype(np.uint64)
+        n = n[n < 1 << 31]
+        q = (((n * np.uint64(magic & 0xFFFFFFFF)) >> np.uint64(32)) + n) >> np.uint64(shift)
+        assert np.array_equal(q, n // np.uint64(d)), d
+    with pytest.raises(ValueError):
+        kp.fast_div(0)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_dc_lut_matches_decode_on_every_lookahead(mode):
+    """K8's lookahead tables (lut_plain, the copy of the kernels' builder)
+    for each DC table the slot map of the DC-first scan names: on all
+    65,536 16-bit lookaheads an entry that is not 0 gives the
+    limit-compare decode's length and symbol, or its invalid code."""
+    from zpix_tpu_torch.ops.entropy import MAX_SLOTS, _Tables
+
+    prep = _cpu().prep([synth_progressive(64, 48, mode, phase=0.6, quality=60)])
+    sc = next(s for s in prep.scans if s.kind == "dc_first")
+    tables = _t(sc.tables)
+    tab = _Tables(tables)
+    bpm = sum(h * v for h, v in prep.hv) if len(sc.comps) > 1 else 1
+    tids = sorted({int(t) for t in tab.slot_dc[:bpm]})
+    assert len(tids) == (1 if mode == "gray" else 2) and bpm <= MAX_SLOTS
+    look = torch.arange(1 << 16, dtype=torch.int64)
+    for tid in tids:
+        ln, sym, bad = tab.decode(look, torch.full_like(look, tid))
+        e = kp.lut_plain(tables, tid).to(torch.int64)[look >> (16 - kp.LUT_BITS)]
+        inv = e == kp.LUT_BAD
+        one = (e != 0) & ~inv
+        assert bool(bad[inv].all()) and not bool(bad[one].any())
+        assert torch.equal(e[one] >> 8, ln[one]) and torch.equal(e[one] & 255, sym[one])
+        assert float(one.double().mean()) > 0.5
+    assert torch.equal(kp.refine_lut_plain(tables), kp.lut_plain(tables, int(tab.slot_ac[0])))
+
+
+@pytest.mark.parametrize("mode,w,h", [("420", 199, 45), ("420", 301, 37), ("422", 301, 37),
+                                      ("444", 199, 45), ("gray", 199, 45), ("gray", 301, 37)])
+def test_first_scans_match_jax_update(mode, w, h):
+    """K8's and K9's plain versions, store and ok, against zpix_tpu's
+    update of the same scan (its value-pass builder and the "dc" or "ac"
+    arm of ``_make_update``) at widths and heights that leave partial
+    MCUs, from the host decoder's store before the scan."""
+    jax_native_lib()
+    B = 2
+    data = synth_progressive(w, h, mode, phase=0.9)
+    jdec = jpo.OnchipProgressiveDecoder(**_KW)
+    pr = jdec.prep([data] * B)
+    plan = tpo.parse_progressive(data)
+    n = 0
+    for si, sc in enumerate(plan.scans):
+        if sc.kind not in ("dc_first", "ac_first"):
+            continue
+        ri, meta = pr["preps"][si]
+        port = _scan_from_jax(sc, meta, B)
+        before = [np.stack([g] * B) for g in host_coeffs(data, si)]
+        upd = jdec._make_update(si, ri, dict(meta, off=0), B, jnp)
+        sup = np.concatenate([meta["packed"], np.zeros(64, np.uint8)])
+        want, want_ok = upd(jnp.asarray(sup), [jnp.asarray(g.reshape(B, -1)) for g in before])
+        grids = [_t(g) for g in before]
+        ok = torch.ones(1, dtype=torch.int32)
+        valid = tpo.valid_grid(plan, sc.comps[0])
+        if sc.kind == "dc_first":
+            kp.dc_first(_t(port.stream), _t(port.starts), _t(port.ends), _t(port.tables), ok,
+                        [grids[k] for k in sc.comps], hv=[plan.hv[k] for k in sc.comps],
+                        valid=valid, al=sc.al)
+        else:
+            kp.ac_first(_t(port.stream), _t(port.starts), _t(port.ends), _t(port.flags),
+                        _t(port.tables), ok, grids[sc.comps[0]], valid=valid, ss=sc.ss,
+                        se=sc.se, al=sc.al)
+        for g, ws in zip(grids, want):
+            assert np.array_equal(g.numpy().reshape(B, -1), np.asarray(ws)), (si, sc.kind)
+        assert bool(want_ok) and int(ok) == 1, (si, sc.kind)
+        n += 1
+    assert n == (3 if mode == "gray" else 5)  # libjpeg's script: one DC first, AC firsts
+
+
+AC_FIRST_CASES = {  # name -> _torch_prog.ac_first_scan's arguments
+    "band_1_5": dict(ss=1, se=5, al=2), "band_6_63": dict(ss=6, se=63, al=2),
+    "band_1_63_al0": dict(ss=1, se=63, al=0), "one_position": dict(ss=9, se=9, al=13),
+    "zrl_heavy": dict(ss=1, se=63, al=1, zrl=0.5, overflow=0.1),
+    "no_eob_bits": dict(ss=1, se=40, al=1, eob_run_bits=False, covered=0.0),
+    "band_store": dict(ss=1, se=63, al=1, store="band", nvy=9, nvx=33, bv=10, bh=34),
+}
+
+
+@pytest.mark.parametrize("case", list(AC_FIRST_CASES))
+def test_ac_first_plain_on_hand_coded_scans(case):
+    """K9's plain version on hand-coded scans (ZRL, EOB runs with their
+    bits, the overflow rule, bands ending on a value, codes past the
+    9-bit lookahead) adds exactly the coded values, shifted, into a store
+    that already holds values, and keeps ok."""
+    from _torch_prog import ac_first_scan
+
+    sc = ac_first_scan(7, **AC_FIRST_CASES[case])
+    p = sc["prep"]
+    assert sc["symbols"] > 300 and sc["eob_runs"] + sc["zrl"] + sc["band_ends"] > 0
+    grid, ok = _t(sc["grid"]), torch.ones(1, dtype=torch.int32)
+    kp.ac_first(_t(p.stream), _t(p.starts), _t(p.ends), _t(p.flags), _t(p.tables), ok, grid,
+                valid=sc["valid"], ss=p.ss, se=p.se, al=p.al)
+    assert int(ok) == 1 and np.array_equal(grid.numpy(), sc["want"])
+
+
 @pytest.mark.parametrize("w,h", SIZES)
 @pytest.mark.parametrize("mode", MODES)
 def test_store_after_each_scan_matches_host_decoder(mode, w, h):

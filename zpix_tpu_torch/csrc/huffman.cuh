@@ -74,29 +74,6 @@ __device__ __forceinline__ Sym decode_sym(const int32_t* tab, int t,
   return r;
 }
 
-// decode_sym with the table's parts apart: its 16 limits and 16 value
-// offsets (lims, aoff), the symbol bytes of all tables (vals) and their
-// number.  The same arithmetic, for a kernel that keeps one table's limits
-// in shared memory and leaves the rest in device memory.
-__device__ __forceinline__ Sym decode_sym_split(const int32_t* lims, const int32_t* aoff,
-                                                const int32_t* vals, int32_t nvals,
-                                                int32_t look) {
-  int len = 1, a = aoff[0];
-#pragma unroll
-  for (int i = 0; i < 15; ++i) {
-    if (look >= lims[i]) {
-      ++len;
-      a += aoff[i + 1] - aoff[i];
-    }
-  }
-  Sym r;
-  r.len = len;
-  r.bad = look >= lims[15];
-  const int vidx = a + (look >> (16 - len));
-  r.sym = (vidx >= 0 && vidx < nvals) ? vals[vidx] : 0;
-  return r;
-}
-
 // Whether table t's limits lims[0..14] never decrease (every table
 // ops/entropy.py::pack_tables writes): then the compares that hold are a
 // prefix of them.

@@ -1,4 +1,6 @@
-// The store kernel of progressive JPEG's DC scans: K8's scatter and K11.
+// The store kernel of progressive JPEG's DC scans: K11, and a set mode
+// (ops/progressive.py::store_blocks; K8 writes its own values since it
+// became one kernel, csrc/prog_entropy.cu).
 //
 // A DC scan visits its blocks either interleaved, in (MCU, slot) order
 // over every block of the scan's components (padding blocks included), or
@@ -6,9 +8,9 @@
 // top-left nvy x nvx corner of its grid; decoder.py:525-529).  One thread
 // per block maps its scan position to its row of the component's int32
 // coefficient grid [B, bv, bh, 64] and writes coefficient 0:
-//  - set mode, K8's last step (replaces the ``.at[].set`` of
+//  - set mode (the ``.at[].set`` of
 //    zpix_tpu/parallel/progressive_onchip.py::_make_update's "dc" arm,
-//    :1611-1652): row[0] = restored DC << Al, the shift in uint32;
+//    :1611-1652): row[0] = value << Al, the shift in uint32;
 //  - or mode, K11 (replaces the "dcr" arm, :1713-1745): one raw bit per
 //    block, MSB first in the scan's bytes; a set bit ORs 1 << Al into
 //    row[0].

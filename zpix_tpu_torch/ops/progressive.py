@@ -2,21 +2,23 @@
 first), K10 (AC refinement) and K11 (DC refinement), each a CUDA kernel
 with its plain PyTorch version.
 
-* ``dc_first`` is K8: ``dc_first_values`` (csrc/prog_entropy.cu, the port
-  of zpix_tpu/parallel/progressive_onchip.py::build_dc_first_value_fn,
-  :799) decodes one DC symbol per block; K3's block-per-chain form
-  (ops/entropy.py::dc_restore) takes the prefix along each component's
-  chain; ``store_blocks`` (csrc/prog_store.cu) shifts by Al and sets
-  coefficient 0 of each block (the "dc" arm of ``_make_update``,
-  :1611-1652).  Two launches of its own a scan, plus K3's.
+* ``dc_first`` is K8 (csrc/prog_entropy.cu, the port of
+  zpix_tpu/parallel/progressive_onchip.py::build_dc_first_value_fn, :799,
+  and the "dc" arm of ``_make_update``, :1611-1652), one launch and a
+  memset: one DC symbol per block, the prefix along each component's
+  chain by tiles of whole MCUs (``DC_TILE_LANES``) with decoupled
+  look-back between them, and coefficient 0 of each block set to the DC
+  shifted by Al.
 * ``ac_first`` is K9 (csrc/prog_entropy.cu, ``build_ac_first_value_fn``,
-  :866): one thread per valid block with data adds ``val << Al`` to its
-  row.
+  :866): a persistent grid (``ac_first_grid``) whose warps take the valid
+  blocks with data 32 at a time, a lane each, and add each ``val << Al``
+  into its row with a reduction.
 * ``ac_refine`` is K10 (csrc/prog_entropy.cu, ``build_ac_refine_fn``,
   :937): a warp takes 32 valid blocks' rows into shared memory, each lane
-  walks its block a symbol at a time on a mask of its nonzeros (symbols
-  from a 9-bit lookahead table, ``refine_lut_plain``'s copy), and the
+  walks its block a symbol at a time on a mask of its nonzeros, and the
   changed pieces go back in place.
+* K8-K10 read symbols through a 9-bit lookahead table that each CTA
+  builds (``lut_plain`` is its copy).
 * ``dc_refine`` is K11: ``store_blocks`` in or mode (the "dcr" arm of
   ``_make_update``, :1713-1745): one raw bit per block ORs ``1 << Al``
   into coefficient 0.
@@ -199,27 +201,33 @@ def ac_first_plain(stream, starts, ends, hasdata, tables, ok, grid, *, valid, ss
     grid[:, :nvy, :nvx] = _wrap32(rows).view(grid.shape[0], nvy, nvx, 64)
 
 
-LUT_BITS = 9  # K10's lookahead table: codes of up to 9 bits in one lookup
+LUT_BITS = 9  # K8-K10's lookahead tables: codes of up to 9 bits in one lookup
 LUT_BAD = 0x8000
 
 
-def refine_lut_plain(tables):
-    """K10's lookahead table of the scan's AC table (slot 0), as each CTA
-    of csrc/prog_entropy.cu builds it -> int32 [2^LUT_BITS]: entry p is
-    LUT_BAD where every 16-bit lookahead whose top LUT_BITS bits are p is
-    an invalid code, ``len << 8 | sym`` where all of them decode to one
-    code of at most LUT_BITS bits, 0 where the kernel decodes in full.
-    Each limit compare is monotone in the lookahead, so the two ends of
-    p's range decide."""
+def lut_plain(tables, tid: int):
+    """The lookahead table of packed table ``tid``, as each CTA of
+    csrc/prog_entropy.cu builds it (lut_entry) -> int32 [2^LUT_BITS]:
+    entry p is LUT_BAD where every 16-bit lookahead whose top LUT_BITS
+    bits are p is an invalid code, ``len << 8 | sym`` where all of them
+    decode to one code of at most LUT_BITS bits, 0 where the kernel
+    decodes in full.  Each limit compare is monotone in the lookahead, so
+    the two ends of p's range decide."""
     tab = _Tables(tables)
     low = 16 - LUT_BITS
     p = torch.arange(1 << LUT_BITS, dtype=torch.int64, device=tables.device)
-    tid = tab.slot_ac[torch.zeros_like(p)]
-    ln0, sym0, bad0 = tab.decode(p << low, tid)
-    ln1, _, bad1 = tab.decode((p << low) | ((1 << low) - 1), tid)
+    t = torch.full_like(p, tid)
+    ln0, sym0, bad0 = tab.decode(p << low, t)
+    ln1, _, bad1 = tab.decode((p << low) | ((1 << low) - 1), t)
     one = ~bad0 & ~bad1 & (ln0 == ln1) & (ln0 <= LUT_BITS)
     lut = torch.where(one, (ln0 << 8) | sym0, 0)
     return torch.where(bad0 & bad1, LUT_BAD, lut).to(torch.int32)
+
+
+def refine_lut_plain(tables):
+    """The lookahead table of an AC scan's one table (slot 0), as K9's and
+    K10's CTAs build it."""
+    return lut_plain(tables, int(_Tables(tables).slot_ac[0]))
 
 
 def ac_refine_plain(stream, starts, ends, eob_entry, tables, ok, grid, *, valid, ss: int,
@@ -313,24 +321,37 @@ def scan_blocks(grids, hv, valid) -> int:
     return mxx * myy * sum(h * v for h, v in hv)
 
 
-def dc_first_values(stream, starts, ends, tables, ok, *, bpm: int):
-    """K8's decode: -> raw DC diffs int32 [L], block i decoded with the
-    table of slot i % bpm.  Clears ``ok`` on a bad code, a symbol > 16, a
-    block not ending at ``ends`` or a read past the buffer."""
-    _check_scan(stream, starts, ends, tables, ok)
-    if stream.device.type == "cpu":
-        return dc_first_values_plain(stream, starts, ends, tables, ok, bpm=bpm)
-    runtime.require_cuda(stream, starts, ends, tables, ok)
-    n = starts.shape[0]
-    diffs = torch.empty(n, dtype=torch.int32, device=stream.device)
-    runtime.launch("dc_first", stream.device, "zpix_prog_dc_first", "plpppppl" + "i",
-                   stream.data_ptr(), stream.shape[0], starts.data_ptr(), ends.data_ptr(),
-                   tables.data_ptr(), diffs.data_ptr(), ok.data_ptr(), n, bpm)
-    return diffs
+# Launch shapes (tools/torch_prog_first_stages.py --sweep times others):
+# K8's tile, whole MCUs of at most this many blocks (a thread a block, at
+# most 1,024); K9's persistent CTAs an SM, of AC_WARPS warps (the
+# kernel's kAcWarps).
+DC_TILE_LANES = 512
+AC_CTAS_PER_SM = 4
+AC_WARPS = 8
+
+
+def fast_div(d: int) -> tuple:
+    """The kernels' division by d (csrc/prog_entropy.cu, FastDiv) -> (magic,
+    shift), magic as a signed int32: n // d == ((n * magic_u32 >> 32) + n)
+    >> shift for 0 <= n < 2^31."""
+    if not 1 <= d < 1 << 31:
+        raise ValueError("fast_div: divisor out of range")
+    shift = (d - 1).bit_length()
+    magic = ((1 << 32) * ((1 << shift) - d)) // d + 1
+    return (magic - (1 << 32) if magic >= 1 << 31 else magic), shift
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _check_kernel_scan(stream, starts):
+    if stream.shape[0] > _entropy.MAX_STREAM or starts.shape[0] >= 1 << 31:
+        raise ValueError("progressive: the stream must be under 256 MiB, the blocks under 2^31")
 
 
 def store_blocks(src, grids, *, hv, valid, al: int, mode: str) -> None:
-    """The store kernel: ``mode="set"`` (K8's last step) writes int32
+    """The store kernel: ``mode="set"`` (the "dc" arm's write) writes int32
     [B * nblk] values ``<< al`` into coefficient 0 of each block the scan
     visits; ``mode="or"`` (K11) ORs ``1 << al`` where the block's bit of
     u8 rows [B, rowlen] is set.  In place."""
@@ -351,8 +372,8 @@ def store_blocks(src, grids, *, hv, valid, al: int, mode: str) -> None:
     ptrs = [g.data_ptr() for g in grids] + [0] * (3 - len(grids))
     packed = [h | v << 4 for h, v in hv] + [0] * (3 - len(hv))
     orm = mode == "or"
-    runtime.launch(
-        "dc_refine" if orm else "dc_first", src.device, "zpix_prog_store",
+    runtime.launch(  # K11's kernel in either mode
+        "dc_refine", src.device, "zpix_prog_store",
         "ppi" + "ppp" + "l" + "i" * 10,
         0 if orm else src.data_ptr(), src.data_ptr() if orm else 0,
         src.shape[1] if orm else 0, *ptrs, B * nblk, nblk, len(grids), *packed,
@@ -362,35 +383,50 @@ def store_blocks(src, grids, *, hv, valid, al: int, mode: str) -> None:
 
 def dc_first(stream, starts, ends, tables, ok, grids, *, hv, valid, al: int) -> None:
     """K8: a DC-first scan -> coefficient 0 of every block it visits set to
-    the restored DC << al.  In place; clears ``ok`` on a failure."""
+    the restored DC << al.  In place; clears ``ok`` on a bad code, a
+    symbol > 16, a block not ending at ``ends`` or a read past the
+    buffer."""
     _check_grids(grids, hv)
+    _check_scan(stream, starts, ends, tables, ok)
     interleaved = len(grids) > 1
     bpm = sum(h * v for h, v in hv) if interleaved else 1
-    if starts.shape[0] != grids[0].shape[0] * scan_blocks(grids, hv, valid):
+    B = grids[0].shape[0]
+    if starts.shape[0] != B * scan_blocks(grids, hv, valid):
         raise ValueError("dc_first: one start per block the scan visits")
-    diffs = dc_first_values(stream, starts, ends, tables, ok, bpm=bpm)
-    chains, seg = _dc_chains(grids, hv, valid)
-    dc = _entropy.dc_restore(diffs, hv=chains, seg_mcus=seg, form="block")
-    store_blocks(dc, grids, hv=hv, valid=valid, al=al, mode="set")
+    if stream.device.type == "cpu":
+        dc_first_plain(stream, starts, ends, tables, ok, grids, hv=hv, valid=valid, al=al)
+        return
+    runtime.require_cuda(stream, starts, ends, tables, ok, *grids)
+    _check_kernel_scan(stream, starts)
+    if bpm > _entropy.MAX_SLOTS:
+        raise ValueError("dc_first: more than 16 blocks an MCU")
+    if interleaved:
+        mxx, myy = _mcu_dims(grids, hv)
+        per_row, n_mcu, hvs = mxx, mxx * myy, hv
+    else:
+        per_row, n_mcu, hvs = valid[1], valid[0] * valid[1], [(1, 1)]
+    if n_mcu == 0:
+        return
+    tile_mcus = max(1, min(DC_TILE_LANES, 1024) // bpm)
+    tiles = B * -(-n_mcu // tile_mcus)
+    threads = -(-tile_mcus * bpm // 32) * 32
+    grid = min(tiles, _sm_count(stream.device) * max(1, 2048 // threads))
+    scratch = torch.empty(2 * (3 * tiles + 1), dtype=torch.int32, device=stream.device)
+    pad = [0] * (3 - len(grids))
+    runtime.launch(
+        "dc_first", stream.device, "zpix_prog_dc_first", "pl" + "p" * 8 + "i" * 19,
+        stream.data_ptr(), stream.shape[0], starts.data_ptr(), ends.data_ptr(),
+        tables.data_ptr(), ok.data_ptr(), *[g.data_ptr() for g in grids], *pad,
+        scratch.data_ptr(), B, n_mcu, bpm, len(grids), per_row, *fast_div(per_row),
+        *[h | v << 4 for h, v in hvs], *pad, *[g.shape[2] for g in grids], *pad,
+        *[g.shape[1] for g in grids], *pad, al, tile_mcus, grid,
+    )
 
 
 def dc_refine(rows, grids, *, hv, valid, al: int) -> None:
     """K11: a DC refinement scan (u8 rows [B, rowlen], one bit a block,
     MSB first) -> ``1 << al`` ORed into coefficient 0.  In place."""
     store_blocks(rows, grids, hv=hv, valid=valid, al=al, mode="or")
-
-
-def _ac_launch(kernel, name, stream, starts, ends, flags, tables, ok, grid, valid, ss,
-               se, al):
-    runtime.require_cuda(stream, starts, ends, flags, tables, ok, grid)
-    B, bv, bh = grid.shape[:3]
-    nvy, nvx = valid
-    runtime.launch(
-        kernel, stream.device, name, "pl" + "pppppp" + "l" + "iii" + "l" + "iii",
-        stream.data_ptr(), stream.shape[0], starts.data_ptr(), ends.data_ptr(),
-        flags.data_ptr(), tables.data_ptr(), grid.data_ptr(), ok.data_ptr(),
-        starts.shape[0], nvy * nvx, nvx, bh, bv * bh, ss, se, al,
-    )
 
 
 def _check_ac(stream, starts, ends, flags, tables, ok, grid, valid, ss, se):
@@ -406,6 +442,13 @@ def _check_ac(stream, starts, ends, flags, tables, ok, grid, valid, ss, se):
         raise ValueError("progressive: bad spectral band")
 
 
+def ac_first_grid(n_lanes: int, device) -> int:
+    """K9's CTAs for a scan of ``n_lanes`` valid blocks: AC_CTAS_PER_SM an
+    SM, fewer where the scan's 32-block chunks give fewer warps work."""
+    want = -(-n_lanes // (32 * AC_WARPS))
+    return max(1, min(want, _sm_count(device) * AC_CTAS_PER_SM))
+
+
 def ac_first(stream, starts, ends, hasdata, tables, ok, grid, *, valid, ss: int, se: int,
              al: int) -> None:
     """K9: an AC-first scan over band ss..se of one component -> ``val <<
@@ -417,8 +460,21 @@ def ac_first(stream, starts, ends, hasdata, tables, ok, grid, *, valid, ss: int,
         ac_first_plain(stream, starts, ends, hasdata, tables, ok, grid, valid=valid, ss=ss,
                        se=se, al=al)
         return
-    _ac_launch("ac_first", "zpix_prog_ac_first", stream, starts, ends, hasdata, tables, ok,
-               grid, valid, ss, se, al)
+    runtime.require_cuda(stream, starts, ends, hasdata, tables, ok, grid)
+    _check_kernel_scan(stream, starts)
+    B, bv, bh = grid.shape[:3]
+    nvy, nvx = valid
+    n = starts.shape[0]
+    if n == 0:
+        return
+    runtime.launch(
+        "ac_first", stream.device, "zpix_prog_ac_first",
+        "pl" + "p" * 6 + "i" * 8 + "l" + "i" * 4,
+        stream.data_ptr(), stream.shape[0], starts.data_ptr(), ends.data_ptr(),
+        hasdata.data_ptr(), tables.data_ptr(), grid.data_ptr(), ok.data_ptr(), n, nvy * nvx,
+        *fast_div(nvy * nvx), nvx, *fast_div(nvx), bh, bv * bh, ss, se, al,
+        ac_first_grid(n, stream.device),
+    )
 
 
 def ac_refine(stream, starts, ends, eob_entry, tables, ok, grid, *, valid, ss: int,
@@ -432,5 +488,13 @@ def ac_refine(stream, starts, ends, eob_entry, tables, ok, grid, *, valid, ss: i
         ac_refine_plain(stream, starts, ends, eob_entry, tables, ok, grid, valid=valid,
                         ss=ss, se=se, al=al)
         return
-    _ac_launch("ac_refine", "zpix_prog_ac_refine", stream, starts, ends, eob_entry, tables,
-               ok, grid, valid, ss, se, al)
+    runtime.require_cuda(stream, starts, ends, eob_entry, tables, ok, grid)
+    B, bv, bh = grid.shape[:3]
+    nvy, nvx = valid
+    runtime.launch(
+        "ac_refine", stream.device, "zpix_prog_ac_refine",
+        "pl" + "pppppp" + "l" + "iii" + "l" + "iii",
+        stream.data_ptr(), stream.shape[0], starts.data_ptr(), ends.data_ptr(),
+        eob_entry.data_ptr(), tables.data_ptr(), grid.data_ptr(), ok.data_ptr(),
+        starts.shape[0], nvy * nvx, nvx, bh, bv * bh, ss, se, al,
+    )
