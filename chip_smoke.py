@@ -12,11 +12,15 @@ colour arm and sampling ratio, both layouts, odd crops, wrapping products,
 and 64 x 1024^2 batches; K1 and K2 on their edges, on segments coded
 with tables no Pillow image has, and on damaged streams;
 every component sampled 3 x 1 or 1 x 3 through the three baseline
-decoders), decodes batches
+decoders; K7 over every component at every ratio and gray, on grids no
+tile divides, batch 1 and a clipped cap; K3 at every tile size on chains
+of 1, tile - 1, tile and tile + 1 MCUs, segments crossing tiles and the
+three routes' chains), decodes batches
 of 16 distinct 1024x1024 baseline 4:2:0 JPEGs (quality 50) through the
 port's four baseline routes -- ``DeviceJpegDecoder`` on streams with a
 restart marker every 8 MCUs, and ``BatchJpegDecoder`` (native front-end,
-K7, K6), ``HostIndexJpegDecoder`` (host index scan, K2, K3, K4) and
+K7 in one launch for every component, K6), ``HostIndexJpegDecoder``
+(host index scan, K2, K3, K4) and
 ``SyncJpegDecoder`` (K19's chunk sync, K2, K3, K4; the ``sync`` phase) on
 streams with none -- and batches of 16 copies of one 1024x1024 4:2:0
 progressive JPEG (a new image each batch) through
@@ -334,10 +338,60 @@ def small_kernel_checks(dev):
               & torch.randint(0, 256, (B, bv * bh, 8), generator=gen, dtype=torch.uint8)).to(dev)
         for cap in (bv * bh * 64, 100):
             vals = torch.randint(-2**15, 2**15, (B, cap), generator=gen, dtype=torch.int16).to(dev)
-            perm = torch.from_numpy(pb.stream_perm(mxx, myy, *hv)).to(dev)
+            perm = pb.stream_perm(mxx, myy, *hv)
             got = ks.unpack_sparse(bm, vals, bv=bv, bh=bh, perm=perm)
             want = ks.unpack_sparse_plain(bm, vals, bv=bv, bh=bh, perm=perm)
             errs[f"unpack_{hv[0]}{hv[1]}_cap{cap}"] = max_abs_err(got, want)
+    torch.cuda.synchronize()
+    return errs
+
+
+def k7_k3_edge_checks(dev):
+    """K7's one-launch form over every component of a decode on grids of
+    7 x 9 and 37 x 29 MCUs (block counts no tile divides, grids below one
+    tile), every sampling ratio and gray, batches of 1 and 3, Cr's cap
+    clipped; one launch a call.  K3 at whole-image chains of 1, tile - 1,
+    tile and tile + 1 MCUs and restart segments of 3, 7 and 300 MCUs
+    (crossing tiles), diffs over the whole int32 range.  Each case runs
+    twice, so a launch that leaves the kept look-back scratch wrong for
+    the next (its ticket counter, its words) shows.  -> {case:
+    max_abs_err}, a launch count that is not 1 read as an error of 1."""
+    from zpix_tpu_torch import runtime
+    from zpix_tpu_torch.ops import entropy as ke
+    from zpix_tpu_torch.ops import sparse as ks
+    from zpix_tpu_torch.parallel import batch as pb
+
+    rng = np.random.default_rng(15)
+    errs = {}
+    for ratio in ("444", "422", "420", "440", "411", "410", "gray"):
+        hv = (1, 1) if ratio == "gray" else pb.RATIO_FACTORS[ratio]
+        for (mxx, myy), batch in (((7, 9), 3), ((37, 29), 1)):
+            dims = [(myy * hv[1], mxx * hv[0])] + ([] if ratio == "gray" else [(myy, mxx)] * 2)
+            comps = []
+            for c, (bv, bh) in enumerate(dims):
+                bm = (rng.integers(0, 256, (batch, bv * bh, 8))
+                      & rng.integers(0, 256, (batch, bv * bh, 8))).astype(np.uint8)
+                n = int(np.unpackbits(bm, axis=-1).reshape(batch, -1).sum(1).max())
+                vals = rng.integers(-2**15, 2**15, (batch, 37 if c == 2 else n + 5))
+                comps.append(ks.SparseComponent(
+                    torch.from_numpy(bm).to(dev), torch.from_numpy(vals.astype(np.int16)).to(dev),
+                    bv, bh, pb.stream_perm(mxx, myy, *hv) if c == 0 else None))
+            want = ks.unpack_components_plain(comps)
+            for rep in range(2):
+                runtime.reset_launches()
+                got = ks.unpack_components(comps)
+                one = runtime.LAUNCHES["unpack_sparse"] == 1
+                errs[f"k7_{ratio}_{mxx}x{myy}_b{batch}_r{rep}"] = max(
+                    [int(not one)] + [max_abs_err(g, w) for g, w in zip(got, want)])
+    hv, tile = ((2, 2), (1, 1), (1, 1)), ke.K3_TILE_MCUS
+    for seg, n_seg in ((1, 5), (tile - 1, 3), (tile, 3), (tile + 1, 3), (3, 700), (7, 300),
+                       (300, 9)):
+        dc = torch.from_numpy(rng.integers(-2**31, 2**31, n_seg * seg * 6)
+                              .astype(np.int32)).to(dev)
+        want = ke.dc_restore_plain(dc, hv=hv, seg_mcus=seg)
+        for rep in range(2):
+            errs[f"k3_seg{seg}x{n_seg}_r{rep}"] = max_abs_err(
+                ke.dc_restore(dc, hv=hv, seg_mcus=seg), want)
     torch.cuda.synchronize()
     return errs
 
@@ -636,11 +690,10 @@ def restart_free(batches, dev, mpix):
     p2 = fe2.packed()
     buf2 = pb.upload(p2, dev)
     dims = p2.dims
-    perms = [None if p is None else torch.from_numpy(p).to(dev) for p in p2.perms]
     grids = [ks.unpack_sparse_plain(pb.carve(buf2, p2.layout, "bm", c, 2),
                                     pb.carve(buf2, p2.layout, "val", c, 2), bv=bv, bh=bh,
                                     perm=perm)
-             for c, ((bv, bh), perm) in enumerate(zip(dims, perms))]
+             for c, ((bv, bh), perm) in enumerate(zip(dims, p2.perms))]
     quants = [pb.carve(buf2, p2.layout, "q", c, 2) for c in range(3)]
     f = pb.RATIO_FACTORS[p2.ratio]
     ref_n = kp.component_planes_plain(grids, quants, color="ycbcr", height=p2.height,
@@ -732,6 +785,35 @@ def host_index_inputs(batch):
     ok = torch.ones(1, dtype=torch.int32, device=bufs[0].device)
     ac, dc = ke.value_pass(*bufs[:4], bufs[4], ok, bpm=plan.bpm)
     return plan, bufs, ac, dc
+
+
+def sync_dc_input(batch):
+    """K2's DC diffs on the sync route (K19's ends): (diffs, plan)."""
+    from zpix_tpu_torch import SyncJpegDecoder
+    from zpix_tpu_torch.ops import entropy as ke
+    from zpix_tpu_torch.ops import sync as ksync
+
+    dec = SyncJpegDecoder()
+    plan = dec.prep(batch)
+    b = dec.upload(plan)
+    ends, ok = ksync.sync_ends(b[0], b[1], b[4], b[3], chunk_bytes=plan.chunk_bytes,
+                               n_chunks=plan.n_chunks, bpm=plan.bpm,
+                               nblk=plan.n_mcu * plan.bpm)[:2]
+    return ke.value_pass(*b[:4], ends, ok, bpm=plan.bpm)[1], plan
+
+
+def cumsum_chains(dc, hv, seg_mcus: int):
+    """K3's function by PyTorch: torch.cumsum(dtype=int32) a component on
+    views of the (segment, MCU, slot) layout (Y's slots copied by the
+    reshape).  A yardstick; the port never calls it."""
+    bpm = sum(h * v for h, v in hv)
+    d = dc.view(-1, seg_mcus, bpm)
+    out, s0 = [], 0
+    for h, v in hv:
+        out.append(torch.cumsum(d[:, :, s0 : s0 + h * v].reshape(d.shape[0], -1), 1,
+                                dtype=torch.int32))
+        s0 += h * v
+    return out
 
 
 # ------------------------------------------- restart-free on the card (K19)
@@ -2851,14 +2933,14 @@ def main() -> int:
     packed = fe.packed()
     flat = pb.upload(packed, dev)
     dims = packed.dims
-    perms = [None if p is None else torch.from_numpy(p).to(dev) for p in packed.perms]
-    sections = [(pb.carve(flat, packed.layout, "bm", c, BATCH),
-                 pb.carve(flat, packed.layout, "val", c, BATCH)) for c in range(3)]
-    grids = [ks.unpack_sparse(bm, v, bv=bv, bh=bh, perm=pm)
-             for (bm, v), (bv, bh), pm in zip(sections, dims, perms)]
-    results["unpack_sparse"] = max(
-        max_abs_err(g, ks.unpack_sparse_plain(bm, v, bv=bv, bh=bh, perm=pm))
-        for g, (bm, v), (bv, bh), pm in zip(grids, sections, dims, perms))
+    k7_comps = [ks.SparseComponent(pb.carve(flat, packed.layout, "bm", c, BATCH),
+                                   pb.carve(flat, packed.layout, "val", c, BATCH), bv, bh, pm)
+                for c, ((bv, bh), pm) in enumerate(zip(dims, packed.perms))]
+    runtime.reset_launches()
+    grids = ks.unpack_components(k7_comps)  # the decode's K7: one launch
+    k7_full_launches = runtime.LAUNCHES["unpack_sparse"]
+    results["unpack_sparse"] = max([int(k7_full_launches != 1)] + [
+        max_abs_err(g, w) for g, w in zip(grids, ks.unpack_components_plain(k7_comps))])
     rf_quants = [pb.carve(flat, packed.layout, "q", c, BATCH) for c in range(3)]
     rf_factors = [(1, 1)] + [pb.RATIO_FACTORS[packed.ratio]] * 2
     rf_kw = dict(color="ycbcr", height=SIZE, width=SIZE, factors=rf_factors)
@@ -2874,16 +2956,22 @@ def main() -> int:
     for k, err in k4k6.items():
         key = "backend" if k.startswith("backend") else "component_planes"
         results[key] = max(results[key], err)
-    # K3's two forms on the host-index batch's whole-image chains
+    edges7_3 = k7_k3_edge_checks(dev)
+    for k, err in edges7_3.items():
+        key = "unpack_sparse" if k.startswith("k7") else "dc_restore"
+        results[key] = max(results[key], err)
+    # K3 on the host-index and sync batches' whole-image chains (look-back)
+    # and on DRI 8's segments
     hplan, hbufs, hac, hdc = host_index_inputs(batches_rf[0])
+    sdc, splan = sync_dc_input(batches_rf[0])
     hdc_p = ke.dc_restore_plain(hdc, hv=hplan.hv, seg_mcus=hplan.seg_mcus)
-    long_errs = {form: max_abs_err(ke.dc_restore(hdc, hv=hplan.hv, seg_mcus=hplan.seg_mcus,
-                                                 form=form), hdc_p)
-                 for form in ("block", "thread")}
-    long_errs.update({f"dri8_{form}": max_abs_err(
-        ke.dc_restore(dc_diff, hv=plan.hv, seg_mcus=plan.seg_mcus, form=form), dc_p)
-        for form in ("block", "thread")})
-    results["dc_restore"] = max(results["dc_restore"], *long_errs.values())
+    k3_routes = {
+        "host_index": max_abs_err(ke.dc_restore(hdc, hv=hplan.hv, seg_mcus=hplan.seg_mcus),
+                                  hdc_p),
+        "sync": max_abs_err(ke.dc_restore(sdc, hv=splan.hv, seg_mcus=splan.seg_mcus),
+                            ke.dc_restore_plain(sdc, hv=splan.hv, seg_mcus=splan.seg_mcus)),
+        "dri8": max_abs_err(ke.dc_restore(dc_diff, hv=plan.hv, seg_mcus=plan.seg_mcus), dc_p)}
+    results["dc_restore"] = max(results["dc_restore"], *k3_routes.values())
     writer = jpeg_writer()
     edges = k1_k2_edge_checks(dev, writer, hplan, hbufs, hac, hdc, batches_rf[0])
     for row in edges.values():
@@ -2896,7 +2984,8 @@ def main() -> int:
     torch.cuda.synchronize()
     emit({"phase": "kernel_checks", "max_abs_err": results,
           "k1_k2_batches": [2, BATCH], "k3_k4_k5_shapes": {"lanes": L2, "blocks": L2},
-          "k6_k7_small_cases": small, "k4_k6_cases": k4k6, "k3_forms": long_errs,
+          "k6_k7_small_cases": small, "k4_k6_cases": k4k6, "k3_routes": k3_routes,
+          "k7_k3_edge_checks": edges7_3, "k7_full_batch_launches": k7_full_launches,
           "k1_k2_edge_checks": edges, "factor3_checks": f3,
           "k6_k7_full_batch": {"images": BATCH, "size": SIZE, "ratio": packed.ratio,
                                "value_caps": fe.val_caps, "nnz_max": fe.nnz.max(0).tolist()},
@@ -3014,9 +3103,10 @@ def main() -> int:
     rf = restart_free(batches_rf, dev, mpix)
     emit({"phase": "restart_free", **rf})
     ln, lh = rf["launches"]["native"], rf["launches"]["host_index"]
-    if (min(ln["unpack_sparse"], ln["component_planes"]) == 0 or lh["index_pass"]
+    if (ln["unpack_sparse"] != 1 or ln["component_planes"] == 0 or lh["index_pass"]
             or min(lh["value_pass"], lh["dc_restore"], lh["backend"]) == 0):
-        raise SystemExit("chip_smoke: a restart-free route skipped a kernel")
+        raise SystemExit("chip_smoke: a restart-free route skipped a kernel, or K7 took more "
+                         "than one launch")
     c = rf["check"]
     if (c["native_vs_plain"] or c["host_index_vs_plain"] or not c["plain_ok"]
             or not c["routes_equal"] or not c["host_index_ok"] or not rf["all_ok"]
@@ -3090,12 +3180,10 @@ def main() -> int:
                     + OPS_K4_CHROMA * 64 * n_mcus),
         "idct_blocks": (lambda: ki.idct_blocks(blocks), lambda: ki.idct_plain(blocks),
                         2 * blocks.numel() * 4, OPS_IDCT_BLOCK * blocks.shape[0]),
-        # one decode's launches of K7 (every component) and of K6
+        # one decode's K7 (every component, one launch) and K6
         "unpack_sparse": (
-            lambda: [ks.unpack_sparse(bm, v, bv=bv, bh=bh, perm=pm)
-                     for (bm, v), (bv, bh), pm in zip(sections, dims, perms)],
-            lambda: [ks.unpack_sparse_plain(bm, v, bv=bv, bh=bh, perm=pm)
-                     for (bm, v), (bv, bh), pm in zip(sections, dims, perms)],
+            lambda: ks.unpack_components(k7_comps),
+            lambda: ks.unpack_components_plain(k7_comps),
             (8 + 128) * rf_blocks + 2 * int(fe.nnz.sum()) + 4 * dims[0][0] * dims[0][1],
             OPS_K7_BLOCK * rf_blocks),
         "component_planes": (
@@ -3105,18 +3193,20 @@ def main() -> int:
             OPS_K4_BLOCK * rf_blocks + OPS_K4_PIXEL * BATCH * SIZE * SIZE
             + OPS_K4_CHROMA * 64 * BATCH * packed.mxx * packed.myy),
     }
-    # K3's two forms on both paths' chains, and its bound on the long ones
-    k3 = {form: {"dri8_ms": cuda_ms(lambda f=form: ke.dc_restore(
-                     dc_diff, hv=plan.hv, seg_mcus=plan.seg_mcus, form=f), 20),
-                 "host_index_ms": cuda_ms(lambda f=form: ke.dc_restore(
-                     hdc, hv=hplan.hv, seg_mcus=hplan.seg_mcus, form=f), 20)}
-          for form in ("thread", "block")}
+    # K3 on the host-index and sync routes' whole-image chains: time,
+    # bound, launches, and the library yardstick on every input
+    k3 = {"tile_mcus": ke.K3_TILE_MCUS, "dri8_launches": launches["dc_restore"],
+          "host_index_launches": lh["dc_restore"], "sync_launches": sy["launches"]["dc_restore"]}
+    for route, (d, p) in (("dri8", (dc_diff, plan)), ("host_index", (hdc, hplan)),
+                          ("sync", (sdc, splan))):
+        k3[f"{route}_ms"] = cuda_ms(lambda d=d, p=p: ke.dc_restore(d, hv=p.hv,
+                                                                   seg_mcus=p.seg_mcus), 20)
+        k3[f"{route}_cumsum_ms"] = cuda_ms(lambda d=d, p=p: cumsum_chains(d, p.hv, p.seg_mcus),
+                                           20)
+        k3[f"{route}_bound_ms"] = max(8 * d.numel() / HBM_BYTES_PER_S,
+                                      d.numel() / INT32_OPS_PER_S) * 1e3
     k3["host_index_plain_ms"] = cuda_ms(
         lambda: ke.dc_restore_plain(hdc, hv=hplan.hv, seg_mcus=hplan.seg_mcus), 1)
-    k3["host_index_bound_ms"] = max(8 * hdc.numel() / HBM_BYTES_PER_S,
-                                    hdc.numel() / INT32_OPS_PER_S) * 1e3
-    k3["host_index_launches"] = lh["dc_restore"]
-    k3["host_index_form"] = "block" if hplan.seg_mcus * 4 >= ke.LONG_CHAIN else "thread"
     # K2 and K4 again on the host-index route's inputs (interleaved out)
     hok = torch.ones(1, dtype=torch.int32, device=dev)
     host_index_ms = {
@@ -3150,7 +3240,11 @@ def main() -> int:
         if kname == "idct_blocks":  # not on decode's path: its own entry's run
             row["standalone_launches"] = idct_launches
         if kname == "dc_restore":
-            row["forms"] = k3
+            row["routes"] = k3
+            row["library_ms"] = k3["dri8_cumsum_ms"]
+            row["library_call"] = "torch.cumsum(dtype=int32), a call a component"
+        if kname == "unpack_sparse":
+            row["library_note"] = "no single PyTorch call unpacks bits, clips and permutes"
         if kname in host_index_ms:
             row["host_index_ms"] = host_index_ms[kname]
         if kname == "component_planes":  # its int32 arm, on the progressive store

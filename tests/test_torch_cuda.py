@@ -308,11 +308,11 @@ def test_unpack_kernel_matches_plain(cuda, perm, cap):
                               & rng.integers(0, 256, (B, bv * bh, 8), dtype=np.uint8))
     n = int(np.unpackbits(bitmap.numpy(), axis=-1).reshape(B, -1).sum(1).max())
     vals = torch.from_numpy(rng.integers(-2**15, 2**15, (B, cap or n + 5)).astype(np.int16))
-    p = torch.from_numpy(stream_perm(bh // 2, bv // 2, 2, 2)) if perm else None
+    p = stream_perm(bh // 2, bv // 2, 2, 2) if perm else None
     kw = dict(bv=bv, bh=bh)
     before = runtime.LAUNCHES["unpack_sparse"]
-    got = unpack_sparse(bitmap.to(cuda), vals.to(cuda), perm=None if p is None else p.to(cuda), **kw)
-    assert runtime.LAUNCHES["unpack_sparse"] == before + 2  # offsets, expand
+    got = unpack_sparse(bitmap.to(cuda), vals.to(cuda), perm=p, **kw)
+    assert runtime.LAUNCHES["unpack_sparse"] == before + 1  # one kernel, no memset
     assert torch.equal(got.cpu(), unpack_sparse_plain(bitmap, vals, perm=p, **kw))
 
 
@@ -472,14 +472,153 @@ def test_planes_kernel_grid_beyond_resident(cuda, dtype):
     assert torch.equal(got, component_planes_plain(grids, quants, **kw))
 
 
-@pytest.mark.parametrize("form", ["thread", "block"])
 @pytest.mark.parametrize("seg_mcus,n_seg", [(8, 40), (1500, 3)], ids=["short", "long"])
-def test_dc_restore_forms_match_plain(cuda, form, seg_mcus, n_seg):
+def test_dc_restore_forms_match_plain(cuda, seg_mcus, n_seg):
+    """K3's one kernel on short chains (no look-back) and long ones
+    (look-back), with wrapping sums; one launch a call."""
     rng = np.random.default_rng(3)
     hv = ((2, 2), (1, 1), (1, 1))
     dc = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, n_seg * seg_mcus * 6).astype(np.int32))
-    got = ke.dc_restore(dc.to(cuda), hv=hv, seg_mcus=seg_mcus, form=form)
+    before = runtime.LAUNCHES["dc_restore"]
+    got = ke.dc_restore(dc.to(cuda), hv=hv, seg_mcus=seg_mcus)
+    assert runtime.LAUNCHES["dc_restore"] == before + 1
     assert torch.equal(got.cpu(), ke.dc_restore_plain(dc, hv=hv, seg_mcus=seg_mcus))
+
+
+_K3_HV = {"420": ((2, 2), (1, 1), (1, 1)), "gray": ((1, 1),), "422": ((2, 1), (1, 1), (1, 1)),
+          "cmyk": ((1, 1),) * 4, "ycck": ((2, 2), (1, 1), (1, 1), (2, 2))}
+
+
+@pytest.mark.parametrize("delta", [None, -1, 0, 1], ids=["one", "tile-1", "tile", "tile+1"])
+@pytest.mark.parametrize("arm", list(_K3_HV))
+def test_dc_restore_chain_lengths(cuda, arm, delta):
+    """Whole-image chains of 1, tile - 1, tile and tile + 1 MCUs, 3 images,
+    diffs over the whole int32 range (sums wrap)."""
+    hv = _K3_HV[arm]
+    bpm = sum(h * v for h, v in hv)
+    n_mcu = 1 if delta is None else ke.K3_TILE_MCUS + delta
+    rng = np.random.default_rng(n_mcu + bpm)
+    dc = torch.from_numpy(rng.integers(-2**31, 2**31, 3 * n_mcu * bpm).astype(np.int32))
+    got = ke.dc_restore(dc.to(cuda), hv=hv, seg_mcus=n_mcu)
+    assert torch.equal(got.cpu(), ke.dc_restore_plain(dc, hv=hv, seg_mcus=n_mcu))
+
+
+@pytest.mark.parametrize("seg_mcus", [3, 5, 7, 100, 300, 1000])
+def test_dc_restore_segments_cross_tiles(cuda, seg_mcus):
+    """Restart segments that no tile size divides: segments start inside
+    tiles and cross tile ends; the wrap of int32 sums on every chain."""
+    hv = ((2, 2), (1, 1), (1, 1))
+    n_seg = 2000 // seg_mcus + 3
+    rng = np.random.default_rng(seg_mcus)
+    dc = rng.integers(2**30, 2**31, n_seg * seg_mcus * 6).astype(np.int32)
+    dc = torch.from_numpy(dc)
+    got = ke.dc_restore(dc.to(cuda), hv=hv, seg_mcus=seg_mcus)
+    want = ke.dc_restore_plain(dc, hv=hv, seg_mcus=seg_mcus)
+    assert torch.equal(got.cpu(), want)
+    assert bool((want < 0).any())  # the sums wrapped
+
+
+def test_dc_restore_unaligned_views(cuda):
+    """Diffs and output not 16-byte aligned take K3's word loads."""
+    hv = ((2, 2), (1, 1), (1, 1))
+    rng = np.random.default_rng(9)
+    base = torch.from_numpy(rng.integers(-2**20, 2**20, 1 + 700 * 6 * 2).astype(np.int32))
+    dc = base.to(cuda)[1:]
+    got = ke.dc_restore(dc, hv=hv, seg_mcus=700)
+    assert torch.equal(got.cpu(), ke.dc_restore_plain(base[1:], hv=hv, seg_mcus=700))
+
+
+def _sparse_case(rng, bv, bh, batch, cap=None):
+    bitmap = (rng.integers(0, 256, (batch, bv * bh, 8))
+              & rng.integers(0, 256, (batch, bv * bh, 8))).astype(np.uint8)
+    n = int(np.unpackbits(bitmap, axis=-1).reshape(batch, -1).sum(1).max())
+    vals = rng.integers(-2**15, 2**15, (batch, cap or n + 5)).astype(np.int16)
+    return torch.from_numpy(bitmap), torch.from_numpy(vals)
+
+
+_K7_HV = {"444": (1, 1), "422": (2, 1), "420": (2, 2), "440": (1, 2), "411": (4, 1),
+          "410": (4, 2)}
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("ratio", list(_K7_HV) + ["gray"])
+def test_unpack_components_one_launch(cuda, ratio, batch):
+    """K7 over every component of a decode in one launch: grids of 7 x 9
+    and 37 x 29 MCUs (block counts no tile divides, and grids below one
+    tile), every sampling, gray, batch 1, Cr's cap clipped."""
+    from zpix_tpu_torch.ops import sparse as ks
+    from zpix_tpu_torch.parallel.batch import stream_perm
+
+    hv = (1, 1) if ratio == "gray" else _K7_HV[ratio]
+    rng = np.random.default_rng(batch)
+    for mxx, myy in ((7, 9), (37, 29)):
+        dims = [(myy * hv[1], mxx * hv[0])] + ([] if ratio == "gray" else [(myy, mxx)] * 2)
+        perms = [stream_perm(mxx, myy, *hv)] + [None] * (len(dims) - 1)
+        comps = []
+        for c, ((bv, bh), perm) in enumerate(zip(dims, perms)):
+            bm, vals = _sparse_case(rng, bv, bh, batch, cap=37 if c == 2 else None)
+            comps.append(ks.SparseComponent(bm, vals, bv, bh, perm))
+        want = ks.unpack_components_plain(comps)
+        before = runtime.LAUNCHES["unpack_sparse"]
+        got = ks.unpack_components([c._replace(bitmap=c.bitmap.to(cuda), vals=c.vals.to(cuda))
+                                    for c in comps])
+        assert runtime.LAUNCHES["unpack_sparse"] == before + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("first_epoch", [0, 2**30 - 2], ids=["fresh", "wrapping"])
+def test_look_back_scratch_reused(cuda, first_epoch):
+    """K7 and K3 (whole-image chains) share the stream's kept scratch, a
+    new epoch a launch and no memset: repeated calls agree, each leaves
+    the ticket counter at 0, and the epochs wrap (the scratch zeroed and
+    epoch 1 again)."""
+    from zpix_tpu_torch.ops import sparse as ks
+    from zpix_tpu_torch.parallel.batch import stream_perm
+
+    rng = np.random.default_rng(21)
+    comps = []
+    for c, (bv, bh) in enumerate([(58, 74), (29, 37), (29, 37)]):
+        bm, vals = _sparse_case(rng, bv, bh, 2)
+        comps.append(ks.SparseComponent(bm.to(cuda), vals.to(cuda), bv, bh,
+                                        stream_perm(37, 29, 2, 2) if c == 0 else None))
+    hv = ((2, 2), (1, 1), (1, 1))
+    dc = torch.from_numpy(rng.integers(-2**31, 2**31, 2 * 1000 * 6).astype(np.int32)).to(cuda)
+    k7 = ks.unpack_components_plain([c._replace(bitmap=c.bitmap.cpu(), vals=c.vals.cpu())
+                                     for c in comps])
+    k3 = ke.dc_restore_plain(dc.cpu(), hv=hv, seg_mcus=1000)
+    scratch, epoch = runtime.lookback_scratch(dc.device, 1)
+    runtime._scratch[(str(dc.device), torch.cuda.current_stream(dc.device).cuda_stream)][1] = (
+        first_epoch or epoch)
+    epochs = []
+    for _ in range(3):
+        got7 = ks.unpack_components(comps)
+        got3 = ke.dc_restore(dc, hv=hv, seg_mcus=1000)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got7, k7))
+        assert torch.equal(got3.cpu(), k3)
+        scratch, epoch = runtime.lookback_scratch(dc.device, 1)
+        assert int(scratch[0]) == 0  # the ticket counter
+        epochs.append(epoch)
+    assert epochs == [2, 5, 8] if first_epoch else len(set(epochs)) == 3
+
+
+@pytest.mark.parametrize("shift", [1, 3, 7])
+def test_unpack_values_at_every_alignment(cuda, shift):
+    """Values that start 2 * shift bytes past a 16-byte boundary (K7's
+    unaligned head and tail), dense blocks, and a cap of 1."""
+    from zpix_tpu_torch.ops import sparse as ks
+
+    rng = np.random.default_rng(shift)
+    bv, bh, batch = 20, 30, 2
+    bm = torch.full((batch, bv * bh, 8), 255, dtype=torch.uint8)
+    bm[:, ::7] = torch.from_numpy(rng.integers(0, 256, (batch, (bv * bh + 6) // 7, 8)
+                                               ).astype(np.uint8))
+    for cap in (bv * bh * 64, 1000, 1):
+        store = torch.from_numpy(rng.integers(-2**15, 2**15, batch * cap + shift)
+                                 .astype(np.int16)).to(cuda)
+        vals = store[shift:].view(batch, cap)
+        got = ks.unpack_sparse(bm.to(cuda), vals, bv=bv, bh=bh)
+        assert torch.equal(got.cpu(), ks.unpack_sparse_plain(bm, vals.cpu(), bv=bv, bh=bh))
 
 
 @pytest.mark.parametrize("mode", ["gray", "420", "422"])
@@ -491,7 +630,7 @@ def test_restart_free_routes_agree(cuda, mode):
     datas = [synth_plain_jpeg(w=200, h=120, mode=mode, phase=p) for p in (0.0, 1.0, 2.0)]
     runtime.reset_launches()
     native = BatchJpegDecoder().decode(datas)
-    assert runtime.LAUNCHES["unpack_sparse"] == 2 * (1 if mode == "gray" else 3)
+    assert runtime.LAUNCHES["unpack_sparse"] == 1  # every component, one kernel
     assert runtime.LAUNCHES["component_planes"] == 1
     runtime.reset_launches()
     px, ok = HostIndexJpegDecoder().decode(datas)

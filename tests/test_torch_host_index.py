@@ -87,7 +87,7 @@ def test_whole_image_dc_restore_matches_jax(hv, n_mcu):
     rng = np.random.default_rng(n_mcu)
     B, bpm = 3, sum(h * v for h, v in hv)
     dc = rng.integers(-2**31, 2**31 - 1, B * n_mcu * bpm).astype(np.int32)
-    got = ke.dc_restore(torch.from_numpy(dc), hv=hv, seg_mcus=n_mcu, form="block")
+    got = ke.dc_restore(torch.from_numpy(dc), hv=hv, seg_mcus=n_mcu)
     # the JAX store is slot-major: [bpm, groups, n_mcu]
     dcv = dc.reshape(B, n_mcu, bpm).transpose(2, 0, 1).reshape(-1)
     want = np.asarray(jde._restore_dc_T_split(

@@ -87,7 +87,7 @@ def inputs(cs, dev):
     flat = pb.upload(packed, dev)
     grids = [ks.unpack_sparse(pb.carve(flat, packed.layout, "bm", c, cs.BATCH),
                               pb.carve(flat, packed.layout, "val", c, cs.BATCH), bv=bv, bh=bh,
-                              perm=None if p is None else torch.from_numpy(p).to(dev))
+                              perm=p)
              for c, ((bv, bh), p) in enumerate(zip(packed.dims, packed.perms))]
     quants = [pb.carve(flat, packed.layout, "q", c, cs.BATCH) for c in range(3)]
     kw = dict(color="ycbcr", height=cs.SIZE, width=cs.SIZE,

@@ -27,12 +27,12 @@
 // from two stream words, the CTA scans the diffs of each component (a
 // vector of three sums), and warp c publishes chain c's sum over the tile
 // and finds its carry by decoupled look-back over the image's earlier
-// tiles (as K14, csrc/qoi_encode.cu; 2^24 polls trap), the chains in
-// parallel.  Row addresses are a multiply-high division (FastDiv) a
-// block.  Bound on the H100: bytes, one 32-byte sector of the store
-// written a block (the rows are 256 bytes apart), the stream, and 8 bytes
-// of offsets a block; the scattered 4-byte writes into a store larger
-// than L2 cost more than their sectors (PERF.md, K8).
+// tiles (csrc/lookback.cuh, shared with K3 and K7; 2^24 polls trap),
+// the chains in parallel.  Row addresses are a multiply-high division
+// (FastDiv) a block.  Bound on the H100: bytes, one 32-byte sector of
+// the store written a block (the rows are 256 bytes apart), the stream,
+// and 8 bytes of offsets a block; the scattered 4-byte writes into a
+// store larger than L2 cost more than their sectors (PERF.md, K8).
 //
 // K9 replaces build_ac_first_value_fn (:866) with _make_ac_sym_step's
 // rules (:277-312): ZRL, EOB with run bits (consumed, not counted: the
@@ -78,9 +78,11 @@
 #include <cstdint>
 
 #include "huffman.cuh"
+#include "lookback.cuh"
 
 namespace {
 
+namespace lb = zpix_lookback;
 using zpix::BitWindow;
 using zpix::Sym;
 
@@ -225,8 +227,6 @@ __device__ __forceinline__ Sym decode_full(const AcCode& C, const int32_t* vals,
 
 constexpr int kDcTables = 4;  // tables 0..3 get a lookahead table; others decode in full
 constexpr int kDcComps = 3;
-constexpr uint64_t kAggregate = uint64_t(1) << 62, kInclusive = uint64_t(2) << 62;
-constexpr int64_t kMaxPolls = int64_t(1) << 24;
 
 struct DcCodes {
   int32_t lims[kDcTables][16], aoff[kDcTables][16];
@@ -260,35 +260,6 @@ __device__ __forceinline__ int slot_place(const DcGeo& G, int s) {
   }
   const int h = G.hv[c] & 15;
   return c | (j / h) << 8 | (j % h) << 16;
-}
-
-__device__ __forceinline__ uint64_t poll64(const uint64_t* p) {
-  int64_t n = 0;
-  uint64_t v;
-  while ((v = *reinterpret_cast<const volatile uint64_t*>(p)) == 0) {
-    if (++n > kMaxPolls) __trap();
-  }
-  return v;
-}
-
-// A warp: the carry of chain c entering tile ti (its words at
-// flags[(t0 + p) * kDcComps + c] for the image's tiles p < ti), by
-// look-back, 32 earlier tiles a round.
-__device__ uint32_t dc_lookback(const uint64_t* flags, int64_t t0, int ti, int c) {
-  const int lane = threadIdx.x & 31;
-  uint32_t carry = 0;
-  for (int p = ti - 1; p >= 0; p -= 32) {
-    const int me = p - lane;
-    const uint64_t w = me >= 0 ? poll64(flags + (t0 + me) * kDcComps + c) : kInclusive;
-    const unsigned inc = __ballot_sync(kFull, (w >> 62) == 2);
-    const int stop = inc ? __ffs(inc) - 1 : 32;  // lanes 0..stop count
-    uint32_t v = lane <= stop ? static_cast<uint32_t>(w) : 0u;
-#pragma unroll
-    for (int d = 16; d; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
-    carry += v;
-    if (inc) break;
-  }
-  return carry;
 }
 
 __global__ void __launch_bounds__(1024)
@@ -405,7 +376,7 @@ dc_first_kernel(const uint32_t* __restrict__ g, int sh8, int64_t cap,
     // carry by look-back (the chains in parallel)
     for (int c = warp; c < G.ncomp; c += nw) {
       const int64_t t0 = static_cast<int64_t>(b) * G.tpi;  // the image's first tile
-      volatile uint64_t* mine = flags + (t0 + ti) * kDcComps + c;
+      uint64_t* mine = flags + (t0 + ti) * kDcComps + c;
       uint32_t s = lane < nw ? wsum[lane][c] : 0u;
 #pragma unroll
       for (int d = 1; d < 32; d <<= 1) {
@@ -414,10 +385,10 @@ dc_first_kernel(const uint32_t* __restrict__ g, int sh8, int64_t cap,
       }
       if (lane < nw) wsum[lane][c] = s;
       const uint32_t total = __shfl_sync(kFull, s, 31);
-      if (lane == 0) *mine = (ti == 0 ? kInclusive : kAggregate) | total;
-      const uint32_t in = ti == 0 ? 0u : dc_lookback(flags, t0, ti, c);
+      if (lane == 0) lb::publish(mine, ti == 0 ? lb::kInclusive : lb::kAggregate, total);
+      const uint32_t in = ti == 0 ? 0u : lb::carry_in(flags + t0 * kDcComps + c, ti, kDcComps);
       if (lane == 0) {
-        if (ti > 0) *mine = kInclusive | (in + total);
+        if (ti > 0) lb::publish(mine, lb::kInclusive, in + total);
         carry[c] = in;
       }
     }

@@ -10,8 +10,9 @@ and K3 (DC restore), each a CUDA kernel with its plain PyTorch version.
 * K1 and K2 read each symbol through a lookahead table that every CTA
   builds from the packed tables; ``index_lut_plain`` is its copy.
 * ``dc_restore`` wraps K3 (csrc/dc_restore.cu), the port of
-  ``_restore_dc_T_split`` (:836-851), in a thread-per-chain form for
-  restart segments and a block-per-chain form for whole-image chains.
+  ``_restore_dc_T_split`` (:836-851): one kernel, tiles of whole MCUs,
+  for the short chains of restart segments and the whole-image chains of
+  restart-free streams alike.
 
 Layouts: lanes are block-major, lane = segment * nblk + mcu * bpm + slot,
 so a segment's blocks, and an MCU's slots, are contiguous.  ``ok`` is an
@@ -343,33 +344,34 @@ def value_pass(stream, seg_pos, seg_nmcu, tables, ends, ok, *, bpm: int):
     return ac, dc
 
 
-# Chains at least this long take K3's block-per-chain form under "auto".
-LONG_CHAIN = 1024
+# MCUs a K3 CTA takes, a thread each (kTile in csrc/dc_restore.cu): it
+# sizes the kernel's look-back scratch.
+K3_TILE_MCUS = 128
+_DC_COMPS = 4
 
 
-def dc_restore(dc, *, hv, seg_mcus: int, form: str = "auto"):
-    """K3: raw DC diffs [L1*seg_mcus*bpm] int32 -> restored DC values.
-
-    ``form`` picks the kernel: "thread" (one thread per chain, for the
-    short chains of restart segments), "block" (one CUDA block per chain,
-    for whole-image chains) or "auto" (block when a chain holds at least
-    LONG_CHAIN blocks)."""
+def dc_restore(dc, *, hv, seg_mcus: int):
+    """K3: raw DC diffs [L1*seg_mcus*bpm] int32 -> restored DC values (the
+    inclusive prefix sum along each (segment, component) chain).  One
+    launch; where a tile can start inside a segment, its look-back words
+    live in the stream's kept scratch (no allocation, no memset)."""
     if dc.dtype != torch.int32:
         raise TypeError("dc_restore: expected int32 diffs")
-    if form not in ("auto", "thread", "block"):
-        raise ValueError(f"dc_restore: unknown form {form!r}")
     if dc.device.type == "cpu":
         return dc_restore_plain(dc, hv=hv, seg_mcus=seg_mcus)
     runtime.require_cuda(dc)
-    bpm = sum(h * v for h, v in hv)
-    nb = [h * v for h, v in hv] + [0] * (4 - len(hv))
-    if form == "auto":
-        form = "block" if seg_mcus * max(nb) >= LONG_CHAIN else "thread"
+    nb = [h * v for h, v in hv]
+    bpm = sum(nb)
+    if not 1 <= len(nb) <= _DC_COMPS or dc.numel() % (seg_mcus * bpm):
+        raise ValueError("dc_restore: the diffs are no whole segments of 1-4 chains")
+    scratch, words, epoch = None, 0, 0
+    if K3_TILE_MCUS % seg_mcus:  # a tile can start inside a segment: look-back, a ticket
+        words = -(-(dc.numel() // bpm) // K3_TILE_MCUS) * _DC_COMPS + 1
+        scratch, epoch = runtime.lookback_scratch(dc.device, words)
     out = torch.empty_like(dc)
     runtime.launch(
-        "dc_restore", dc.device,
-        "zpix_dc_restore_long" if form == "block" else "zpix_dc_restore", "pp" + "i" * 8,
-        dc.data_ptr(), out.data_ptr(), dc.numel() // (seg_mcus * bpm), seg_mcus, bpm,
-        len(hv), *nb,
+        "dc_restore", dc.device, "zpix_dc_restore", "pppli" + "l" + "i" * 7,
+        dc.data_ptr(), out.data_ptr(), 0 if scratch is None else scratch.data_ptr(), words, epoch,
+        dc.numel(), seg_mcus, bpm, len(nb), *(nb + [0] * (_DC_COMPS - len(nb))),
     )
     return out

@@ -1,31 +1,81 @@
 """K7, the sparse coefficient unpack: nonzero bitmap + int16 values ->
 dense coefficient grids, in grid order.
 
-``unpack_sparse`` wraps K7 (csrc/unpack_sparse.cu), the port of
+``unpack_components`` wraps K7 (csrc/unpack_sparse.cu), the port of
 zpix_tpu/parallel/batch.py::_unpack_sparse_graph (:560) and _apply_perm
-(:573).  ``unpack_sparse_plain`` is the same function in plain PyTorch,
-written as the JAX graph is (unpack the bits, cumsum, clip, gather,
-permute); the dispatch takes it for CPU tensors only.
+(:573), for every component of a decode in one launch; ``unpack_sparse``
+is its one-component call.  ``unpack_sparse_plain`` is the same function
+in plain PyTorch, written as the JAX graph is (unpack the bits, cumsum,
+clip, gather, permute); the dispatch takes it for CPU tensors only.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from .. import runtime
 
 _SHIFTS = torch.arange(7, -1, -1, dtype=torch.int32)  # MSB first (np.packbits)
 
+# Stream blocks a K7 CTA takes, a thread each (kTile in
+# csrc/unpack_sparse.cu): it sizes the kernel's look-back scratch.
+K7_TILE_BLOCKS = 256
+MAX_COMPONENTS = 4
 
-def _check(bitmap, vals, perm, bv: int, bh: int):
+
+class SparseComponent(NamedTuple):
+    """One component of a decode: its stream-order bitmap [B, bv*bh, 8]
+    u8, its values [B, cap] int16 (each image's nonzeros in stream order),
+    its grid (bv, bh) and its grid -> stream perm (numpy int32 [bv*bh],
+    as parallel/batch.py::stream_perm gives it) or None for grid order."""
+
+    bitmap: torch.Tensor
+    vals: torch.Tensor
+    bv: int
+    bh: int
+    perm: object = None
+
+
+def _check(comp: SparseComponent, batch: int):
+    bitmap, vals, perm, nb = comp.bitmap, comp.vals, comp.perm, comp.bv * comp.bh
     if bitmap.dtype != torch.uint8 or vals.dtype != torch.int16:
         raise TypeError("unpack_sparse: expected a u8 bitmap and int16 values")
-    if bitmap.dim() != 3 or tuple(bitmap.shape[1:]) != (bv * bh, 8):
+    if bitmap.dim() != 3 or tuple(bitmap.shape[1:]) != (nb, 8) or bitmap.shape[0] != batch:
         raise ValueError("unpack_sparse: bitmap must be [B, bv*bh, 8]")
-    if vals.dim() != 2 or vals.shape[0] != bitmap.shape[0] or vals.shape[1] < 1:
+    if vals.dim() != 2 or vals.shape[0] != batch or vals.shape[1] < 1:
         raise ValueError("unpack_sparse: values must be [B, cap] with cap >= 1")
-    if perm is not None and (perm.dtype != torch.int32 or tuple(perm.shape) != (bv * bh,)):
-        raise ValueError("unpack_sparse: perm must be int32 [bv*bh]")
+    if perm is not None and (not isinstance(perm, np.ndarray) or perm.dtype != np.int32
+                             or perm.shape != (nb,)):
+        raise ValueError("unpack_sparse: perm must be a numpy int32 [bv*bh] or None")
+
+
+def stream_to_grid(perm):
+    """The inverse of a grid -> stream perm (numpy int32 [nb]): the grid
+    index of each stream block, or None for grid order."""
+    if perm is None:
+        return None
+    perm = np.asarray(perm, np.int64)
+    inv = np.empty(perm.shape[0], np.int32)
+    inv[perm] = np.arange(perm.shape[0], dtype=np.int32)
+    return inv
+
+
+_GRID_MAPS: dict = {}
+
+
+def grid_map(perm, device):
+    """The stream -> grid map of a numpy ``perm`` on ``device``, built on
+    the host and copied there once per distinct perm (a decode then makes
+    no copy of its own); None for None."""
+    if perm is None:
+        return None
+    key = (str(device), perm.tobytes())
+    if key not in _GRID_MAPS:
+        _GRID_MAPS[key] = torch.from_numpy(stream_to_grid(perm)).to(device)
+    return _GRID_MAPS[key]
 
 
 def unpack_sparse_plain(bitmap, vals, *, bv: int, bh: int, perm=None):
@@ -38,27 +88,53 @@ def unpack_sparse_plain(bitmap, vals, *, bv: int, bh: int, perm=None):
     coeff = torch.where(bits == 1, torch.gather(vals, 1, idx), 0).to(torch.int16)
     coeff = coeff.view(B, nb, 64)
     if perm is not None:
-        coeff = coeff[:, perm.long()]
+        coeff = coeff[:, torch.from_numpy(perm).to(coeff.device).long()]
     return coeff.reshape(B, bv, bh, 64)
 
 
+def unpack_components_plain(comps):
+    """The plain version of ``unpack_components``, a component at a time."""
+    return [unpack_sparse_plain(c.bitmap, c.vals, bv=c.bv, bh=c.bh, perm=c.perm) for c in comps]
+
+
+def unpack_components(comps):
+    """K7: every component of a decode (a list of SparseComponent, one
+    batch) -> their coefficient grids [B, bv, bh, 64] int16 in grid order
+    (exact: the values are int16).  On the card one kernel launch,
+    whatever the number of components, and no memset: the look-back words
+    live in the stream's kept scratch."""
+    comps = list(comps)
+    if not 1 <= len(comps) <= MAX_COMPONENTS:
+        raise ValueError(f"unpack_sparse: 1 to {MAX_COMPONENTS} components")
+    batch = len(comps[0].bitmap)
+    for c in comps:
+        _check(c, batch)
+    dev = comps[0].bitmap.device
+    if dev.type == "cpu":
+        return unpack_components_plain(comps)
+    runtime.require_cuda(*[t for c in comps for t in (c.bitmap, c.vals)])
+    outs, desc = [], []
+    for c in comps:
+        nb = c.bv * c.bh
+        if c.bitmap.data_ptr() % 8:
+            raise ValueError("unpack_sparse: the bitmap must be 8-byte aligned")
+        if nb >= 1 << 26:
+            raise ValueError("unpack_sparse: at most 2^26 blocks a component")
+        m = grid_map(c.perm, dev)
+        out = torch.empty(batch, c.bv, c.bh, 64, dtype=torch.int16, device=dev)
+        outs.append(out)
+        desc.append([c.bitmap.data_ptr(), c.vals.data_ptr(), 0 if m is None else m.data_ptr(),
+                     out.data_ptr(), c.vals.shape[1], nb])
+    words = sum(batch * -(-(c.bv * c.bh) // K7_TILE_BLOCKS) for c in comps) + 1
+    scratch, epoch = runtime.lookback_scratch(dev, words)
+    d = np.asarray(desc, np.int64)
+    runtime.launch("unpack_sparse", dev, "zpix_unpack_sparse", "piipli",
+                   d.ctypes.data, len(comps), batch, scratch.data_ptr(), words, epoch)
+    return outs
+
+
 def unpack_sparse(bitmap, vals, *, bv: int, bh: int, perm=None):
-    """K7: one component's blocks, stream-order bitmap [B, bv*bh, 8] u8 and
-    values [B, cap] int16 (the image's nonzeros in order), ``perm`` int32
-    [bv*bh] grid -> stream or None -> coefficients [B, bv, bh, 64] int16
-    in grid order (exact: the values are int16)."""
-    _check(bitmap, vals, perm, bv, bh)
-    if bitmap.device.type == "cpu":
-        return unpack_sparse_plain(bitmap, vals, bv=bv, bh=bh, perm=perm)
-    runtime.require_cuda(bitmap, vals, *([] if perm is None else [perm]))
-    if bitmap.data_ptr() % 8:
-        raise ValueError("unpack_sparse: the bitmap must be 8-byte aligned")
-    B, nb = bitmap.shape[0], bv * bh
-    offs = torch.empty(B, nb, dtype=torch.int32, device=bitmap.device)
-    out = torch.empty(B, bv, bh, 64, dtype=torch.int16, device=bitmap.device)
-    runtime.launch(
-        "unpack_sparse", bitmap.device, "zpix_unpack_sparse", "ppppplll",
-        bitmap.data_ptr(), vals.data_ptr(), 0 if perm is None else perm.data_ptr(),
-        offs.data_ptr(), out.data_ptr(), B, nb, vals.shape[1], kernels=2,
-    )
-    return out
+    """K7 on one component: stream-order bitmap [B, bv*bh, 8] u8 and
+    values [B, cap] int16, ``perm`` numpy int32 [bv*bh] grid -> stream or None
+    -> coefficients [B, bv, bh, 64] int16 in grid order."""
+    return unpack_components([SparseComponent(bitmap, vals, bv, bh, perm)])[0]

@@ -10,7 +10,7 @@ one copy.  The device half carves that buffer with no copy and runs two
 hand-written kernels:
 
 1. sparse unpack (K7, ops/sparse.py): nonzero bitmaps + int16 values ->
-   dense coefficient grids in grid order, one launch per component;
+   dense coefficient grids in grid order, one launch for all components;
 2. component planes (K6, ops/planes.py): per-image dequant, Wang IDCT,
    level shift, chroma replication and colour into [B, H, W, C] u8.
 
@@ -334,29 +334,14 @@ def packed_from_arrays(buffer, layout, quants, perm_y, perm_c, *, width: int,
 # ---------------------------------------------------------------- device half
 
 
-_DEVICE_PERMS: dict = {}
-
-
-def _perm_tensor(perm, device):
-    """A grid->stream perm as an int32 tensor on ``device``, copied there
-    once per distinct perm (a decode then makes no copy of its own)."""
-    if perm is None or isinstance(perm, torch.Tensor):
-        return perm
-    perm = np.asarray(perm, np.int32)
-    key = (str(device), perm.tobytes())
-    if key not in _DEVICE_PERMS:
-        _DEVICE_PERMS[key] = torch.from_numpy(perm.copy()).to(device)
-    return _DEVICE_PERMS[key]
-
-
 def unpack_flat(buffer, layout, *, batch: int, dims, perms):
-    """K7 over each component of a flat buffer -> grids [B, bv, bh, 64]
-    int16.  ``dims``: per component its grid (bv, bh); ``perms``: its
-    grid->stream map or None."""
-    return [_sparse.unpack_sparse(carve(buffer, layout, "bm", c, batch),
-                                  carve(buffer, layout, "val", c, batch), bv=bv, bh=bh,
-                                  perm=_perm_tensor(perm, buffer.device))
-            for c, ((bv, bh), perm) in enumerate(zip(dims, perms))]
+    """K7 over every component of a flat buffer, one launch -> grids [B,
+    bv, bh, 64] int16.  ``dims``: per component its grid (bv, bh);
+    ``perms``: its grid->stream map or None."""
+    return _sparse.unpack_components(
+        _sparse.SparseComponent(carve(buffer, layout, "bm", c, batch),
+                                carve(buffer, layout, "val", c, batch), bv, bh, perm)
+        for c, ((bv, bh), perm) in enumerate(zip(dims, perms)))
 
 
 def decode_batch_planes(grids, quants, *, color: str, height: int, width: int,
@@ -391,11 +376,10 @@ def decode_batch_ycbcr_packed(bm_y, v_y, bm_cb, v_cb, bm_cr, v_cr, qy, qcb, qcr,
                               height, width, ratio, by, bx, cby, cbx,
                               perm_y=None, perm_c=None):
     """Per-component bitmaps and values -> RGB8 [B, H, W, 3] (K7, then K6)."""
-    dev = bm_y.device
-    grids = [_sparse.unpack_sparse(bm, v, bv=bv, bh=bh, perm=_perm_tensor(p, dev))
-             for bm, v, bv, bh, p in ((bm_y, v_y, by, bx, perm_y),
-                                      (bm_cb, v_cb, cby, cbx, perm_c),
-                                      (bm_cr, v_cr, cby, cbx, perm_c))]
+    grids = _sparse.unpack_components(
+        _sparse.SparseComponent(bm, v, bv, bh, p)
+        for bm, v, bv, bh, p in ((bm_y, v_y, by, bx, perm_y), (bm_cb, v_cb, cby, cbx, perm_c),
+                                 (bm_cr, v_cr, cby, cbx, perm_c)))
     return decode_batch_ycbcr_to_rgb(*grids, qy, qcb, qcr, height=height, width=width,
                                      ratio=ratio)
 
@@ -403,7 +387,7 @@ def decode_batch_ycbcr_packed(bm_y, v_y, bm_cb, v_cb, bm_cr, v_cr, qy, qcb, qcr,
 def decode_batch_ycbcr_flat(buffer, qy, qcb, qcr, *, height, width, ratio, by, bx,
                             cby, cbx, layout, batch, perm_y=None, perm_c=None):
     """One flat u8 buffer (bitmap and value sections as ``layout`` gives
-    them) + quant rows -> RGB8 [B, H, W, 3] (K7 per component, then K6)."""
+    them) + quant rows -> RGB8 [B, H, W, 3] (K7, then K6)."""
     grids = unpack_flat(buffer, layout, batch=batch, dims=[(by, bx), (cby, cbx), (cby, cbx)],
                         perms=[perm_y, perm_c, perm_c])
     return decode_batch_ycbcr_to_rgb(*grids, qy, qcb, qcr, height=height, width=width,
@@ -420,7 +404,7 @@ def upload(packed: Packed, device) -> torch.Tensor:
 
 
 def decode_uploaded(buf: torch.Tensor, packed: Packed) -> torch.Tensor:
-    """The flat buffer on the device -> pixels: K7 per component, then K6."""
+    """The flat buffer on the device -> pixels: K7 (every component), then K6."""
     grids = unpack_flat(buf, packed.layout, batch=packed.batch, dims=packed.dims,
                         perms=packed.perms)
     quants = [carve(buf, packed.layout, "q", c, packed.batch) for c in range(len(packed.hv))]

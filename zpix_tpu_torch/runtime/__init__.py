@@ -148,6 +148,34 @@ def launch(kernel: str, device, name: str, sig: str, *args, kernels: int = 1) ->
     LAUNCHES[kernel] += kernels
 
 
+_EPOCHS = (1 << 30) - 1  # look-back epochs 1 .. 2^30 - 1 (csrc/lookback.cuh)
+_scratch: dict = {}
+
+
+def lookback_scratch(device, words: int):
+    """-> (an int64 tensor of at least ``words`` on ``device``, an epoch)
+    for one launch of a kernel with decoupled look-back (K3, K7;
+    csrc/lookback.cuh).  One tensor a CUDA stream, kept between calls and
+    zeroed when made and after 2^30 - 1 epochs: each launch gets a new
+    epoch, so the words an
+    earlier launch left read as unset, and the launch leaves word 0 (its
+    ticket counter) at 0.  A call allocates nothing and needs no memset."""
+    import torch
+
+    key = (str(device), torch.cuda.current_stream(device).cuda_stream)
+    with _lock:
+        ent = _scratch.get(key)
+        if ent is None or ent[0].numel() < words:
+            size = max(words, 2 * (0 if ent is None else ent[0].numel()))
+            ent = [torch.zeros(size, dtype=torch.int64, device=device), 0]
+            _scratch[key] = ent
+        ent[1] += 1
+        if ent[1] > _EPOCHS:  # every epoch used: start again from zeros
+            ent[0].zero_()
+            ent[1] = 1
+        return ent[0], ent[1]
+
+
 def require_cuda(*tensors, rows: bool = False) -> None:
     """Kernel inputs must be contiguous CUDA tensors on one device; with
     ``rows``, only their last dimension (a kernel that reads rows through
