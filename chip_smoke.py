@@ -28,7 +28,9 @@ progressive JPEG (a new image each batch) through
 also at q90 and q25, 4:4:4, gray and a 999x997 crop, on damaged copies,
 and K10 on streams cut inside its scans; K8 at batch 1, 4:2:2 and a
 width of 63 MCUs, on streams cut short; K9 on a store holding values in
-its band and on one not 16-byte aligned), times
+its band and on one not 16-byte aligned; K11 on interleaved 4:4:4,
+4:2:2, 4:2:0 and 4:1:1 scans, single-component scans with partial MCUs,
+all and no bits set, rows wider than their bits and Al 0-13, each twice), times
 them with CUDA events, checks that corrupt streams are flagged, and
 prints one JSON object per line.  Then the raster slice: batches of 16
 distinct 1024x1024 QOI streams (the JAX bench's "noise" and "screen"
@@ -55,7 +57,13 @@ every front-end (K17's seven pass launches each timed with its bound),
 and five kinds of damaged stream (a wrong adler32
 trailer among them, checked on the card by ``device_inflate``; the
 check also on rows of every alignment, of no bytes, of a span less or
-more one byte, and on 70,000 one-byte images).  The
+more one byte, and on 70,000 one-byte images).  Then the
+``pipeline`` phase: each route's 10 timed batches (DRI 8, native, host
+index, sync, progressive, QOI noise p4, BMP 24 bpp, PNG ``host``)
+decoded serially and through ``DecodePipeline``, the outputs and ``ok``
+bit-identical, each run's end-to-end MPix/s and the card's busy share,
+the metrics registry's report, and one pipelined DRI 8 run traced into
+build/pipeline_trace (its five longest device ops and idle gaps).  The
 last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero.  Without
 CUDA it exits non-zero and prints no result.
@@ -609,12 +617,12 @@ def native_stages(dec, datas, dev):
     from zpix_tpu_torch.parallel import batch as pb
 
     t0 = time.perf_counter()
-    packed = dec.front_end(datas).packed()
+    packed = dec.prep(datas)
     parse_ms = (time.perf_counter() - t0) * 1e3
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     torch.cuda.synchronize()
     ev[0].record()
-    buf = pb.upload(packed, dev)
+    buf = dec.upload(packed)
     ev[1].record()
     grids = pb.unpack_flat(buf, packed.layout, batch=packed.batch, dims=packed.dims,
                            perms=packed.perms)
@@ -685,9 +693,7 @@ def restart_free(batches, dev, mpix):
     launches_hidx = dict(runtime.LAUNCHES)
 
     # images 0 and 1 against the plain path on the card, for each route
-    fe2 = pb.NativeBatchFrontEnd(batches[0][0], 2)
-    fe2.parse(batches[0][:2])
-    p2 = fe2.packed()
+    p2 = pb.NativeBatchFrontEnd(batches[0][0], 2).parse(batches[0][:2])
     buf2 = pb.upload(p2, dev)
     dims = p2.dims
     grids = [ks.unpack_sparse_plain(pb.carve(buf2, p2.layout, "bm", c, 2),
@@ -1275,6 +1281,58 @@ def prog_refine_checks(dec, data) -> dict:
     return out
 
 
+def prog_cases():
+    """tests/_torch_prog.py (K11's cases and its algorithm in numpy; it
+    imports nothing of the JAX package), loaded by path."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "_torch_prog.py")
+    spec = importlib.util.spec_from_file_location("_torch_prog", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# K11's cases at chip size: interleaved 4:4:4, 4:2:2, 4:2:0 and 4:1:1,
+# single-component scans with partial MCUs, all and no bits set, rows
+# wider than their bits (the case list of tests/_torch_prog.py), on an MCU
+# grid of 67 x 41 (block counts no multiple of 8 or 32, rows no multiple
+# of 4 bytes), 16 images, the rows at an odd address; 4:2:0 at every Al
+# of 0-13.
+K11_GRID = dict(mxx=67, myy=41, batch=BATCH)
+# K11 on the bench batch's one DC refinement scan (PERF.md, §6), written
+# before the design's first run: 0.0191 ms before it
+K11_PREDICTION_MS = (0.006, 0.010)
+
+
+def k11_edge_checks(dev) -> dict:
+    """K11 against its plain version on each case, twice (a second launch
+    on fresh grids) -> {case: max_abs_err, or 1 where a call did not take
+    one launch}."""
+    from zpix_tpu_torch import runtime
+    from zpix_tpu_torch.ops import progressive as kp
+
+    cases = prog_cases()
+    runs = [(c, None) for c in cases.K11_CASES] + [("420", al) for al in range(14)]
+    out = {}
+    for case, al0 in runs:
+        rows, grids, hv, valid, al = cases.k11_case(case, 17, al=al0, **K11_GRID)
+        want = [torch.from_numpy(g.copy()).to(dev) for g in grids]
+        flat = torch.zeros(rows.size + 1, dtype=torch.uint8, device=dev)
+        rows_d = flat[1:].view(rows.shape)
+        rows_d.copy_(torch.from_numpy(rows))
+        kp.dc_refine_plain(rows_d, want, hv=hv, valid=valid, al=al)
+        err = 0
+        for _ in range(2):
+            got = [torch.from_numpy(g).to(dev) for g in grids]
+            before = runtime.LAUNCHES["dc_refine"]
+            kp.dc_refine(rows_d, got, hv=hv, valid=valid, al=al)
+            err = max(err, int(runtime.LAUNCHES["dc_refine"] != before + 1),
+                      *(max_abs_err(g, w) for g, w in zip(got, want)))
+        out[case if al0 is None else f"{case}_al{al}"] = err
+    return out
+
+
 def prog_first_checks(dec, prep, bufs) -> dict:
     """K8's and K9's edges, each kernel against its plain version (store
     and ok): FIRST_CASES scan by scan; the main batch's DC-first stream cut
@@ -1431,6 +1489,8 @@ def progressive(dev):
     errs["ac_refine"] = max(errs["ac_refine"], *(v for k, v in refine.items()
                                                  if not k.endswith(("_ok", "_flagged"))))
     first = prog_first_checks(dec, prep, bufs)
+    k11_edges = k11_edge_checks(dev)
+    errs["dc_refine"] = max(errs["dc_refine"], *k11_edges.values())
     errs["dc_first"] = max(errs["dc_first"], first["dc_cut"],
                            *(first[n] for n, *_ in FIRST_CASES))
     errs["ac_first"] = max(errs["ac_first"], first["ac_band_store"], first["ac_unaligned"],
@@ -1448,7 +1508,7 @@ def progressive(dev):
     ref2, ok2, _ = prog_stages(dec, batches[0][:2], plain=prog_plain())
     pil = np.asarray(Image.open(BytesIO(batches[0][0])).convert("RGB"))
     check = {"max_abs_err": errs, "mixed_batch": mixed, "refine_edges": refine,
-             "first_edges": first,
+             "first_edges": first, "k11_edges": k11_edges,
              "kernels_ok": bool(ok_k),
              "main_ok": bool(ok),
              "main_vs_plain": max_abs_err(px[:2], ref2), "plain_ok": ok2,
@@ -1559,6 +1619,12 @@ def progressive(dev):
     entries["dc_first"]["sector_bound_ms"] = 32 * wk["dc_first"]["lanes"] / HBM_BYTES_PER_S * 1e3
     entries["ac_first"]["sector_bound_ms"] = (64 * wk["ac_first"]["sectors"]
                                               / HBM_BYTES_PER_S * 1e3)
+    # K11 reads and writes the sector of each block whose bit is set
+    entries["dc_refine"]["sector_bound_ms"] = (64 * wk["dc_refine"]["changed"]
+                                               / HBM_BYTES_PER_S * 1e3)
+    entries["dc_refine"]["prediction_ms"] = K11_PREDICTION_MS
+    entries["dc_refine"]["library_note"] = ("no single PyTorch call unpacks the bits and ORs "
+                                            "them into scattered rows")
     entries["ac_refine"]["restore_ms_taken_off"] = restore_ms
     entries["component_planes_int32"] = {
         "ms": cuda_ms(lambda: kp6.component_planes(grids, quants, **kw6), 20),
@@ -1568,7 +1634,7 @@ def progressive(dev):
         + OPS_K4_CHROMA * 64 * BATCH * prep.mxx * prep.myy,
         "max_abs_err": errs["component_planes_int32"]}
     del tg, refine_inputs
-    return summary, entries
+    return summary, entries, batches
 
 
 # ------------------------------------------------- QOI and BMP slice (K12-K14, K18)
@@ -1861,7 +1927,7 @@ def qoi_phase(dev):
                                                check_host(2))
         # with the R hint set, the lane pass fills the pinned staging buffer
         plan = dec.prep(batches[c][2])
-        in_staging = bool(np.shares_memory(plan.p4, dec._upload._staging.numpy()))
+        in_staging = dec._upload.staged([plan.p4])
         routes[c] = {"main_equal_host": main_equal, "timed_images_0_1_equal_host": oks,
                      "layout": layouts[c], "plan_filled_in_staging": in_staging,
                      **route_summary(walls, peak, mean, launches[c])}
@@ -2101,13 +2167,14 @@ def bmp_stages(dec, datas):
     from zpix_tpu_torch.ops.bmp import bmp_unpack, bmp_unpack_plain
 
     t0 = time.perf_counter()
-    rows, pal, (width, _h, top_down, bpp, allow_alpha) = dec.prep(datas)
+    plan = dec.prep(datas)
     host_ms = (time.perf_counter() - t0) * 1e3
+    width, _h, top_down, bpp, allow_alpha = plan[2]
     kw = dict(bpp=bpp, width=width, top_down=top_down, allow_alpha=allow_alpha)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     torch.cuda.synchronize()
     ev[0].record()
-    rows_d, pal_d = dec.upload(rows, pal)
+    rows_d, pal_d = dec.upload(plan)
     ev[1].record()
     px = bmp_unpack(rows_d, pal_d, **kw)
     ev[2].record()
@@ -2216,7 +2283,7 @@ def bmp_phase(dev):
                  "launches": launches["24bpp"]["bmp_unpack"]}), **arms_timed}
     summary = {"arms_seconds": arms_s, "content_seconds": content_s, "max_abs_err": errs,
                "routes": routes, "truncated": truncated}
-    return summary, entry, launches["24bpp"]
+    return summary, entry, launches["24bpp"], batches["24bpp"]
 
 
 # ------------------------------------------------------ PNG slice (K15-K17)
@@ -2736,7 +2803,7 @@ def png_phase(dev):
                "inflated_bytes_per_image": per}
     paths = {"png_host": launches["host"], "png_defilter": launches["defilter"],
              "png_inflate": launches["inflate"], "png_adam7": launches["adam7"]}
-    return summary, entries, paths
+    return summary, entries, paths, batches
 
 
 PNG_DAMAGE_WANT = {  # damage -> (error class, message prefix) on the host-inflate routes
@@ -2776,7 +2843,8 @@ def png_check(pg, paths) -> None:
 
 def raster_slice(dev):
     """The phases qoi, qoi_encode, bmp and png, each printed and checked ->
-    ({kernel: timing entry}, {path: launches of one call})."""
+    ({kernel: timing entry}, {path: launches of one call}, {pipeline
+    route: its batches})."""
     # ------------------------------------------------------------ QOI
     t0 = time.perf_counter()
     q, raster_entries, q_launches, lane_decs = qoi_phase(dev)
@@ -2803,6 +2871,7 @@ def raster_slice(dev):
     t0 = time.perf_counter()
     qe, raster_entries["qoi_encode"], qe_launches = qoi_encode_phase(dev, lane_decs)
     emit({"phase": "qoi_encode", "seconds": time.perf_counter() - t0, **qe})
+    qoi_noise = lane_decs["noise"][1]
     del lane_decs
     qc = qe["check"]
     if (any(qe["max_abs_err"].values()) or qe_launches["qoi_encode"] == 0
@@ -2812,7 +2881,7 @@ def raster_slice(dev):
 
     # ------------------------------------------------------------ BMP
     t0 = time.perf_counter()
-    bm, raster_entries["bmp_unpack"], bm_launches = bmp_phase(dev)
+    bm, raster_entries["bmp_unpack"], bm_launches, bmp_batches = bmp_phase(dev)
     emit({"phase": "bmp", "seconds": time.perf_counter() - t0, **bm})
     if any(bm["max_abs_err"].values()) or bm_launches["bmp_unpack"] == 0:
         raise SystemExit("chip_smoke: K18 disagrees with its plain version or was skipped")
@@ -2822,12 +2891,163 @@ def raster_slice(dev):
 
     # ------------------------------------------------------------ PNG
     t0 = time.perf_counter()
-    pg, png_entries, png_paths = png_phase(dev)
+    pg, png_entries, png_paths, png_batches = png_phase(dev)
     emit({"phase": "png", "seconds": time.perf_counter() - t0, **pg})
     png_check(pg, png_paths)
     raster_entries.update(png_entries)
-    return raster_entries, {"qoi_lane": q_launches["noise"], "qoi_sorted": q_launches["sorted"],
-                            "qoi_encode": qe_launches, "bmp": bm_launches, **png_paths}
+    paths = {"qoi_lane": q_launches["noise"], "qoi_sorted": q_launches["sorted"],
+             "qoi_encode": qe_launches, "bmp": bm_launches, **png_paths}
+    return raster_entries, paths, {"qoi_noise_p4": qoi_noise, "bmp_24bpp": bmp_batches,
+                                   "png_host": png_batches}
+
+
+# ------------------------------------------------ pipeline (DecodePipeline)
+
+
+def pipeline_decoders():
+    """Pipeline route -> a new decoder of it, as the phases above drive it."""
+    from zpix_tpu_torch import (BatchBmpDecoder, BatchJpegDecoder, BatchPngDecoder,
+                                DeviceJpegDecoder, HostIndexJpegDecoder, HostIndexQoiDecoder,
+                                OnchipProgressiveDecoder, SyncJpegDecoder)
+
+    return {"dri8": lambda: DeviceJpegDecoder(planar=True),
+            "native": BatchJpegDecoder,
+            "host_index": lambda: HostIndexJpegDecoder(planar=False),
+            "sync": SyncJpegDecoder,
+            "progressive": OnchipProgressiveDecoder,
+            "qoi_noise_p4": lambda: HostIndexQoiDecoder(lane_p=QOI_PROFILES["noise"],
+                                                        lane_fmt="p4"),
+            "bmp_24bpp": BatchBmpDecoder,
+            "png_host": BatchPngDecoder}
+
+
+def device_spans(prof) -> list:
+    """[(start us, end us, name)] of the card's kernels, copies and
+    memsets in a torch.profiler run, by start."""
+    from torch.autograd import DeviceType
+
+    return sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA)
+
+
+def busy_and_gaps(spans) -> tuple:
+    """The union of the spans (every stream) -> (its length in us, the
+    idle gaps [(us, the op before, the op after)] between its first start
+    and last end)."""
+    busy, gaps, end, last = 0.0, [], None, None
+    for a, b, name in spans:
+        if end is None or a > end:
+            if end is not None:
+                gaps.append((a - end, last, name))
+            busy += b - a
+            end, last = b, name
+        elif b > end:
+            busy += b - end
+            end, last = b, name
+    return busy, gaps
+
+
+def profiled_busy_share(fn) -> float:
+    """fn() under torch.profiler (host and card): the card's busy time (the
+    union of its ops over every stream) over the run's host wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return busy_and_gaps(device_spans(prof))[0] / (wall * 1e6)
+
+
+def pipeline_phase(content: dict) -> dict:
+    """Each route's 10 timed batches (16 distinct 1024^2 images; the
+    progressive route 16 copies of a new image a batch) decoded serially
+    (``decode``, a sync a batch) and through ``DecodePipeline`` (prefetch
+    2, the decoder's prep / upload / run, one sync at the end): the
+    pipelined outputs and ok bit-identical to the serial ones, each run's
+    end-to-end MPix/s (host clock), a pipelined run with one prep thread
+    (its ms a batch and its outputs), the card's busy share of each (a second
+    run of each under torch.profiler: the union of the card's ops over its
+    wall time), the metrics registry's report of the pipelined run; then
+    one pipelined DRI 8 run of two batches traced by profile_trace into
+    build/pipeline_trace with its five longest device ops and idle gaps."""
+    from zpix_tpu_torch.parallel.pipeline import DecodePipeline
+    from zpix_tpu_torch.utils import metrics, profile_trace
+
+    mpix = TIMED_BATCHES * BATCH * SIZE * SIZE / 1e6
+    routes = {}
+    for name, make in pipeline_decoders().items():
+        batches = content[name][2 : 2 + TIMED_BATCHES]
+        dec = make()
+        dec.decode(content[name][1])  # warm: pinned pool, caches, threads
+        torch.cuda.synchronize()
+
+        def serial():
+            return [dec.decode(d) for d in batches]
+
+        def pipelined(workers=None):
+            outs = list(DecodePipeline(dec, prefetch=2, workers=workers).map(batches))
+            # PNG's run also returns the inflate route's flag (None here)
+            return [o[0] if name == "png_host" else o for o in outs]
+
+        metrics.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = serial()
+        torch.cuda.synchronize()
+        t_serial = time.perf_counter() - t0
+        metrics.reset()
+        t0 = time.perf_counter()
+        got = pipelined()
+        torch.cuda.synchronize()
+        t_pipe = time.perf_counter() - t0
+        report = metrics.report()
+        t0 = time.perf_counter()
+        got1 = pipelined(workers=1)
+        torch.cuda.synchronize()
+        t_one = time.perf_counter() - t0
+        got1_equal = all(torch.equal(g[0] if isinstance(g, tuple) else g,
+                                     w[0] if isinstance(w, tuple) else w)
+                         for g, w in zip(got1, want))
+        del got1
+        pair = [(g, w) if isinstance(w, tuple) else ((g,), (w,)) for g, w in zip(got, want)]
+        routes[name] = {
+            "batches": len(batches),
+            "pipelined_equal_serial": len(got) == len(want) and got1_equal and all(
+                torch.equal(g[0], w[0]) for g, w in pair),
+            "ok_equal": all(len(g) == 1 or bool(g[1]) == bool(w[1]) for g, w in pair),
+            "all_ok": all(len(w) == 1 or bool(w[1]) for _, w in pair),
+            "serial_mpix_per_s": mpix / t_serial, "pipelined_mpix_per_s": mpix / t_pipe,
+            "serial_ms_per_batch": t_serial * 1e3 / len(batches),
+            "pipelined_ms_per_batch": t_pipe * 1e3 / len(batches),
+            # one prep thread (the default is one a prefetched batch)
+            "pipelined_1_worker_ms_per_batch": t_one * 1e3 / len(batches),
+            "serial_busy_share": profiled_busy_share(serial),
+            "pipelined_busy_share": profiled_busy_share(pipelined),
+            "metrics_report_pipelined": report.splitlines()}
+        del got, want, pair
+        if hasattr(dec, "close"):
+            dec.close()
+    # one pipelined DRI 8 run traced: the second batch prepped during the
+    # first's upload and kernels
+    dec = pipeline_decoders()["dri8"]()
+    dec.decode(content["dri8"][1])
+    log_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "pipeline_trace")
+    with profile_trace(log_dir) as prof:
+        outs = list(DecodePipeline(dec).map(content["dri8"][2:4]))
+    spans = device_spans(prof)
+    busy, gaps = busy_and_gaps(spans)
+    del outs
+    return {"cpu_count": os.cpu_count(), "prefetch": 2, "routes": routes,
+            "trace": {"dir": log_dir, "files": sorted(os.listdir(log_dir)),
+                      "device_ops": len(spans), "busy_us": busy,
+                      "window_us": spans[-1][1] - spans[0][0] if spans else 0.0,
+                      "longest_ops": [{"name": n, "us": b - a} for a, b, n in
+                                      sorted(spans, key=lambda x: x[0] - x[1])[:5]],
+                      "longest_gaps": [{"us": g, "after": x, "before": y} for g, x, y in
+                                       sorted(gaps, reverse=True)[:5]]}}
 
 
 def main() -> int:
@@ -2929,8 +3149,7 @@ def main() -> int:
     )
     # K7 and K6 on the full restart-free batch (native front-end, 4:2:0)
     fe = pb.NativeBatchFrontEnd(batches_rf[0][0], BATCH, pin=True)
-    fe.parse(batches_rf[0])
-    packed = fe.packed()
+    packed = fe.parse(batches_rf[0])
     flat = pb.upload(packed, dev)
     dims = packed.dims
     k7_comps = [ks.SparseComponent(pb.carve(flat, packed.layout, "bm", c, BATCH),
@@ -2988,7 +3207,7 @@ def main() -> int:
           "k7_k3_edge_checks": edges7_3, "k7_full_batch_launches": k7_full_launches,
           "k1_k2_edge_checks": edges, "factor3_checks": f3,
           "k6_k7_full_batch": {"images": BATCH, "size": SIZE, "ratio": packed.ratio,
-                               "value_caps": fe.val_caps, "nnz_max": fe.nnz.max(0).tolist()},
+                               "value_caps": fe.val_caps, "nnz_max": packed.nnz.max(0).tolist()},
           "k3_host_index_chains": {"chains": BATCH * len(hplan.hv),
                                    "longest": hplan.seg_mcus * max(h * v for h, v in hplan.hv)}})
     if any(results.values()) or not bool(okf):
@@ -3122,7 +3341,7 @@ def main() -> int:
     sync_check(sy)
 
     # ------------------------------------------------------ progressive
-    pg, prog_entries = progressive(dev)
+    pg, prog_entries, prog_batches = progressive(dev)
     emit({"phase": "progressive", **pg})
     lp, pc = pg["launches"], pg["check"]
     if (min(lp[k] for k in PROG_KINDS + ("component_planes",)) == 0 or lp["dc_restore"]
@@ -3151,7 +3370,16 @@ def main() -> int:
         raise SystemExit("chip_smoke: a corrupt progressive stream was not flagged")
 
     # ------------------------------------------- QOI decode and encode, BMP
-    raster_entries, raster_paths = raster_slice(dev)
+    raster_entries, raster_paths, raster_content = raster_slice(dev)
+
+    # ------------------------------------------- pipeline: overlapped routes
+    t0 = time.perf_counter()
+    pp = pipeline_phase({"dri8": batches, "native": batches_rf, "host_index": batches_rf,
+                         "sync": batches_rf, "progressive": prog_batches, **raster_content})
+    emit({"phase": "pipeline", "seconds": time.perf_counter() - t0, **pp})
+    del raster_content, prog_batches
+    if not all(r["pipelined_equal_serial"] and r["ok_equal"] for r in pp["routes"].values()):
+        raise SystemExit("chip_smoke: a pipelined route's output differs from its serial decode")
 
     # ------------------------------------------------------- kernel table
     ends, okf = ke.index_pass(*bufs, bpm=plan.bpm, nblk=nblk)
@@ -3184,7 +3412,7 @@ def main() -> int:
         "unpack_sparse": (
             lambda: ks.unpack_components(k7_comps),
             lambda: ks.unpack_components_plain(k7_comps),
-            (8 + 128) * rf_blocks + 2 * int(fe.nnz.sum()) + 4 * dims[0][0] * dims[0][1],
+            (8 + 128) * rf_blocks + 2 * int(packed.nnz.sum()) + 4 * dims[0][0] * dims[0][1],
             OPS_K7_BLOCK * rf_blocks),
         "component_planes": (
             lambda: kp.component_planes(grids, rf_quants, **rf_kw),
@@ -3268,7 +3496,8 @@ def main() -> int:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bound_bytes": e["bytes"], "bound_int32_ops": e["ops"], "library_ms": None,
             "scans_per_decode": e["scans"],
-            **{k: e[k] for k in ("restore_ms_taken_off", "sector_bound_ms") if k in e},
+            **{k: e[k] for k in ("restore_ms_taken_off", "sector_bound_ms", "prediction_ms",
+                                 "library_note") if k in e},
         })
     for kname in RASTER_KINDS:
         e = raster_entries[kname]

@@ -134,3 +134,95 @@ def ac_first_scan(seed: int, *, batch=2, nvy=7, nvx=37, bv=8, bh=40, ss=1, se=63
     want[:, :nvy, :nvx] += (vals << al).reshape(batch, nvy, nvx, 64)
     want = (((want + (1 << 31)) % (1 << 32)) - (1 << 31)).astype(np.int32)
     return {"prep": prep, "grid": grid, "want": want, "valid": (nvy, nvx), **count}
+
+
+# ------------------------------------------------------------------- K11
+
+# DC refinement cases: name -> (hv of the scan's components (one for a
+# single-component scan), valid corner as a fraction of its grid or None
+# for an interleaved scan, al, bits: "random", "all" or "none", extra
+# bytes a row).  MCU grids of mxx x myy give block counts no multiple of
+# 8 or 32 and rows no multiple of 4 bytes; "wide_rows" carries bytes past
+# its bits, and every case sets the padding bits past the last block.
+K11_CASES = {
+    "444": ([(1, 1)] * 3, None, 1, "random", 0),
+    "422": ([(2, 1), (1, 1), (1, 1)], None, 2, "random", 0),
+    "420": ([(2, 2), (1, 1), (1, 1)], None, 0, "random", 0),
+    "411": ([(4, 1), (1, 1), (1, 1)], None, 5, "random", 0),
+    "single_partial": ([(2, 2)], (0.9, 0.94), 3, "random", 0),
+    "single_chroma": ([(1, 1)], (1.0, 1.0), 4, "random", 0),
+    "all_set": ([(2, 2), (1, 1), (1, 1)], None, 7, "all", 0),
+    "none_set": ([(2, 2), (1, 1), (1, 1)], None, 7, "none", 0),
+    "wide_rows": ([(2, 1), (1, 1), (1, 1)], None, 13, "random", 5),
+}
+
+
+def k11_case(name: str, seed: int, *, mxx=13, myy=7, batch=3, al=None):
+    """-> (rows u8 [B, rowlen], grids int32 [B, bv, bh, 64] a component
+    holding random values, hv, valid, al) for K11_CASES[name]; ``al``
+    overrides the case's."""
+    hv, frac, case_al, kind, extra = K11_CASES[name]
+    rng = np.random.default_rng(seed)
+    grids = [rng.integers(-2 ** 20, 2 ** 20, (batch, myy * v, mxx * h, 64)).astype(np.int32)
+             for h, v in hv]
+    if frac is None:
+        valid, nblk = None, mxx * myy * sum(h * v for h, v in hv)
+    else:
+        valid = tuple(max(1, int(n * f)) for n, f in zip(grids[0].shape[1:3], frac))
+        nblk = valid[0] * valid[1]
+    rowlen = (nblk + 7) // 8 + extra
+    if kind == "random":
+        rows = rng.integers(0, 256, (batch, rowlen)).astype(np.uint8)
+    else:
+        rows = np.full((batch, rowlen), 0xFF if kind == "all" else 0, np.uint8)
+    if nblk % 8:  # the bits past the last block are set: they must be ignored
+        rows[:, nblk // 8] |= 0xFF >> (nblk % 8)
+    return rows, grids, hv, valid, case_al if al is None else al
+
+
+def dc_refine_words(rows, grids, hv, valid, al: int, run: int) -> None:
+    """K11's algorithm in numpy (csrc/prog_store.cu), in place on the
+    grids: a thread's ``run`` positions as one word of bits from bytes, the
+    padding bits masked, its set bits walked MSB first, each position
+    mapped through the slot table by the multiply-high divisions, and
+    ``1 << al`` ORed into row 0."""
+    from zpix_tpu_torch.ops.progressive import fast_div
+
+    def div(n, pair):
+        magic, shift = pair
+        return (((n * (magic & 0xFFFFFFFF)) >> 32) + n) >> shift
+
+    interleaved = len(grids) > 1
+    mxx = grids[0].shape[2] // hv[0][0]
+    if interleaved:
+        slots = [(c, dy, dx) for c, (h, v) in enumerate(hv) for dy in range(v)
+                 for dx in range(h)]
+        bpm, per_row = len(slots), mxx
+        nblk = mxx * (grids[0].shape[1] // hv[0][1]) * bpm
+    else:
+        bpm, per_row = 1, valid[1]
+        nblk = valid[0] * valid[1]
+    by_mcu, by_row = fast_div(bpm), fast_div(per_row)
+    bit = np.int32(np.uint32(1 << al).view(np.int32))
+    for b in range(rows.shape[0]):
+        for first in range(0, nblk, run):
+            n = min(run, nblk - first)
+            w = 0
+            for k in range(run // 8):
+                if 8 * k < n:
+                    w |= int(rows[b, first // 8 + k]) << (24 - 8 * k)
+            if n < 32:
+                w &= ~(0xFFFFFFFF >> n) & 0xFFFFFFFF
+            while w:
+                k = 32 - w.bit_length()  # __clz
+                w ^= 0x80000000 >> k
+                i = first + k
+                if interleaved:
+                    mcu = div(i, by_mcu)
+                    c, dy, dx = slots[i - mcu * bpm]
+                    my = div(mcu, by_row)
+                    by, bx = my * hv[c][1] + dy, (mcu - my * per_row) * hv[c][0] + dx
+                else:
+                    c, by = 0, div(i, by_row)
+                    bx = i - by * per_row
+                grids[c][b, by, bx, 0] |= bit

@@ -1839,3 +1839,99 @@ def test_sync_decoder_flags_damaged_streams(cuda):
             except Exception as exc:  # noqa: BLE001 -- a refusal, compared below
                 outcome.append(type(exc).__name__)
         assert outcome[0] == outcome[1] and outcome[0] is not True
+
+
+# ------------------------------------------------- K11 (DC refine), PR design
+
+
+def _k11_cases():
+    from _torch_prog import K11_CASES
+
+    return [(c, None) for c in K11_CASES] + [("420", al) for al in (0, 6, 13)]
+
+
+@pytest.mark.parametrize("case,al", _k11_cases(), ids=lambda x: str(x))
+def test_dc_refine_kernel_matches_plain(cuda, case, al):
+    """K11 on every interleaved sampling, single-component scans with
+    partial MCUs, all and no bits set, rows wider than their bits, Al 0
+    to 13, rows at an odd address: one launch, the store equal to the
+    plain version's, twice in a row."""
+    from _torch_prog import k11_case
+
+    from zpix_tpu_torch.ops import progressive as kp
+
+    rows, grids, hv, valid, al = k11_case(case, 11, mxx=67, myy=41, batch=4, al=al)
+    want = [torch.from_numpy(g.copy()) for g in grids]
+    kp.dc_refine_plain(torch.from_numpy(rows), want, hv=hv, valid=valid, al=al)
+    flat = torch.zeros(rows.size + 1, dtype=torch.uint8, device=cuda)
+    rows_d = flat[1:].view(rows.shape)
+    rows_d.copy_(torch.from_numpy(rows))
+    for _ in range(2):
+        got = [torch.from_numpy(g).to(cuda) for g in grids]
+        before = runtime.LAUNCHES["dc_refine"]
+        kp.dc_refine(rows_d, got, hv=hv, valid=valid, al=al)
+        assert runtime.LAUNCHES["dc_refine"] == before + 1
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+# ------------------------------------------------------- pipeline on the card
+
+
+@pytest.mark.parametrize("kind", ["qoi_p4", "png_host", "native_jpeg", "restart", "bmp"])
+def test_pipeline_matches_serial_on_the_card(cuda, kind):
+    """Every prep of a prefetch-3 pipeline ends before its first upload
+    (the plans' staging buffers all live at once, the copies on the side
+    stream): each result equals the serial decode's on the card."""
+    import threading
+
+    from _torch_png import encode_png, random_pixels
+    from _torch_raster import bmp_batch, qoi_enc
+
+    from zpix_tpu_torch import (BatchBmpDecoder, BatchJpegDecoder, BatchPngDecoder,
+                                HostIndexQoiDecoder)
+    from zpix_tpu_torch.parallel.pipeline import DecodePipeline
+
+    rng = np.random.default_rng(3)
+    if kind == "qoi_p4":
+        make = lambda: HostIndexQoiDecoder(lane_p=16, lane_fmt="p4")  # noqa: E731
+        imgs = rng.integers(0, 256, (9, 64, 96, 4), dtype=np.uint8)
+        imgs[..., 3] = 255
+        batches = [[qoi_enc(i) for i in imgs[3 * s : 3 * s + 3]] for s in range(3)]
+    elif kind == "png_host":
+        make = BatchPngDecoder
+        batches = [[encode_png(random_pixels(rng, "tc8", 96, 64), "tc8", seed=3 * s + i)
+                    for i in range(3)] for s in range(3)]
+    elif kind == "bmp":
+        make = BatchBmpDecoder
+        batches = [bmp_batch((24, 40, False, False), h=64, w=96, seed=s) for s in range(3)]
+    else:
+        from _torch_jpeg import synth_plain_jpeg
+
+        make = BatchJpegDecoder if kind == "native_jpeg" else DeviceJpegDecoder
+        synth = synth_plain_jpeg if kind == "native_jpeg" else synth_jpeg
+        batches = [[synth(160, 120, phase=3 * s + j) for j in range(2)] for s in range(3)]
+    dec, done, lock = make(), threading.Event(), threading.Lock()
+    count = [0]
+
+    def prep(datas):
+        plan = dec.prep(datas)
+        with lock:
+            count[0] += 1
+            if count[0] == len(batches):
+                done.set()
+        return plan
+
+    def run(plan):
+        assert done.wait(60)
+        return dec.run(plan, dec.upload(plan))
+
+    got = list(DecodePipeline(prep=prep, run=run, prefetch=3, workers=3).map(batches))
+    serial = make()
+    for out, datas in zip(got, batches):
+        want = serial.decode(datas)
+        if kind == "png_host":
+            out = out[0]
+        if isinstance(want, tuple):
+            assert bool(out[1]) and bool(want[1])
+            out, want = out[0], want[0]
+        assert out.device.type == "cuda" and torch.equal(out, want)

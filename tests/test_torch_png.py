@@ -404,9 +404,10 @@ def test_run_reports_each_kernel(front):
 @pytest.mark.parametrize("buffer", ["reused", "grown"])
 def test_token_rows_widen_for_one_outlier(monkeypatch, buffer):
     """A batch whose one image needs more tokens than the carried rows
-    hold: only that image is tokenized again, the others move to the wider
-    rows (within the staging buffer when it is large enough, else into a
-    new one), and every image decodes right."""
+    hold (after a first batch of four images, or of one): only that image
+    is tokenized again, every image's tokens move to wider rows in a
+    staging buffer of their own, which the upload sends with no packing,
+    and every image decodes right."""
     rng = np.random.default_rng(11)
     flat = [encode_png(np.repeat(random_pixels(rng, "tc8", 8, 64, hi=2), 8, axis=1), "tc8",
                        seed=i) for i in range(3)]
@@ -416,7 +417,6 @@ def test_token_rows_widen_for_one_outlier(monkeypatch, buffer):
     # that holds the wide rows, one image a buffer that does not
     dec.decode(flat + flat[:1] if buffer == "reused" else flat[:1])
     assert dec._tok_cap == tpb.TOKEN_ALIGN
-    staging = dec._upload._staging.data_ptr()
     calls = {}
     real = tpb.host.inflate_tokens
 
@@ -429,7 +429,7 @@ def test_token_rows_widen_for_one_outlier(monkeypatch, buffer):
     plan = dec.prep(batch)
     assert [calls[tpb._walk_idat(d)[1]] for d in batch] == [1, 2, 1, 1]
     assert plan.nt > tpb.TOKEN_ALIGN and plan.main[0].shape[1] >= plan.nt
-    assert (dec._upload._staging.data_ptr() == staging) == (buffer == "reused")
+    assert dec._upload.staged(plan.parts)
     px, bad = dec.run(plan, dec.upload(plan))
     assert int(bad) == 0 and np.array_equal(px.numpy(), _host(batch))
     dec.close()

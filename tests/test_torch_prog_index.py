@@ -207,8 +207,8 @@ def test_block_maps_match_zpix_tpu(mode, w, h):
         g = torch.zeros(1, plan.myy * v, plan.mxx * h, 64, dtype=torch.int32)
         vidx = jdec._valid_idx(plan, c)
         nv = len(vidx)
-        kp.store_blocks(torch.arange(1, nv + 1, dtype=torch.int32), [g], hv=[(h, v)],
-                        valid=tpo.valid_grid(plan, c), al=0, mode="set")
+        kp.store_blocks_plain(torch.arange(1, nv + 1, dtype=torch.int32), [g], hv=[(h, v)],
+                              valid=tpo.valid_grid(plan, c), al=0, mode="set")
         flat = g[0, ..., 0].reshape(-1).numpy()
         assert np.array_equal(flat[vidx], np.arange(1, nv + 1))
         assert flat.sum() == nv * (nv + 1) // 2
@@ -219,8 +219,8 @@ def test_block_maps_match_zpix_tpu(mode, w, h):
     grids = [torch.zeros(1, plan.myy * v, plan.mxx * h, 64, dtype=torch.int32) for h, v in hv]
     n_mcu = plan.mxx * plan.myy
     nblk = n_mcu * sum(h * v for h, v in hv)
-    kp.store_blocks(torch.arange(1, nblk + 1, dtype=torch.int32), grids, hv=hv, valid=None,
-                    al=0, mode="set")
+    kp.store_blocks_plain(torch.arange(1, nblk + 1, dtype=torch.int32), grids, hv=hv,
+                          valid=None, al=0, mode="set")
     per_mcu = np.concatenate([g[0, ..., 0].reshape(-1).numpy()[idx].reshape(n_mcu, -1)
                               for g, idx in zip(grids, jdec._mcu_grid_idx(plan, comps))], 1)
     assert np.array_equal(per_mcu.reshape(-1), np.arange(1, nblk + 1))

@@ -447,3 +447,44 @@ def test_planes_int32_arm_equals_int16_arm(ratio, hv):
     a = kpl.component_planes([_t(g.astype(np.int16)) for g in grids], quants, **kw)
     b = kpl.component_planes([_t(g.astype(np.int32)) for g in grids], quants, **kw)
     assert torch.equal(a, b)
+
+
+# ------------------------------------------------------------------ K11
+
+
+@pytest.mark.parametrize("run", [8, 32])
+@pytest.mark.parametrize("case", ["444", "422", "420", "411", "single_partial",
+                                  "single_chroma", "all_set", "none_set", "wide_rows"])
+def test_dc_refine_kernel_algorithm_matches_plain(case, run):
+    """K11's algorithm in numpy (a thread's word of bits, padding bits
+    masked, set bits MSB first, the slot table and multiply-high
+    divisions; tests/_torch_prog.py::dc_refine_words) at both run lengths
+    timed on the card, against the wrapper's plain version, on block
+    counts no multiple of 8 or 32 and rows no multiple of 4 bytes."""
+    from _torch_prog import dc_refine_words, k11_case
+
+    rows, grids, hv, valid, al = k11_case(case, 7)
+    want = [torch.from_numpy(g.copy()) for g in grids]
+    kp.dc_refine(torch.from_numpy(rows), want, hv=hv, valid=valid, al=al)
+    got = [g.copy() for g in grids]
+    dc_refine_words(rows, got, hv, valid, al, run)
+    assert all(np.array_equal(g, w.numpy()) for g, w in zip(got, want))
+    changed = sum(int((g != w).sum()) for g, w in zip(grids, got))
+    assert (changed == 0) == (case == "none_set")
+
+
+@pytest.mark.parametrize("al", range(14))
+def test_dc_refine_every_al(al):
+    """Al 0..13 on a 4:2:0 interleaved scan: only bit Al of coefficient 0
+    changes, where the block's bit is set."""
+    from _torch_prog import dc_refine_words, k11_case
+
+    rows, grids, hv, valid, _ = k11_case("420", al, al=al)
+    want = [torch.from_numpy(g.copy()) for g in grids]
+    kp.dc_refine(torch.from_numpy(rows), want, hv=hv, valid=valid, al=al)
+    got = [g.copy() for g in grids]
+    dc_refine_words(rows, got, hv, valid, al, 8)
+    for g, w, before in zip(got, want, grids):
+        assert np.array_equal(g, w.numpy())
+        diff = g ^ before
+        assert not diff[..., 1:].any() and not (diff[..., 0] & ~(1 << al)).any()

@@ -82,8 +82,7 @@ def inputs(cs, dev):
     k4 = (ac, dc, bufs[3], kb.BackendGeometry.of(plan))
     datas = cs.make_batch(100, dri=None)
     fe = pb.NativeBatchFrontEnd(datas[0], cs.BATCH, pin=True)
-    fe.parse(datas)
-    packed = fe.packed()
+    packed = fe.parse(datas)
     flat = pb.upload(packed, dev)
     grids = [ks.unpack_sparse(pb.carve(flat, packed.layout, "bm", c, cs.BATCH),
                               pb.carve(flat, packed.layout, "val", c, cs.BATCH), bv=bv, bh=bh,

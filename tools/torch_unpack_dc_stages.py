@@ -148,8 +148,7 @@ def k7_inputs(cs, dev):
 
     rf = cs.make_batch(100, dri=None)
     fe = pb.NativeBatchFrontEnd(rf[0], len(rf), pin=True)
-    fe.parse(rf)
-    packed = fe.packed()
+    packed = fe.parse(rf)
     flat = pb.upload(packed, dev)
     torch.cuda.synchronize()
     return packed, flat, fe
@@ -174,7 +173,7 @@ def k7(cs, packed, flat, fe) -> dict:
         return pb.unpack_flat(flat, packed.layout, batch=B, dims=dims, perms=packed.perms)
 
     blocks = B * sum(bv * bh for bv, bh in dims)
-    nnz = int(fe.nnz.sum())
+    nnz = int(packed.nnz.sum())
     maps = sum(0 if p is None else len(p) for p in perms)
     nbytes = (8 + 128) * blocks + 2 * nnz + 4 * maps
     out = {"decode": timed(cs, decode, plain), "blocks": blocks, "nnz": nnz,

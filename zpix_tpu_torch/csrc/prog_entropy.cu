@@ -77,6 +77,7 @@
 
 #include <cstdint>
 
+#include "fast_div.cuh"
 #include "huffman.cuh"
 #include "lookback.cuh"
 
@@ -84,6 +85,7 @@ namespace {
 
 namespace lb = zpix_lookback;
 using zpix::BitWindow;
+using zpix::FastDiv;
 using zpix::Sym;
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -99,18 +101,6 @@ __device__ __forceinline__ unsigned lanemask_lt() {
   asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
   return m;
 }
-
-// n / d for 0 <= n < 2^31 by a multiply-high (Granlund and Montgomery):
-// magic = floor(2^32 (2^l - d) / d) + 1 with 2^l >= d, n / d = (umulhi(n,
-// magic) + n) >> l.  A power of two has magic 1 and the product vanishes.
-// ops/progressive.py::fast_div makes the pair; its test holds it to //.
-struct FastDiv {
-  uint32_t magic;
-  int shift;
-  __device__ __forceinline__ uint32_t div(uint32_t n) const {
-    return (__umulhi(n, magic) + n) >> shift;
-  }
-};
 
 // The stream as big-endian 32-bit words from a 4-byte aligned base; bit q
 // of them is bit q - sh8 of the stream (sh8 = 8 * the base's offset).

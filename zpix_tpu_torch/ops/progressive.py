@@ -19,9 +19,9 @@ with its plain PyTorch version.
   changed pieces go back in place.
 * K8-K10 read symbols through a 9-bit lookahead table that each CTA
   builds (``lut_plain`` is its copy).
-* ``dc_refine`` is K11: ``store_blocks`` in or mode (the "dcr" arm of
+* ``dc_refine`` is K11 (csrc/prog_store.cu, the "dcr" arm of
   ``_make_update``, :1713-1745): one raw bit per block ORs ``1 << Al``
-  into coefficient 0.
+  into coefficient 0; a thread a byte of bits, a reduction a set bit.
 
 A scan's inputs: ``stream`` u8 (the batch's destuffed scans), ``starts``
 and ``ends`` int32 [B * nblk] absolute bit offsets into it, ``tables``
@@ -112,10 +112,10 @@ def dc_first_values_plain(stream, starts, ends, tables, ok, *, bpm: int):
 
 
 def store_blocks_plain(src, grids, *, hv, valid, al: int, mode: str):
-    """The store kernel, plain: ``mode="set"`` writes int32 [B * nblk]
-    values ``<< al`` into coefficient 0; ``mode="or"`` reads one bit a
-    block from u8 rows [B, rowlen] (MSB first) and ORs ``1 << al`` where
-    it is set.  In place."""
+    """The DC store, plain (K8's write and K11): ``mode="set"`` writes
+    int32 [B * nblk] values ``<< al`` into coefficient 0; ``mode="or"``
+    reads one bit a block from u8 rows [B, rowlen] (MSB first) and ORs
+    ``1 << al`` where it is set.  In place."""
     B = grids[0].shape[0]
     if mode == "set":
         _dc_scatter(grids, hv, valid, src.to(torch.int64).view(B, -1) << al)
@@ -350,37 +350,6 @@ def _check_kernel_scan(stream, starts):
         raise ValueError("progressive: the stream must be under 256 MiB, the blocks under 2^31")
 
 
-def store_blocks(src, grids, *, hv, valid, al: int, mode: str) -> None:
-    """The store kernel: ``mode="set"`` (the "dc" arm's write) writes int32
-    [B * nblk] values ``<< al`` into coefficient 0 of each block the scan
-    visits; ``mode="or"`` (K11) ORs ``1 << al`` where the block's bit of
-    u8 rows [B, rowlen] is set.  In place."""
-    if mode not in ("set", "or"):
-        raise ValueError(f"store_blocks: unknown mode {mode!r}")
-    _check_grids(grids, hv)
-    B, nblk = grids[0].shape[0], scan_blocks(grids, hv, valid)
-    if mode == "set" and (src.dtype != torch.int32 or src.numel() != B * nblk):
-        raise ValueError("store_blocks: set mode takes int32 [B * nblk] values")
-    if mode == "or" and (src.dtype != torch.uint8 or src.dim() != 2 or src.shape[0] != B
-                         or 8 * src.shape[1] < nblk):
-        raise ValueError("store_blocks: or mode takes u8 rows [B, >= nblk / 8]")
-    if src.device.type == "cpu":
-        store_blocks_plain(src, grids, hv=hv, valid=valid, al=al, mode=mode)
-        return
-    runtime.require_cuda(src, *grids)
-    mxx, myy = _mcu_dims(grids, hv)
-    ptrs = [g.data_ptr() for g in grids] + [0] * (3 - len(grids))
-    packed = [h | v << 4 for h, v in hv] + [0] * (3 - len(hv))
-    orm = mode == "or"
-    runtime.launch(  # K11's kernel in either mode
-        "dc_refine", src.device, "zpix_prog_store",
-        "ppi" + "ppp" + "l" + "i" * 10,
-        0 if orm else src.data_ptr(), src.data_ptr() if orm else 0,
-        src.shape[1] if orm else 0, *ptrs, B * nblk, nblk, len(grids), *packed,
-        mxx, myy, valid[1] if len(grids) == 1 else 0, al, int(orm),
-    )
-
-
 def dc_first(stream, starts, ends, tables, ok, grids, *, hv, valid, al: int) -> None:
     """K8: a DC-first scan -> coefficient 0 of every block it visits set to
     the restored DC << al.  In place; clears ``ok`` on a bad code, a
@@ -425,8 +394,33 @@ def dc_first(stream, starts, ends, tables, ok, grids, *, hv, valid, al: int) -> 
 
 def dc_refine(rows, grids, *, hv, valid, al: int) -> None:
     """K11: a DC refinement scan (u8 rows [B, rowlen], one bit a block,
-    MSB first) -> ``1 << al`` ORed into coefficient 0.  In place."""
-    store_blocks(rows, grids, hv=hv, valid=valid, al=al, mode="or")
+    MSB first) -> ``1 << al`` ORed into coefficient 0 of each block the
+    scan visits whose bit is set.  In place."""
+    _check_grids(grids, hv)
+    B, nblk = grids[0].shape[0], scan_blocks(grids, hv, valid)
+    if rows.dtype != torch.uint8 or rows.dim() != 2 or rows.shape[0] != B or (
+            8 * rows.shape[1] < nblk):
+        raise ValueError("dc_refine: takes u8 rows [B, >= nblk / 8]")
+    if rows.device.type == "cpu":
+        dc_refine_plain(rows, grids, hv=hv, valid=valid, al=al)
+        return
+    runtime.require_cuda(rows, *grids)
+    interleaved = len(grids) > 1
+    bpm = sum(h * v for h, v in hv) if interleaved else 1
+    if bpm > _entropy.MAX_SLOTS or not 0 <= al <= 31 or B > 65535:
+        raise ValueError("dc_refine: more than 16 blocks an MCU, al outside 0..31, or more "
+                         "than 65,535 images")
+    if B * nblk == 0:
+        return
+    mxx, myy = _mcu_dims(grids, hv)
+    per_row = mxx if interleaved else valid[1]
+    pad = [0] * (3 - len(grids))
+    runtime.launch(
+        "dc_refine", rows.device, "zpix_prog_dc_refine", "piii" + "ppp" + "i" * 13,
+        rows.data_ptr(), rows.shape[1], nblk, B, *[g.data_ptr() for g in grids], *pad,
+        len(grids), *[h | v << 4 for h, v in hv], *pad, mxx, myy, bpm, *fast_div(bpm),
+        per_row, *fast_div(per_row), al,
+    )
 
 
 def _check_ac(stream, starts, ends, flags, tables, ok, grid, valid, ss, se):

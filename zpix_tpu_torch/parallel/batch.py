@@ -5,9 +5,9 @@ route (``NativeBatchFrontEnd`` + ``decode_batch_ycbcr_flat``).  The host
 half parses a batch of same-geometry baseline JPEGs with the port's copy
 of the native C++ front-end (csrc/host/entropy.cpp, a thread per image):
 marker walk, Huffman scan and sparse packing straight into one flat
-buffer (pinned when the decoder runs on CUDA), which goes to the card in
-one copy.  The device half carves that buffer with no copy and runs two
-hand-written kernels:
+buffer of the batch's own (pinned when the decoder runs on CUDA), which
+goes to the card in one copy.  The device half carves that buffer with
+no copy and runs two hand-written kernels:
 
 1. sparse unpack (K7, ops/sparse.py): nonzero bitmaps + int16 values ->
    dense coefficient grids in grid order, one launch for all components;
@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -33,7 +34,8 @@ from ..errors import FormatError, UnsupportedError
 from ..ops import planes as _planes
 from ..ops import sparse as _sparse
 from ..runtime import host as _host
-from .device_entropy import resolve_device
+from ..utils import metrics, trace
+from .device_entropy import PinnedUpload, resolve_device
 
 _RATIOS = {0x11: "444", 0x12: "440", 0x21: "422",
            0x22: "420", 0x41: "411", 0x42: "410"}
@@ -201,12 +203,13 @@ def carve(buffer: torch.Tensor, layout, kind: str, c: int, batch: int):
 class NativeBatchFrontEnd:
     """Whole-batch native front-end: one C call, an internal thread pool.
 
-    Parses N same-geometry baseline JPEGs into one persistent flat buffer
-    (``flat_layout``) reused across batches, so a batch ships to the card
-    in one copy.  With ``pin=True`` the buffer lives in pinned host memory
-    (``buffer_tensor``; ``buffer`` is its numpy view).  Value capacity is
-    ``nb * 64 / VAL_CAP_FRAC`` per image, or twice the sample's count if
-    more; ``dense=True`` sizes it for every coefficient.
+    Parses N same-geometry baseline JPEGs into one flat buffer
+    (``flat_layout``), so a batch ships to the card in one copy.  Each
+    ``parse`` fills a buffer of its own (pinned host memory from PyTorch's
+    caching allocator with ``pin=True``), so parses may run on several
+    threads at once and a buffer is rewritten only once its copy is done.
+    Value capacity is ``nb * 64 / VAL_CAP_FRAC`` per image, or twice the
+    sample's count if more; ``dense=True`` sizes it for every coefficient.
     """
 
     VAL_CAP_FRAC = 8
@@ -222,6 +225,7 @@ class NativeBatchFrontEnd:
             raise UnsupportedError(f"jpeg: sampling {self.hv} {_MISSING}")
         self.mxx, self.myy = _mcus(self.width, self.height, self.hv)
         self.batch = batch
+        self.pin = pin
         self.n_threads = n_threads or (os.cpu_count() or 2)
         p = None if dense else parse_packed_native(sample)
         self.nb, self.val_caps = [], []
@@ -232,45 +236,40 @@ class NativeBatchFrontEnd:
                 cap = max(cap, 2 * len(p.vals[c]))
             self.nb.append(nb)
             self.val_caps.append(min((cap + 511) // 512 * 512, nb * 64))
-        self.layout, nbytes = flat_layout(batch, self.nb, self.val_caps)
-        self.buffer_tensor = torch.zeros(nbytes, dtype=torch.uint8, pin_memory=pin)
-        self.buffer = self.buffer_tensor.numpy()
-        self.bitmaps, self.vals, self.quants = (
-            [carve(self.buffer_tensor, self.layout, kind, c, batch).numpy()
-             for c in range(self.ncomp)] for kind in ("bm", "val", "q"))
-        self.nnz = np.empty((batch, 3), np.int64)
-        self.rcs = np.empty(batch, np.int32)
+        self.layout, self.nbytes = flat_layout(batch, self.nb, self.val_caps)
         self.perm_y = stream_perm(self.mxx, self.myy, *self.hv[0])
         self.perm_c = stream_perm(self.mxx, self.myy, *self.hv[1]) if self.ncomp >= 3 else None
 
-    def parse(self, datas: list[bytes]) -> None:
-        """Parse the batch into the persistent buffer (one C call).  Raises
-        UnsupportedError for a stream this front-end refuses, FormatError
-        for a broken one or one denser than the value capacity."""
+    def parse(self, datas: list[bytes]) -> "Packed":
+        """Parse the batch into a new flat buffer (one C call) -> its
+        Packed.  Raises UnsupportedError for a stream this front-end
+        refuses, FormatError for a broken one or one denser than the value
+        capacity."""
         b = len(datas)
         if b != self.batch:
             raise ValueError("batch size mismatch")
+        buf = torch.empty(self.nbytes, dtype=torch.uint8, pin_memory=self.pin)
+        bitmaps, vals, quants = ([carve(buf, self.layout, kind, c, b).numpy()
+                                  for c in range(self.ncomp)] for kind in ("bm", "val", "q"))
+        nnz = np.empty((b, 3), np.int64)
+        rcs = np.empty(b, np.int32)
         data_ptrs = (ctypes.c_char_p * b)(*datas)
         lens = (ctypes.c_int64 * b)(*[len(d) for d in datas])
         caps = (ctypes.c_int64 * 4)(*self.val_caps)
         strides = (ctypes.c_int64 * 4)(*[n * 8 for n in self.nb])
         rc = _host.lib().zpix_parse_baseline_batch(
             data_ptrs, lens, b, self.width, self.height, self.ncomp,
-            _ptrs(self.bitmaps), _ptrs(self.vals), caps,
-            strides, _ptrs(self.quants), self.nnz.ctypes.data,
-            self.rcs.ctypes.data, self.n_threads)
+            _ptrs(bitmaps), _ptrs(vals), caps, strides, _ptrs(quants), nnz.ctypes.data,
+            rcs.ctypes.data, self.n_threads)
         if rc == _host.ERR_UNSUPPORTED:
-            i = int(np.flatnonzero(self.rcs == rc)[0])
+            i = int(np.flatnonzero(rcs == rc)[0])
             raise UnsupportedError(f"jpeg: image {i} {_MISSING}")
         if rc != 0:
-            i = int(np.flatnonzero(self.rcs != 0)[0])
+            i = int(np.flatnonzero(rcs != 0)[0])
             raise FormatError(f"jpeg: native front-end failed on image {i} (rc={rc}; "
                               "a broken stream, or denser than the value capacity)")
-
-    def packed(self) -> "Packed":
-        return Packed(self.buffer_tensor, tuple(self.layout), self.batch, self.width,
-                      self.height, tuple(self.hv), self.mxx, self.myy, self.perm_y,
-                      self.perm_c)
+        return Packed(buf, tuple(self.layout), b, self.width, self.height, tuple(self.hv),
+                      self.mxx, self.myy, self.perm_y, self.perm_c, nnz)
 
 
 @dataclass
@@ -288,6 +287,7 @@ class Packed:
     myy: int
     perm_y: object = None  # grid->stream int32 [nb_y], or None
     perm_c: object = None
+    nnz: object = None  # the parse's nonzero values int64 [B, 3], where it counted them
 
     @property
     def ratio(self) -> str:
@@ -415,7 +415,8 @@ def decode_uploaded(buf: torch.Tensor, packed: Packed) -> torch.Tensor:
 class BatchJpegDecoder:
     """Same-geometry baseline JPEG batches through the native front-end,
     K7 and K6: bytes -> interleaved RGB8 [B, H, W, 3] (gray [B, H, W]) on
-    the decoder's device, no sync.
+    the decoder's device, no sync.  ``prep`` (the front-end parse),
+    ``upload`` (one copy) and ``run`` (the kernels) split ``decode``.
 
     Gray and YCbCr at every ratio the native front-end admits.  A batch
     of mixed geometry raises ValueError; a stream that front-end refuses
@@ -425,11 +426,12 @@ class BatchJpegDecoder:
     def __init__(self, *, device=None, n_threads: int | None = None):
         self.device = resolve_device(device)
         self.n_threads = n_threads
-        self._front_ends: dict = {}
-        self._copied = None  # CUDA event: the last upload has left the buffer
+        self._upload = PinnedUpload(self.device)
+        self._front_ends: dict = {}  # geometry -> NativeBatchFrontEnd
+        self._lock = threading.Lock()  # preps may run on several threads
 
-    def front_end(self, datas: list[bytes]) -> NativeBatchFrontEnd:
-        """The cached front-end for this batch's geometry, parsed."""
+    def _front_end(self, datas: list[bytes]) -> tuple:
+        """-> (geometry key, the cached front-end for it)."""
         if not datas:
             raise ValueError("jpeg: empty batch")
         sofs = [_peek_sof(d) for d in datas]
@@ -440,29 +442,47 @@ class BatchJpegDecoder:
         if any(s != sofs[0] for s in sofs[1:]):
             raise ValueError("batch images must share (width, height, ratio, color); "
                              "bucket mixed shapes separately")
-        if self._copied is not None:
-            self._copied.synchronize()  # the pinned buffer is about to be rewritten
-        pin = self.device.type == "cuda"
         key = (tuple(sofs[0][:3]), tuple(sofs[0][3]), len(datas))
-        fe = self._front_ends.get(key)
+        with self._lock:
+            fe = self._front_ends.get(key)
         if fe is None:
-            fe = self._front_ends[key] = NativeBatchFrontEnd(
-                datas[0], len(datas), self.n_threads, pin=pin)
+            fe = NativeBatchFrontEnd(datas[0], len(datas), self.n_threads,
+                                     pin=self.device.type == "cuda")
+            with self._lock:
+                fe = self._front_ends.setdefault(key, fe)
+        return key, fe
+
+    def _parse(self, datas: list[bytes]) -> Packed:
+        key, fe = self._front_end(datas)
         try:
-            fe.parse(datas)
+            return fe.parse(datas)
         except FormatError:
             # perhaps denser than the value capacity: once more with room
             # for every coefficient, kept only if that parses
-            dense = NativeBatchFrontEnd(datas[0], len(datas), self.n_threads, pin=pin,
-                                        dense=True)
-            dense.parse(datas)
-            fe = self._front_ends[key] = dense
-        return fe
+            dense = NativeBatchFrontEnd(datas[0], len(datas), self.n_threads,
+                                        pin=self.device.type == "cuda", dense=True)
+            packed = dense.parse(datas)
+            with self._lock:
+                self._front_ends[key] = dense
+            return packed
+
+    def prep(self, datas: list[bytes]) -> Packed:
+        """The host half: the native front-end parse into a flat buffer of
+        the batch's own."""
+        with trace("jpeg_batch.front_end"):
+            packed = self._parse(datas)
+        metrics.count("jpeg_batch.images", len(datas))
+        metrics.count("jpeg_batch.megapixels", len(datas) * packed.width * packed.height / 1e6)
+        return packed
+
+    def upload(self, packed: Packed) -> torch.Tensor:
+        """The flat buffer on the device, in one copy."""
+        return self._upload.send(packed.buffer)
+
+    def run(self, packed: Packed, buf: torch.Tensor) -> torch.Tensor:
+        """K7, then K6, on the uploaded buffer -> pixels."""
+        return decode_uploaded(buf, packed)
 
     def decode(self, datas: list[bytes]) -> torch.Tensor:
-        packed = self.front_end(datas).packed()
-        buf = upload(packed, self.device)
-        if self.device.type == "cuda":
-            self._copied = torch.cuda.Event()
-            self._copied.record()
-        return decode_uploaded(buf, packed)
+        packed = self.prep(datas)
+        return self.run(packed, self.upload(packed))

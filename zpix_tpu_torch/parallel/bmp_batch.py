@@ -49,11 +49,16 @@ class BatchBmpDecoder:
                 pal[i, : len(hh[5])] = hh[5]
         return rows, pal, key
 
-    def upload(self, rows, pal) -> list:
-        """The rows and palettes -> device tensors, in one pinned copy."""
-        return self._upload([rows, pal])
+    def upload(self, plan) -> list:
+        """The plan's rows and palettes -> device tensors, in one pinned copy."""
+        return self._upload(list(plan[:2]))
+
+    def run(self, plan, bufs):
+        """K18 on the uploaded rows and palettes -> RGBA8 [B, H, W, 4]."""
+        width, _h, top_down, bpp, allow_alpha = plan[2]
+        return bmp_unpack(*bufs, bpp=bpp, width=width, top_down=top_down,
+                          allow_alpha=allow_alpha)
 
     def decode(self, datas: list[bytes]):
-        rows, pal, (width, _h, top_down, bpp, allow_alpha) = self.prep(datas)
-        return bmp_unpack(*self.upload(rows, pal), bpp=bpp, width=width, top_down=top_down,
-                          allow_alpha=allow_alpha)
+        plan = self.prep(datas)
+        return self.run(plan, self.upload(plan))

@@ -29,8 +29,11 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import contextlib
 import ctypes
 import os
+import threading
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -40,6 +43,7 @@ from ..codecs.jpeg.tables import UNZIG, HuffTable
 from ..errors import FormatError, UnsupportedError
 from ..ops import backend as _backend
 from ..ops import entropy as _entropy
+from ..utils import metrics, trace
 
 _RATIOS = {0x11: "444", 0x12: "440", 0x21: "422",
            0x22: "420", 0x41: "411", 0x42: "410"}
@@ -395,58 +399,110 @@ _UPLOAD_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.int16): torch.int
                   np.dtype(np.uint32): torch.int32}  # the same 32 bits
 
 
+def _offsets(sizes) -> tuple[list, int]:
+    """64-byte-aligned offsets of parts of ``sizes`` bytes, and their total."""
+    offs, total = [], 0
+    for n in sizes:
+        offs.append(total)
+        total += (n + 63) // 64 * 64
+    return offs, total
+
+
 class PinnedUpload:
     """Several numpy arrays (u8, int16, int32 or uint32, the last as int32
     bits) -> device tensors in one copy: the arrays are packed, 64-byte
-    aligned, into one host buffer (pinned on CUDA, reused across calls) and
-    carved on the device with no copy.  The copy is asynchronous; the next
-    call waits for it before it rewrites the buffer.  ``views`` lends the
-    buffer out, so that a host pass can write the arrays there itself."""
+    aligned, into one host buffer and carved on the device with no copy.
+    ``views`` lends a host pass such a buffer, so that it can write the
+    arrays there itself and ``__call__`` copies them up with no packing.
+
+    Every plan has a staging buffer of its own, so a prep may fill the next
+    batch's while an earlier one's copy is in flight (``DecodePipeline``):
+    on CUDA the buffer comes from PyTorch's caching pinned-memory
+    allocator, which records an event at each non-blocking copy from it
+    and hands its memory out again only once that copy has completed.  The
+    copies run on a side CUDA stream of their own, so an upload need not
+    queue behind the kernels of the batch before it; the caller's stream
+    waits for the copy, and the device buffer is marked as used there
+    (``record_stream``, which covers every tensor carved from it), so the
+    caching allocator gives its memory out again only after the kernels
+    that read it."""
 
     def __init__(self, device: torch.device):
         self.device = device
-        self._staging = torch.empty(0, dtype=torch.uint8)  # host side of the upload
-        self._copied = None  # CUDA event: the last upload has left the staging buffer
+        self._stream = None  # the side CUDA stream of the copies
+        # address -> a buffer ``views`` lent, held until its arrays are gone
+        self._lent: dict = {}
+        self._lock = threading.Lock()
 
-    def _reserve(self, sizes):
-        """-> (64-byte-aligned offsets of parts of ``sizes`` bytes, their
-        total, the staging buffer as numpy), once the last upload has left
-        the buffer, grown to hold them."""
-        offs, total = [], 0
-        for n in sizes:
-            offs.append(total)
-            total += (n + 63) // 64 * 64
-        if self._copied is not None:
-            self._copied.synchronize()  # the staging buffer is about to be rewritten
-            self._copied = None
-        if self._staging.numel() < total:
-            self._staging = torch.empty(total, dtype=torch.uint8,
-                                        pin_memory=self.device.type == "cuda")
-        return offs, total, self._staging.numpy()
+    def _buffer(self, nbytes: int) -> torch.Tensor:
+        """A new u8 host buffer of ``nbytes`` for one upload, pinned on CUDA."""
+        return torch.empty(nbytes, dtype=torch.uint8, pin_memory=self.device.type == "cuda")
 
     def views(self, specs) -> list:
-        """numpy arrays of ``specs`` [(shape, dtype), ...] in the staging
+        """numpy arrays of ``specs`` [(shape, dtype), ...] in a new staging
         buffer, where ``__call__`` packs arrays of those shapes: filled in
         place and passed to ``__call__``, they go up with no packing copy.
-        They hold until the next ``views`` or upload."""
+        The buffer lives as long as the arrays."""
         sizes = [int(np.prod(shape)) * np.dtype(dt).itemsize for shape, dt in specs]
-        offs, _total, host = self._reserve(sizes)
+        offs, total = _offsets(sizes)
+        buf = self._buffer(total)
+        host = buf.numpy()  # the base every view below keeps alive
+        addr = host.ctypes.data
+        with self._lock:
+            self._lent[addr] = buf
+        weakref.finalize(host, self._release, addr)
         return [host[o : o + n].view(dt).reshape(shape)
                 for (shape, dt), o, n in zip(specs, offs, sizes)]
 
+    def _release(self, addr: int) -> None:
+        """The arrays of the buffer at ``addr`` are gone: let it go (on CUDA
+        the allocator keeps it until its copy has completed)."""
+        with self._lock:
+            del self._lent[addr]
+
+    def _staged(self, parts):
+        """The lent buffer ``parts`` fill at ``__call__``'s layout, or None."""
+        if not parts:
+            return None
+        offs, total = _offsets([a.nbytes for a in parts])
+        base = parts[0].ctypes.data
+        with self._lock:
+            buf = self._lent.get(base)
+        if buf is None or buf.numel() < total or any(
+                a.ctypes.data != base + o or not a.flags.c_contiguous
+                for a, o in zip(parts, offs)):
+            return None
+        return buf
+
+    def staged(self, parts) -> bool:
+        """Whether ``__call__`` sends ``parts`` with no packing copy."""
+        return self._staged(parts) is not None
+
+    def send(self, host: torch.Tensor) -> torch.Tensor:
+        """A host u8 buffer -> its copy on the device (a clone on the CPU):
+        asynchronous, on the side stream, ordered before the caller's
+        stream's later work."""
+        if self.device.type != "cuda":
+            return host.clone()
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self._stream):
+            out = host.to(self.device, non_blocking=True)
+        compute.wait_stream(self._stream)
+        out.record_stream(compute)
+        return out
+
     def __call__(self, parts) -> list:
-        offs, total, host = self._reserve([a.nbytes for a in parts])
-        cuda = self.device.type == "cuda"
-        for a, o in zip(parts, offs):
-            if a.ctypes.data != host.ctypes.data + o or not a.flags.c_contiguous:
+        offs, total = _offsets([a.nbytes for a in parts])
+        buf = self._staged(parts)
+        if buf is None:
+            buf = self._buffer(total)
+            host = buf.numpy()
+            for a, o in zip(parts, offs):
                 host[o : o + a.nbytes] = np.ascontiguousarray(a).view(np.uint8).reshape(-1)
-        if cuda:
-            buf = self._staging[:total].to(self.device, non_blocking=True)
-            self._copied = torch.cuda.Event()
-            self._copied.record()
-        else:
-            buf = self._staging[:total].clone()
-        return [buf[o : o + a.nbytes].view(_UPLOAD_DTYPES[a.dtype]).view(a.shape)
+        out = self.send(buf[:total])
+        return [out[o : o + a.nbytes].view(_UPLOAD_DTYPES[a.dtype]).view(a.shape)
                 for a, o in zip(parts, offs)]
 
 
@@ -476,18 +532,30 @@ class DeviceJpegDecoder:
     decoder.
     """
 
+    # The JAX package's prefix for this route's counters and timers, and
+    # its timed stages (zpix_tpu/parallel/device_entropy.py:1675-1685)
+    _METRICS = "jpeg_onchip"
+    _TIMED = ("prep", "upload", "dispatch")
+
     def __init__(self, *, planar: bool = False, device=None):
         self.planar = planar
         self.device = resolve_device(device)
         self._upload = PinnedUpload(self.device)
 
+    def _stage(self, name: str):
+        """The timer of stage ``name`` where the JAX package keeps one."""
+        if name in self._TIMED:
+            return trace(f"{self._METRICS}.{name}")
+        return contextlib.nullcontext()
+
     def upload(self, plan: ScanPlan):
         """Stream, offsets, counts, tables (and the host index scan's ends,
         if the plan has them) -> device tensors, in one copy
         (``PinnedUpload``), as zpix_tpu's packed upload does."""
-        return tuple(self._upload(
-            [plan.stream, plan.seg_bit_pos.astype(np.int32), plan.seg_n_mcu, plan.tables]
-            + ([] if plan.ends is None else [plan.ends])))
+        with self._stage("upload"):
+            return tuple(self._upload(
+                [plan.stream, plan.seg_bit_pos.astype(np.int32), plan.seg_n_mcu, plan.tables]
+                + ([] if plan.ends is None else [plan.ends])))
 
     def entropy(self, plan: ScanPlan, bufs):
         """K1 + K2 + K3 -> (AC int16 [L1*nblk, 64], DC int32 [L1*nblk]
@@ -511,16 +579,26 @@ class DeviceJpegDecoder:
         return ac.view(-1, plan.seg_mcus * plan.bpm, 64), okf[0] != 0
 
     def prep(self, datas: list[bytes]) -> ScanPlan:
-        return prep_batch(datas)
+        """The host half: marker walks, destuffing, segments and tables."""
+        with self._stage("prep"):
+            plan = prep_batch(datas)
+        metrics.count("jpeg_onchip.images", len(datas))
+        metrics.count("jpeg_onchip.megapixels", len(datas) * plan.width * plan.height / 1e6)
+        return plan
+
+    def run(self, plan: ScanPlan, bufs):
+        """The device half on uploaded buffers: the entropy kernels, then K4
+        -> (pixels, ok), both on the decoder's device, no sync."""
+        with self._stage("dispatch"):
+            ac, dc, okf = self.entropy(plan, bufs)
+            pixels = _backend.backend(ac, dc, bufs[3], _backend.BackendGeometry.of(plan),
+                                      planar=self.planar)
+            return pixels, okf[0] != 0
 
     def decode(self, datas: list[bytes]):
         """bytes -> (pixels, ok), both on the decoder's device, no sync."""
         plan = self.prep(datas)
-        bufs = self.upload(plan)
-        ac, dc, okf = self.entropy(plan, bufs)
-        pixels = _backend.backend(ac, dc, bufs[3], _backend.BackendGeometry.of(plan),
-                                  planar=self.planar)
-        return pixels, okf[0] != 0
+        return self.run(plan, self.upload(plan))
 
 
 # ------------------------------------------------------ restart-free streams
@@ -607,6 +685,8 @@ class HostIndexJpegDecoder(DeviceJpegDecoder):
     belong to DeviceJpegDecoder).
     """
 
+    _METRICS = "jpeg_hostindex"  # device_entropy.py:1876-1882
+
     def __init__(self, *, planar: bool = False, device=None, n_threads: int | None = None):
         super().__init__(planar=planar, device=device)
         self.n_threads = n_threads
@@ -621,4 +701,8 @@ class HostIndexJpegDecoder(DeviceJpegDecoder):
         return ac, dc, okf
 
     def prep(self, datas: list[bytes]) -> ScanPlan:
-        return prep_batch_host_index(datas, self.n_threads)
+        """The host half: headers, destuffing and the host index scan."""
+        with self._stage("prep"):
+            plan = prep_batch_host_index(datas, self.n_threads)
+        metrics.count("jpeg_hostindex.images", len(datas))
+        return plan

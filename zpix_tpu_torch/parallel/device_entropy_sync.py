@@ -31,6 +31,7 @@ import numpy as np
 from ..errors import UnsupportedError
 from ..ops import entropy as _entropy
 from ..ops import sync as _sync
+from ..utils import metrics
 from .device_entropy import (DeviceJpegDecoder, ScanPlan, _batch_streams, _flat_stream,
                              _mcu_grid, _plan)
 
@@ -87,13 +88,19 @@ class SyncJpegDecoder(DeviceJpegDecoder):
     markers raise UnsupportedError (they belong to DeviceJpegDecoder).
     ``decode`` makes no host sync."""
 
+    _METRICS, _TIMED = "jpeg_sync", ("prep",)  # device_entropy_sync.py:548-550
+
     def __init__(self, *, chunk_bytes: int = 32, device=None):
         super().__init__(planar=False, device=device)
         self.chunk_bytes = chunk_bytes
         self.misses = None  # K19's link misses in the last entropy call (see ops/sync.py)
 
     def prep(self, datas: list[bytes]) -> SyncPlan:
-        return prep_batch_sync(datas, self.chunk_bytes)
+        """The host half: headers, destuffing and the images' bit ranges."""
+        with self._stage("prep"):
+            plan = prep_batch_sync(datas, self.chunk_bytes)
+        metrics.count("jpeg_sync.images", len(datas))
+        return plan
 
     def upload(self, plan: SyncPlan):
         """Stream, starts, MCU counts, tables and end bits -> device tensors,

@@ -23,17 +23,17 @@ call), and a corrupt zlib stream, its adler32 trailer included (with
 ``device_inflate``, a trailer cut short by the tokenizer and a wrong one by
 the adler32 check of K16's output on the card, into the same flag).  The JAX batch path lets the first two
 through on some routes and ``zlib.error`` escape (ROADMAP queue 3).  Not
-ported: ``mesh`` and ``_shard`` (the multi-GPU slice), ``utils.trace`` and
-``metrics.count`` (the routing slice), the ``ZPIX_DEVICE_*`` environment
-variables (the arguments decide), and the power-of-two token padding,
-which bounds XLA recompiles: the upload pads each image's tokens with
-zero-length ones to the batch's most, the same function.
+ported: ``mesh`` and ``_shard`` (the multi-GPU slice), the ``ZPIX_DEVICE_*``
+environment variables (the arguments decide), and the power-of-two token
+padding, which bounds XLA recompiles: the upload pads each image's tokens
+with zero-length ones to the batch's most, the same function.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import threading
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -58,6 +58,7 @@ from ..ops.defilter import png_defilter
 from ..ops.inflate import ADLER_BAD, adler32_check, inflate_resolve
 from ..ops.png import ARMS, WHOLE, png_expand, row_bytes
 from ..runtime import host
+from ..utils import metrics, trace
 from .device_entropy import PinnedUpload, resolve_device
 
 TOKEN_ALIGN = 4096  # token rows of the staging buffer grow in these steps
@@ -234,7 +235,10 @@ class BatchPngDecoder:
         self.device_inflate = device_inflate
         self._pool = ThreadPoolExecutor(self.n_threads)
         self._upload = PinnedUpload(self.device)
-        self._raw = np.empty(0, np.uint8)  # host route's inflate buffer, reused
+        # the host route's inflate buffers: a prep takes one, its defilter
+        # gives it back (preps may run on several threads at once)
+        self._raws: list = []
+        self._raws_lock = threading.Lock()
         self._tok_cap = None  # token rows of the staging buffer, from the last batch
 
     def close(self) -> None:
@@ -247,6 +251,12 @@ class BatchPngDecoder:
         an image a pool thread."""
         if not datas:
             raise ValueError("png: empty batch")
+        with trace("png_batch.inflate"):
+            plan = self._parse(datas)
+        metrics.count("png_batch.images", len(datas))
+        return plan
+
+    def _parse(self, datas: list[bytes]) -> PngPlan:
         walked = list(self._pool.map(_walk_idat, datas))
         states = [w[0] for w in walked]
         st0 = states[0]
@@ -268,9 +278,11 @@ class BatchPngDecoder:
         main = ((B, st0.height, seg[3]) if route == "host" else (B, per), np.uint8)
         plan = self._plan(st0, route, [main], pal, key, per)
         if route == "host":
-            if self._raw.size < B * per:
-                self._raw = np.empty(B * per, np.uint8)
-            plan.raw = self._raw[: B * per].reshape(B, per)
+            with self._raws_lock:
+                raw = self._raws.pop() if self._raws else np.empty(0, np.uint8)
+            if raw.size < B * per:
+                raw = np.empty(B * per, np.uint8)
+            plan.raw = raw[: B * per].reshape(B, per)
         dst = plan.raw if route == "host" else plan.main[0]
         list(self._pool.map(lambda i: _inflate(states[i], walked[i][1], per, dst[i]), range(B)))
         return plan
@@ -323,21 +335,18 @@ class BatchPngDecoder:
         return plan
 
     def _widen(self, plan: PngPlan, toks, pal, key) -> PngPlan:
-        """A plan whose token rows hold the batch's most tokens, every
-        image's tokens moved in: the images tokenized at full room from
-        their own arrays, the others within the staging buffer.  The wider
-        layout keeps the arrays' order and only grows them, so every element
-        moves to an address no lower than its own: moving from the highest
-        address down overwrites nothing not yet moved.  (A larger buffer is
-        a new one; the old views keep the old one alive until the move.)"""
+        """A plan whose token rows hold the batch's most tokens, in a staging
+        buffer of its own, every image's tokens copied in: the images
+        tokenized at full room from their own arrays, the others from the
+        first plan's rows (which keep its buffer alive until the copy)."""
         B, per = len(toks), plan.per
         most = max(len(t[0]) for t in toks)
         cap = min(per + 1, -(-most // TOKEN_ALIGN) * TOKEN_ALIGN)
         wide = self._plan(plan.st, "inflate", _token_specs(B, cap), pal, key, per)
-        for k in (2, 1, 0):  # lits, dists, lens: the highest array first
-            for i in reversed(range(B)):
+        for k in range(3):  # lens, dists, lits
+            for i in range(B):
                 src = toks[i][k]
-                ctypes.memmove(wide.main[k][i].ctypes.data, src.ctypes.data, src.nbytes)
+                wide.main[k][i, : src.shape[0]] = src
         return wide
 
     def defilter(self, plan: PngPlan) -> None:
@@ -347,10 +356,15 @@ class BatchPngDecoder:
         rows = plan.main[0]
         B, h, rb = rows.shape
         ptr = ctypes.c_void_p * B
-        rc = host.lib().zpix_defilter_batch(
-            ptr(*[plan.raw[i].ctypes.data for i in range(B)]), h, rb,
-            (_BITS_PER_PIXEL[plan.st.color_depth] + 7) // 8,
-            ptr(*[rows[i].ctypes.data for i in range(B)]), B, self.n_threads)
+        with trace("png_batch.defilter"):
+            rc = host.lib().zpix_defilter_batch(
+                ptr(*[plan.raw[i].ctypes.data for i in range(B)]), h, rb,
+                (_BITS_PER_PIXEL[plan.st.color_depth] + 7) // 8,
+                ptr(*[rows[i].ctypes.data for i in range(B)]), B, self.n_threads)
+        raw = plan.raw if plan.raw.base is None else plan.raw.base
+        plan.raw = None
+        with self._raws_lock:
+            self._raws.append(raw)
         if rc != 0:
             raise FormatError("png: invalid filter type")
 

@@ -41,6 +41,7 @@ from ..codecs.qoi.encode import PADDING, check_desc, header
 from ..errors import FormatError, UnsupportedError
 from ..ops import qoi as kq
 from ..runtime import host
+from ..utils import metrics, trace
 from .device_entropy import PinnedUpload, resolve_device
 
 DEFAULT_LANE_P = 32  # zpix_tpu's default when ZPIX_QOI_LANE_P is unset
@@ -292,22 +293,31 @@ class HostIndexQoiDecoder:
 
     def prep(self, datas: list[bytes]) -> QoiRecordPlan | QoiLanePlan:
         """The host pass of ``impl`` and ``lane_fmt``, with the carried hints.
-        A lane plan is filled straight into the pinned staging buffer when
-        its layout is the one the pass starts from (the usual case once a
-        batch has set the hint), so ``upload`` copies nothing on the host;
-        such a plan holds until the decoder's next ``prep`` or ``upload``."""
+        A lane plan is filled straight into a pinned staging buffer of its
+        own when its layout is the one the pass starts from (the usual case
+        once a batch has set the hint), so ``upload`` copies nothing on the
+        host.  A hint ``run`` raised after this pass started only changes
+        the layout: the pass grows R to what its batch needs."""
+        with trace("qoi_hostindex.prep"):
+            plan = self._prep(datas)
+        metrics.count("qoi_hostindex.images", plan.batch)
+        return plan
+
+    def _prep(self, datas):
         if self.impl == "sorted":
             return prep_qoi_records(datas, self._rcap_hint or None)
         plan = None
         if self.lane_fmt in ("auto", "p4"):
-            plan = prep_qoi_lanes4(datas, self.lane_p, self._r4_hint or None,
-                                   out=self._staged(datas, True, self._r4_hint))
+            r4 = self._r4_hint
+            plan = prep_qoi_lanes4(datas, self.lane_p, r4 or None,
+                                   out=self._staged(datas, True, r4))
             if plan is None and self.lane_fmt == "p4":
                 raise UnsupportedError(
                     "qoi: lane_fmt='p4' needs opaque content (alpha in stream) "
                     "- use 'auto' or 'wide'")
-        return plan or prep_qoi_lanes(datas, self.lane_p, self._r_hint or None,
-                                      out=self._staged(datas, False, self._r_hint))
+        r = self._r_hint
+        return plan or prep_qoi_lanes(datas, self.lane_p, r or None,
+                                      out=self._staged(datas, False, r))
 
     def upload(self, plan: QoiRecordPlan | QoiLanePlan) -> list:
         """The plan's arrays -> device tensors, in one pinned copy (with no
