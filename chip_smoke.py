@@ -31,8 +31,18 @@ width of 63 MCUs, on streams cut short; K9 on a store holding values in
 its band and on one not 16-byte aligned; K11 on interleaved 4:4:4,
 4:2:2, 4:2:0 and 4:1:1 scans, single-component scans with partial MCUs,
 all and no bits set, rows wider than their bits and Al 0-13, each twice), times
-them with CUDA events, checks that corrupt streams are flagged, and
-prints one JSON object per line.  Then the raster slice: batches of 16
+them with CUDA events, checks that corrupt streams are flagged, holds
+each route's image 0 against the port's host decoder
+(zpix_tpu_torch.codecs.jpeg) at max_abs_err 0, and prints one JSON
+object per line.  The ``python_front_end`` phase then decodes batches of
+16 distinct 1024x1024 RGB 4:4:4, CMYK 4:4:4, YCCK {2x2,1x1,1x1,2x2},
+one-scan-a-component 4:2:0 and progressive 4:2:0 streams through
+``BatchJpegDecoder``'s Python front-end (the host decoder's scans,
+pack_sparse, K7, K6 on its rgb, ycck, cmyk and ycbcr arms), every image
+of a batch against the host decoder, K7 and K6 against their plain
+versions, each kind timed by stage (front-end on 1 and 8 threads, H2D,
+K7, K6), and ``OnchipProgressiveDecoder.decode_verified`` on a corrupt
+batch and with ``ok`` forced False.  Then the raster slice: batches of 16
 distinct 1024x1024 QOI streams (the JAX bench's "noise" and "screen"
 content, made by the port's host encoder) through ``HostIndexQoiDecoder``
 (host lane fill, K12, also on hand-built entries and on lanes wider than
@@ -478,11 +488,14 @@ def jpeg_writer():
     tables; it imports nothing of the JAX package), loaded by path."""
     import importlib.util
 
+    if "_torch_jpeg_writer" in sys.modules:
+        return sys.modules["_torch_jpeg_writer"]
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                         "_torch_jpeg_writer.py")
     spec = importlib.util.spec_from_file_location("_torch_jpeg_writer", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    sys.modules["_torch_jpeg_writer"] = mod
     return mod
 
 
@@ -627,9 +640,10 @@ def native_stages(dec, datas, dev):
     grids = pb.unpack_flat(buf, packed.layout, batch=packed.batch, dims=packed.dims,
                            perms=packed.perms)
     ev[2].record()
-    quants = [pb.carve(buf, packed.layout, "q", c, packed.batch) for c in range(3)]
+    quants = [pb.carve(buf, packed.layout, "q", c, packed.batch)
+              for c in range(len(packed.hv))]
     px = pb.decode_batch_planes(grids, quants, color=packed.color, height=packed.height,
-                                width=packed.width, ratio=packed.ratio)
+                                width=packed.width, ratio=packed.ratio, sub=packed.sub)
     ev[3].record()
     torch.cuda.synchronize()
     ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
@@ -713,6 +727,8 @@ def restart_free(batches, dev, mpix):
     torch.cuda.synchronize()
     check = {"native_vs_plain": max_abs_err(px_n[:2], ref_n),
              "host_index_vs_plain": max_abs_err(px_h[:2], ref_h),
+             "native_vs_host_decoder": host_decoder_err(px_n[0], batches[0][0]),
+             "host_index_vs_host_decoder": host_decoder_err(px_h[0], batches[0][0]),
              "plain_ok": bool(ok2), "routes_equal": bool(torch.equal(px_n, px_h)),
              "host_index_ok": bool(ok_h)}
 
@@ -953,6 +969,7 @@ def sync_phase(batches, hplan, mpix):
     check = {"main_ok": bool(ok), "host_index_ok": bool(hok),
              "main_equal_host_index": bool(torch.equal(px, hx)),
              "main_vs_plain": max_abs_err(px[:2], ref2), "plain_ok": bool(o2),
+             "main_vs_host_decoder": host_decoder_err(px[0], batches[0][0]),
              "shape": list(px.shape), "host_index_scans_in_decode": len(scans)}
     del px, hx, ref2, a2, d2
 
@@ -1072,7 +1089,8 @@ def sync_check(sy) -> None:
             or ln["index_pass"] or c["host_index_scans_in_decode"]):
         raise SystemExit("chip_smoke: the sync route skipped a kernel or scanned on the host")
     if (not (c["main_ok"] and c["host_index_ok"] and c["main_equal_host_index"] and c["plain_ok"])
-            or c["main_vs_plain"] or c["shape"] != [BATCH, SIZE, SIZE, 3]
+            or c["main_vs_plain"] or c["main_vs_host_decoder"]
+            or c["shape"] != [BATCH, SIZE, SIZE, 3]
             or not sy["all_ok"] or not all(sy["equal_host_index_per_batch"])):
         raise SystemExit("chip_smoke: the sync route's output is wrong")
     if "ok_true" in sy["damaged"].values():
@@ -1512,6 +1530,7 @@ def progressive(dev):
              "kernels_ok": bool(ok_k),
              "main_ok": bool(ok),
              "main_vs_plain": max_abs_err(px[:2], ref2), "plain_ok": ok2,
+             "main_vs_host_decoder": host_decoder_err(px[0], batches[0][0]),
              "mean_abs_diff_vs_pillow": float(np.abs(px[0].cpu().numpy().astype(np.int32)
                                                      - pil.astype(np.int32)).mean()),
              "shape": list(px.shape)}
@@ -1635,6 +1654,252 @@ def progressive(dev):
         "max_abs_err": errs["component_planes_int32"]}
     del tg, refine_inputs
     return summary, entries, batches
+
+
+# --------------------------------- BatchJpegDecoder's Python front-end (K7, K6)
+
+# stream kinds the native front-end refuses, each a batch of 16 distinct
+# 1024^2 images: Pillow's RGB-colourspace 4:4:4 and Adobe CMYK 4:4:4, the
+# tests' writer's YCCK {2x2, 1x1, 1x1, 2x2} and one-scan-a-component 4:2:0
+# (random coefficients, PY_DENSITY of the AC nonzero), Pillow's progressive
+PY_KINDS = ("rgb_444", "cmyk_444", "ycck_420", "multi_scan_420", "progressive_420")
+PY_BATCHES = 3  # a kind: batch 0 checked image by image, all three timed
+PY_DENSITY = 0.05
+PY_ARMS = {"rgb_444": "rgb", "cmyk_444": "cmyk", "ycck_420": "ycck"}  # K6 arms new from bytes
+
+
+def make_py_image(kind: str, seed: int, size: int) -> bytes:
+    """One size x size image of a Python front-end kind (a process pool's
+    task)."""
+    from PIL import Image
+
+    if kind == "progressive_420":
+        return make_bench_jpeg(size, QUALITY, seed, None, progressive=True)
+    if kind in ("rgb_444", "cmyk_444"):
+        base = Image.open(BytesIO(make_bench_jpeg(size, 95, seed, None))).convert("RGB")
+        buf = BytesIO()
+        if kind == "cmyk_444":
+            base.convert("CMYK").save(buf, format="JPEG", quality=QUALITY)
+            return buf.getvalue()
+        base.save(buf, format="JPEG", quality=QUALITY, subsampling=0)
+        return jpeg_writer().as_rgb_stream(buf.getvalue())
+    w = jpeg_writer()
+    if kind == "ycck_420":
+        return w.synth_ratio_jpeg(w.QUAD, size, size, seed, adobe=2, density=PY_DENSITY)
+    return w.synth_ratio_jpeg(((2, 2), (1, 1), (1, 1)), size, size, seed, scans="separate",
+                              density=PY_DENSITY)
+
+
+def make_py_content() -> dict:
+    """kind -> PY_BATCHES batches, made on a process pool (spawned: the
+    parent holds threads and the card; the tasks are numpy, Pillow and
+    Python)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    jobs = [(k, 5000 + 100 * i + BATCH * b + j, SIZE) for i, k in enumerate(PY_KINDS)
+            for b in range(PY_BATCHES) for j in range(BATCH)]
+    with ProcessPoolExecutor(os.cpu_count() or 2,
+                             mp_context=multiprocessing.get_context("spawn")) as ex:
+        images = iter(list(ex.map(make_py_image, *zip(*jobs))))
+    return {k: [[next(images) for _ in range(BATCH)] for _ in range(PY_BATCHES)]
+            for k in PY_KINDS}
+
+
+def host_decoder_err(image, data: bytes) -> int:
+    """max_abs_err of one decoded image (a [H, W] or [H, W, C] tensor)
+    against the port's host decoder on its bytes."""
+    want = jpeg_writer().port_host_pixels(data)
+    return max_abs_err(image.cpu(), torch.from_numpy(np.ascontiguousarray(want)))
+
+
+def host_outcome(fn):
+    """fn()'s exception as (type, message), or None."""
+    try:
+        fn()
+    except Exception as exc:  # noqa: BLE001 -- the comparison is the point
+        return [type(exc).__name__, str(exc)]
+    return None
+
+
+def front_end_serial(datas) -> dict:
+    """The Python front-end on one thread, its two halves apart: the host
+    decoder's scans (parse_coefficients) and the packing (pack_sparse and
+    the flat buffer) -> ms."""
+    from zpix_tpu_torch.parallel import batch as pb
+
+    t0 = time.perf_counter()
+    fes = [pb.parse_coefficients(d) for d in datas]
+    t1 = time.perf_counter()
+    parts = [(fe, [pb.pack_sparse(c) for c in fe.coeffs]) for fe in fes]
+    pb.packed_from_front_ends(parts, pin=True)
+    t2 = time.perf_counter()
+    return {"front_end_1_thread_scan": (t1 - t0) * 1e3, "front_end_1_thread_pack": (t2 - t1) * 1e3,
+            "front_end_1_thread": (t2 - t0) * 1e3}
+
+
+def python_front_end_phase(dev) -> tuple:
+    """BatchJpegDecoder on the streams its native front-end refuses: one
+    decode of each kind with launches counted, every image of batch 0
+    against the port's host decoder, K7 and K6 against their plain versions
+    on each kind's full batch, K6 timed on its rgb, ycck and cmyk arms with
+    bounds, each kind timed end to end and by stage (front-end on 1 and N
+    threads, H2D, K7, K6), the batches through DecodePipeline, and
+    OnchipProgressiveDecoder.decode_verified on a corrupt batch and with ok
+    forced False.  -> (summary, {arm: K6 entry}, K7 entry)"""
+    from zpix_tpu_torch import BatchJpegDecoder, OnchipProgressiveDecoder, runtime
+    from zpix_tpu_torch.ops import planes as kp
+    from zpix_tpu_torch.ops import sparse as ks
+    from zpix_tpu_torch.parallel import batch as pb
+    from zpix_tpu_torch.parallel.pipeline import DecodePipeline
+    from zpix_tpu_torch.utils import metrics
+
+    t0 = time.perf_counter()
+    content = make_py_content()
+    content_s = time.perf_counter() - t0
+    dec = BatchJpegDecoder()
+    for k in PY_KINDS:  # warm: worker threads, pinned pool
+        dec.decode(content[k][1])
+    torch.cuda.synchronize()
+    refused0 = metrics.counters.get("jpeg_batch.native_refused", 0)
+    python0 = metrics.counters.get("jpeg_batch.python_front_end", 0)
+    runtime.reset_launches()
+    outs = {k: dec.decode(content[k][0]) for k in PY_KINDS}
+    torch.cuda.synchronize()
+    launches = dict(runtime.LAUNCHES)
+    python_images = metrics.counters.get("jpeg_batch.python_front_end", 0) - python0
+
+    # every image of batch 0 against the port's host decoder
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(os.cpu_count() or 2) as ex:
+        host = {k: list(ex.map(lambda i, k=k: host_decoder_err(outs[k][i], content[k][0][i]),
+                               range(BATCH))) for k in PY_KINDS}
+    host_s = time.perf_counter() - t0
+    shapes = {k: list(v.shape) for k, v in outs.items()}
+    del outs
+
+    # K7 and K6 against their plain versions on each kind's full batch;
+    # K6 timed on the arms new from bytes
+    checks, arms, k7 = {}, {}, {}
+    for k in PY_KINDS:
+        packed = dec.prep(content[k][0])
+        buf = dec.upload(packed)
+        comps = [ks.SparseComponent(pb.carve(buf, packed.layout, "bm", c, BATCH),
+                                    pb.carve(buf, packed.layout, "val", c, BATCH), bv, bh, pm)
+                 for c, ((bv, bh), pm) in enumerate(zip(packed.dims, packed.perms))]
+        grids = ks.unpack_components(comps)
+        quants = [pb.carve(buf, packed.layout, "q", c, BATCH) for c in range(len(packed.hv))]
+        kw = dict(color=packed.color, height=SIZE, width=SIZE, ratio=packed.ratio,
+                  sub=packed.sub)
+        px = pb.decode_batch_planes(grids, quants, **kw)
+        if packed.color == "gray":
+            factors = [(1, 1)]
+        elif packed.color == "cmyk":
+            factors = [(2, 2) if x else (1, 1) for x in packed.sub]
+        else:
+            factors = [(1, 1)] + [pb.RATIO_FACTORS[packed.ratio]] * 2 + [(1, 1)] * (
+                len(packed.hv) - 3)
+        plain_kw = dict(color=packed.color, height=SIZE, width=SIZE, factors=factors)
+        checks[k] = {
+            "unpack_sparse": max(max_abs_err(g, w) for g, w in zip(
+                grids, ks.unpack_components_plain(comps))),
+            "component_planes": max_abs_err(px, kp.component_planes_plain(grids, quants,
+                                                                          **plain_kw)),
+            "color": packed.color, "hv": list(packed.hv), "sub": packed.sub,
+            "value_caps": [int(n) // 2 for kind, _, _, n in packed.layout if kind == "val"],
+            "nnz_max": packed.nnz.max(0).tolist(), "buffer_bytes": int(buf.numel())}
+        blocks = BATCH * sum(bv * bh for bv, bh in packed.dims)
+        k7[k] = with_bound({
+            "ms": cuda_ms(lambda: ks.unpack_components(comps), 20),
+            "plain_ms": cuda_ms(lambda: ks.unpack_components_plain(comps), 1),
+            "bytes": (8 + 128) * blocks + 2 * int(packed.nnz.sum()),
+            "ops": OPS_K7_BLOCK * blocks, "max_abs_err": checks[k]["unpack_sparse"]})
+        if k in PY_ARMS:
+            n_mcu = packed.mxx * packed.myy * BATCH
+            arms[PY_ARMS[k]] = with_bound({
+                "kind": k, "hv": list(packed.hv),
+                "ms": cuda_ms(lambda: pb.decode_batch_planes(grids, quants, **kw), 20),
+                "plain_ms": cuda_ms(lambda: kp.component_planes_plain(grids, quants,
+                                                                      **plain_kw), 1),
+                "bytes": 128 * blocks + 256 * len(packed.hv) * BATCH + px.numel(),
+                "ops": OPS_K4_BLOCK * blocks + OPS_K4_PIXEL * BATCH * SIZE * SIZE
+                + (OPS_K4_CHROMA * 64 * n_mcu if packed.color != "cmyk" else 0),
+                "max_abs_err": checks[k]["component_planes"]})
+        del grids, px, buf, comps
+    torch.cuda.synchronize()
+
+    # timed end to end, then by stage (native_stages reads any Packed)
+    routes = {}
+    for k in PY_KINDS:
+        walls, peak, mean, _ = timed_decodes(
+            dec.decode, content[k], stages=lambda d: native_stages(dec, d, dev))
+        serial = [front_end_serial(d) for d in content[k]]
+        mean["front_end_n_threads"] = mean.pop("host_parse")
+        for key in serial[0]:
+            mean[key] = float(np.mean([r[key] for r in serial]))
+        routes[k] = route_summary(walls, peak, mean, {})
+        routes[k]["bytes_per_image"] = float(np.mean([len(d) for d in content[k][0]]))
+
+    # the batches through DecodePipeline: the same pixels
+    serial_out = [dec.decode(b) for k in PY_KINDS for b in content[k][:2]]
+    piped = list(DecodePipeline(dec, prefetch=2).map(
+        [b for k in PY_KINDS for b in content[k][:2]]))
+    pipeline_equal = all(torch.equal(a, b) for a, b in zip(serial_out, piped))
+    del serial_out, piped
+
+    # decode_verified: a batch whose image 0 the DC-first walk refuses (ok
+    # False: the host decoder decodes the batch, and raises what it raises
+    # on image 0), and a valid batch with ok forced False
+    one = content["progressive_420"][0][0]
+    pdec = OnchipProgressiveDecoder()
+    bad = [corrupt_first_scan(one)] + [one] * (BATCH - 1)
+    _, ok_bad = pdec.decode(bad)
+    verified = {"corrupt_ok": bool(ok_bad),
+                "corrupt_outcome": host_outcome(lambda: pdec.decode_verified(bad)),
+                "host_decoder_outcome": host_outcome(
+                    lambda: jpeg_writer().port_host_pixels(bad[0]))}
+    px_p, ok_p = pdec.decode([one] * BATCH)
+    run = pdec.run
+    pdec.run = lambda prep, bufs=None: (run(prep, bufs)[0], torch.zeros(
+        (), dtype=torch.bool, device=dev))
+    forced = pdec.decode_verified([one] * BATCH)
+    pdec.run = run
+    verified.update(valid_ok=bool(ok_p), forced_shape=list(forced.shape),
+                    forced_vs_card=max_abs_err(torch.from_numpy(forced), px_p.cpu()),
+                    forced_vs_host_decoder=host_decoder_err(torch.from_numpy(forced[0]), one))
+    pdec.close()
+    del px_p, forced
+    summary = {
+        "kinds": list(PY_KINDS), "content_seconds": content_s, "launches": launches,
+        "python_front_end_images": python_images,
+        "native_refused": metrics.counters.get("jpeg_batch.native_refused", 0) - refused0,
+        "host_decoder_max_abs_err": {k: max(v) for k, v in host.items()},
+        "host_check_seconds": host_s, "shapes": shapes, "kernel_checks": checks,
+        "routes": routes, "pipeline_equal_serial": pipeline_equal,
+        "decode_verified": verified, "n_threads": os.cpu_count()}
+    dec.close()
+    return summary, arms, k7
+
+
+def python_front_end_check(py) -> None:
+    """SystemExit unless the python_front_end phase's checks all held."""
+    n = len(PY_KINDS)
+    if py["launches"]["unpack_sparse"] != n or py["launches"]["component_planes"] != n:
+        raise SystemExit("chip_smoke: a Python front-end batch did not run K7 and K6 once each")
+    if py["python_front_end_images"] != n * BATCH or py["native_refused"]:
+        raise SystemExit("chip_smoke: a batch took the wrong front-end")
+    if any(py["host_decoder_max_abs_err"].values()):
+        raise SystemExit("chip_smoke: a Python front-end image differs from the host decoder")
+    if any(c["unpack_sparse"] or c["component_planes"] for c in py["kernel_checks"].values()):
+        raise SystemExit("chip_smoke: K7 or K6 disagrees with its plain version on a Python "
+                         "front-end batch")
+    v = py["decode_verified"]
+    if (v["corrupt_ok"] or v["corrupt_outcome"] != v["host_decoder_outcome"]
+            or not v["valid_ok"] or v["forced_vs_card"] or v["forced_vs_host_decoder"]
+            or v["forced_shape"] != [BATCH, SIZE, SIZE, 3]):
+        raise SystemExit("chip_smoke: decode_verified does not fall back to the host decoder")
+    if not py["pipeline_equal_serial"]:
+        raise SystemExit("chip_smoke: a pipelined Python front-end batch differs")
 
 
 # ------------------------------------------------- QOI and BMP slice (K12-K14, K18)
@@ -3249,10 +3514,12 @@ def main() -> int:
     pil = np.asarray(__import__("PIL.Image").Image.open(BytesIO(batches[0][0])).convert("RGB"))
     pil_diff = float(np.abs(pixels[0].permute(1, 2, 0).cpu().numpy().astype(np.int32)
                             - pil.astype(np.int32)).mean())
+    host0 = host_decoder_err(pixels[0].permute(1, 2, 0), batches[0][0])
     emit({"phase": "main_path_check", "max_abs_err_vs_plain": main_err,
           "plain_ok": bool(o2), "idct_blocks_err": max_abs_err(idct_out[: 4 * nblk], blk_ref),
-          "mean_abs_diff_vs_pillow": pil_diff})
-    if main_err or not bool(o2) or max_abs_err(idct_out[: 4 * nblk], blk_ref) or pil_diff > 8:
+          "mean_abs_diff_vs_pillow": pil_diff, "max_abs_err_vs_host_decoder": host0})
+    if (main_err or not bool(o2) or max_abs_err(idct_out[: 4 * nblk], blk_ref) or pil_diff > 8
+            or host0):
         raise SystemExit("chip_smoke: main path output is wrong")
 
     # timed: distinct batches, host prep + upload + kernels, end to end
@@ -3328,6 +3595,7 @@ def main() -> int:
                          "than one launch")
     c = rf["check"]
     if (c["native_vs_plain"] or c["host_index_vs_plain"] or not c["plain_ok"]
+            or c["native_vs_host_decoder"] or c["host_index_vs_host_decoder"]
             or not c["routes_equal"] or not c["host_index_ok"] or not rf["all_ok"]
             or not all(rf["routes_equal_per_batch"])):
         raise SystemExit("chip_smoke: a restart-free route's output is wrong")
@@ -3364,10 +3632,18 @@ def main() -> int:
         raise SystemExit("chip_smoke: K8 or K9 disagrees with its plain version on an edge case")
     if (any(pc["max_abs_err"].values()) or not pc["kernels_ok"] or not pc["main_ok"]
             or pc["main_vs_plain"] or not pc["plain_ok"] or pc["mean_abs_diff_vs_pillow"] > 8
+            or pc["main_vs_host_decoder"]
             or pc["shape"] != [BATCH, SIZE, SIZE, 3] or not pg["all_ok"]):
         raise SystemExit("chip_smoke: the progressive route's output is wrong")
     if pg["corrupt"]["walk_refused_ok"] or pg["corrupt"]["changed_after_walk_ok"]:
         raise SystemExit("chip_smoke: a corrupt progressive stream was not flagged")
+
+    # ------------------------- BatchJpegDecoder's Python front-end, K7, K6
+    t0 = time.perf_counter()
+    py, py_arms, py_k7 = python_front_end_phase(dev)
+    emit({"phase": "python_front_end", "seconds": time.perf_counter() - t0, **py,
+          "k6_arms": py_arms, "k7_by_kind": py_k7})
+    python_front_end_check(py)
 
     # ------------------------------------------- QOI decode and encode, BMP
     raster_entries, raster_paths, raster_content = raster_slice(dev)
@@ -3444,7 +3720,7 @@ def main() -> int:
                                               kb.BackendGeometry.of(hplan), planar=False), 20),
     }
     paths = {"dri8": launches, "native": ln, "host_index": lh, "sync": sy["launches"],
-             "progressive": lp, **raster_paths}
+             "progressive": lp, "python_front_end": py["launches"], **raster_paths}
     by_path = {k: {p: counts[k] for p, counts in paths.items()} for k in KERNELS}
     kernels = []
     for kname, (fk, fp, nbytes, nops) in timing.items():
@@ -3473,8 +3749,17 @@ def main() -> int:
             row["library_call"] = "torch.cumsum(dtype=int32), a call a component"
         if kname == "unpack_sparse":
             row["library_note"] = "no single PyTorch call unpacks bits, clips and permutes"
+            # the Python front-end's batches: 3 and 4 components, perm None
+            row["python_front_end"] = py_k7
+            row["max_abs_err"] = max(row["max_abs_err"], *(e["max_abs_err"]
+                                                           for e in py_k7.values()))
+            row["matches_plain"] = row["max_abs_err"] == 0
         if kname in host_index_ms:
             row["host_index_ms"] = host_index_ms[kname]
+        if kname == "component_planes":  # the arms the Python front-end opens
+            row["arms"] = py_arms
+            row["max_abs_err"] = max(row["max_abs_err"], *(e["max_abs_err"]
+                                                           for e in py_arms.values()))
         if kname == "component_planes":  # its int32 arm, on the progressive store
             e = prog_entries["component_planes_int32"]
             row["max_abs_err"] = max(row["max_abs_err"], e["max_abs_err"])

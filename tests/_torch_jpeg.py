@@ -13,8 +13,9 @@ import numpy as np
 import torch
 from PIL import Image
 from _torch_jpeg_writer import (  # noqa: F401  (the inputs the tests share)
-    CODED_CASES, _noise_jpeg, coded_segments, damage_plan, encode_baseline, k1_k2_edges,
-    random_limits, synth_jpeg, synth_plain_jpeg, synth_ratio_jpeg)
+    CODED_CASES, QUAD, _noise_jpeg, as_rgb_stream, coded_segments, damage_plan,
+    encode_baseline, k1_k2_edges, port_host_pixels, random_limits, synth_jpeg,
+    synth_plain_jpeg, synth_ratio_jpeg)
 
 torch.set_num_threads(2)  # the suite runs with several workers
 
@@ -44,15 +45,7 @@ def synth_rgb(w=40, h=24, seed=0, dri_blocks=3):
     buf = io.BytesIO()
     kw = {} if dri_blocks is None else {"restart_marker_blocks": dri_blocks}
     Image.fromarray(rgb).save(buf, format="JPEG", quality=75, subsampling=0, **kw)
-    data = bytearray(buf.getvalue())
-    at = data.find(b"JFIF\x00")
-    data[at : at + 4] = b"XXXX"
-    for marker, first in ((b"\xff\xc0", 10), (b"\xff\xda", 5)):
-        p = data.find(marker)
-        step = 3 if marker == b"\xff\xc0" else 2
-        for i, cid in enumerate(b"RGB"):
-            data[p + first + step * i] = cid
-    return bytes(data)
+    return as_rgb_stream(buf.getvalue())
 
 
 ARMS = {
@@ -196,3 +189,22 @@ def host_coeffs(data: bytes, n_scans: int):
     return [dec.coeff[c] for c in range(dec.num_components)]
 
 
+
+
+def python_front_end_cases(w: int, h: int) -> dict:
+    """name -> make(seed): each stream kind BatchJpegDecoder sends to its
+    Python front-end (the GPU tests')."""
+    return {
+        "rgb_444": lambda s: synth_ratio_jpeg(((1, 1),) * 3, w, h, s, adobe=0),
+        "rgb_420_dri": lambda s: synth_ratio_jpeg(((2, 2), (1, 1), (1, 1)), w, h, s, dri=4,
+                                                  adobe=0),
+        "ycck_444": lambda s: synth_ratio_jpeg(((1, 1),) * 4, w, h, s, adobe=2),
+        "ycck_2211": lambda s: synth_ratio_jpeg(QUAD, w, h, s, adobe=2),
+        "cmyk_444": lambda s: synth_ratio_jpeg(((1, 1),) * 4, w, h, s, adobe=0),
+        "cmyk_2211": lambda s: synth_ratio_jpeg(QUAD, w, h, s, adobe=0),
+        "multi_scan_420": lambda s: synth_ratio_jpeg(((2, 2), (1, 1), (1, 1)), w, h, s,
+                                                     scans="separate"),
+        "progressive_420": lambda s: synth_progressive(w, h, phase=s),
+        "progressive_444": lambda s: synth_progressive(w, h, mode="444", phase=s),
+        "progressive_gray": lambda s: synth_progressive(w, h, mode="gray", phase=s),
+    }

@@ -74,12 +74,17 @@ def _codes(dht: bytes):
     return out
 
 
-def encode_baseline(grids, hv, width, height, dri=None):
+def encode_baseline(grids, hv, width, height, dri=None, scans="interleaved", adobe=None):
     """Quantized coefficient grids (per component [myy*v, mxx*h, 64] int,
-    natural order) -> a baseline YCbCr JPEG with sampling ``hv``, a
-    restart marker every ``dri`` MCUs (none for None), Pillow's quant and
-    Huffman tables.  Pillow writes only 4:4:4, 4:2:2 and 4:2:0; this
-    writes any ratio."""
+    natural order) -> a baseline JPEG with sampling ``hv``, a restart
+    marker every ``dri`` MCUs (none for None), Pillow's quant and Huffman
+    tables.  Pillow writes only 4:4:4, 4:2:2 and 4:2:0; this writes any
+    ratio and 1, 3 or 4 components.  ``scans="separate"`` writes one
+    non-interleaved scan a component (no restart markers), each covering
+    the component's in-image blocks only (bx * 8 < width and by * 8 <
+    height, as the reference decoder walks them, decoder.zig:1316-1325).
+    ``adobe``: the transform byte of an Adobe APP14 segment (0: RGB or
+    CMYK, 1: YCbCr, 2: YCCK), or None for no segment."""
     from zpix_tpu_torch.codecs.jpeg.tables import UNZIG
 
     template = synth_plain_jpeg(w=16, h=16, mode="444")
@@ -101,6 +106,7 @@ def encode_baseline(grids, hv, width, height, dri=None):
             bits.append(byte)
             if byte == 0xFF:
                 bits.append(0)
+        acc &= (1 << nbits) - 1  # keep only the bits not yet written
 
     def sym(table, s, value=0, size=0):
         code, ln = codes[table][s]
@@ -108,61 +114,88 @@ def encode_baseline(grids, hv, width, height, dri=None):
         if size:
             put(value if value > 0 else value + (1 << size) - 1, size)
 
+    def block(c, t, by, bx):
+        zz = np.asarray(grids[c][by, bx])[UNZIG]
+        diff = int(zz[0]) - pred[c]
+        pred[c] = int(zz[0])
+        s = abs(diff).bit_length()
+        sym((0, t), s, diff, s)
+        last = 0
+        for k in np.flatnonzero(zz[1:]) + 1:
+            run = int(k) - last - 1
+            while run > 15:
+                sym((1, t), 0xF0)
+                run -= 16
+            val = int(zz[k])
+            s = abs(val).bit_length()
+            sym((1, t), (run << 4) | s, val, s)
+            last = int(k)
+        if last < 63:
+            sym((1, t), 0x00)
+
+    def flush():
+        nonlocal acc, nbits
+        if nbits:
+            put((1 << (8 - nbits)) - 1, 8 - nbits)
+        out = bytes(bits)
+        bits.clear()
+        acc = 0
+        return out
+
     pred = [0] * nc
-    for my in range(myy):
-        for mx in range(mxx):
-            m = my * mxx + mx
-            if dri and m and m % dri == 0:  # RSTn: pad with ones, reset predictors
-                if nbits:
-                    put((1 << (8 - nbits)) - 1, 8 - nbits)
-                bits.extend([0xFF, 0xD0 + (m // dri - 1) % 8])
-                pred = [0] * nc
-            for c, (h, v) in enumerate(hv):
-                t = 0 if c == 0 else 1
-                for j in range(h * v):
-                    zz = np.asarray(grids[c][v * my + j // h, h * mx + j % h])[UNZIG]
-                    diff = int(zz[0]) - pred[c]
-                    pred[c] = int(zz[0])
-                    s = abs(diff).bit_length()
-                    sym((0, t), s, diff, s)
-                    run = 0
-                    for k in range(1, 64):
-                        val = int(zz[k])
-                        if val == 0:
-                            run += 1
-                            continue
-                        while run > 15:
-                            sym((1, t), 0xF0)
-                            run -= 16
-                        s = abs(val).bit_length()
-                        sym((1, t), (run << 4) | s, val, s)
-                        run = 0
-                    if run:
-                        sym((1, t), 0x00)
-    if nbits:
-        put((1 << (8 - nbits)) - 1, 8 - nbits)
+    entropy = []
+    if scans == "separate":
+        for c, (h, v) in enumerate(hv):
+            for by in range(myy * v):
+                for bx in range(mxx * h):
+                    if bx * 8 < width and by * 8 < height:
+                        block(c, 0 if c == 0 else 1, by, bx)
+            entropy.append(([c], flush()))
+    else:
+        for my in range(myy):
+            for mx in range(mxx):
+                m = my * mxx + mx
+                if dri and m and m % dri == 0:  # RSTn: pad with ones, reset predictors
+                    if nbits:
+                        put((1 << (8 - nbits)) - 1, 8 - nbits)
+                    bits.extend([0xFF, 0xD0 + (m // dri - 1) % 8])
+                    pred = [0] * nc
+                for c, (h, v) in enumerate(hv):
+                    for j in range(h * v):
+                        block(c, 0 if c == 0 else 1, v * my + j // h, h * mx + j % h)
+        entropy.append((list(range(nc)), flush()))
     sof = bytes([0xFF, 0xC0, 0, 8 + 3 * nc, 8, height >> 8, height & 255, width >> 8,
                  width & 255, nc]) + b"".join(
         bytes([c + 1, h << 4 | v, 0 if c == 0 else 1]) for c, (h, v) in enumerate(hv))
-    sos = bytes([0xFF, 0xDA, 0, 6 + 2 * nc, nc]) + b"".join(
-        bytes([c + 1, 0x00 if c == 0 else 0x11]) for c in range(nc)) + bytes([0, 63, 0])
+    sos = b"".join(
+        bytes([0xFF, 0xDA, 0, 6 + 2 * len(comps), len(comps)]) + b"".join(
+            bytes([c + 1, 0x00 if c == 0 else 0x11]) for c in comps) + bytes([0, 63, 0]) + data
+        for comps, data in entropy)
     drs = b"" if not dri else bytes([0xFF, 0xDD, 0, 4, dri >> 8, dri & 255])
-    return (b"\xff\xd8" + dqt + sof + b"".join(dhts) + drs + sos + bytes(bits)
-            + b"\xff\xd9")
+    app14 = b"" if adobe is None else (b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00"
+                                       + bytes([adobe]))
+    return b"\xff\xd8" + app14 + dqt + sof + b"".join(dhts) + drs + sos + b"\xff\xd9"
 
 
-def synth_ratio_jpeg(hv, width=40, height=24, seed=0, dri=None):
-    """encode_baseline of random sparse coefficients at sampling ``hv``."""
+def synth_ratio_jpeg(hv, width=40, height=24, seed=0, dri=None, scans="interleaved",
+                     adobe=None, density=0.2):
+    """encode_baseline of random sparse coefficients at sampling ``hv``,
+    a share ``density`` of the AC coefficients nonzero (out-of-image
+    blocks of a ``scans="separate"`` stream are zero, as its decode leaves
+    them)."""
     rng = np.random.default_rng(seed)
     mxx = (width + 8 * hv[0][0] - 1) // (8 * hv[0][0])
     myy = (height + 8 * hv[0][1] - 1) // (8 * hv[0][1])
     grids = []
     for h, v in hv:
         g = rng.integers(-40, 40, (myy * v, mxx * h, 64))
-        g[rng.random(g.shape) < 0.8] = 0
+        g[rng.random(g.shape) < 1 - density] = 0
         g[..., 0] = rng.integers(-300, 300, g.shape[:2])
+        if scans == "separate":
+            g[(np.arange(g.shape[0]) * 8 >= height)[:, None]
+              | (np.arange(g.shape[1]) * 8 >= width)[None, :]] = 0
         grids.append(g)
-    return encode_baseline(grids, hv, width, height, dri)
+    return encode_baseline(grids, hv, width, height, dri, scans, adobe)
 
 
 def _noise_jpeg(w, h, mode, quality, seed, dri, optimize=False):
@@ -373,3 +406,38 @@ def random_limits(tables, seed=0):
     out[ke.TAB_LIMS : ke.TAB_LIMS + 128] = rng.integers(0, 70000, 128)
     out[ke.TAB_AOFF : ke.TAB_AOFF + 128] = rng.integers(-50, 200, 128)
     return out
+
+
+def as_rgb_stream(data: bytes) -> bytes:
+    """A Pillow 4:4:4 JPEG made an RGB-colourspace one: JFIF renamed away
+    and component ids R, G, B in both SOF and SOS."""
+    out = bytearray(data)
+    at = out.find(b"JFIF\x00")
+    out[at : at + 4] = b"XXXX"
+    for marker, first, step in ((b"\xff\xc0", 10, 3), (b"\xff\xda", 5, 2)):
+        p = out.find(marker)
+        for i, cid in enumerate(b"RGB"):
+            out[p + first + step * i] = cid
+    return bytes(out)
+
+
+def port_host_pixels(data: bytes):
+    """The port's host decoder's output (zpix_tpu_torch.codecs.jpeg) in the
+    batch decoders' layout: gray [H, W], YCbCr through ycbcr_to_rgb8 and
+    RGB [H, W, 3], CMYK and YCCK [H, W, 4] (the CMYKImage channels)."""
+    from zpix_tpu_torch.codecs import jpeg
+    from zpix_tpu_torch.color import ycbcr_to_rgb8
+
+    img = jpeg.decode(data)
+    name = type(img).__name__
+    if name == "YCbCrImage":
+        cb, cr = img.upsampled_cbcr()
+        return np.stack(ycbcr_to_rgb8(img.y, cb, cr), -1)
+    if name == "RGBAImage":
+        return img.pix[..., :3]
+    return img.pix
+
+
+# 4-component sampling {2x2, 1x1, 1x1, 2x2}, the one besides all-1x1 that
+# the SOF admits (decoder.zig:595-611)
+QUAD = ((2, 2), (1, 1), (1, 1), (2, 2))

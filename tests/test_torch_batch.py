@@ -20,7 +20,6 @@ from PIL import Image
 
 from zpix_tpu.parallel import batch as jb
 from zpix_tpu_torch import BatchJpegDecoder, HostIndexJpegDecoder, runtime
-from zpix_tpu_torch.errors import UnsupportedError
 from zpix_tpu_torch.parallel import batch as tb
 from zpix_tpu_torch.runtime import host
 
@@ -144,8 +143,14 @@ def _progressive():
 @pytest.mark.parametrize("make", [synth_rgb, synth_cmyk, lambda: synth_cmyk(2), _progressive],
                          ids=["rgb", "cmyk", "ycck", "progressive"])
 def test_unsupported_streams_name_the_missing_front_end(make):
-    with pytest.raises(UnsupportedError, match="Python host front-end"):
-        _cpu().decode([make()])
+    """The streams the native front-end refuses (it raised UnsupportedError
+    naming the missing Python front-end before the port had one) now take
+    the Python front-end and decode as zpix_tpu's BatchJpegDecoder does."""
+    datas = [make(), make()]
+    dec = _cpu()
+    got = dec.decode(datas).numpy()
+    dec.close()
+    assert np.array_equal(got, np.asarray(jb.BatchJpegDecoder().decode(datas)))
 
 
 def test_default_device_is_cuda_or_raises():
@@ -189,7 +194,10 @@ def test_chip_smoke_inputs_load_neither_jax_nor_the_jax_package():
 def test_imports_load_neither_jax_nor_the_jax_package():
     code = (
         "import sys, zpix_tpu_torch.parallel.batch, zpix_tpu_torch.parallel.device_entropy, "
-        "chip_smoke\n"
+        "zpix_tpu_torch.parallel.progressive_onchip, zpix_tpu_torch.codecs.jpeg, "
+        "zpix_tpu_torch.codecs.jpeg.decoder, zpix_tpu_torch.codecs.jpeg.idct, "
+        "zpix_tpu_torch.image, zpix_tpu_torch.image.draw, zpix_tpu_torch.image.util, "
+        "zpix_tpu_torch.color, chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax') "
         "or m == 'zpix_tpu' or m.startswith('zpix_tpu.')]\n"
         "assert not bad, bad\n"

@@ -1935,3 +1935,65 @@ def test_pipeline_matches_serial_on_the_card(cuda, kind):
             assert bool(out[1]) and bool(want[1])
             out, want = out[0], want[0]
         assert out.device.type == "cuda" and torch.equal(out, want)
+
+
+# ------------------------------------------- BatchJpegDecoder's Python front-end
+
+
+@pytest.mark.parametrize("name", ["rgb_444", "rgb_420_dri", "ycck_444", "ycck_2211",
+                                  "cmyk_444", "cmyk_2211", "multi_scan_420",
+                                  "progressive_420", "progressive_gray"])
+def test_python_front_end_batches_on_the_card(cuda, name, monkeypatch):
+    """Each colour arm K6 had only on random grids, multi-scan and
+    progressive, from bytes: K7 and K6 once each and no plain version, the
+    pixels those of the CPU route and of the port's host decoder."""
+    from _torch_jpeg import port_host_pixels, python_front_end_cases
+
+    from zpix_tpu_torch import BatchJpegDecoder
+    from zpix_tpu_torch.ops import planes as kp
+    from zpix_tpu_torch.ops import sparse as ks
+    from zpix_tpu_torch.utils import metrics
+
+    make = python_front_end_cases(75, 41)[name]
+    datas = [make(s) for s in (0, 1, 2)]
+    want = BatchJpegDecoder(device="cpu").decode(datas)
+
+    def plain(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(ks, "unpack_components_plain", plain)
+    monkeypatch.setattr(kp, "component_planes_plain", plain)
+    dec = BatchJpegDecoder(n_threads=3)
+    before = dict(runtime.LAUNCHES)
+    python = metrics.counters.get("jpeg_batch.python_front_end", 0)
+    got = dec.decode(datas)
+    torch.cuda.synchronize()
+    dec.close()
+    assert metrics.counters["jpeg_batch.python_front_end"] == python + 3
+    assert runtime.LAUNCHES["unpack_sparse"] == before["unpack_sparse"] + 1
+    assert runtime.LAUNCHES["component_planes"] == before["component_planes"] + 1
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+    for i, d in enumerate(datas):
+        assert np.array_equal(got[i].cpu().numpy(), port_host_pixels(d))
+
+
+def test_decode_verified_on_the_card(cuda, monkeypatch):
+    """decode_verified: the card's pixels where ok, the port's host
+    decoder's where ok is False (forced here), as host numpy arrays."""
+    from _torch_jpeg import port_host_pixels, python_front_end_cases
+
+    from zpix_tpu_torch import OnchipProgressiveDecoder
+
+    data = python_front_end_cases(75, 41)["progressive_420"](0)
+    dec = OnchipProgressiveDecoder()
+    px, ok = dec.decode([data, data])
+    assert bool(ok)
+    got = dec.decode_verified([data, data])
+    assert isinstance(got, np.ndarray) and np.array_equal(got, px.cpu().numpy())
+    run = dec.run
+    monkeypatch.setattr(dec, "run", lambda prep, bufs=None: (
+        run(prep, bufs)[0], torch.zeros((), dtype=torch.bool, device=cuda)))
+    host = dec.decode_verified([data, data])
+    assert np.array_equal(host, np.stack([port_host_pixels(data)] * 2))
+    assert np.array_equal(host, px.cpu().numpy())
+    dec.close()

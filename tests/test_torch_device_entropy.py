@@ -126,7 +126,9 @@ def test_default_device_is_cuda_or_raises():
 def test_import_loads_neither_jax_nor_the_jax_package():
     code = (
         "import sys, zpix_tpu_torch, zpix_tpu_torch.ops.entropy, "
-        "zpix_tpu_torch.ops.backend, zpix_tpu_torch.ops.idct, zpix_tpu_torch.runtime\n"
+        "zpix_tpu_torch.ops.backend, zpix_tpu_torch.ops.idct, zpix_tpu_torch.runtime, "
+        "zpix_tpu_torch.codecs.jpeg.decoder, zpix_tpu_torch.image.model, "
+        "zpix_tpu_torch.color.convert\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'zpix_tpu' or m.startswith('zpix_tpu.')]\n"
         "print(bad)\n"

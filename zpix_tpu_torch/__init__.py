@@ -9,7 +9,9 @@ progressive JPEG (``OnchipProgressiveDecoder``, host index walks), QOI
 (``BatchBmpDecoder``) and PNG (``BatchPngDecoder``, three front-ends, Adam7)
 run on hand-written CUDA kernels (``csrc/``),
 built with nvcc on first use; the host C++ (``csrc/host``) is built with
-g++.  Entry points run on ``cuda`` unless the caller passes
+g++.  ``BatchJpegDecoder`` also takes RGB, YCCK, CMYK, multi-scan and
+progressive batches through its Python front-end, the host JPEG decoder
+(``codecs.jpeg``, with ``image`` and ``color``).  Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``, which takes each kernel's plain PyTorch version.
 """
 

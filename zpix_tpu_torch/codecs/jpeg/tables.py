@@ -1,10 +1,12 @@
 """Huffman table construction and the zig-zag map.
 
-The port's own copy of zpix_tpu/codecs/jpeg/tables.py, cut to what the
-device decode needs: the canonical min/max/value-index tables for code
-lengths 1..16 (T.81 C.2, the DHT build at
-zpix src/jpeg/decoder.zig:1093-1109).  The host decoder's
-8-bit LUT is not carried over: no port code reads it.
+The port's own copy of zpix_tpu/codecs/jpeg/tables.py: an 8-bit LUT fast
+path (entry = value << 8 | code_length + 1; zpix
+src/jpeg/decoder.zig:1070-1091), which the host decoder's Python scan and
+the C++ scan's ``HuffTableC.lut`` read, and the canonical
+min/max/value-index tables for code lengths 1..16 (T.81 C.2, the DHT
+build at decoder.zig:1093-1109).  ``counts`` keeps the code counts for
+the device decoders' table packing.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import numpy as np
 from ...errors import FormatError
 
 MAX_CODE_LENGTH = 16
+LUT_SIZE = 8
 MAX_NUM_CODES = 256
 
 # unzig[zig] = natural-order index of the zig-zag-order coefficient
@@ -34,12 +37,13 @@ UNZIG = np.array(
 
 
 class HuffTable:
-    __slots__ = ("num_codes", "counts", "vals", "min_codes", "max_codes",
+    __slots__ = ("num_codes", "counts", "lut", "vals", "min_codes", "max_codes",
                  "vals_indices")
 
     def __init__(self):
         self.num_codes = 0
         self.counts = [0] * MAX_CODE_LENGTH
+        self.lut = [0] * 256
         self.vals = [0] * MAX_NUM_CODES
         self.min_codes = [-1] * MAX_CODE_LENGTH
         self.max_codes = [-1] * MAX_CODE_LENGTH
@@ -56,10 +60,30 @@ class HuffTable:
         self.num_codes = total
         self.counts = counts
         self.vals[:total] = [int(v) for v in vals[:total]]
+
+        # 8-bit LUT (decoder.zig:1070-1091).
+        self.lut = [0] * 256
+        code = 0
+        val_index = 0
+        for i in range(LUT_SIZE):
+            code <<= 1
+            for _ in range(counts[i]):
+                base = code << (7 - i)
+                lut_value = (self.vals[val_index] << 8) | (2 + i)
+                for k in range(1 << (7 - i)):
+                    self.lut[base | k] = lut_value
+                code += 1
+                val_index += 1
+
+        # min/max/vals_indices (decoder.zig:1093-1109).
         code_base = 0
         index = 0
         for i, num in enumerate(counts):
-            if num:
+            if num == 0:  # a table defined again keeps no stale length
+                self.min_codes[i] = -1
+                self.max_codes[i] = -1
+                self.vals_indices[i] = -1
+            else:
                 self.min_codes[i] = code_base
                 self.max_codes[i] = code_base + num - 1
                 self.vals_indices[i] = index

@@ -1,4 +1,5 @@
-// Host C++ for the port's JPEG slices: the native baseline front-end
+// Host C++ for the port's JPEG slices: the host decoder's scan (sequential
+// and progressive, with refinement), the native baseline front-end
 // (marker walk, Huffman scan fused with sparse packing), the lengths-only
 // baseline index scan and the three progressive index walks.
 //
@@ -6,6 +7,8 @@
 // zpix_tpu/runtime/entropy.cpp this slice runs (the port builds its own
 // copy and loads nothing of zpix_tpu):
 //   HuffTable, ensure_lut16, BitReader, find_rst         (:47-267)
+//   RefineState, refine_non_zeroes, refine_block         (:269-351)
+//   zpix_decode_scan (the host decoder's scan)           (:355-494)
 //   zpix_pack_sparse, with its AVX-512 and scalar arms   (:496-563)
 //   build_huff, pack_block, decode_scan_packed(_mt)      (:565-899)
 //   zpix_parse_baseline, zpix_parse_baseline_batch       (:912-1277)
@@ -270,9 +273,232 @@ int find_rst(BitReader& br, uint8_t expected_rst, uint8_t t0, uint8_t t1) {
   }
 }
 
+struct RefineState {
+  uint16_t eob_run;
+};
+
+// Successive-approximation AC refinement (decoder.zig:1459-1549).
+int refine_non_zeroes(BitReader& br, int32_t* b, int32_t* zig_io,
+                      int32_t zig_end, int32_t nz, int32_t delta) {
+  int32_t zig = *zig_io;
+  while (zig <= zig_end) {
+    int u = kUnzig[zig];
+    if (b[u] == 0) {
+      if (nz == 0) break;
+      nz--;
+    } else {
+      int bit;
+      int rc = br.decode_bit(&bit);
+      if (rc != OK) return rc;
+      if (bit) {
+        if (b[u] >= 0)
+          b[u] += delta;
+        else
+          b[u] -= delta;
+      }
+    }
+    zig++;
+  }
+  *zig_io = zig;
+  return OK;
+}
+
+int refine_block(BitReader& br, RefineState& rs, const HuffTable* h,
+                 int32_t* b, int32_t zig_start, int32_t zig_end,
+                 int32_t delta) {
+  if (zig_start == 0) {
+    int bit;
+    int rc = br.decode_bit(&bit);
+    if (rc != OK) return rc;
+    if (bit) b[0] |= delta;
+    return OK;
+  }
+  int32_t zig = zig_start;
+  if (rs.eob_run == 0) {
+    while (zig <= zig_end) {
+      int32_t z = 0;
+      int value;
+      int rc = br.decode_huffman(h, &value);
+      if (rc != OK) return rc;
+      int val0 = value >> 4;
+      int val1 = value & 0x0F;
+      if (val1 == 0) {
+        if (val0 != 0x0F) {
+          rs.eob_run = uint16_t(1u << val0);
+          if (val0 != 0) {
+            uint32_t bits;
+            rc = br.decode_bits(val0, &bits);
+            if (rc != OK) return rc;
+            rs.eob_run |= uint16_t(bits);
+          }
+          break;
+        }
+      } else if (val1 == 1) {
+        z = delta;
+        int bit;
+        rc = br.decode_bit(&bit);
+        if (rc != OK) return rc;
+        if (!bit) z = -z;
+      } else {
+        return ERR_UNEXPECTED_CODE;
+      }
+      rc = refine_non_zeroes(br, b, &zig, zig_end, val0, delta);
+      if (rc != OK) return rc;
+      if (zig > zig_end) return ERR_TOO_MANY_COEFFS;
+      if (z != 0) b[kUnzig[zig]] = z;
+      zig++;
+    }
+  }
+  if (rs.eob_run > 0) {
+    rs.eob_run--;
+    int rc = refine_non_zeroes(br, b, &zig, zig_end, -1, delta);
+    if (rc != OK) return rc;
+  }
+  return OK;
+}
+
 }  // namespace
 
 extern "C" {
+
+// Decode one scan (sequential or progressive) starting at data[pos].
+//
+// coeff_out[k]: int32 [bv, bh, 64] tensor for scan component k's frame
+// component (natural coefficient order), already holding prior-scan state
+// for progressive streams.  dc_io: int32[4] DC predictors (zeroed by
+// caller).  eob_run_io: persists across scans within a decoder.
+//
+// Returns OK and writes the final stream state (pos/bits) back so the
+// Python marker loop resumes exactly where the reference would.
+int zpix_decode_scan(
+    const uint8_t* data, int64_t len, int64_t pos_in,
+    const HuffTable* huff,  // [2][4]: dc tables 0..3 then ac tables 4..7
+    const ScanComp* scan, int32_t n_comp,
+    int32_t mxx, int32_t myy, int32_t width, int32_t height,
+    int32_t restart_interval,
+    int32_t zig_start, int32_t zig_end, int32_t ah, int32_t al,
+    int32_t progressive,
+    int32_t** coeff_out,
+    uint16_t* eob_run_io,
+    int64_t* pos_out, int32_t* bits_n_out, int32_t* num_unreadable_out) {
+  BitReader br{data, len, pos_in, 0, 0, OK, {0}, 0};
+  RefineState rs{*eob_run_io};
+
+  // the caller-marshalled tables carry only the canonical fields;
+  // build the 16-bit decode LUTs in place (idempotent, ~64K writes)
+  for (int32_t k = 0; k < n_comp; k++) {
+    ensure_lut16(const_cast<HuffTable*>(&huff[scan[k].dc_table]));
+    ensure_lut16(const_cast<HuffTable*>(&huff[4 + scan[k].ac_table]));
+  }
+
+  int32_t dc[4] = {0, 0, 0, 0};
+  int32_t block_count = 0;
+  uint8_t expected_rst = 0xD0;
+  int64_t mcu = 0;
+
+  for (int32_t my = 0; my < myy; my++) {
+    for (int32_t mx = 0; mx < mxx; mx++) {
+      for (int32_t k = 0; k < n_comp; k++) {
+        const ScanComp& sc = scan[k];
+        int32_t hi = sc.h, vi = sc.v;
+        const HuffTable* dc_tab = &huff[sc.dc_table];
+        const HuffTable* ac_tab = &huff[4 + sc.ac_table];
+        for (int32_t j = 0; j < hi * vi; j++) {
+          int32_t bx, by;
+          if (n_comp != 1) {
+            bx = hi * mx + (j % hi);
+            by = vi * my + (j / hi);
+          } else {
+            bx = block_count % (mxx * hi);
+            by = block_count / (mxx * hi);
+            block_count++;
+            if (bx * 8 >= width || by * 8 >= height) continue;
+          }
+          int32_t* b = coeff_out[k] + (int64_t(by) * sc.bh + bx) * 64;
+
+          if (ah != 0) {
+            int rc = refine_block(br, rs, ac_tab, b, zig_start, zig_end,
+                                  1 << al);
+            if (rc != OK) return rc;
+          } else {
+            int32_t zig = zig_start;
+            if (zig == 0) {
+              zig++;
+              int value;
+              int rc = br.decode_huffman(dc_tab, &value);
+              if (rc != OK) return rc;
+              if (value > 16) return ERR_EXCESSIVE_DC;
+              int32_t dc_delta;
+              rc = br.receive_extend(value, &dc_delta);
+              if (rc != OK) return rc;
+              dc[sc.c_index] += dc_delta;
+              b[0] = dc[sc.c_index] << al;
+            }
+            if (zig <= zig_end && rs.eob_run > 0) {
+              rs.eob_run--;
+            } else {
+              while (zig <= zig_end) {
+                int value;
+                int rc = br.decode_huffman(ac_tab, &value);
+                if (rc != OK) return rc;
+                int val0 = value >> 4;
+                int val1 = value & 0x0F;
+                if (val1 != 0) {
+                  zig += val0;
+                  if (zig > zig_end) break;
+                  int32_t ac;
+                  rc = br.receive_extend(val1, &ac);
+                  if (rc != OK) return rc;
+                  b[kUnzig[zig]] = ac << al;
+                } else {
+                  if (val0 != 0x0F) {
+                    rs.eob_run = uint16_t(1u << val0);
+                    if (val0 != 0) {
+                      uint32_t bits;
+                      rc = br.decode_bits(val0, &bits);
+                      if (rc != OK) return rc;
+                      rs.eob_run |= uint16_t(bits);
+                    }
+                    rs.eob_run--;
+                    break;
+                  }
+                  zig += 0x0F;
+                }
+                zig++;
+              }
+            }
+          }
+        }
+      }
+
+      mcu++;
+      if (restart_interval > 0 && mcu % restart_interval == 0 &&
+          mcu < int64_t(mxx) * myy) {
+        uint8_t tmp2[2];
+        int rc = br.read_full2(tmp2);
+        if (rc != OK) return rc;
+        if (tmp2[0] != 0xFF || tmp2[1] != expected_rst) {
+          rc = find_rst(br, expected_rst, tmp2[0], tmp2[1]);
+          if (rc != OK) return rc;
+        }
+        expected_rst++;
+        if (expected_rst == 0xD8) expected_rst = 0xD0;
+        br.a = 0;
+        br.n = 0;
+        br.stop_err = OK;
+        dc[0] = dc[1] = dc[2] = dc[3] = 0;
+        rs.eob_run = 0;
+      }
+    }
+  }
+
+  *eob_run_io = rs.eob_run;
+  br.rewind_to_boundary();
+  *pos_out = br.pos;
+  *bits_n_out = 0;
+  *num_unreadable_out = 0;
+  return OK;
+}
 
 // Sparse-pack a coefficient tensor for the host->device transfer.
 //
@@ -347,8 +573,8 @@ namespace {
 // ---------------------------------------------------------------------
 // Full-file baseline front-end: marker loop + DHT build + scan + pack.
 // Strict fast path: anything unusual (progressive, 4-component, RGB,
-// 12-bit, arithmetic coding...) returns UNSUPPORTED: those streams need
-// the reference's Python host front-end, which the port has not copied.
+// 12-bit, arithmetic coding...) returns UNSUPPORTED: those streams take
+// the Python host front-end (codecs/jpeg/decoder.py over zpix_decode_scan).
 // ---------------------------------------------------------------------
 
 enum {

@@ -15,9 +15,17 @@ no copy and runs two hand-written kernels:
    level shift, chroma replication and colour into [B, H, W, C] u8.
 
 The native front-end takes 1- and 3-component single-scan non-RGB
-baseline streams.  RGB, 4-component, multi-scan and progressive streams
-need the reference's Python host front-end (codecs/jpeg/decoder.py),
-which the port has not copied yet: they raise UnsupportedError.
+baseline streams.  A batch holding any other stream (RGB, 4-component,
+multi-scan, progressive, or one of mixed geometry) goes to the Python
+front-end, as every stream does in the reference's ``BatchJpegDecoder``:
+the host decoder (codecs/jpeg/decoder.py, its scans in the C++
+``zpix_decode_scan``, an image a worker thread) parses each image to
+dense coefficient grids, which ``pack_sparse`` packs into the same flat
+buffer (grid order, so no perm), so ``upload`` and ``run`` (K7, then K6
+on the gray, ycbcr, rgb, ycck or cmyk arm) are those of the native
+route.  A batch the native front-end fails on is parsed again by the
+Python front-end: it raises the reference's own error, or decodes and is
+counted under ``jpeg_batch.native_refused``.
 """
 
 from __future__ import annotations
@@ -25,11 +33,14 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ..codecs.jpeg.decoder import ADOBE_UNKNOWN, Decoder
+from ..codecs.jpeg.tables import UNZIG
 from ..errors import FormatError, UnsupportedError
 from ..ops import planes as _planes
 from ..ops import sparse as _sparse
@@ -41,11 +52,61 @@ _RATIOS = {0x11: "444", 0x12: "440", 0x21: "422",
            0x22: "420", 0x41: "411", 0x42: "410"}
 RATIO_FACTORS = {"444": (1, 1), "422": (2, 1), "420": (2, 2),
                  "440": (1, 2), "411": (4, 1), "410": (4, 2)}
-_MISSING = ("needs the Python host front-end (zpix_tpu/codecs/jpeg/decoder.py), "
-            "which zpix_tpu_torch has not ported yet")
+_REFUSED = "is one the native front-end refuses (the Python front-end takes it)"
+_MIXED = ("batch images must share (width, height, ratio, color); "
+          "bucket mixed shapes separately")
 
 
 # ------------------------------------------------------------------ host half
+
+
+class FrontEndResult:
+    """Per-image entropy-decode output of the Python front-end."""
+
+    __slots__ = (
+        "width", "height", "ratio", "ncomp", "coeffs", "quants", "hv", "color"
+    )
+
+    def __init__(self, width, height, ratio, ncomp, coeffs, quants, hv,
+                 color="ycbcr"):
+        self.width = width
+        self.height = height
+        self.ratio = ratio
+        self.ncomp = ncomp
+        self.coeffs = coeffs  # list of [bv, bh, 64] int32 (natural order)
+        self.quants = quants  # list of [64] int32 (natural order)
+        self.hv = hv  # list of (h, v)
+        # "gray" | "ycbcr" | "rgb" | "ycck" | "cmyk" | "cmyk?" (4-comp with
+        # no Adobe marker: the reference errors, decoder.zig:795-799)
+        self.color = color
+
+
+def parse_coefficients(data: bytes) -> FrontEndResult:
+    """Entropy-decode a JPEG to coefficient tensors without reconstructing."""
+    d = Decoder(data)
+    d.collect_only = True
+    d.decode_inner(False)
+    ncomp = d.num_components
+    ratio = d._subsample_ratio() if ncomp >= 3 else "gray"
+    if ncomp == 1:
+        color = "gray"
+    elif ncomp == 3:
+        color = "rgb" if d.is_rgb() else "ycbcr"
+    elif not d.adobe_transform_valid:
+        color = "cmyk?"
+    else:
+        color = "cmyk" if d.adobe_transform == ADOBE_UNKNOWN else "ycck"
+    coeffs, quants, hv = [], [], []
+    for i in range(ncomp):
+        coeffs.append(d.coeff[i] if d.coeff[i] is not None else None)
+        qzig = d.quant[d.component[i].tq]
+        qnat = np.empty(64, np.int32)
+        qnat[UNZIG] = qzig
+        quants.append(qnat)
+        hv.append((d.component[i].h, d.component[i].v))
+    return FrontEndResult(
+        d.width, d.height, ratio, ncomp, coeffs, quants, hv, color
+    )
 
 
 class PackedFrontEnd:
@@ -218,11 +279,11 @@ class NativeBatchFrontEnd:
                  pin: bool = False, dense: bool = False):
         sof = _peek_sof(sample)
         if sof is None or sof[2] not in (1, 3):
-            raise UnsupportedError(f"jpeg: this stream {_MISSING}")
+            raise UnsupportedError(f"jpeg: this stream {_REFUSED}")
         self.width, self.height, self.ncomp, self.hv = sof
         self.ratio = _ratio(self.hv)
         if self.ratio is None:
-            raise UnsupportedError(f"jpeg: sampling {self.hv} {_MISSING}")
+            raise UnsupportedError(f"jpeg: sampling {self.hv} {_REFUSED}")
         self.mxx, self.myy = _mcus(self.width, self.height, self.hv)
         self.batch = batch
         self.pin = pin
@@ -263,7 +324,7 @@ class NativeBatchFrontEnd:
             rcs.ctypes.data, self.n_threads)
         if rc == _host.ERR_UNSUPPORTED:
             i = int(np.flatnonzero(rcs == rc)[0])
-            raise UnsupportedError(f"jpeg: image {i} {_MISSING}")
+            raise UnsupportedError(f"jpeg: image {i} {_REFUSED}")
         if rc != 0:
             i = int(np.flatnonzero(rcs != 0)[0])
             raise FormatError(f"jpeg: native front-end failed on image {i} (rc={rc}; "
@@ -287,15 +348,20 @@ class Packed:
     myy: int
     perm_y: object = None  # grid->stream int32 [nb_y], or None
     perm_c: object = None
-    nnz: object = None  # the parse's nonzero values int64 [B, 3], where it counted them
+    nnz: object = None  # nonzero values a component int64 [B, 3] (native) or [B, ncomp]
+    # K6's arm: gray, ycbcr, rgb, ycck or cmyk (None: gray or ycbcr by the
+    # component count, as the native front-end gives them)
+    color: str | None = None
+    # the cmyk arm's 2x2-subsampled components (reference batch.py:743)
+    sub: tuple | None = None
+
+    def __post_init__(self):
+        if self.color is None:
+            self.color = "gray" if len(self.hv) == 1 else "ycbcr"
 
     @property
     def ratio(self) -> str:
         return _ratio(self.hv)
-
-    @property
-    def color(self) -> str:
-        return "gray" if len(self.hv) == 1 else "ycbcr"
 
     @property
     def dims(self):
@@ -306,6 +372,60 @@ class Packed:
     def perms(self):
         """Per component its grid->stream map (chroma share one)."""
         return [self.perm_y] + [self.perm_c] * (len(self.hv) - 1)
+
+
+def parse_and_pack(data: bytes):
+    """One image through the Python front-end -> (FrontEndResult, per
+    component its (bitmap [nb, 8] u8, values int16[nnz]) in grid order).
+    The dense grids are dropped once packed."""
+    fe = parse_coefficients(data)
+    if fe.color == "cmyk?":
+        return fe, None  # refused below, once the batch is checked
+    for c, coeff in enumerate(fe.coeffs):
+        if coeff is None:
+            raise FormatError(f"jpeg: component {c} has no scan")
+    packs = [pack_sparse(coeff) for coeff in fe.coeffs]
+    fe.coeffs = None
+    return fe, packs
+
+
+def packed_from_front_ends(parts, *, pin: bool = False) -> Packed:
+    """parse_and_pack's results of one batch -> a Packed batch in one flat
+    buffer (``flat_layout``, perm None: the grids are in grid order),
+    pinned with ``pin``.  Raises the reference's errors: ValueError for a
+    batch of mixed geometry or colour, UnsupportedError for a 4-component
+    stream with no Adobe marker."""
+    fes = [fe for fe, _ in parts]
+    f0 = fes[0]
+    for fe in fes[1:]:
+        if ((fe.width, fe.height, fe.ratio, fe.color) != (f0.width, f0.height, f0.ratio,
+                                                          f0.color) or fe.hv != f0.hv):
+            raise ValueError(_MIXED)
+    if f0.color == "cmyk?":
+        raise UnsupportedError("jpeg: unknown color model: 4-component color model")
+    b, nc = len(parts), f0.ncomp
+    hv = tuple((int(h), int(v)) for h, v in f0.hv)
+    mxx, myy = _mcus(f0.width, f0.height, hv)
+    nb = [mxx * h * myy * v for h, v in hv]
+    nnz = np.array([[len(packs[c][1]) for c in range(nc)] for _, packs in parts], np.int64)
+    caps = [min((max(1, int(nnz[:, c].max())) + 511) // 512 * 512, nb[c] * 64)
+            for c in range(nc)]
+    layout, nbytes = flat_layout(b, nb, caps)
+    buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=pin)
+    for _, _, off, n in layout:  # the alignment gaps, so a batch's buffer is its own
+        buf[off + n : (off + n + 63) // 64 * 64] = 0
+    for c in range(nc):
+        bm, vals, q = (carve(buf, layout, kind, c, b).numpy() for kind in ("bm", "val", "q"))
+        for i, (fe, packs) in enumerate(parts):
+            bitmap, v = packs[c]
+            bm[i] = bitmap
+            vals[i, : len(v)] = v
+            vals[i, len(v):] = 0
+            q[i] = fe.quants[c]
+    color = "gray" if nc == 1 else f0.color
+    sub = tuple(x != hv[0] for x in hv) if color == "cmyk" else None
+    return Packed(buf, tuple(layout), b, f0.width, f0.height, hv, mxx, myy, nnz=nnz,
+                  color=color, sub=sub)
 
 
 def packed_from_arrays(buffer, layout, quants, perm_y, perm_c, *, width: int,
@@ -409,18 +529,23 @@ def decode_uploaded(buf: torch.Tensor, packed: Packed) -> torch.Tensor:
                         perms=packed.perms)
     quants = [carve(buf, packed.layout, "q", c, packed.batch) for c in range(len(packed.hv))]
     return decode_batch_planes(grids, quants, color=packed.color, height=packed.height,
-                               width=packed.width, ratio=packed.ratio)
+                               width=packed.width, ratio=packed.ratio, sub=packed.sub)
 
 
 class BatchJpegDecoder:
-    """Same-geometry baseline JPEG batches through the native front-end,
-    K7 and K6: bytes -> interleaved RGB8 [B, H, W, 3] (gray [B, H, W]) on
-    the decoder's device, no sync.  ``prep`` (the front-end parse),
+    """Same-geometry JPEG batches through a host front-end, K7 and K6:
+    bytes -> RGB8 [B, H, W, 3] (gray [B, H, W]; ycck and cmyk [B, H, W,
+    4]) on the decoder's device, no sync.  ``prep`` (the front-end parse),
     ``upload`` (one copy) and ``run`` (the kernels) split ``decode``.
 
-    Gray and YCbCr at every ratio the native front-end admits.  A batch
-    of mixed geometry raises ValueError; a stream that front-end refuses
-    (RGB, 4-component, multi-scan, progressive) raises UnsupportedError.
+    Single-scan gray and YCbCr baseline batches take the native front-end
+    (one C call); every other batch (RGB, YCCK, CMYK, multi-scan,
+    progressive, mixed geometry) the Python front-end, an image a worker
+    thread (``n_threads``, the C++ scan releasing the GIL; the pool lives
+    until ``close``), and then the same upload and kernels.  Errors are
+    the reference's: a batch of mixed geometry or colour raises
+    ValueError, a 4-component stream with no Adobe marker
+    UnsupportedError, a broken stream the host decoder's error.
     """
 
     def __init__(self, *, device=None, n_threads: int | None = None):
@@ -429,19 +554,10 @@ class BatchJpegDecoder:
         self._upload = PinnedUpload(self.device)
         self._front_ends: dict = {}  # geometry -> NativeBatchFrontEnd
         self._lock = threading.Lock()  # preps may run on several threads
+        self._pool = None  # the Python front-end's workers, made on first use
 
-    def _front_end(self, datas: list[bytes]) -> tuple:
-        """-> (geometry key, the cached front-end for it)."""
-        if not datas:
-            raise ValueError("jpeg: empty batch")
-        sofs = [_peek_sof(d) for d in datas]
-        for s in sofs:
-            if s is None or s[2] not in (1, 3):
-                what = "a progressive or non-baseline" if s is None else f"a {s[2]}-component"
-                raise UnsupportedError(f"jpeg: {what} stream {_MISSING}")
-        if any(s != sofs[0] for s in sofs[1:]):
-            raise ValueError("batch images must share (width, height, ratio, color); "
-                             "bucket mixed shapes separately")
+    def _front_end(self, datas: list[bytes], sofs) -> tuple:
+        """-> (geometry key, the cached native front-end for it)."""
         key = (tuple(sofs[0][:3]), tuple(sofs[0][3]), len(datas))
         with self._lock:
             fe = self._front_ends.get(key)
@@ -452,8 +568,8 @@ class BatchJpegDecoder:
                 fe = self._front_ends.setdefault(key, fe)
         return key, fe
 
-    def _parse(self, datas: list[bytes]) -> Packed:
-        key, fe = self._front_end(datas)
+    def _parse_native(self, datas: list[bytes], sofs) -> Packed:
+        key, fe = self._front_end(datas, sofs)
         try:
             return fe.parse(datas)
         except FormatError:
@@ -466,9 +582,41 @@ class BatchJpegDecoder:
                 self._front_ends[key] = dense
             return packed
 
+    def _parse_python(self, datas: list[bytes]) -> Packed:
+        """The Python front-end: each image parsed and packed on a worker
+        thread, then one flat buffer."""
+        with self._lock:
+            if self._pool is None:
+                self._pool = ThreadPoolExecutor(self.n_threads or os.cpu_count() or 2)
+            pool = self._pool
+        with trace("jpeg_batch.python_front_end"):
+            parts = list(pool.map(parse_and_pack, datas))
+            packed = packed_from_front_ends(parts, pin=self.device.type == "cuda")
+        metrics.count("jpeg_batch.python_front_end", len(datas))
+        return packed
+
+    def _parse(self, datas: list[bytes]) -> Packed:
+        if not datas:
+            raise ValueError("jpeg: empty batch")
+        sofs = [_peek_sof(d) for d in datas]
+        if (any(s is None or s[2] not in (1, 3) for s in sofs)
+                or any(s != sofs[0] for s in sofs[1:])):
+            return self._parse_python(datas)
+        try:
+            return self._parse_native(datas, sofs)
+        except UnsupportedError:  # RGB, multi-scan, a sampling it does not take
+            return self._parse_python(datas)
+        except FormatError:
+            # the native front-end failed even with room for every
+            # coefficient: the Python front-end raises the reference's
+            # error, or decodes, and then the refusal is counted
+            packed = self._parse_python(datas)
+            metrics.count("jpeg_batch.native_refused", len(datas))
+            return packed
+
     def prep(self, datas: list[bytes]) -> Packed:
-        """The host half: the native front-end parse into a flat buffer of
-        the batch's own."""
+        """The host half: a front-end parse into a flat buffer of the
+        batch's own."""
         with trace("jpeg_batch.front_end"):
             packed = self._parse(datas)
         metrics.count("jpeg_batch.images", len(datas))
@@ -486,3 +634,10 @@ class BatchJpegDecoder:
     def decode(self, datas: list[bytes]) -> torch.Tensor:
         packed = self.prep(datas)
         return self.run(packed, self.upload(packed))
+
+    def close(self) -> None:
+        """Shut the Python front-end's worker threads down."""
+        with self._lock:
+            pool, self._pool = self._pool, None
+        if pool is not None:
+            pool.shutdown()

@@ -24,7 +24,8 @@ Not ported, by decision: the speculative-chunk path and the host tail
 (``impl="spec"``, ``_TailScanDecoder``).  Where an index walk refuses a
 stream, the port returns ``ok`` False and does not raise
 (``ProgPrep.failure`` names the scan and the image), and the batch
-belongs to a host decoder.  The ``max_batch`` split and the benchmark
+belongs to a host decoder: ``decode_verified`` then decodes it with the
+port's (codecs/jpeg/decoder.py).  The ``max_batch`` split and the benchmark
 ``salt`` were TPU mechanics and change no output.
 """
 
@@ -38,7 +39,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..codecs.jpeg import decoder as _host_decoder
 from ..codecs.jpeg.tables import UNZIG, HuffTable
+from ..color import ycbcr_to_rgb8
 from ..errors import FormatError, UnsupportedError
 from ..ops import entropy as _entropy
 from ..ops import progressive as _prog
@@ -622,6 +625,24 @@ class OnchipProgressiveDecoder:
 
     def decode(self, datas: list[bytes]):
         return self.run(self.prep(datas))
+
+    def decode_verified(self, datas: list[bytes]) -> np.ndarray:
+        """Host numpy output [B, H, W, 3] (gray [B, H, W]) with a
+        whole-batch host fallback on ``ok`` False: every image then goes
+        through the port's host decoder and ``color.ycbcr_to_rgb8``."""
+        out, ok = self.decode(datas)
+        if bool(ok):
+            return out.cpu().numpy()
+        outs = []
+        for d in datas:
+            img = _host_decoder.decode(d)
+            if img.__class__.__name__ == "GrayImage":
+                outs.append(img.pix)
+            else:
+                cb, cr = img.upsampled_cbcr()
+                r, g, b = ycbcr_to_rgb8(img.y, cb, cr)
+                outs.append(np.stack([r, g, b], axis=-1))
+        return np.stack(outs)
 
     def close(self) -> None:
         """Shut the index walks' thread pool down."""

@@ -27,15 +27,19 @@ GXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
 # Return codes of csrc/host/entropy.cpp.
 OK = 0
 ERR_EOF = 1
+ERR_MISSING_FF00 = 2
 ERR_BAD_HUFFMAN = 3
+ERR_UNINIT_TABLE = 4
 ERR_EXCESSIVE_DC = 5
+ERR_BAD_RST = 6
 ERR_UNEXPECTED_CODE = 7
 ERR_TOO_MANY_COEFFS = 8
 ERR_UNSUPPORTED = 100
 ERR_FORMAT = 101
 
-ERROR_NAMES = {ERR_EOF: "ERR_EOF", ERR_BAD_HUFFMAN: "ERR_BAD_HUFFMAN",
-               ERR_EXCESSIVE_DC: "ERR_EXCESSIVE_DC",
+ERROR_NAMES = {ERR_EOF: "ERR_EOF", ERR_MISSING_FF00: "ERR_MISSING_FF00",
+               ERR_BAD_HUFFMAN: "ERR_BAD_HUFFMAN", ERR_UNINIT_TABLE: "ERR_UNINIT_TABLE",
+               ERR_EXCESSIVE_DC: "ERR_EXCESSIVE_DC", ERR_BAD_RST: "ERR_BAD_RST",
                ERR_UNEXPECTED_CODE: "ERR_UNEXPECTED_CODE",
                ERR_TOO_MANY_COEFFS: "ERR_TOO_MANY_COEFFS",
                ERR_UNSUPPORTED: "ERR_UNSUPPORTED", ERR_FORMAT: "ERR_FORMAT"}
@@ -62,9 +66,28 @@ class HuffTableC(ctypes.Structure):
     ]
 
 
+class ScanCompC(ctypes.Structure):
+    """csrc/host/entropy.cpp's ScanComp: one component of a scan."""
+
+    _fields_ = [
+        ("c_index", ctypes.c_int32),
+        ("dc_table", ctypes.c_int32),
+        ("ac_table", ctypes.c_int32),
+        ("h", ctypes.c_int32),
+        ("v", ctypes.c_int32),
+        ("bh", ctypes.c_int32),
+    ]
+
+
 _P = ctypes.c_void_p
 _I32, _I64 = ctypes.c_int32, ctypes.c_int64
 _SIGNATURES = {
+    # data, len, pos, huff[8], scan, n_comp, mxx, myy, width, height,
+    # restart_interval, zig_start, zig_end, ah, al, progressive, coeff_out,
+    # eob_run_io, pos_out, bits_n_out, num_unreadable_out
+    "zpix_decode_scan": (_I32, [ctypes.c_char_p, _I64, _I64, _P, _P, _I32, _I32, _I32,
+                                _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _P, _P,
+                                _P, _P, _P]),
     "zpix_pack_sparse": (_I64, [_P, _I64, _P, _P, _I64]),
     "zpix_parse_baseline": (_I32, [ctypes.c_char_p, _I64, _I32, _I32, _P, _P, _P,
                                    _P, _P, _I32]),
