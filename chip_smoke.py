@@ -74,9 +74,20 @@ decoded serially and through ``DecodePipeline``, the outputs and ``ok``
 bit-identical, each run's end-to-end MPix/s and the card's busy share,
 the metrics registry's report, and one pipelined DRI 8 run traced into
 build/pipeline_trace (its five longest device ops and idle gaps).  The
-last line is ``{"ok": true, "device": {...}}``; any failure exits
-non-zero.  Without
-CUDA it exits non-zero and prints no result.
+``bmp`` and ``png`` phases also hold images 0 and 1 of each batch against
+the port's host decoders (``zpix_tpu_torch.from_buffer(d).rgba_pixels()``)
+at max_abs_err 0.  Then the ``decode_mixed`` phase: one shuffled list of
+1024x1024 images (16 restart-free baseline 4:2:0 and 16 CMYK 4:4:4 JPEGs,
+16 copies of one progressive 4:2:0 JPEG and 4 distinct ones, 16 QOI, 16
+24-bit BMPs and 4 paletted ones with short palettes, 16 RGB8 PNGs, 2
+progressive CMYK JPEGs and one gray JPEG) through
+``zpix_tpu_torch.parallel.decode_mixed`` (min_batch 2): the route counts,
+each kernel's launches in one call (K6-K12, K17, K18), every output equal
+to the host path, 3 timed calls (MPix/s), the card's busy share, peak
+memory and the metrics report, and the errors of a damaged PNG and of
+unknown bytes.  The last line is ``{"ok": true, "device": {...}}``; any
+failure exits non-zero.  Without CUDA it exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -279,6 +290,22 @@ def cuda_ms(fn, reps: int) -> float:
 
 def max_abs_err(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item()) if a.numel() else 0
+
+
+def host_path_err(px, datas, n: int = 2) -> int:
+    """max_abs_err of images 0 .. n-1 of a batch's RGBA8 output [B, H, W, 4]
+    against the port's host path, from_buffer(d).rgba_pixels() (-1 where a
+    shape differs)."""
+    from zpix_tpu_torch import from_buffer
+
+    err = 0
+    for i in range(n):
+        img = from_buffer(datas[i])
+        want = torch.from_numpy(img.rgba_pixels().reshape(img.height, img.width, 4))
+        if tuple(px[i].shape) != tuple(want.shape):
+            return -1
+        err = max(err, max_abs_err(px[i].cpu(), want))
+    return err
 
 
 def block_symbols(ac):
@@ -1746,7 +1773,8 @@ def python_front_end_phase(dev) -> tuple:
     bounds, each kind timed end to end and by stage (front-end on 1 and N
     threads, H2D, K7, K6), the batches through DecodePipeline, and
     OnchipProgressiveDecoder.decode_verified on a corrupt batch and with ok
-    forced False.  -> (summary, {arm: K6 entry}, K7 entry)"""
+    forced False.  -> (summary, {arm: K6 entry}, K7 entry, the last CMYK
+    4:4:4 batch)"""
     from zpix_tpu_torch import BatchJpegDecoder, OnchipProgressiveDecoder, runtime
     from zpix_tpu_torch.ops import planes as kp
     from zpix_tpu_torch.ops import sparse as ks
@@ -1878,7 +1906,7 @@ def python_front_end_phase(dev) -> tuple:
         "routes": routes, "pipeline_equal_serial": pipeline_equal,
         "decode_verified": verified, "n_threads": os.cpu_count()}
     dec.close()
-    return summary, arms, k7
+    return summary, arms, k7, content["cmyk_444"][-1]
 
 
 def python_front_end_check(py) -> None:
@@ -1949,10 +1977,10 @@ def dev_t(a, dev):
 
 def qoi_host_pixels(datas):
     """The port's host decoder on each stream -> [n, H, W, 4] uint8."""
-    from zpix_tpu_torch.codecs.qoi.decode import decode
+    from zpix_tpu_torch.codecs.qoi.decode import decode_pixels
 
     with ThreadPoolExecutor(os.cpu_count() or 2) as ex:
-        return np.stack(list(ex.map(decode, datas)))
+        return np.stack(list(ex.map(decode_pixels, datas)))
 
 
 def qoi_plan_layout(plan) -> dict:
@@ -2327,7 +2355,7 @@ def qoi_encode_phase(dev, lane_decs):
     batches (pack, K14, download).  -> (summary, timing entry, launches of
     one encode_device_batch)"""
     from zpix_tpu_torch import encode_device, encode_device_batch, runtime
-    from zpix_tpu_torch.codecs.qoi.decode import decode
+    from zpix_tpu_torch.codecs.qoi.decode import decode_pixels
     from zpix_tpu_torch.codecs.qoi.encode import Desc, encode
     from zpix_tpu_torch.ops import qoi as kq
     from zpix_tpu_torch.parallel.qoi_batch import _pack_px, _streams
@@ -2344,7 +2372,7 @@ def qoi_encode_phase(dev, lane_decs):
         check[f"{c}_equal_host_encoder"] = all(s == encode(h, d)
                                                for s, h, d in zip(streams, host, descs))
         check[f"{c}_equal_source"] = streams == batches[0]
-        check[f"{c}_roundtrip"] = all(np.array_equal(decode(s), h)
+        check[f"{c}_roundtrip"] = all(np.array_equal(decode_pixels(s), h)
                                       for s, h in zip(streams, host))
         packed[c] = torch.stack([_pack_px(px[i], descs[i], dev) for i in range(BATCH)])
         out_k, tot_k = kq.encode(packed[c])
@@ -2463,11 +2491,15 @@ def bmp_phase(dev):
     errs = {}
     arms = [(bpp, info, td, False) for bpp in (1, 2, 4, 8, 24, 32) for info in (40, 108, 124)
             for td in (False, True)] + [(bpp, 40, False, True) for bpp in (1, 2, 4, 8)]
+    host_errs = {}
     for i, arm in enumerate(arms):
-        px, ref, _ = bmp_stages(dec, make_bmp_batch(arm, 700 + i))
-        errs["{}bpp_{}_{}{}".format(arm[0], arm[1], "td" if arm[2] else "bu",
-                                    "_short" if arm[3] else "")] = max_abs_err(px, ref)
-        del px, ref
+        datas = make_bmp_batch(arm, 700 + i)
+        px, ref, _ = bmp_stages(dec, datas)
+        name = "{}bpp_{}_{}{}".format(arm[0], arm[1], "td" if arm[2] else "bu",
+                                      "_short" if arm[3] else "")
+        errs[name] = max_abs_err(px, ref)
+        host_errs[name] = host_path_err(px, datas)
+        del px, ref, datas
     # rows that end inside a 4-pixel group, every bit depth (32 with the
     # V5 alpha), at full batch; width 3 top-down
     for bpp in (1, 2, 4, 8, 24, 32):
@@ -2491,10 +2523,18 @@ def bmp_phase(dev):
         launches[k] = dict(runtime.LAUNCHES)
         _, ref, _ = bmp_stages(dec, bb[0])
         main_equal = bool(torch.equal(px, ref))
+        main_host = host_path_err(px, bb[0])
         del px, ref
         walls, peak, mean, _ = timed_decodes(dec.decode, bb[2:], lambda d: bmp_stages(dec, d))
-        equal = [bool(torch.equal(*bmp_stages(dec, d)[:2])) for d in bb[2:]]
+        equal, timed_host = [], []
+        for d in bb[2:]:
+            px, ref, _ = bmp_stages(dec, d)
+            equal.append(bool(torch.equal(px, ref)))
+            timed_host.append(host_path_err(px, d))
+        del px, ref
         routes[k] = {"main_equal_plain": main_equal, "timed_equal_plain": equal,
+                     "main_vs_host_path_images_0_1": main_host,
+                     "timed_vs_host_path_images_0_1": timed_host,
                      **route_summary(walls, peak, mean, launches[k])}
     bad = batches["24bpp"][0]
     try:
@@ -2547,7 +2587,7 @@ def bmp_phase(dev):
                  "ops": OPS_K18_PIXEL[24] * BATCH * SIZE * SIZE,
                  "launches": launches["24bpp"]["bmp_unpack"]}), **arms_timed}
     summary = {"arms_seconds": arms_s, "content_seconds": content_s, "max_abs_err": errs,
-               "routes": routes, "truncated": truncated}
+               "vs_host_path_images_0_1": host_errs, "routes": routes, "truncated": truncated}
     return summary, entry, launches["24bpp"], batches["24bpp"]
 
 
@@ -2922,8 +2962,11 @@ def png_phase(dev):
     # every timed batch equal across the routes, images 0-1 equal Pillow's
     ref, routes, launches = {}, {}, {}
 
+    host_errs = []
+
     def pillow_and_keep(datas, px):
         ref[id(datas)] = px
+        host_errs.append(host_path_err(px, datas))
         pil = np.stack([np.asarray(Image.open(BytesIO(d)).convert("RGBA")) for d in datas[:2]])
         return bool(np.array_equal(px[:2].cpu().numpy(), pil))
 
@@ -2941,6 +2984,7 @@ def png_phase(dev):
         _px, sizes, _ms = png_stages(dec, batches[2])
         key = "equal_pillow_images_0_1" if front == "host" else "equal_host_route"
         routes[front] = {key: oks, **sizes, **route_summary(walls, peak, mean, launches[front])}
+    routes["host"]["vs_host_path_images_0_1"] = host_errs
     ref.clear()
 
     # Adam7: both batches by every route against the writer's source pixels
@@ -2954,6 +2998,7 @@ def png_phase(dev):
             if kind == "tc8" and front == "host":
                 launches["adam7"] = dict(runtime.LAUNCHES)
             adam7[f"{kind}_{front}_equal_source"] = bool(torch.equal(px, want))
+            adam7[f"{kind}_{front}_equal_host_path_images_0_1"] = host_path_err(px, datas) == 0
         del want
 
     # damaged streams, each by every route: the error class and message
@@ -3095,7 +3140,7 @@ def png_check(pg, paths) -> None:
             or paths["png_inflate"]["adler32"] == 0):
         raise SystemExit("chip_smoke: a PNG route skipped its kernel")
     r = pg["routes"]
-    if (not all(r["host"]["equal_pillow_images_0_1"])
+    if (not all(r["host"]["equal_pillow_images_0_1"]) or any(r["host"]["vs_host_path_images_0_1"])
             or not all(all(r[f]["equal_host_route"]) for f in ("defilter", "inflate"))
             or not all(pg["adam7"].values())):
         raise SystemExit("chip_smoke: a PNG route's pixels are wrong")
@@ -3153,6 +3198,10 @@ def raster_slice(dev):
     if (not all(r["main_equal_plain"] and all(r["timed_equal_plain"])
                 for r in bm["routes"].values()) or bm["truncated"] != "UnexpectedEof"):
         raise SystemExit("chip_smoke: the BMP route's output is wrong")
+    if (any(bm["vs_host_path_images_0_1"].values())
+            or any(r["main_vs_host_path_images_0_1"] or any(r["timed_vs_host_path_images_0_1"])
+                   for r in bm["routes"].values())):
+        raise SystemExit("chip_smoke: a BMP batch differs from the port's host decoder")
 
     # ------------------------------------------------------------ PNG
     t0 = time.perf_counter()
@@ -3313,6 +3362,175 @@ def pipeline_phase(content: dict) -> dict:
                                       sorted(spans, key=lambda x: x[0] - x[1])[:5]],
                       "longest_gaps": [{"us": g, "after": x, "before": y} for g, x, y in
                                        sorted(gaps, reverse=True)[:5]]}}
+
+
+# ------------------------------------------------ decode_mixed (the router)
+
+MIXED_MIN_BATCH = 2
+MIXED_TIMED = 3
+# kind -> the route decode_mixed must take for it
+MIXED_ROUTES = {"baseline_420": "device", "cmyk_444": "device", "progressive_420": "device",
+                "qoi_noise": "device", "bmp_24bpp": "device", "bmp_8bpp_short": "device",
+                "png_rgb8": "device", "progressive_cmyk": "host-routed",
+                "gray_small": "host-small"}
+# kernels of the router's device routes: K7, K6 (baseline and CMYK), K8-K11
+# and K6 (progressive), K12 (QOI), K18 (BMP), K17 (PNG)
+MIXED_KERNELS = ("unpack_sparse", "component_planes", "dc_first", "ac_first", "ac_refine",
+                 "dc_refine", "qoi_lane_expand", "bmp_unpack", "png_expand")
+
+
+def _mixed_prog_cmyk(seed: int) -> bytes:
+    from PIL import Image
+
+    buf = BytesIO()
+    Image.open(BytesIO(make_bench_jpeg(SIZE, 95, seed, None))).convert("CMYK").save(
+        buf, format="JPEG", quality=QUALITY, progressive=True)
+    return buf.getvalue()
+
+
+def _mixed_gray(seed: int) -> bytes:
+    from PIL import Image
+
+    buf = BytesIO()
+    Image.open(BytesIO(make_bench_jpeg(SIZE, 95, seed, None))).convert("L").save(
+        buf, format="JPEG", quality=QUALITY)
+    return buf.getvalue()
+
+
+def make_mixed_corpus(rf_batch, cmyk_batch, prog_batch, qoi_batch, bmp_batch,
+                      png_batch) -> dict:
+    """kind -> the streams of decode_mixed's corpus, every image 1024^2: the
+    batches the earlier phases made (restart-free 4:2:0 JPEGs, CMYK 4:4:4
+    JPEGs, 16 copies of one progressive 4:2:0 JPEG, QOI noise, 24-bit BMPs,
+    RGB8 PNGs), and new here: 4 distinct progressive 4:2:0 JPEGs (Pillow
+    writes tables an image, so the progressive bucket splits into five
+    scripts), 4 paletted BMPs with short palettes, 2 progressive CMYK JPEGs
+    (host-routed) and one gray JPEG (host-small under MIXED_MIN_BATCH)."""
+    with ThreadPoolExecutor(os.cpu_count() or 2) as ex:
+        distinct = list(ex.map(lambda s: make_bench_jpeg(SIZE, QUALITY, s, None,
+                                                         progressive=True), range(7000, 7004)))
+        short_bmp = list(ex.map(lambda s: make_bmp(s, 8, 40, False, True), range(7100, 7104)))
+        prog_cmyk = list(ex.map(_mixed_prog_cmyk, (7200, 7201)))
+        gray = list(ex.map(_mixed_gray, (7300,)))
+    return {"baseline_420": list(rf_batch), "cmyk_444": list(cmyk_batch),
+            "progressive_420": list(prog_batch) + distinct,
+            "qoi_noise": list(qoi_batch), "bmp_24bpp": list(bmp_batch),
+            "bmp_8bpp_short": short_bmp, "png_rgb8": list(png_batch),
+            "progressive_cmyk": prog_cmyk, "gray_small": gray}
+
+
+def kernel_counts(prof) -> dict:
+    """The card's kernels in a torch.profiler run, counted by name (copies
+    and memsets left out)."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+
+    return dict(Counter(e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+                        and not e.name.startswith(("Memcpy", "Memset"))))
+
+
+def mixed_phase(corpus: dict) -> dict:
+    """decode_mixed on the corpus shuffled into one list (min_batch 2): a
+    warm call (the router builds its decoders once), a call with the
+    kernels' launches counted (runtime.LAUNCHES set to 0 just before, read
+    just after) under torch.profiler (the card's kernels by name, its busy
+    share), every output against the port's host path (from_buffer(d).
+    rgba_pixels()) at max_abs_err 0, the decodes on a thread pool; then 3
+    timed calls (host clock, a synchronised end), each equal to the first,
+    with peak memory and metrics.report(); then a damaged PNG among good
+    ones (the host decoder's error) and unknown bytes (UnknownFormat)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from zpix_tpu_torch import from_buffer, runtime
+    from zpix_tpu_torch.parallel import bucketing
+    from zpix_tpu_torch.utils import metrics
+
+    items = [(k, d) for k, ds in corpus.items() for d in ds]
+    order = np.random.default_rng(18).permutation(len(items))
+    kinds, datas = [items[i][0] for i in order], [items[i][1] for i in order]
+    del items
+
+    def call():
+        return bucketing.decode_mixed(datas, min_batch=MIXED_MIN_BATCH, return_stats=True)
+
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    runtime.reset_launches()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        outs, stats = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(runtime.LAUNCHES)
+    busy, _gaps = busy_and_gaps(device_spans(prof))
+    by_name = kernel_counts(prof)
+    del prof
+    mpix = sum(o.shape[0] * o.shape[1] for o in outs) / 1e6
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(os.cpu_count() or 2) as ex:
+        errs = list(ex.map(lambda i: host_path_err([torch.from_numpy(outs[i])], [datas[i]], 1),
+                           range(len(datas))))
+    host_s = time.perf_counter() - t0
+    err_by_kind = {k: max(e for e, kk in zip(errs, kinds) if kk == k) for k in corpus}
+
+    metrics.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    walls, equal = [], []
+    for _ in range(MIXED_TIMED):
+        t0 = time.perf_counter()
+        got, st = call()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        equal.append(st == stats and all(np.array_equal(a, b) for a, b in zip(got, outs)))
+        del got
+    peak = torch.cuda.max_memory_allocated() - held
+    report = metrics.report()
+
+    def call_on(ds):
+        return bucketing.decode_mixed(ds, min_batch=MIXED_MIN_BATCH)
+
+    pngs = corpus["png_rgb8"]
+    bad = bytearray(pngs[0])
+    bad[len(bad) // 2] ^= 0xFF  # inside an IDAT payload: its CRC no longer holds
+    bad = bytes(bad)
+    errors = {"damaged_png": host_outcome(lambda: call_on([pngs[0], pngs[1], bad])),
+              "damaged_png_host": host_outcome(lambda: from_buffer(bad)),
+              "unknown": host_outcome(lambda: call_on([pngs[0], b"GIF89a" + bytes(64)]))}
+    return {"images": len(datas), "mpix": mpix, "min_batch": MIXED_MIN_BATCH,
+            "images_by_kind": {k: len(v) for k, v in corpus.items()},
+            "routes": stats, "launches": {k: v for k, v in launches.items() if v},
+            "launches_all": launches, "profiler_kernels_by_name": by_name,
+            "warm_call_s": warm_s, "profiled_call_s": wall,
+            "host_max_abs_err_by_kind": err_by_kind, "host_check_seconds": host_s,
+            "timed_e2e_ms": [w * 1e3 for w in walls],
+            "e2e_mpix_per_s": mpix / float(np.mean(walls)),
+            "timed_equal_first": equal, "device_busy_share": busy / (wall * 1e6),
+            "device_busy_us": busy, "peak_mem_bytes": peak,
+            "metrics_report": report.splitlines(), "errors": errors}
+
+
+def mixed_check(mx) -> None:
+    """SystemExit unless the decode_mixed phase's checks all held."""
+    want = {}
+    for k, n in mx["images_by_kind"].items():
+        want[MIXED_ROUTES[k]] = want.get(MIXED_ROUTES[k], 0) + n
+    if mx["routes"] != want:
+        raise SystemExit(f"chip_smoke: decode_mixed routes {mx['routes']}, want {want}")
+    if any(mx["host_max_abs_err_by_kind"].values()) or not all(mx["timed_equal_first"]):
+        raise SystemExit("chip_smoke: a decode_mixed output differs from the host path")
+    if min(mx["launches_all"][k] for k in MIXED_KERNELS) == 0:
+        raise SystemExit("chip_smoke: decode_mixed skipped a kernel of its routes")
+    e = mx["errors"]
+    if (e["damaged_png"] is None or e["damaged_png"] != e["damaged_png_host"]
+            or e["unknown"] != ["UnknownFormat", "zpix: no codec matched the buffer"]):
+        raise SystemExit(f"chip_smoke: decode_mixed's errors are wrong: {e}")
 
 
 def main() -> int:
@@ -3640,7 +3858,7 @@ def main() -> int:
 
     # ------------------------- BatchJpegDecoder's Python front-end, K7, K6
     t0 = time.perf_counter()
-    py, py_arms, py_k7 = python_front_end_phase(dev)
+    py, py_arms, py_k7, py_cmyk = python_front_end_phase(dev)
     emit({"phase": "python_front_end", "seconds": time.perf_counter() - t0, **py,
           "k6_arms": py_arms, "k7_by_kind": py_k7})
     python_front_end_check(py)
@@ -3653,9 +3871,24 @@ def main() -> int:
     pp = pipeline_phase({"dri8": batches, "native": batches_rf, "host_index": batches_rf,
                          "sync": batches_rf, "progressive": prog_batches, **raster_content})
     emit({"phase": "pipeline", "seconds": time.perf_counter() - t0, **pp})
-    del raster_content, prog_batches
     if not all(r["pipelined_equal_serial"] and r["ok_equal"] for r in pp["routes"].values()):
         raise SystemExit("chip_smoke: a pipelined route's output differs from its serial decode")
+
+    # ------------------------------------- decode_mixed: the router over them
+    from zpix_tpu_torch.parallel import bucketing
+
+    t0 = time.perf_counter()
+    mixed_corpus = make_mixed_corpus(batches_rf[2], py_cmyk, prog_batches[2],
+                                     *(raster_content[k][2] for k in ("qoi_noise_p4", "bmp_24bpp",
+                                                                      "png_host")))
+    del raster_content, prog_batches, py_cmyk
+    content_s = time.perf_counter() - t0
+    mx = mixed_phase(mixed_corpus)
+    bucketing.close()
+    emit({"phase": "decode_mixed", "seconds": time.perf_counter() - t0,
+          "content_seconds": content_s, **mx})
+    del mixed_corpus
+    mixed_check(mx)
 
     # ------------------------------------------------------- kernel table
     ends, okf = ke.index_pass(*bufs, bpm=plan.bpm, nblk=nblk)
@@ -3720,7 +3953,8 @@ def main() -> int:
                                               kb.BackendGeometry.of(hplan), planar=False), 20),
     }
     paths = {"dri8": launches, "native": ln, "host_index": lh, "sync": sy["launches"],
-             "progressive": lp, "python_front_end": py["launches"], **raster_paths}
+             "progressive": lp, "python_front_end": py["launches"], **raster_paths,
+             "decode_mixed": mx["launches_all"]}
     by_path = {k: {p: counts[k] for p, counts in paths.items()} for k in KERNELS}
     kernels = []
     for kname, (fk, fp, nbytes, nops) in timing.items():

@@ -197,7 +197,21 @@ def test_imports_load_neither_jax_nor_the_jax_package():
         "zpix_tpu_torch.parallel.progressive_onchip, zpix_tpu_torch.codecs.jpeg, "
         "zpix_tpu_torch.codecs.jpeg.decoder, zpix_tpu_torch.codecs.jpeg.idct, "
         "zpix_tpu_torch.image, zpix_tpu_torch.image.draw, zpix_tpu_torch.image.util, "
-        "zpix_tpu_torch.color, chip_smoke\n"
+        "zpix_tpu_torch.color, chip_smoke, zpix_tpu_torch.codecs.png, "
+        "zpix_tpu_torch.codecs.png.sng, zpix_tpu_torch.codecs.bmp, zpix_tpu_torch.codecs.qoi, "
+        "zpix_tpu_torch.codecs.qoi.encode_vec, zpix_tpu_torch.parallel.bucketing\n"
+        "import numpy as np\n"
+        "from zpix_tpu_torch import decode_config, from_buffer\n"
+        "from zpix_tpu_torch.codecs.bmp.encode import encode as bmp\n"
+        "from zpix_tpu_torch.codecs.qoi import Desc\n"
+        "from zpix_tpu_torch.codecs.qoi.encode_vec import encode_vec\n"
+        "from zpix_tpu_torch.parallel import decode_mixed\n"
+        "px = np.arange(48, dtype=np.uint8).reshape(3, 4, 4)\n"
+        "datas = [encode_vec(px, Desc(4, 3, 4, 0)), bmp(px[..., :3], bpp=24)]\n"
+        "outs = decode_mixed(datas, device='cpu')\n"
+        "assert [o.shape for o in outs] == [(3, 4, 4)] * 2\n"
+        "assert [decode_config(d).width for d in datas] == [4, 4]\n"
+        "from_buffer(datas[0]).rgba_pixels()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax') "
         "or m == 'zpix_tpu' or m.startswith('zpix_tpu.')]\n"
         "assert not bad, bad\n"

@@ -1307,12 +1307,12 @@ def test_qoi_decoder_and_batch_encode_match_cpu_run(cuda):
     from _torch_raster import qoi_enc, qoi_images
 
     from zpix_tpu_torch import HostIndexQoiDecoder, encode_device_batch
-    from zpix_tpu_torch.codecs.qoi.decode import decode
+    from zpix_tpu_torch.codecs.qoi.decode import decode_pixels
     from zpix_tpu_torch.codecs.qoi.encode import Desc
 
     imgs = qoi_images()
     datas = [qoi_enc(i) for i in imgs]
-    want = np.stack([decode(d) for d in datas])
+    want = np.stack([decode_pixels(d) for d in datas])
     for impl, fmt, kernel, n in (("lane", "auto", "qoi_lane_expand", 1),
                                  ("lane", "wide", "qoi_lane_expand", 1),
                                  ("sorted", "auto", "qoi_sorted_expand", 2)):
@@ -1997,3 +1997,45 @@ def test_decode_verified_on_the_card(cuda, monkeypatch):
     assert np.array_equal(host, np.stack([port_host_pixels(data)] * 2))
     assert np.array_equal(host, px.cpu().numpy())
     dec.close()
+
+
+def test_decode_mixed_on_the_card_matches_cpu_run(cuda):
+    """A small mixed corpus through decode_mixed on the card: every bucket
+    on its batch decoder, equal to the device="cpu" run image by image,
+    the same route counts, and each kernel of the router's path launched."""
+    import io
+
+    from _torch_jpeg import synth_cmyk, synth_plain_jpeg, synth_progressive
+    from _torch_png import png_batch
+    from _torch_raster import bmp_batch, qoi_enc, qoi_images
+    from PIL import Image
+
+    from zpix_tpu_torch.parallel import bucketing
+
+    rng = np.random.default_rng(0)
+    buf = io.BytesIO()
+    Image.fromarray(rng.integers(0, 256, (16, 24, 3), dtype=np.uint8)).convert("CMYK").save(
+        buf, format="JPEG", progressive=True)
+    p = synth_progressive(w=40, h=24)
+    corpus = ([synth_plain_jpeg(w=40, h=24, phase=s) for s in (0.0, 0.5)]
+              + [synth_cmyk(None, w=32, h=16, seed=s, dri_blocks=None) for s in (1, 2)]
+              + [p, p, synth_progressive(w=40, h=24, phase=0.3), buf.getvalue()]
+              + [qoi_enc(im) for im in qoi_images(w=20, h=12)]
+              + bmp_batch((24, 40, False, False), 6, 9, batch=2)
+              + bmp_batch((8, 40, False, True), 6, 9, batch=2)
+              + png_batch("tc8", 13, 7, batch=2)[0] + png_batch("p4", 13, 7, batch=2,
+                                                                 interlace=True)[0])
+    try:
+        want, want_stats = bucketing.decode_mixed(corpus, device="cpu", return_stats=True)
+        runtime.reset_launches()
+        got, got_stats = bucketing.decode_mixed(corpus, return_stats=True)
+        torch.cuda.synchronize()
+        launches = dict(runtime.LAUNCHES)
+    finally:
+        bucketing.close()
+    assert got_stats == want_stats == {"device": len(corpus) - 1, "host-routed": 1}
+    for g, w in zip(got, want):
+        assert isinstance(g, np.ndarray) and np.array_equal(g, w)
+    for k in ("unpack_sparse", "component_planes", "dc_first", "ac_first", "ac_refine",
+              "dc_refine", "qoi_lane_expand", "bmp_unpack", "png_expand"):
+        assert launches[k] > 0, k

@@ -128,7 +128,12 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import sys, zpix_tpu_torch, zpix_tpu_torch.ops.entropy, "
         "zpix_tpu_torch.ops.backend, zpix_tpu_torch.ops.idct, zpix_tpu_torch.runtime, "
         "zpix_tpu_torch.codecs.jpeg.decoder, zpix_tpu_torch.image.model, "
-        "zpix_tpu_torch.color.convert\n"
+        "zpix_tpu_torch.color.convert, zpix_tpu_torch.codecs.png.decode, "
+        "zpix_tpu_torch.codecs.png.defilter, zpix_tpu_torch.codecs.png.expand, "
+        "zpix_tpu_torch.codecs.png.sng, zpix_tpu_torch.codecs.bmp.decode, "
+        "zpix_tpu_torch.codecs.qoi.decode, zpix_tpu_torch.codecs.qoi.encode_vec, "
+        "zpix_tpu_torch.parallel, zpix_tpu_torch.parallel.bucketing\n"
+        "from zpix_tpu_torch import decode, decode_config, from_buffer, from_file_path, load\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'zpix_tpu' or m.startswith('zpix_tpu.')]\n"
         "print(bad)\n"

@@ -1,14 +1,14 @@
-"""PNG chunk layer: a copy of zpix_tpu/codecs/png/decode.py's chunk walk,
-IHDR/PLTE/tRNS parse and Adam7 pass geometry (:24-73, :80-215), with its
-error classes and messages, and of the palette entry kinds of
-zpix_tpu/image/model.py (:289-290).
+"""PNG decoder: a copy of zpix_tpu/codecs/png/decode.py (chunk walk,
+IHDR/PLTE/tRNS, IDAT inflate, Adam7), with its error classes and messages.
 
-Mirrors the reference's src/png/decoder.zig: IHDR validation with the
-(bit depth x color type) -> ColorBitDepth matrix (:326-401), per-chunk
-CRC32 over type+data (:1264-1277), the Adam7 pass table (:58-67).  The
-host ``decode``, its defilter and its expansion are not copied: the
-device path (parallel/png_batch.py) inflates on the host and defilters
-and expands on the card.
+Mirrors the reference's src/png/decoder.zig: the chunk-order state machine
+(:21-28, :231-324), IHDR validation with the (bit depth x color type) ->
+ColorBitDepth matrix (:326-401), per-chunk CRC32 over type+data
+(:1264-1277), one zlib stream over the IDATs (:404-545), the 7-pass Adam7
+merge (:50-67, :1289-1373).  The host decoder inflates with libdeflate
+where the system has it, else ``zlib``, and defilters in the host C++
+(``defilter.py``); the batch path (parallel/png_batch.py) shares the
+chunk layer and defilters and expands on the card.
 """
 
 from __future__ import annotations
@@ -19,11 +19,12 @@ import zlib
 import numpy as np
 
 from ...errors import ChecksumError, FormatError, UnexpectedEof
+from ...image import Config
+from ...image.model import PALETTE_NRGBA, PALETTE_RGBA
+from .defilter import defilter
+from .expand import expand_pass
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
-
-PALETTE_RGBA = 0  # entry from PLTE: opaque, premultiplied-trivial
-PALETTE_NRGBA = 1  # entry rewritten by tRNS: non-premultiplied alpha
 
 # Adam7 passes: (x_offset, y_offset, x_factor, y_factor)
 INTERLACING = [
@@ -72,6 +73,10 @@ _BITS_PER_PIXEL = {
     "p4": 4,
     "p8": 8,
 }
+
+
+def probe_buffer(buf: bytes) -> bool:
+    return buf[:8] == SIGNATURE
 
 
 class _State:
@@ -210,3 +215,162 @@ def _pass_dims(w: int, h: int, p: int):
     pw = (w - xo + xf - 1) // xf if w > xo else 0
     ph = (h - yo + yf - 1) // yf if h > yo else 0
     return pw, ph
+
+
+def decode_config(data: bytes) -> Config:
+    if not probe_buffer(data):
+        raise FormatError("png: invalid signature")
+    for ctype, payload in _walk_chunks(data):
+        if ctype == b"IHDR":
+            st = _State()
+            _parse_ihdr(st, payload)
+            model = {
+                0: "Gray" if st.depth < 16 else "Gray16",
+                2: "RGBA" if st.depth == 8 else "RGBA64",
+                3: "Paletted",
+                4: "NRGBA" if st.depth == 8 else "NRGBA64",
+                6: "NRGBA" if st.depth == 8 else "NRGBA64",
+            }[st.color_type]
+            return Config(st.width, st.height, model)
+        break
+    raise FormatError("png: missing IHDR")
+
+
+def decode(data: bytes):
+    if not probe_buffer(data):
+        raise FormatError("png: invalid signature")
+
+    st = _State()
+    stage = "start"
+    idat = bytearray()
+
+    for ctype, payload in _walk_chunks(data):
+        if ctype == b"IHDR":
+            if stage != "start":
+                raise FormatError("png: chunk out of order (IHDR)")
+            stage = "seen_ihdr"
+            _parse_ihdr(st, payload)
+        elif ctype == b"PLTE":
+            if stage != "seen_ihdr":
+                raise FormatError("png: chunk out of order (PLTE)")
+            stage = "seen_plte"
+            _parse_plte(st, payload)
+        elif ctype == b"tRNS":
+            cd = st.color_depth
+            if cd in ("p1", "p2", "p4", "p8"):
+                if stage != "seen_plte":
+                    raise FormatError("png: chunk out of order (tRNS)")
+            elif cd in ("tc8", "tc16"):
+                if stage not in ("seen_ihdr", "seen_plte"):
+                    raise FormatError("png: chunk out of order (tRNS)")
+            else:
+                if stage != "seen_ihdr":
+                    raise FormatError("png: chunk out of order (tRNS)")
+            stage = "seen_trns"
+            _parse_trns(st, payload)
+        elif ctype == b"IDAT":
+            if stage in ("start",) or stage == "seen_iend":
+                raise FormatError("png: chunk out of order (IDAT)")
+            if stage == "seen_ihdr" and st.color_depth.startswith("p"):
+                raise FormatError("png: missing PLTE before IDAT")
+            stage = "seen_idat"
+            idat += payload
+        elif ctype == b"IEND":
+            if stage != "seen_idat":
+                raise FormatError("png: chunk out of order (IEND)")
+            stage = "seen_iend"
+        # All other chunks are skipped (CRC already verified).
+
+    if stage != "seen_iend":
+        raise UnexpectedEof("png: missing IEND")
+
+    bpp_bits = _BITS_PER_PIXEL[st.color_depth]
+    bpp = (bpp_bits + 7) // 8
+
+    # the IHDR fixes the inflated size exactly (per pass for Adam7);
+    # libdeflate decodes known-size streams 2-3x faster than zlib
+    if st.interlace:
+        expected = sum(
+            ph * (1 + (bpp_bits * pw + 7) // 8)
+            for pw, ph in (
+                _pass_dims(st.width, st.height, p) for p in range(7)
+            )
+            if pw > 0 and ph > 0
+        )
+    else:
+        expected = st.height * (1 + (bpp_bits * st.width + 7) // 8)
+    from ...runtime import host
+
+    raw = host.zlib_decompress_sized(bytes(idat), expected)
+    if raw is None:
+        try:
+            raw = zlib.decompress(bytes(idat))
+        except zlib.error as e:
+            raise FormatError(f"png: inflate failed: {e}") from e
+
+    if not st.interlace:
+        row_bytes = (bpp_bits * st.width + 7) // 8
+        rows = defilter(raw, st.height, row_bytes, bpp)
+        img, st.palette, st.palette_kinds = expand_pass(
+            rows,
+            st.width,
+            st.height,
+            st.color_depth,
+            st.use_transparent,
+            bytes(st.transparent),
+            st.palette,
+            st.palette_kinds,
+        )
+        return img
+
+    # Adam7: decode 7 sequential sub-images from one stream and scatter.
+    full = None
+    offset = 0
+    for p in range(7):
+        pw, ph = _pass_dims(st.width, st.height, p)
+        if pw == 0 or ph == 0:
+            continue
+        row_bytes = (bpp_bits * pw + 7) // 8
+        need = ph * (1 + row_bytes)
+        rows = defilter(raw[offset : offset + need], ph, row_bytes, bpp)
+        offset += need
+        pass_img, st.palette, st.palette_kinds = expand_pass(
+            rows,
+            pw,
+            ph,
+            st.color_depth,
+            st.use_transparent,
+            bytes(st.transparent),
+            st.palette,
+            st.palette_kinds,
+        )
+        if full is None:
+            full = _alloc_like(pass_img, st.width, st.height)
+        _merge_pass(full, pass_img, p)
+    if full is None:
+        raise FormatError("png: no image data")
+    if hasattr(full, "palette"):
+        # Palette may have been extended during later passes
+        # (decoder.zig:1337-1345 reconciles lengths on merge).
+        full.palette = st.palette
+        full.palette_kinds = st.palette_kinds
+    return full
+
+
+def _alloc_like(pass_img, width: int, height: int):
+    """Allocate a full-size zeroed image of pass_img's concrete type."""
+    from ...image import PalettedImage
+
+    cls = type(pass_img)
+    shape = (height, width) + pass_img.pix.shape[2:]
+    pix = np.zeros(shape, pass_img.pix.dtype)
+    if isinstance(pass_img, PalettedImage):
+        return PalettedImage(pix, pass_img.palette, pass_img.palette_kinds)
+    return cls(pix)
+
+
+def _merge_pass(dst, src, p: int) -> None:
+    """Strided scatter of one Adam7 pass (decoder.zig:1289-1373)."""
+    xo, yo, xf, yf = INTERLACING[p]
+    ph, pw = src.pix.shape[0], src.pix.shape[1]
+    dst.pix[yo : yo + ph * yf : yf, xo : xo + pw * xf : xf] = src.pix

@@ -592,7 +592,11 @@ class OnchipProgressiveDecoder:
     def prep(self, datas: list[bytes]) -> ProgPrep:
         if not datas:
             raise ValueError("jpeg: empty batch")
-        plans = [parse_progressive(d) for d in datas]
+        return self.prep_plans([parse_progressive(d) for d in datas])
+
+    def prep_plans(self, plans) -> ProgPrep:
+        """``prep`` from streams already parsed by ``parse_progressive``
+        (the router parses a bucket once to split it by ``script_key``)."""
         check_batch(plans)
         return prep_hostindex(plans, self._pool)
 
