@@ -85,8 +85,19 @@ progressive CMYK JPEGs and one gray JPEG) through
 each kernel's launches in one call (K6-K12, K17, K18), every output equal
 to the host path, 3 timed calls (MPix/s), the card's busy share, peak
 memory and the metrics report, and the errors of a damaged PNG and of
-unknown bytes.  The last line is ``{"ok": true, "device": {...}}``; any
-failure exits non-zero.  Without CUDA it exits non-zero and prints no
+unknown bytes.  Then the ``mesh`` phase (parallel/mesh.py): every mesh
+decoder's batch of 16 (DRI 8, host index, native JPEG, BMP 24 bpp, PNG
+``host`` and ``device_inflate``, QOI lane p4 and sorted) unsharded, over
+``make_mesh()`` (every visible card) and over ``make_mesh(["cuda:0"] *
+4)``, each output against the unsharded decode at max_abs_err 0 with
+``ok`` True and each kernel's launches 4x on four shards, MPix/s and
+launches a call; six DRI 8 images whose lanes straddle the four shards;
+``decode_mixed(mesh=)`` on the mixed corpus against the unsharded call;
+and two processes of this script on the one card (gloo,
+parallel/distributed.py, ``--distributed-worker``), each decoding 8 of
+the 16 DRI 8 images, their shards against the single-process decode.
+The last line is ``{"ok": true, "device": {...}}``; any failure exits
+non-zero.  Without CUDA it exits non-zero and prints no
 result.
 """
 
@@ -104,27 +115,15 @@ from io import BytesIO
 import numpy as np
 import torch
 
+from zpix_tpu_torch.utils import roofline
+from zpix_tpu_torch.utils.roofline import (BOOST_HZ, HBM_BYTES_PER_S, INT32_OPS_PER_S,
+                                           OPS_IDCT_BLOCK, OPS_K1_SYMBOL, OPS_K2_SYMBOL,
+                                           OPS_K4_BLOCK, OPS_K4_CHROMA, OPS_K4_PIXEL)
+
 BATCH, SIZE, QUALITY, DRI = 16, 1024, 50, 8
 TIMED_BATCHES = 10
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
-# int32 operations, a multiply and an add counting two as in FLOP/s: an
-# SM has half as many INT32 as FP32 lanes, so half of the data sheet's
-# 67 TFLOP/s float32 rate outside the tensor cores
-INT32_OPS_PER_S = 67e12 / 2
-BOOST_HZ = 1.98e9  # H100 SXM boost clock, data sheet
-# The least arithmetic each function needs (multiplies, adds, shifts,
-# compares), counted on the functions, not on this port's kernels:
-# - a Huffman symbol through a 16-bit lookahead table: peek (shift, mask),
-#   consume code and extra bits (two adds), next index, end test;
-#   K2 adds RECEIVE/EXTEND (shift, mask, compare, add);
-# - the Wang IDCT of a block: 8 row butterflies of 55 and 8 column
-#   butterflies of 64 operations (zpix_tpu/ops/idct.py:192-239);
-# - K4 per coefficient: dequant multiply, +128, two clamps; per pixel:
-#   scale Y, four channel sums, three clamp-shifts of three operations;
-#   per chroma pair: two -128 and four products (zpix_tpu/ops/ycbcr.py).
-OPS_K1_SYMBOL, OPS_K2_SYMBOL = 6, 10
-OPS_IDCT_BLOCK = 8 * 55 + 8 * 64
-OPS_K4_BLOCK, OPS_K4_PIXEL, OPS_K4_CHROMA = OPS_IDCT_BLOCK + 64 * 4, 14, 6
+# The card's peaks and the least arithmetic of K1, K2, K4 and the IDCT:
+# zpix_tpu_torch/utils/roofline.py, the bound of every entry below.
 # - K7 per block: popcount and scan add; per coefficient: bit test (shift,
 #   mask) and select.  K6 counts as K4 does (same arithmetic per block,
 #   pixel and chroma pair).
@@ -195,11 +194,10 @@ OPS_K18_PIXEL = {1: 2, 2: 2, 4: 2, 8: 1, 24: 1, 32: 12}
 
 def with_bound(entry: dict) -> dict:
     """A side measurement's entry with its bound: the larger of its bytes
-    over the memory rate and its operations over the int32 rate."""
-    bytes_ms = entry["bytes"] / HBM_BYTES_PER_S * 1e3
-    ops_ms = entry["ops"] / INT32_OPS_PER_S * 1e3
-    return {**entry, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    over the memory rate and its operations over the int32 rate
+    (``roofline.bound_ms``)."""
+    ms, by = roofline.bound_ms(entry["bytes"], entry["ops"])
+    return {**entry, "bound_ms": ms, "bound_by": by}
 
 
 def emit(obj) -> None:
@@ -3533,11 +3531,262 @@ def mixed_check(mx) -> None:
         raise SystemExit(f"chip_smoke: decode_mixed's errors are wrong: {e}")
 
 
+# ------------------------------------------------- mesh (parallel/mesh.py)
+
+MESH_SHARDS = 4  # make_mesh(["cuda:0"] * 4): four shards on the one card
+MESH_REPS = 3  # timed decodes a route and a mesh
+MESH_STRADDLE = 6  # DRI 8 images on the four shards: 512 lanes each, 768 a shard
+MESH_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "mesh_phase")
+
+
+def sharded_err(out, ref) -> int:
+    """max_abs_err of a Sharded output against the unsharded tensor, each
+    shard against its rows on the shard's device (-1 for a shape that
+    differs)."""
+    if tuple(out.shape) != tuple(ref.shape):
+        return -1
+    return max(max_abs_err(t, ref[idx].to(t.device)) for t, idx in zip(out.shards, out.indices))
+
+
+def mesh_routes(content: dict) -> dict:
+    """route -> (decoder maker taking a mesh or None, batch, whether decode
+    returns (pixels, ok))."""
+    from zpix_tpu_torch.parallel import (BatchBmpDecoder, BatchJpegDecoder, BatchPngDecoder,
+                                         DeviceJpegDecoder, HostIndexJpegDecoder,
+                                         HostIndexQoiDecoder)
+
+    qoi_p = QOI_PROFILES["noise"]
+    return {
+        "dri8": (lambda m: DeviceJpegDecoder(planar=True, mesh=m), content["dri8"], True),
+        "host_index": (lambda m: HostIndexJpegDecoder(mesh=m), content["rf"], True),
+        "native": (lambda m: BatchJpegDecoder(mesh=m), content["rf"], False),
+        "bmp_24bpp": (lambda m: BatchBmpDecoder(mesh=m), content["bmp"], False),
+        "png_host": (lambda m: BatchPngDecoder(mesh=m), content["png"], False),
+        "png_device_inflate": (lambda m: BatchPngDecoder(device_inflate=True, mesh=m),
+                               content["png"], False),
+        "qoi_lane_p4": (lambda m: HostIndexQoiDecoder(lane_p=qoi_p, lane_fmt="p4", mesh=m),
+                        content["qoi"], False),
+        "qoi_sorted": (lambda m: HostIndexQoiDecoder(impl="sorted", mesh=m), content["qoi"],
+                       False),
+    }
+
+
+def mesh_decode(dec, datas, with_ok: bool):
+    """One timed decode (host clock, a synchronised end) with the kernels'
+    launches counted (set to 0 just before, read just after) -> (pixels,
+    ok or None, seconds, launches)."""
+    from zpix_tpu_torch import runtime
+
+    torch.cuda.synchronize()
+    runtime.reset_launches()
+    t0 = time.perf_counter()
+    out = dec.decode(datas)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    px, ok = out if with_ok else (out, None)
+    return px, ok, wall, dict(runtime.LAUNCHES)
+
+
+def distributed_worker(rank: str, port: str) -> int:
+    """One of the mesh phase's two processes: join the gloo group, decode
+    this process's local_shard of the DRI 8 batch on cuda:0, place it with
+    host_local_batch on the global mesh (one position a process) and hold
+    its shard against the single-process decode's image hashes; prints one
+    JSON line, exits 0 when both processes' shards agree."""
+    import hashlib
+
+    from zpix_tpu_torch import runtime
+    from zpix_tpu_torch.parallel import DeviceJpegDecoder, distributed
+
+    rank = int(rank)
+    with open(os.path.join(MESH_DIR, "hashes.json")) as f:
+        meta = json.load(f)
+    datas = []
+    for i in range(len(meta["sha256"])):
+        with open(os.path.join(MESH_DIR, f"{i}.jpg"), "rb") as f:
+            datas.append(f.read())
+    joined = distributed.initialize(f"127.0.0.1:{port}", 2, rank, timeout=300)
+    mesh = distributed.global_mesh(devices=["cuda:0"])
+    local = distributed.local_shard(datas)
+    dec = DeviceJpegDecoder(planar=True, device="cuda:0")
+    dec.decode(local)  # warm
+    px, ok, wall, launches = mesh_decode(dec, local, True)
+    g = distributed.host_local_batch(mesh, px)
+    rows = g.indices[0][0]
+    got = [hashlib.sha256(im.cpu().numpy().tobytes()).hexdigest() for im in g.shards[0]]
+    equal = got == meta["sha256"][rows]
+    mine = {"rank": rank, "images": len(local), "rows": [rows.start, rows.stop],
+            "equal_single_process": equal, "ok": bool(ok), "global_shape": list(g.shape),
+            "complete_here": g.complete, "mesh": mesh.shape,
+            "addressable": [mesh.addressable((k, 0)) for k in range(mesh.shape["batch"])],
+            "e2e_ms": wall * 1e3, "launches": {k: v for k, v in launches.items() if v}}
+    seen = [None, None]
+    torch.distributed.all_gather_object(seen, mine)
+    torch.distributed.destroy_process_group()
+    good = joined and all(r["equal_single_process"] and r["ok"] for r in seen)
+    print(json.dumps({**mine, "all_ranks_equal": good}), flush=True)
+    return 0 if good else 1
+
+
+def distributed_run(dri8, ref) -> dict:
+    """Two processes of this script on the one card (gloo on 127.0.0.1),
+    each decoding 8 of the 16 images; ``ref``: the single-process decode."""
+    import hashlib
+    import socket
+
+    os.makedirs(MESH_DIR, exist_ok=True)
+    for i, d in enumerate(dri8):
+        with open(os.path.join(MESH_DIR, f"{i}.jpg"), "wb") as f:
+            f.write(d)
+    with open(os.path.join(MESH_DIR, "hashes.json"), "w") as f:
+        json.dump({"sha256": [hashlib.sha256(im.cpu().numpy().tobytes()).hexdigest()
+                              for im in ref]}, f)
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--distributed-worker", str(r), str(port)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks = []
+    for p, (out, err) in zip(procs, outs):
+        lines = out.strip().splitlines()
+        if p.returncode != 0 or not lines:
+            raise SystemExit(f"chip_smoke: a distributed worker failed (rc {p.returncode}):\n"
+                             f"{out[-2000:]}\n{err[-3000:]}")
+        ranks.append(json.loads(lines[-1]))
+    return {"seconds": time.perf_counter() - t0, "ranks": ranks}
+
+
+def mesh_phase(content: dict, mixed_datas: list, smi: str) -> dict:
+    """The mesh slice on the card: every mesh decoder over make_mesh() (every
+    visible card: 1 x 1 here) and over make_mesh(["cuda:0"] * 4), each
+    output against the unsharded decode on the card (max_abs_err 0) with
+    ``ok`` True, MPix/s (host clock, MESH_REPS decodes) and launches a call
+    at 1 and 4 shards beside the unsharded decoder's; the straddling case
+    (6 DRI 8 images on 4 shards); decode_mixed(mesh=) against the
+    unsharded call; and two processes on the one card through
+    parallel/distributed.py."""
+    from zpix_tpu_torch.parallel import bucketing, make_mesh
+
+    meshes = {"1_shard": make_mesh(), "4_shards": make_mesh(["cuda:0"] * MESH_SHARDS)}
+    routes, path = {}, {}
+    for name, (make, datas, with_ok) in mesh_routes(content).items():
+        mpix = len(datas) * SIZE * SIZE / 1e6
+        plain = make(None)
+        plain.decode(datas)  # warm
+        ref, ref_ok, _, plain_launches = mesh_decode(plain, datas, with_ok)
+        walls = [mesh_decode(plain, datas, with_ok)[2] for _ in range(MESH_REPS)]
+        row = {"images": len(datas), "unsharded": {
+            "mpix_per_s": mpix / float(np.mean(walls)), "e2e_ms": [w * 1e3 for w in walls],
+            "launches": {k: v for k, v in plain_launches.items() if v}, "nvidia_smi": smi}}
+        for label, mesh in meshes.items():
+            dec = make(mesh)
+            dec.decode(datas)  # warm
+            px, ok, _, launches = mesh_decode(dec, datas, with_ok)
+            for k, v in launches.items():
+                path[k] = path.get(k, 0) + v
+            walls = [mesh_decode(dec, datas, with_ok)[2] for _ in range(MESH_REPS)]
+            row[label] = {
+                "shards": len(px.shards), "images_a_shard": [t.shape[0] for t in px.shards],
+                "max_abs_err": sharded_err(px, ref), "ok": True if ok is None else bool(ok),
+                "mpix_per_s": mpix / float(np.mean(walls)), "e2e_ms": [w * 1e3 for w in walls],
+                "launches": {k: v for k, v in launches.items() if v},
+                "launches_scale_with_shards": all(
+                    launches[k] == len(px.shards) * v for k, v in plain_launches.items()),
+                "nvidia_smi": smi}
+        row["unsharded_ok"] = True if ref_ok is None else bool(ref_ok)
+        routes[name] = row
+        del ref, px
+
+    # the straddling case: an image's lanes on two shards
+    make, datas, _ = mesh_routes(content)["dri8"]
+    six = datas[:MESH_STRADDLE]
+    ref, ref_ok = make(None).decode(six)
+    px, ok, _, launches = mesh_decode(make(meshes["4_shards"]), six, True)
+    for k, v in launches.items():
+        path[k] = path.get(k, 0) + v
+    straddle = {"images": len(six), "images_a_shard": [t.shape[0] for t in px.shards],
+                "max_abs_err": sharded_err(px, ref), "ok": bool(ok), "unsharded_ok": bool(ref_ok),
+                "launches": {k: v for k, v in launches.items() if v}}
+    del px, ref
+
+    # decode_mixed over the mesh against the unsharded call, each timed
+    # after a warm call (the router builds its decoders once a mesh)
+    from zpix_tpu_torch import runtime
+
+    def mixed_call(mesh):
+        torch.cuda.synchronize()
+        runtime.reset_launches()
+        t0 = time.perf_counter()
+        outs, stats = bucketing.decode_mixed(mixed_datas, mesh=mesh, min_batch=MIXED_MIN_BATCH,
+                                             return_stats=True)
+        torch.cuda.synchronize()
+        return outs, stats, time.perf_counter() - t0, dict(runtime.LAUNCHES)
+
+    mixed_call(None)
+    want, want_stats, want_wall, _ = mixed_call(None)
+    mixed_call(meshes["4_shards"])
+    got, stats, wall, mixed_launches = mixed_call(meshes["4_shards"])
+    for k, v in mixed_launches.items():
+        path[k] = path.get(k, 0) + v
+    bucketing.close()
+    mpix = sum(o.shape[0] * o.shape[1] for o in want) / 1e6
+    mixed = {"images": len(mixed_datas), "routes": stats, "routes_unsharded": want_stats,
+             "equal_unsharded": len(got) == len(want) and all(
+                 a.shape == b.shape and np.array_equal(a, b) for a, b in zip(got, want)),
+             "e2e_ms": wall * 1e3, "e2e_ms_unsharded": want_wall * 1e3,
+             "mpix_per_s": mpix / wall, "mpix_per_s_unsharded": mpix / want_wall,
+             "nvidia_smi": smi, "launches": {k: v for k, v in mixed_launches.items() if v}}
+    del got, want
+
+    dist = distributed_run(content["dri8"], make(None).decode(content["dri8"])[0])
+    return {"meshes": {k: {"shape": m.shape, "devices": [str(d) for d in m.devices.reshape(-1)]}
+                       for k, m in meshes.items()},
+            "routes": routes, "straddle": straddle, "decode_mixed": mixed,
+            "distributed": dist, "nvidia_smi": smi, "launches_all": path}
+
+
+def mesh_check(ms) -> None:
+    """SystemExit unless the mesh phase's checks all held."""
+    for name, r in ms["routes"].items():
+        for label in ("1_shard", "4_shards"):
+            s = r[label]
+            if s["max_abs_err"] or not s["ok"] or not s["launches_scale_with_shards"]:
+                raise SystemExit(f"chip_smoke: mesh route {name} on {label} is wrong: {s}")
+        if not r["unsharded_ok"] or r["4_shards"]["shards"] != MESH_SHARDS:
+            raise SystemExit(f"chip_smoke: mesh route {name}'s reference did not verify")
+    st = ms["straddle"]
+    if (st["max_abs_err"] or not st["ok"] or not st["unsharded_ok"]
+            or st["images_a_shard"] != [2, 1, 2, 1]):
+        raise SystemExit(f"chip_smoke: the straddling mesh decode is wrong: {st}")
+    mx = ms["decode_mixed"]
+    if not mx["equal_unsharded"] or mx["routes"] != mx["routes_unsharded"]:
+        raise SystemExit("chip_smoke: decode_mixed over the mesh differs from the unsharded call")
+    ranks = ms["distributed"]["ranks"]
+    if (len(ranks) != 2 or not all(r["all_ranks_equal"] and r["images"] == BATCH // 2
+                                   and r["global_shape"][0] == BATCH for r in ranks)):
+        raise SystemExit("chip_smoke: the two-process decode differs from the single process")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if sys.argv[1:2] == ["--distributed-worker"]:  # a process of the mesh phase
+        return distributed_worker(*sys.argv[2:4])
     from zpix_tpu_torch import DeviceJpegDecoder, prep_batch, runtime
     from zpix_tpu_torch.errors import ZpixError
     from zpix_tpu_torch.ops import planes as kp
@@ -3881,40 +4130,45 @@ def main() -> int:
     mixed_corpus = make_mixed_corpus(batches_rf[2], py_cmyk, prog_batches[2],
                                      *(raster_content[k][2] for k in ("qoi_noise_p4", "bmp_24bpp",
                                                                       "png_host")))
+    mesh_content = {"dri8": batches[0], "rf": batches_rf[0],
+                    "bmp": raster_content["bmp_24bpp"][0], "png": raster_content["png_host"][0],
+                    "qoi": raster_content["qoi_noise_p4"][0]}
     del raster_content, prog_batches, py_cmyk
     content_s = time.perf_counter() - t0
     mx = mixed_phase(mixed_corpus)
     bucketing.close()
     emit({"phase": "decode_mixed", "seconds": time.perf_counter() - t0,
           "content_seconds": content_s, **mx})
-    del mixed_corpus
     mixed_check(mx)
+
+    # ------------------------------------ mesh: every mesh decoder, 1 and 4 shards
+    t0 = time.perf_counter()
+    ms = mesh_phase(mesh_content, [d for ds in mixed_corpus.values() for d in ds], smi)
+    del mixed_corpus, mesh_content
+    emit({"phase": "mesh", "seconds": time.perf_counter() - t0, **ms})
+    mesh_check(ms)
 
     # ------------------------------------------------------- kernel table
     ends, okf = ke.index_pass(*bufs, bpm=plan.bpm, nblk=nblk)
     ac, dc_diff = ke.value_pass(*bufs, ends, okf, bpm=plan.bpm)
     seg_syms, blk_syms, n_syms = segment_symbols(ac, dc_diff, seg_nmcu, nblk, plan.bpm)
-    out_bytes = pixels.numel()
-    n_mcus = L2 // plan.bpm
     chain_ms = {k: n * CHAIN_CYCLES_PER_SYMBOL / BOOST_HZ * 1e3
                 for k, n in (("index_pass", seg_syms), ("value_pass", blk_syms))}
+    k1c, k2c, k3c, k4c = roofline.jpeg_onchip_costs(plan, stream_bytes=stream_used,
+                                                    symbols=n_syms)
     timing = {
         "index_pass": (lambda: ke.index_pass(*bufs, bpm=plan.bpm, nblk=nblk),
                        lambda: ke.index_pass_plain(*bufs, bpm=plan.bpm, nblk=nblk),
-                       stream_used + 8 * L1 + 4 * ke.TAB_WORDS + 4 * L2,
-                       OPS_K1_SYMBOL * n_syms),
+                       k1c.bytes_moved, k1c.int_ops),
         "value_pass": (lambda: ke.value_pass(*bufs, ends, okf.clone(), bpm=plan.bpm),
                        lambda: ke.value_pass_plain(*bufs, ends, okf.clone(), bpm=plan.bpm),
-                       stream_used + 8 * L1 + 4 * ke.TAB_WORDS + 4 * L2 + 128 * L2 + 4 * L2,
-                       OPS_K2_SYMBOL * n_syms),
+                       k2c.bytes_moved, k2c.int_ops),
         "dc_restore": (lambda: ke.dc_restore(dc_diff, hv=plan.hv, seg_mcus=plan.seg_mcus),
                        lambda: ke.dc_restore_plain(dc_diff, hv=plan.hv, seg_mcus=plan.seg_mcus),
-                       8 * L2, L2),
+                       k3c.bytes_moved, k3c.int_ops),
         "backend": (lambda: kb.backend(ac, dc_k, tables, geom, planar=True),
                     lambda: kb.backend_plain(ac, dc_k, tables, geom, planar=True),
-                    128 * L2 + 4 * L2 + 4 * ke.TAB_WORDS + out_bytes,
-                    OPS_K4_BLOCK * L2 + OPS_K4_PIXEL * BATCH * SIZE * SIZE
-                    + OPS_K4_CHROMA * 64 * n_mcus),
+                    k4c.bytes_moved, k4c.int_ops),
         "idct_blocks": (lambda: ki.idct_blocks(blocks), lambda: ki.idct_plain(blocks),
                         2 * blocks.numel() * 4, OPS_IDCT_BLOCK * blocks.shape[0]),
         # one decode's K7 (every component, one launch) and K6
@@ -3954,7 +4208,7 @@ def main() -> int:
     }
     paths = {"dri8": launches, "native": ln, "host_index": lh, "sync": sy["launches"],
              "progressive": lp, "python_front_end": py["launches"], **raster_paths,
-             "decode_mixed": mx["launches_all"]}
+             "decode_mixed": mx["launches_all"], "mesh": ms["launches_all"]}
     by_path = {k: {p: counts[k] for p, counts in paths.items()} for k in KERNELS}
     kernels = []
     for kname, (fk, fp, nbytes, nops) in timing.items():

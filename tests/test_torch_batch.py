@@ -199,7 +199,9 @@ def test_imports_load_neither_jax_nor_the_jax_package():
         "zpix_tpu_torch.image, zpix_tpu_torch.image.draw, zpix_tpu_torch.image.util, "
         "zpix_tpu_torch.color, chip_smoke, zpix_tpu_torch.codecs.png, "
         "zpix_tpu_torch.codecs.png.sng, zpix_tpu_torch.codecs.bmp, zpix_tpu_torch.codecs.qoi, "
-        "zpix_tpu_torch.codecs.qoi.encode_vec, zpix_tpu_torch.parallel.bucketing\n"
+        "zpix_tpu_torch.codecs.qoi.encode_vec, zpix_tpu_torch.parallel.bucketing, "
+        "zpix_tpu_torch.parallel.mesh, zpix_tpu_torch.parallel.distributed, "
+        "zpix_tpu_torch.utils.roofline\n"
         "import numpy as np\n"
         "from zpix_tpu_torch import decode_config, from_buffer\n"
         "from zpix_tpu_torch.codecs.bmp.encode import encode as bmp\n"
@@ -209,6 +211,11 @@ def test_imports_load_neither_jax_nor_the_jax_package():
         "px = np.arange(48, dtype=np.uint8).reshape(3, 4, 4)\n"
         "datas = [encode_vec(px, Desc(4, 3, 4, 0)), bmp(px[..., :3], bpp=24)]\n"
         "outs = decode_mixed(datas, device='cpu')\n"
+        "from zpix_tpu_torch.parallel import make_mesh\n"
+        "from zpix_tpu_torch.parallel.distributed import host_local_batch\n"
+        "mesh = make_mesh(['cpu'] * 2)\n"
+        "assert [o.shape for o in decode_mixed(datas * 2, mesh=mesh)] == [(3, 4, 4)] * 4\n"
+        "host_local_batch(mesh, px[:2])\n"
         "assert [o.shape for o in outs] == [(3, 4, 4)] * 2\n"
         "assert [decode_config(d).width for d in datas] == [4, 4]\n"
         "from_buffer(datas[0]).rgba_pixels()\n"

@@ -588,7 +588,7 @@ def test_look_back_scratch_reused(cuda, first_epoch):
                                      for c in comps])
     k3 = ke.dc_restore_plain(dc.cpu(), hv=hv, seg_mcus=1000)
     scratch, epoch = runtime.lookback_scratch(dc.device, 1)
-    runtime._scratch[(str(dc.device), torch.cuda.current_stream(dc.device).cuda_stream)][1] = (
+    runtime._scratch[(dc.device.index, torch.cuda.current_stream(dc.device).cuda_stream)][1] = (
         first_epoch or epoch)
     epochs = []
     for _ in range(3):
@@ -2039,3 +2039,71 @@ def test_decode_mixed_on_the_card_matches_cpu_run(cuda):
     for k in ("unpack_sparse", "component_planes", "dc_first", "ac_first", "ac_refine",
               "dc_refine", "qoi_lane_expand", "bmp_unpack", "png_expand"):
         assert launches[k] > 0, k
+
+
+@pytest.mark.parametrize("dri,batch,owned", [(3, 6, [2, 1, 2, 1]), (2, 8, [2, 2, 2, 2])],
+                         ids=["straddle", "whole"])
+def test_device_jpeg_on_four_shards_of_one_card(cuda, dri, batch, owned):
+    """make_mesh(["cuda:0"] * 4): every shard's K1-K4 on the card, the
+    straddling images brought together, equal to the CPU run."""
+    from zpix_tpu_torch.parallel import make_mesh
+
+    datas = [synth_jpeg(w=48, h=32, dri_blocks=dri, phase=0.1 * i) for i in range(batch)]
+    want, want_ok = DeviceJpegDecoder(device="cpu").decode(datas)
+    runtime.reset_launches()
+    got, ok = DeviceJpegDecoder(mesh=make_mesh(["cuda:0"] * 4)).decode(datas)
+    torch.cuda.synchronize()
+    assert bool(want_ok) and bool(ok) and ok.device == torch.device("cuda", 0)
+    assert [t.shape[0] for t in got.shards] == owned
+    assert all(t.device == torch.device("cuda", 0) for t in got.shards)
+    assert torch.equal(got.cpu(), want)
+    assert [runtime.LAUNCHES[k] for k in ("index_pass", "value_pass", "dc_restore",
+                                          "backend")] == [4, 4, 4, 4]
+
+
+def test_mesh_decoders_and_router_on_four_shards_of_one_card(cuda):
+    from _torch_jpeg import synth_plain_jpeg
+    from _torch_png import png_batch
+    from _torch_raster import bmp_batch, qoi_enc, qoi_images
+
+    from zpix_tpu_torch.parallel import (BatchBmpDecoder, BatchJpegDecoder, BatchPngDecoder,
+                                         HostIndexQoiDecoder, bucketing, make_mesh)
+
+    mesh = make_mesh(["cuda:0"] * 4)
+    imgs = qoi_images(w=20, h=12)
+    cases = {
+        "jpeg": (BatchJpegDecoder, [synth_plain_jpeg(w=40, h=24, phase=0.1 * i)
+                                    for i in range(4)]),
+        "bmp": (BatchBmpDecoder, bmp_batch((24, 40, False, False), 6, 9, batch=4)),
+        "png": (BatchPngDecoder, png_batch("tc8", 13, 7, batch=4)[0]),
+        "png_inflate": (lambda **kw: BatchPngDecoder(device_inflate=True, **kw),
+                        png_batch("p4", 13, 7, batch=4, interlace=True)[0]),
+        "qoi_lane": (HostIndexQoiDecoder, [qoi_enc(im) for im in imgs]),
+        "qoi_sorted": (lambda **kw: HostIndexQoiDecoder(impl="sorted", **kw),
+                       [qoi_enc(im) for im in imgs]),
+    }
+    for name, (make, datas) in cases.items():
+        want = make(device="cpu").decode(datas)
+        got = make(mesh=mesh).decode(datas)
+        assert torch.equal(got.cpu(), want), name
+    corpus = [d for _, ds in cases.values() for d in ds]
+    try:
+        want = bucketing.decode_mixed(corpus, device="cpu")
+        got = bucketing.decode_mixed(corpus, mesh=mesh)
+    finally:
+        bucketing.close()
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+
+
+def test_scratch_and_grid_maps_key_by_the_cards_index(cuda):
+    from zpix_tpu_torch.ops import sparse
+    from zpix_tpu_torch.parallel.batch import stream_perm
+
+    a, _ = runtime.lookback_scratch("cuda", 64)
+    b, _ = runtime.lookback_scratch(torch.device("cuda", torch.cuda.current_device()), 64)
+    assert a.data_ptr() == b.data_ptr()
+    perm = stream_perm(5, 3, 2, 2)
+    m = sparse.grid_map(perm, "cuda")
+    assert m.device == torch.device("cuda", torch.cuda.current_device())
+    assert sparse.grid_map(perm, torch.device("cuda", torch.cuda.current_device())) is m
+    assert sparse.grid_map((5, 3, 2, 2), "cuda").data_ptr() != 0

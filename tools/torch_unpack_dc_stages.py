@@ -159,7 +159,9 @@ def k7(cs, packed, flat, fe) -> dict:
     from zpix_tpu_torch.parallel import batch as pb
 
     B = packed.batch
-    dims, perms = packed.dims, packed.perms
+    dims = packed.dims
+    # as arrays: a checkout's Packed may give stream_perm's ints instead
+    perms = [packed.perm_y] + [packed.perm_c] * (len(dims) - 1)
     sections = [(pb.carve(flat, packed.layout, "bm", c, B),
                  pb.carve(flat, packed.layout, "val", c, B)) for c in range(len(dims))]
     # the perms as the checkout's K7 takes them: a tensor on the card in

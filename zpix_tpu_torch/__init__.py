@@ -19,6 +19,9 @@ The top-level API is zpix_tpu's, on the port's host decoders: ``from_buffer``
 JPEG, QOI and BMP by their magic bytes, in that order (the reference's
 root.zig:24-40), and decode on the host.  ``parallel.decode_mixed``
 routes a mixed list of encoded images through the batch decoders above.
+The batch decoders and ``decode_mixed`` take ``mesh=`` (``parallel.make_mesh``)
+to shard a batch over several devices; ``parallel.distributed`` spans
+processes.
 """
 
 from . import errors

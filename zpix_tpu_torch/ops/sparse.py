@@ -11,6 +11,8 @@ clip, gather, permute); the dispatch takes it for CPU tensors only.
 
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
 from typing import NamedTuple
 
 import numpy as np
@@ -30,7 +32,8 @@ class SparseComponent(NamedTuple):
     """One component of a decode: its stream-order bitmap [B, bv*bh, 8]
     u8, its values [B, cap] int16 (each image's nonzeros in stream order),
     its grid (bv, bh) and its grid -> stream perm (numpy int32 [bv*bh],
-    as parallel/batch.py::stream_perm gives it) or None for grid order."""
+    as parallel/batch.py::stream_perm gives it, or the four ints (mxx,
+    myy, hi, vi) that stream_perm takes) or None for grid order."""
 
     bitmap: torch.Tensor
     vals: torch.Tensor
@@ -47,9 +50,22 @@ def _check(comp: SparseComponent, batch: int):
         raise ValueError("unpack_sparse: bitmap must be [B, bv*bh, 8]")
     if vals.dim() != 2 or vals.shape[0] != batch or vals.shape[1] < 1:
         raise ValueError("unpack_sparse: values must be [B, cap] with cap >= 1")
+    if isinstance(perm, tuple):
+        perm = perm_array(perm)
     if perm is not None and (not isinstance(perm, np.ndarray) or perm.dtype != np.int32
                              or perm.shape != (nb,)):
-        raise ValueError("unpack_sparse: perm must be a numpy int32 [bv*bh] or None")
+        raise ValueError("unpack_sparse: perm must be a numpy int32 [bv*bh], its stream_perm "
+                         "ints, or None")
+
+
+def perm_array(perm):
+    """A perm given as stream_perm's four ints -> its numpy int32 array; an
+    array or None as it is."""
+    if isinstance(perm, tuple):
+        from ..parallel.batch import stream_perm
+
+        return stream_perm(*perm)
+    return perm
 
 
 def stream_to_grid(perm):
@@ -63,19 +79,37 @@ def stream_to_grid(perm):
     return inv
 
 
-_GRID_MAPS: dict = {}
+# Device copies of grid maps kept at once: the least recently used goes
+# first, so a mesh (a copy a shard device) or many geometries cannot grow it.
+GRID_MAPS_KEPT = 16
+_GRID_MAPS: OrderedDict = OrderedDict()
+_GRID_MAPS_LOCK = threading.Lock()
 
 
 def grid_map(perm, device):
-    """The stream -> grid map of a numpy ``perm`` on ``device``, built on
-    the host and copied there once per distinct perm (a decode then makes
-    no copy of its own); None for None."""
+    """The stream -> grid map of ``perm`` (a numpy array, or stream_perm's
+    four ints) on ``device``, built on the host and copied there once
+    while it stays among the ``GRID_MAPS_KEPT`` most recently used (a
+    decode then makes no copy of its own); None for None.  Keyed by the
+    device's type and index and by the four ints, or else the perm's
+    bytes."""
     if perm is None:
         return None
-    key = (str(device), perm.tobytes())
-    if key not in _GRID_MAPS:
-        _GRID_MAPS[key] = torch.from_numpy(stream_to_grid(perm)).to(device)
-    return _GRID_MAPS[key]
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = (dev.type, dev.index, perm if isinstance(perm, tuple) else perm.tobytes())
+    with _GRID_MAPS_LOCK:
+        m = _GRID_MAPS.get(key)
+        if m is not None:
+            _GRID_MAPS.move_to_end(key)
+            return m
+    m = torch.from_numpy(stream_to_grid(perm_array(perm))).to(dev)
+    with _GRID_MAPS_LOCK:
+        _GRID_MAPS[key] = m
+        while len(_GRID_MAPS) > GRID_MAPS_KEPT:
+            _GRID_MAPS.popitem(last=False)
+    return m
 
 
 def unpack_sparse_plain(bitmap, vals, *, bv: int, bh: int, perm=None):
@@ -88,7 +122,7 @@ def unpack_sparse_plain(bitmap, vals, *, bv: int, bh: int, perm=None):
     coeff = torch.where(bits == 1, torch.gather(vals, 1, idx), 0).to(torch.int16)
     coeff = coeff.view(B, nb, 64)
     if perm is not None:
-        coeff = coeff[:, torch.from_numpy(perm).to(coeff.device).long()]
+        coeff = coeff[:, torch.from_numpy(perm_array(perm)).to(coeff.device).long()]
     return coeff.reshape(B, bv, bh, 64)
 
 

@@ -25,7 +25,10 @@ buffer (grid order, so no perm), so ``upload`` and ``run`` (K7, then K6
 on the gray, ycbcr, rgb, ycck or cmyk arm) are those of the native
 route.  A batch the native front-end fails on is parsed again by the
 Python front-end: it raises the reference's own error, or decodes and is
-counted under ``jpeg_batch.native_refused``.
+counted under ``jpeg_batch.native_refused``.  With ``mesh``, the parsed
+batch is cut into equal runs of images (``Packed.images``), one a batch
+position of the mesh, each uploaded to and decoded (K7, K6) on its own
+device, as zpix_tpu shards every stacked input; the output is ``Sharded``.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ import ctypes
 import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -46,7 +49,8 @@ from ..ops import planes as _planes
 from ..ops import sparse as _sparse
 from ..runtime import host as _host
 from ..utils import metrics, trace
-from .device_entropy import PinnedUpload, resolve_device
+from .device_entropy import PinnedUpload
+from .mesh import DeviceUploads, Sharded, mesh_device, shard_bounds
 
 _RATIOS = {0x11: "444", 0x12: "440", 0x21: "422",
            0x22: "420", 0x41: "411", 0x42: "410"}
@@ -300,6 +304,11 @@ class NativeBatchFrontEnd:
         self.layout, self.nbytes = flat_layout(batch, self.nb, self.val_caps)
         self.perm_y = stream_perm(self.mxx, self.myy, *self.hv[0])
         self.perm_c = stream_perm(self.mxx, self.myy, *self.hv[1]) if self.ncomp >= 3 else None
+        # stream_perm's ints of each (None for grid order): they key the
+        # perms' device maps, so a decode hashes no perm
+        self.perm_ints = tuple(None if p is None else (self.mxx, self.myy, *hv)
+                               for p, hv in ((self.perm_y, self.hv[0]),
+                                             (self.perm_c, self.hv[-1])))
 
     def parse(self, datas: list[bytes]) -> "Packed":
         """Parse the batch into a new flat buffer (one C call) -> its
@@ -330,7 +339,8 @@ class NativeBatchFrontEnd:
             raise FormatError(f"jpeg: native front-end failed on image {i} (rc={rc}; "
                               "a broken stream, or denser than the value capacity)")
         return Packed(buf, tuple(self.layout), b, self.width, self.height, tuple(self.hv),
-                      self.mxx, self.myy, self.perm_y, self.perm_c, nnz)
+                      self.mxx, self.myy, self.perm_y, self.perm_c, nnz,
+                      perm_ints=self.perm_ints)
 
 
 @dataclass
@@ -354,6 +364,9 @@ class Packed:
     color: str | None = None
     # the cmyk arm's 2x2-subsampled components (reference batch.py:743)
     sub: tuple | None = None
+    # (y, chroma): the stream_perm ints perm_y and perm_c were made from
+    # (None for grid order), or None where the perms came as arrays
+    perm_ints: tuple | None = None
 
     def __post_init__(self):
         if self.color is None:
@@ -370,8 +383,32 @@ class Packed:
 
     @property
     def perms(self):
-        """Per component its grid->stream map (chroma share one)."""
-        return [self.perm_y] + [self.perm_c] * (len(self.hv) - 1)
+        """Per component its grid->stream map (chroma share one): the
+        stream_perm ints where the plan has them, else the arrays."""
+        py, pc = self.perm_ints or (self.perm_y, self.perm_c)
+        return [py] + [pc] * (len(self.hv) - 1)
+
+    def images(self, lo: int, hi: int, *, pin: bool = False) -> "Packed":
+        """Images [lo, hi) of the batch in a flat buffer of their own (each
+        section holds the batch's rows, so theirs are one run of it),
+        pinned with ``pin``; the batch itself where that is all of it."""
+        if (lo, hi) == (0, self.batch):
+            return self
+        b = hi - lo
+        src = self.buffer.numpy() if isinstance(self.buffer, torch.Tensor) else np.asarray(
+            self.buffer, np.uint8)
+        layout, off = [], 0
+        for kind, c, _o, nbytes in self.layout:
+            n = nbytes // self.batch * b
+            layout.append((kind, c, off, n))
+            off += (n + 63) // 64 * 64
+        buf = torch.zeros(off, dtype=torch.uint8, pin_memory=pin)
+        dst = buf.numpy()
+        for (_k, _c, so, nbytes), (_k2, _c2, do, n) in zip(self.layout, layout):
+            row = nbytes // self.batch
+            dst[do : do + n] = src[so + lo * row : so + hi * row]
+        return replace(self, buffer=buf, layout=tuple(layout), batch=b,
+                                   nnz=None if self.nnz is None else self.nnz[lo:hi])
 
 
 def parse_and_pack(data: bytes):
@@ -548,10 +585,12 @@ class BatchJpegDecoder:
     UnsupportedError, a broken stream the host decoder's error.
     """
 
-    def __init__(self, *, device=None, n_threads: int | None = None):
-        self.device = resolve_device(device)
+    def __init__(self, *, device=None, n_threads: int | None = None, mesh=None):
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device)
         self.n_threads = n_threads
         self._upload = PinnedUpload(self.device)
+        self._uploads = DeviceUploads(self._upload)
         self._front_ends: dict = {}  # geometry -> NativeBatchFrontEnd
         self._lock = threading.Lock()  # preps may run on several threads
         self._pool = None  # the Python front-end's workers, made on first use
@@ -624,12 +663,25 @@ class BatchJpegDecoder:
         return packed
 
     def upload(self, packed: Packed) -> torch.Tensor:
-        """The flat buffer on the device, in one copy."""
-        return self._upload.send(packed.buffer)
+        """The flat buffer on the device, in one copy.  With a mesh, a list
+        of (its run of images as a Packed, that run's buffer on its
+        device) a batch position; ValueError where the mesh does not divide
+        the batch."""
+        if self.mesh is None:
+            return self._upload.send(packed.buffer)
+        out = []
+        for dev, lo, hi in shard_bounds(self.mesh, packed.batch,
+                                        f"jpeg: the batch ({packed.batch} images)"):
+            part = packed.images(lo, hi, pin=dev.type == "cuda")
+            out.append((part, self._uploads(dev).send(part.buffer)))
+        return out
 
     def run(self, packed: Packed, buf: torch.Tensor) -> torch.Tensor:
-        """K7, then K6, on the uploaded buffer -> pixels."""
-        return decode_uploaded(buf, packed)
+        """K7, then K6, on the uploaded buffer -> pixels (``Sharded`` with a
+        mesh, each run decoded on its own device)."""
+        if self.mesh is None:
+            return decode_uploaded(buf, packed)
+        return Sharded.stack(decode_uploaded(b, part) for part, b in buf)
 
     def decode(self, datas: list[bytes]) -> torch.Tensor:
         packed = self.prep(datas)

@@ -31,13 +31,20 @@ the call's).  A ``RuntimeError`` -- a kernel that fails to build or to
 launch, or the card's own -- is not a batch decoder's refusal of its
 input: it propagates.
 
+With ``mesh``, the PNG, baseline JPEG, QOI and BMP buckets shard over the
+mesh's batch axis as their batch decoders do; a bucket the mesh does not
+divide raises ValueError there and goes to ``host-error``, as in
+zpix_tpu.  Progressive buckets take no mesh, as in zpix_tpu: they run on
+the mesh's first device.
+
 Three differences from zpix_tpu, on purpose: a progressive bucket is
 split by ``script_key`` (geometry, scan script and tables) before it
 reaches the decoder, so a mix of encoders decodes on the card a group a
 script where zpix_tpu's batch raises into ``host-error`` (the same
 pixels, other route counts); each decoder is built once a (kind,
-device) and reused, until ``close``; and the BMP host decoder reads an
-index past a short palette as (0, 0, 0, 0) (codecs/bmp/decode.py).
+device) or (kind, mesh) and reused, until ``close``; and the BMP host
+decoder reads an index past a short palette as (0, 0, 0, 0)
+(codecs/bmp/decode.py).
 """
 
 from __future__ import annotations
@@ -53,7 +60,7 @@ from ..errors import UnknownFormat
 from ..utils import metrics
 from .bmp_batch import BatchBmpDecoder
 from .batch import BatchJpegDecoder
-from .device_entropy import resolve_device
+from .mesh import mesh_device
 from .png_batch import BatchPngDecoder
 from .progressive_onchip import OnchipProgressiveDecoder, parse_progressive, script_key
 from .qoi_batch import HostIndexQoiDecoder
@@ -150,27 +157,31 @@ def plan_buckets(buffers) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Decoders: one a (kind, device), reused across calls
+# Decoders: one a (kind, device) or (kind, mesh), reused across calls
 # ---------------------------------------------------------------------------
 
 _MAKERS = {
-    "png": lambda dev: BatchPngDecoder(device=dev),
-    "jpeg": lambda dev: BatchJpegDecoder(device=dev),
-    "progressive": lambda dev: OnchipProgressiveDecoder(device=dev),
-    "qoi": lambda dev: HostIndexQoiDecoder(impl="lane", device=dev),
-    "bmp": lambda dev: BatchBmpDecoder(device=dev),
+    "png": lambda dev, mesh: BatchPngDecoder(device=dev, mesh=mesh),
+    "jpeg": lambda dev, mesh: BatchJpegDecoder(device=dev, mesh=mesh),
+    "progressive": lambda dev, mesh: OnchipProgressiveDecoder(device=dev),
+    "qoi": lambda dev, mesh: HostIndexQoiDecoder(impl="lane", device=dev, mesh=mesh),
+    "bmp": lambda dev, mesh: BatchBmpDecoder(device=dev, mesh=mesh),
 }
 _decoders: dict = {}
 _decoders_lock = threading.Lock()
 
 
-def decoder(kind: str, device):
-    """The router's decoder of ``kind`` on ``device``, built on first use."""
-    key = (kind, device)
+def decoder(kind: str, device, mesh=None):
+    """The router's decoder of ``kind`` on ``device`` (or sharded over
+    ``mesh``; a progressive decoder takes no mesh and runs on
+    ``device``, the mesh's first), built on first use."""
+    if kind == "progressive":
+        mesh = None
+    key = (kind, device) if mesh is None else (kind, mesh)
     with _decoders_lock:
         dec = _decoders.get(key)
         if dec is None:
-            dec = _decoders[key] = _MAKERS[kind](device)
+            dec = _decoders[key] = _MAKERS[kind](None if mesh else device, mesh)
     return dec
 
 
@@ -225,9 +236,10 @@ def _cmyk_to_rgba(arr: np.ndarray) -> np.ndarray:
     return rgba
 
 
-def _batched(kind: str, key, datas: list[bytes], device) -> list:
-    """One batch decode on the card, its tensor copied to the host once."""
-    arr = decoder(kind, device).decode(datas).cpu().numpy()
+def _batched(kind: str, key, datas: list[bytes], device, mesh) -> list:
+    """One batch decode on the card (or sharded over ``mesh``), its
+    pixels copied to the host once."""
+    arr = decoder(kind, device, mesh).decode(datas).cpu().numpy()
     if kind == "jpeg" and key[3] == 4:
         return list(_cmyk_to_rgba(arr))
     return list(_to_rgba(arr))
@@ -259,7 +271,7 @@ def _progressive(key, datas: list[bytes], device) -> tuple:
     return outs, routes
 
 
-def _decode_bucket(kind: str, key, datas: list[bytes], device, min_batch: int):
+def _decode_bucket(kind: str, key, datas: list[bytes], device, mesh, min_batch: int):
     """-> (RGBA8 list, {route: images}) for one bucket."""
     n = len(datas)
     if n < min_batch or "host" in key:
@@ -271,7 +283,7 @@ def _decode_bucket(kind: str, key, datas: list[bytes], device, min_batch: int):
     try:
         if kind == "jpeg" and key[5]:
             return _progressive(key, datas, device)
-        return _batched(kind, key, datas, device), {"device": n}
+        return _batched(kind, key, datas, device, mesh), {"device": n}
     except RuntimeError:
         raise
     except Exception:
@@ -281,22 +293,25 @@ def _decode_bucket(kind: str, key, datas: list[bytes], device, min_batch: int):
         return [_host_rgba(d) for d in datas], {"host-error": n}
 
 
-def decode_mixed(buffers, *, min_batch: int = 1, return_stats: bool = False, device=None):
+def decode_mixed(buffers, *, mesh=None, min_batch: int = 1, return_stats: bool = False,
+                 device=None):
     """Decode a mixed list of encoded images (any supported format, any
     geometry) -> list of premultiplied RGBA8 [H, W, 4] uint8 numpy arrays
     in input order.
 
     device: the batch decoders' device, ``cuda`` unless the caller passes
     ``"cpu"`` (each kernel's plain version); without a card the call
-    raises.  min_batch: buckets smaller than this go to the host decoder.
-    return_stats=True also returns {route: image count}; the same counts
-    land in ``utils.metrics`` as decode_mixed.<route>."""
-    device = resolve_device(device)
+    raises.  mesh: a ``parallel.mesh.Mesh`` (then no device); compatible
+    buckets shard on its "batch" axis.  min_batch: buckets smaller than
+    this go to the host decoder.  return_stats=True also returns {route:
+    image count}; the same counts land in ``utils.metrics`` as
+    decode_mixed.<route>."""
+    device = mesh_device(mesh, device)
     buffers = list(buffers)
     results: list = [None] * len(buffers)
     stats: dict = {}
     for key, idxs in plan_buckets(buffers).items():
-        outs, routes = _decode_bucket(key[0], key, [buffers[i] for i in idxs], device,
+        outs, routes = _decode_bucket(key[0], key, [buffers[i] for i in idxs], device, mesh,
                                       min_batch)
         for route, n in routes.items():
             stats[route] = stats.get(route, 0) + n
@@ -308,11 +323,11 @@ def decode_mixed(buffers, *, min_batch: int = 1, return_stats: bool = False, dev
     return results
 
 
-def load_batch(paths, *, min_batch: int = 1, device=None):
+def load_batch(paths, *, mesh=None, min_batch: int = 1, device=None):
     """decode_mixed over a list of file paths (one call for a real
     directory: the planner handles mixed formats and geometries)."""
     bufs = []
     for p in paths:
         with open(p, "rb") as f:
             bufs.append(f.read())
-    return decode_mixed(bufs, min_batch=min_batch, device=device)
+    return decode_mixed(bufs, mesh=mesh, min_batch=min_batch, device=device)

@@ -21,13 +21,17 @@ the host C++ index scan (csrc/host/entropy.cpp, a thread per image)
 finds every block's end bit in place of K1, then K2, K3 (one chain per
 image and component) and K4 run as above.
 
+With ``mesh`` (parallel/mesh.py) both decoders shard the lanes, as
+zpix_tpu's mesh upload does: each batch position gets the whole stream and
+an equal run of lanes, and runs the kernels on its own device.
+
 Everything is exact integer math: the output matches the JAX package
 and the host decoder bit for bit.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import contextlib
 import ctypes
@@ -537,10 +541,14 @@ class DeviceJpegDecoder:
     _METRICS = "jpeg_onchip"
     _TIMED = ("prep", "upload", "dispatch")
 
-    def __init__(self, *, planar: bool = False, device=None):
+    def __init__(self, *, planar: bool = False, device=None, mesh=None):
+        from .mesh import DeviceUploads, mesh_device
+
         self.planar = planar
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device)
         self._upload = PinnedUpload(self.device)
+        self._uploads = DeviceUploads(self._upload)  # a shard device's, with a mesh
 
     def _stage(self, name: str):
         """The timer of stage ``name`` where the JAX package keeps one."""
@@ -548,14 +556,32 @@ class DeviceJpegDecoder:
             return trace(f"{self._METRICS}.{name}")
         return contextlib.nullcontext()
 
+    def _parts(self, plan: ScanPlan, lo: int = 0, hi: int | None = None) -> list:
+        """The upload's arrays for lanes [lo, hi): the whole stream and the
+        tables, the lanes' offsets and counts (and ends)."""
+        ends = [] if plan.ends is None else [plan.ends.reshape(len(plan.seg_n_mcu), -1)[lo:hi]]
+        return [plan.stream, plan.seg_bit_pos[lo:hi].astype(np.int32), plan.seg_n_mcu[lo:hi],
+                plan.tables] + ends
+
     def upload(self, plan: ScanPlan):
         """Stream, offsets, counts, tables (and the host index scan's ends,
         if the plan has them) -> device tensors, in one copy
-        (``PinnedUpload``), as zpix_tpu's packed upload does."""
+        (``PinnedUpload``), as zpix_tpu's packed upload does.  With a mesh,
+        a list: for each batch position, the same on its device for its
+        equal run of lanes (the whole stream, its lanes' offsets), as
+        zpix_tpu's mesh upload sends each device the stream and its own
+        lanes' offsets; ValueError where the mesh does not divide the lane
+        count."""
+        from .mesh import shard_bounds
+
         with self._stage("upload"):
-            return tuple(self._upload(
-                [plan.stream, plan.seg_bit_pos.astype(np.int32), plan.seg_n_mcu, plan.tables]
-                + ([] if plan.ends is None else [plan.ends])))
+            if self.mesh is None:
+                return tuple(self._upload(self._parts(plan)))
+            lanes = shard_bounds(self.mesh, plan.batch * plan.n_segs,
+                                 f"jpeg: the lane count ({plan.batch} images x "
+                                 f"{plan.n_segs} segments)")
+            return [tuple(self._uploads(dev)(self._parts(plan, lo, hi)))
+                    for dev, lo, hi in lanes]
 
     def entropy(self, plan: ScanPlan, bufs):
         """K1 + K2 + K3 -> (AC int16 [L1*nblk, 64], DC int32 [L1*nblk]
@@ -573,10 +599,19 @@ class DeviceJpegDecoder:
 
     def decode_coefficients(self, plan: ScanPlan):
         """-> (coeffs [B*n_segs, nblk, 64] int16 natural order with the DC
-        predictors restored, ok 0-dim bool)."""
-        ac, dc, okf = self.entropy(plan, self.upload(plan))
-        ac[:, 0] = dc.to(torch.int16)  # the AC rows hold 0 at position 0
-        return ac.view(-1, plan.seg_mcus * plan.bpm, 64), okf[0] != 0
+        predictors restored, ok 0-dim bool).  With a mesh the coefficients
+        are ``Sharded`` by lanes and ``ok`` is every shard's."""
+        bufs = self.upload(plan)
+        outs = [self.entropy(plan, b) for b in (bufs if self.mesh is not None else [bufs])]
+        coeffs = []
+        for ac, dc, _ in outs:
+            ac[:, 0] = dc.to(torch.int16)  # the AC rows hold 0 at position 0
+            coeffs.append(ac.view(-1, plan.seg_mcus * plan.bpm, 64))
+        if self.mesh is None:
+            return coeffs[0], outs[0][2][0] != 0
+        from .mesh import Sharded, all_ok
+
+        return Sharded.stack(coeffs), all_ok([o[2][0] != 0 for o in outs], self.device)
 
     def prep(self, datas: list[bytes]) -> ScanPlan:
         """The host half: marker walks, destuffing, segments and tables."""
@@ -588,12 +623,42 @@ class DeviceJpegDecoder:
 
     def run(self, plan: ScanPlan, bufs):
         """The device half on uploaded buffers: the entropy kernels, then K4
-        -> (pixels, ok), both on the decoder's device, no sync."""
+        -> (pixels, ok), both on the decoder's device, no sync.  With a
+        mesh, each position runs K1-K3 on its lanes and K4 on the images
+        whose first lane it holds -> (``Sharded`` pixels, ok on the mesh's
+        first device: every shard's ok)."""
         with self._stage("dispatch"):
-            ac, dc, okf = self.entropy(plan, bufs)
-            pixels = _backend.backend(ac, dc, bufs[3], _backend.BackendGeometry.of(plan),
-                                      planar=self.planar)
-            return pixels, okf[0] != 0
+            if self.mesh is None:
+                ac, dc, okf = self.entropy(plan, bufs)
+                pixels = _backend.backend(ac, dc, bufs[3], _backend.BackendGeometry.of(plan),
+                                          planar=self.planar)
+                return pixels, okf[0] != 0
+            return self._run_sharded(plan, bufs)
+
+    def _run_sharded(self, plan: ScanPlan, bufs):
+        """K1-K3 on each position's lanes; then an image whose lanes two
+        positions hold (the mesh divides the lane count but not the batch)
+        has its other lanes' coefficient rows copied to the position that
+        holds its first lane (``mesh.regroup``), and K4 runs there on
+        whole images.  The copy is a peer copy between cards, and none
+        where every position holds whole images."""
+        from .mesh import Sharded, all_ok, regroup
+
+        nblk = plan.seg_mcus * plan.bpm
+        outs = [self.entropy(plan, b) for b in bufs]
+        acs = regroup([ac.view(-1, nblk, 64) for ac, _, _ in outs], plan.n_segs)
+        dcs = regroup([dc.view(-1, nblk) for _, dc, _ in outs], plan.n_segs)
+        geom = _backend.BackendGeometry.of(plan)
+        pixels = []
+        for (ac, n), (dc, _), b in zip(acs, dcs, bufs):
+            if n == 0:  # every lane here belongs to an image another holds
+                pixels.append(torch.empty((0, *geom.out_shape(self.planar)[1:]),
+                                          dtype=torch.uint8, device=ac.device))
+                continue
+            pixels.append(_backend.backend(
+                ac.reshape(-1, 64), dc.reshape(-1), b[3],
+                replace(geom, batch=n), planar=self.planar))
+        return Sharded.stack(pixels), all_ok([o[2][0] != 0 for o in outs], self.device)
 
     def decode(self, datas: list[bytes]):
         """bytes -> (pixels, ok), both on the decoder's device, no sync."""
@@ -687,8 +752,9 @@ class HostIndexJpegDecoder(DeviceJpegDecoder):
 
     _METRICS = "jpeg_hostindex"  # device_entropy.py:1876-1882
 
-    def __init__(self, *, planar: bool = False, device=None, n_threads: int | None = None):
-        super().__init__(planar=planar, device=device)
+    def __init__(self, *, planar: bool = False, device=None, n_threads: int | None = None,
+                 mesh=None):
+        super().__init__(planar=planar, device=device, mesh=mesh)
         self.n_threads = n_threads
 
     def entropy(self, plan: ScanPlan, bufs):

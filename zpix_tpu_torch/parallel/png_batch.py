@@ -22,8 +22,10 @@ size by the tokenizer and the filter types by K15's flag, read once a
 call), and a corrupt zlib stream, its adler32 trailer included (with
 ``device_inflate``, a trailer cut short by the tokenizer and a wrong one by
 the adler32 check of K16's output on the card, into the same flag).  The JAX batch path lets the first two
-through on some routes and ``zlib.error`` escape (ROADMAP queue 3).  Not
-ported: ``mesh`` and ``_shard`` (the multi-GPU slice), the ``ZPIX_DEVICE_*``
+through on some routes and ``zlib.error`` escape (ROADMAP queue 3).  With ``mesh``, each
+batch position uploads and runs the route's kernels on its equal run of
+images (zpix_tpu's ``_shard`` of every stacked input), on its own device,
+and the output is ``Sharded``.  Not ported: the ``ZPIX_DEVICE_*``
 environment variables (the arguments decide), and the power-of-two token
 padding, which bounds XLA recompiles: the upload pads each image's tokens
 with zero-length ones to the batch's most, the same function.
@@ -59,7 +61,8 @@ from ..ops.inflate import ADLER_BAD, adler32_check, inflate_resolve
 from ..ops.png import ARMS, WHOLE, png_expand, row_bytes
 from ..runtime import host
 from ..utils import metrics, trace
-from .device_entropy import PinnedUpload, resolve_device
+from .device_entropy import PinnedUpload
+from .mesh import DeviceUploads, Sharded, mesh_device
 
 TOKEN_ALIGN = 4096  # token rows of the staging buffer grow in these steps
 # zlib's message for a wrong adler32 trailer, as the host decoder gives it
@@ -226,8 +229,9 @@ class BatchPngDecoder:
     ``close`` shuts it."""
 
     def __init__(self, n_threads: int | None = None, device_defilter: bool = False,
-                 device_inflate: bool = False, device=None):
-        self.device = resolve_device(device)
+                 device_inflate: bool = False, device=None, mesh=None):
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device)
         self.n_threads = n_threads or os.cpu_count() or 2
         self.device_defilter = device_defilter
         # device_inflate subsumes device_defilter: the resolved bytes are
@@ -235,6 +239,7 @@ class BatchPngDecoder:
         self.device_inflate = device_inflate
         self._pool = ThreadPoolExecutor(self.n_threads)
         self._upload = PinnedUpload(self.device)
+        self._uploads = DeviceUploads(self._upload)
         # the host route's inflate buffers: a prep takes one, its defilter
         # gives it back (preps may run on several threads at once)
         self._raws: list = []
@@ -376,8 +381,13 @@ class BatchPngDecoder:
 
     def upload(self, plan: PngPlan) -> list:
         """Everything the route sends (rows, stream or tokens, palettes,
-        keys) -> device tensors, in one pinned copy."""
-        return self._upload(plan.parts)
+        keys) -> device tensors, in one pinned copy; with a mesh, a list of
+        those a batch position, each its run of images (ValueError where the
+        mesh does not divide the batch)."""
+        if self.mesh is None:
+            return self._upload(plan.parts)
+        return self._uploads.runs(self.mesh, plan.parts,
+                                  f"png: the batch ({len(plan.parts[0])} images)")
 
     def run(self, plan: PngPlan, bufs, on_kernel=None):
         """The kernels -> (RGBA8 [B, H, W, 4], the flag int32 [1] of the
@@ -385,7 +395,16 @@ class BatchPngDecoder:
         ADLER_BAD for a wrong adler32 trailer).  ``on_kernel(name, args, kw,
         result)``, when given, is called after each kernel wrapper returns,
         with the wrapper's arguments (chip_smoke.py times each stage and
-        holds each launch against its plain version through it)."""
+        holds each launch against its plain version through it).  With a
+        mesh: (``Sharded`` pixels, a list of each position's flag, or
+        None)."""
+        if self.mesh is not None:
+            outs = [self._run(plan, b, on_kernel) for b in bufs]
+            bad = [o[1] for o in outs]
+            return Sharded.stack(o[0] for o in outs), None if bad[0] is None else bad
+        return self._run(plan, bufs, on_kernel)
+
+    def _run(self, plan: PngPlan, bufs, on_kernel=None):
         def call(name, fn, *args, **kw):
             res = fn(*args, **kw)
             if on_kernel is not None:
@@ -425,7 +444,9 @@ class BatchPngDecoder:
     def decode(self, datas: list[bytes]):
         plan = self.prep(datas)
         px, bad = self.run(plan, self.upload(plan))
-        flags = 0 if bad is None else int(bad.item())  # one sync a call, after the kernels
+        flags = 0  # one sync a call (a shard), after the kernels
+        for b in [] if bad is None else bad if isinstance(bad, list) else [bad]:
+            flags |= int(b.item())
         if flags & ADLER_BAD:  # the host decoder's inflate fails before its defilter
             raise FormatError(ADLER_MESSAGE)
         if flags:

@@ -21,9 +21,14 @@ card expands them into the raster:
 batch, when a stream carries alpha.  The host pass is the serial
 reference semantics, so the result is exact and there is no ``ok`` flag.
 Each plan goes up in one pinned copy; the lane pass writes its plan
-straight into the pinned buffer (``out=``).  Not ported, by decision: the
-speculative ``BatchQoiDecoder`` and its knobs, the ``ZPIX_QOI_*``
-environment variables, the loop form of the expansion and ``mesh``.
+straight into the pinned buffer (``out=``).  With ``mesh`` the lane form
+shards its lanes (batch-major, as zpix_tpu shards the lane-major arrays)
+and the sorted form its images over the mesh's batch axis, each run
+expanded on its own device; lanes of an image that two positions hold
+come together where its first lane is (``mesh.regroup``), and the output
+is ``Sharded``.  Not ported, by decision: the speculative
+``BatchQoiDecoder`` and its knobs, the ``ZPIX_QOI_*`` environment
+variables and the loop form of the expansion.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from ..ops import qoi as kq
 from ..runtime import host
 from ..utils import metrics, trace
 from .device_entropy import PinnedUpload, resolve_device
+from .mesh import DeviceUploads, Sharded, mesh_device, regroup
 
 DEFAULT_LANE_P = 32  # zpix_tpu's default when ZPIX_QOI_LANE_P is unset
 
@@ -269,14 +275,16 @@ class HostIndexQoiDecoder:
     their shapes."""
 
     def __init__(self, *, impl: str = "lane", lane_p: int | None = None,
-                 lane_fmt: str = "auto", device=None):
+                 lane_fmt: str = "auto", device=None, mesh=None):
         if impl not in ("lane", "sorted") or lane_fmt not in ("auto", "wide", "p4"):
             raise ValueError(f"qoi: unknown impl {impl!r} or lane_fmt {lane_fmt!r}")
         self.impl = impl
         self.lane_p = lane_p
         self.lane_fmt = lane_fmt
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device)
         self._upload = PinnedUpload(self.device)
+        self._uploads = DeviceUploads(self._upload)
         self._rcap_hint = 0
         self._r_hint = 0
         self._r4_hint = 0
@@ -319,25 +327,51 @@ class HostIndexQoiDecoder:
         return plan or prep_qoi_lanes(datas, self.lane_p, r or None,
                                       out=self._staged(datas, False, r))
 
+    @staticmethod
+    def _arrays(plan: QoiRecordPlan | QoiLanePlan) -> list:
+        if isinstance(plan, QoiRecordPlan):
+            return [plan.cols, plan.cnts, plan.fill]
+        return [plan.p4] if plan.fmt == "p4" else [plan.cols, plan.s, plan.e]
+
     def upload(self, plan: QoiRecordPlan | QoiLanePlan) -> list:
         """The plan's arrays -> device tensors, in one pinned copy (with no
-        packing copy for arrays ``prep`` filled in place)."""
-        if isinstance(plan, QoiRecordPlan):
-            return self._upload([plan.cols, plan.cnts, plan.fill])
-        if plan.fmt == "p4":
-            return self._upload([plan.p4])
-        return self._upload([plan.cols, plan.s, plan.e])
+        packing copy for arrays ``prep`` filled in place).  With a mesh, a
+        list of those a batch position: its run of images (sorted) or of
+        lanes (lane); ValueError where the mesh does not divide them."""
+        arrays = self._arrays(plan)
+        if self.mesh is None:
+            return self._upload(arrays)
+        n = len(arrays[0])
+        return self._uploads.runs(self.mesh, arrays, f"qoi: the batch ({n} images)"
+                                  if isinstance(plan, QoiRecordPlan)
+                                  else f"qoi: the lane count ({n} lanes)")
 
     def run(self, plan: QoiRecordPlan | QoiLanePlan, bufs):
-        """The expansion kernel on uploaded buffers -> [B, H, W, 4] uint8."""
-        shape = (plan.batch, plan.height, plan.width)
+        """The expansion kernel on uploaded buffers -> [B, H, W, 4] uint8
+        (``Sharded`` with a mesh)."""
         if isinstance(plan, QoiRecordPlan):
             self._rcap_hint = max(self._rcap_hint, plan.rcap)
+        elif plan.fmt == "p4":
+            self._r4_hint = max(self._r4_hint, plan.R)
+        else:
+            self._r_hint = max(self._r_hint, plan.R)
+        shape = (plan.height, plan.width)
+        if self.mesh is None:
+            return self._expand(plan, bufs, (plan.batch, *shape))
+        if isinstance(plan, QoiRecordPlan):
+            return Sharded.stack(self._expand(plan, b, (len(b[0]), *shape)) for b in bufs)
+        # a run of lanes -> its pixels, a row of P each; then whole images
+        rows = [self._expand(plan, b, (len(b[0]), plan.P, 1)).view(-1, plan.P, 4)
+                for b in bufs]
+        npx = plan.width * plan.height
+        return Sharded.stack(px.view(n, *shape, 4) for px, n in regroup(rows, npx // plan.P))
+
+    @staticmethod
+    def _expand(plan: QoiRecordPlan | QoiLanePlan, bufs, shape):
+        if isinstance(plan, QoiRecordPlan):
             return kq.sorted_expand(*bufs, shape=shape)
         if plan.fmt == "p4":
-            self._r4_hint = max(self._r4_hint, plan.R)
             return kq.lane_expand_p4(bufs[0], P=plan.P, shape=shape)
-        self._r_hint = max(self._r_hint, plan.R)
         return kq.lane_expand_wide(*bufs, P=plan.P, shape=shape)
 
     def decode(self, datas: list[bytes], plan: QoiRecordPlan | QoiLanePlan | None = None):

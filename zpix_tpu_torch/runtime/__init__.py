@@ -156,18 +156,21 @@ def lookback_scratch(device, words: int):
     """-> (an int64 tensor of at least ``words`` on ``device``, an epoch)
     for one launch of a kernel with decoupled look-back (K3, K7;
     csrc/lookback.cuh).  One tensor a CUDA stream, kept between calls and
-    zeroed when made and after 2^30 - 1 epochs: each launch gets a new
-    epoch, so the words an
+    zeroed when made and after 2^30 - 1 epochs, keyed by the card's index
+    and the stream: each launch gets a new epoch, so the words an
     earlier launch left read as unset, and the launch leaves word 0 (its
     ticket counter) at 0.  A call allocates nothing and needs no memset."""
     import torch
 
-    key = (str(device), torch.cuda.current_stream(device).cuda_stream)
+    dev = torch.device(device)
+    if dev.index is None:  # "cuda" and "cuda:0" are one device and one stream
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
     with _lock:
         ent = _scratch.get(key)
         if ent is None or ent[0].numel() < words:
             size = max(words, 2 * (0 if ent is None else ent[0].numel()))
-            ent = [torch.zeros(size, dtype=torch.int64, device=device), 0]
+            ent = [torch.zeros(size, dtype=torch.int64, device=dev), 0]
             _scratch[key] = ent
         ent[1] += 1
         if ent[1] > _EPOCHS:  # every epoch used: start again from zeros
