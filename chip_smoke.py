@@ -96,6 +96,17 @@ launches a call; six DRI 8 images whose lanes straddle the four shards;
 and two processes of this script on the one card (gloo,
 parallel/distributed.py, ``--distributed-worker``), each decoding 8 of
 the 16 DRI 8 images, their shards against the single-process decode.
+Then the ``spec`` phase: K20-K23 against their plain versions at 16 x
+1024^2 (K20 and K21 on every DC-first and AC-first scan, K22 on the host
+tail's deltas beside ``scatter_add_``, K23 on QOI noise and screen), and
+batches of 16 copies of one 1024^2 4:2:0 progressive image through
+``OnchipProgressiveDecoder(impl="spec")`` (libjpeg's script: no host
+tail, one flag fetch; Cb's AC-first scan moved after Y's first
+refinement: the tail decodes 5 scans; a batch the host walk refuses goes
+the spec path in host-index mode's ``decode()``) and
+``DeviceProgressiveDecoder``, and QOI noise and screen through
+``BatchQoiDecoder`` (its rounds and chunks, an ``ops_cap`` overflow), each
+against the host decoder and timed by stage between CUDA events.
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero.  Without CUDA it exits non-zero and prints no
 result.
@@ -171,6 +182,12 @@ KERNELS = {  # name -> (source, TPU-side function it replaces)
     "png_expand": ("zpix_tpu_torch/csrc/png_expand.cu", "zpix_tpu/parallel/png_batch.py:299"),
     "sync_decode": ("zpix_tpu_torch/csrc/sync_entropy.cu",
                     "zpix_tpu/parallel/device_entropy_sync.py:176"),
+    "dc_first_spec": ("zpix_tpu_torch/csrc/prog_spec.cu",
+                      "zpix_tpu/parallel/progressive_onchip.py:363"),
+    "ac_first_spec": ("zpix_tpu_torch/csrc/prog_spec.cu",
+                      "zpix_tpu/parallel/progressive_onchip.py:541"),
+    "delta_add": ("zpix_tpu_torch/csrc/prog_spec.cu", "zpix_tpu/parallel/progressive.py:85"),
+    "qoi_spec": ("zpix_tpu_torch/csrc/qoi_spec.cu", "zpix_tpu/parallel/qoi_batch.py:158"),
 }
 PROG_KINDS = ("dc_first", "ac_first", "ac_refine", "dc_refine")
 RASTER_KINDS = ("qoi_lane_expand", "qoi_sorted_expand", "qoi_encode", "bmp_unpack",
@@ -3780,6 +3797,406 @@ def mesh_check(ms) -> None:
         raise SystemExit("chip_smoke: the two-process decode differs from the single process")
 
 
+# ------------------------------------- spec: the decoders with no host index walk
+
+SPEC_TIMED = 3  # timed batches a route
+SPEC_KINDS = ("dc_first_spec", "ac_first_spec", "delta_add", "qoi_spec")
+# Least operations: K20 and K21 a symbol (K2's symbol decode) and K20 a
+# block its prefix add and shift; K23 an op (its length, up to five byte
+# reads, the pixel's update, the hash: 4 multiplies, 3 adds, a mask, the
+# index write) and a pixel its store; K22 an add an element.
+OPS_K23_OP, OPS_K23_PIXEL, OPS_K22_ELEMENT = 20, 1, 1
+SPEC_OPS_CAP = 16  # the overflow batch's ops a chunk (noise holds ~1,000 at 4 KiB)
+
+
+class EventClock:
+    """Callables wrapped where the code under test looks them up: each
+    call's device time between CUDA events (``dev`` labels) or host time
+    (``host`` labels), summed by label, the wrappers restored on exit."""
+
+    def __init__(self, dev=(), host=()):
+        self.targets = [(obj, name, label, True) for obj, name, label in dev]
+        self.targets += [(obj, name, label, False) for obj, name, label in host]
+        self.events, self.host = [], {}
+
+    def _wrap(self, fn, label, device):
+        def timed(*a, **kw):
+            if not device:
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                self.host[label] = self.host.get(label, 0.0) + (time.perf_counter() - t0) * 1e3
+                return out
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            out = fn(*a, **kw)
+            e1.record()
+            self.events.append((label, e0, e1))
+            return out
+        return timed
+
+    def __enter__(self):
+        self.saved = [(obj, name, getattr(obj, name)) for obj, name, _, _ in self.targets]
+        for (obj, name, label, device), (_, _, fn) in zip(self.targets, self.saved):
+            setattr(obj, name, self._wrap(fn, label, device))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self.saved:
+            setattr(obj, name, fn)
+
+    def ms(self) -> dict:
+        torch.cuda.synchronize()
+        out = dict(self.host)
+        for label, e0, e1 in self.events:
+            out[label] = out.get(label, 0.0) + e0.elapsed_time(e1)
+        return out
+
+
+def spec_scan_checks(dec, datas):
+    """K20 and K21 against their plain versions on every DC-first and
+    AC-first scan of a full batch, each from a zero store on the card ->
+    (max_abs_err by kernel, ok both, per scan: rounds (kernel, per image),
+    chunk count, the most symbols a chunk, kernel and plain ms, stream
+    bytes, blocks)."""
+    from zpix_tpu_torch.ops import prog_spec as ps
+    from zpix_tpu_torch.parallel import progressive_onchip as po
+
+    plans = [po.parse_progressive(d) for d in datas]
+    p0, dev = plans[0], dec.device
+    errs = {"dc_first_spec": 0, "ac_first_spec": 0}
+    oks, scans = [], []
+    for si, sc in enumerate(p0.scans):
+        if not (sc.kind == "dc_first" or (sc.kind == "ac_first" and len(sc.comps) == 1)):
+            continue
+        arrays, F = po.spec_first_inputs(p0, plans, si, dec.chunk_bytes)
+        t = [torch.from_numpy(a).to(dev) for a in arrays]
+        valid = po.valid_grid(p0, sc.comps[0])
+        shapes = [(len(datas), p0.myy * p0.hv[c][1], p0.mxx * p0.hv[c][0], 64) for c in sc.comps]
+        kw = dict(valid=valid, al=sc.al, chunk_bytes=dec.chunk_bytes, n_chunks=F)
+        name = "dc_first_spec" if sc.kind == "dc_first" else "ac_first_spec"
+        stats = {}
+        if sc.kind == "dc_first":
+            kw["hv"] = [p0.hv[c] for c in sc.comps]
+            kern, plain = ps.dc_first_spec, ps.dc_first_spec_plain
+
+            def call(fn, grids, ok, **extra):
+                return fn(*t, ok, grids, **kw, **extra)
+        else:
+            kw.update(ss=sc.ss, se=sc.se)
+            kern, plain = ps.ac_first_spec, ps.ac_first_spec_plain
+
+            def call(fn, grids, ok, **extra):
+                return fn(*t, ok, grids[0], **kw, **extra)
+        gk = [torch.zeros(s, dtype=torch.int32, device=dev) for s in shapes]
+        gp = [torch.zeros(s, dtype=torch.int32, device=dev) for s in shapes]
+        okk, okp = (torch.ones(1, dtype=torch.int32, device=dev) for _ in range(2))
+        rounds = call(kern, gk, okk)
+        t0 = time.perf_counter()
+        call(plain, gp, okp, stats=stats)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        errs[name] = max(errs[name], max_abs_err(okk, okp),
+                         *(max_abs_err(a, b) for a, b in zip(gk, gp)))
+        oks.append(bool(okk) and bool(okp))
+        ms = cuda_ms(lambda: call(kern, gk, okk), 5)
+        scans.append({"scan": si, "kind": name, "comps": list(sc.comps), "chunks": F,
+                      "rounds": rounds.cpu().tolist(), "chunk_symbols": stats["chunk_symbols"],
+                      "ms": ms, "plain_ms": plain_s * 1e3, "stream_bytes": int(arrays[0].nbytes),
+                      "blocks": len(datas) * (int(np.prod(valid)) if len(sc.comps) == 1 else
+                                              p0.mxx * p0.myy * sum(p0.hv[c][0] * p0.hv[c][1]
+                                                                    for c in sc.comps))})
+        del gk, gp
+    return errs, all(oks), scans
+
+
+def prog_spec_route(dec, datas, clock_targets):
+    """One spec decode with each stage timed -> (pixels, ok, stage ms)."""
+    from zpix_tpu_torch.parallel import progressive_onchip as po
+
+    with EventClock(*clock_targets(dec)) as clock:
+        t0 = time.perf_counter()
+        px, ok = dec.decode(datas)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    st = clock.ms()
+    st["e2e"] = wall
+    return px, bool(ok), st
+
+
+def spec_phase(dev):
+    """The three decoders with no host index walk: K20-K23 against their
+    plain versions at full width, OnchipProgressiveDecoder(impl="spec") (no
+    tail on libjpeg's script, the tail on a moved scan, the fallback of a
+    refused walk), DeviceProgressiveDecoder and BatchQoiDecoder (noise and
+    screen, an ops_cap overflow), each against the host decoder, timed by
+    stage -> (summary, {kernel: timing entry})."""
+    from zpix_tpu_torch import OnchipProgressiveDecoder, runtime
+    from zpix_tpu_torch.ops import planes as kp6
+    from zpix_tpu_torch.ops import prog_spec as ps
+    from zpix_tpu_torch.ops import progressive as kpr
+    from zpix_tpu_torch.ops import qoi_spec as qs
+    from zpix_tpu_torch.parallel import BatchQoiDecoder, DeviceProgressiveDecoder
+    from zpix_tpu_torch.parallel import HostIndexQoiDecoder
+    from zpix_tpu_torch.parallel import progressive as pd
+    from zpix_tpu_torch.parallel import progressive_onchip as po
+
+    t0 = time.perf_counter()
+    writer = jpeg_writer()
+    batches = make_prog_batches(range(300, 301 + SPEC_TIMED))
+    moved = [writer.move_scan(batches[0][0], 3, 5)] * BATCH
+    qoi = {c: make_qoi_batches(c, range(1 + SPEC_TIMED)) for c in ("noise", "screen")}
+    content_s = time.perf_counter() - t0
+    mpix = BATCH * SIZE * SIZE / 1e6
+    dec = OnchipProgressiveDecoder(impl="spec")
+
+    # K20 and K21 against their plain versions, scan by scan, full batch
+    errs, kernels_ok, scans = spec_scan_checks(dec, batches[0])
+
+    def spec_targets(d):
+        return ([(ps, "dc_first_spec", "dc_first_spec"), (ps, "ac_first_spec", "ac_first_spec"),
+                 (kpr, "ac_refine", "ac_refine"), (kpr, "dc_refine", "dc_refine"),
+                 (ps, "delta_add", "delta_add"), (po, "decode_batch_planes", "component_planes"),
+                 (d, "_upload", "h2d"), (po, "pack_flags", "flag_pack")],
+                [(po, "parse_progressive", "host_parse"),
+                 (po, "spec_first_inputs", "host_stack"), (po, "tail_deltas", "host_tail"),
+                 (d, "_spec_refinements", "flag_fetch_and_walks")])
+
+    # the spec route: launches of one decode, images 0 and 1 against the host
+    dec.decode(batches[1])
+    torch.cuda.synchronize()
+    runtime.reset_launches()
+    px, ok = dec.decode(batches[0])
+    torch.cuda.synchronize()
+    launches = dict(runtime.LAUNCHES)
+    route = {"ok": bool(ok), "n_host_tail_scans": dec.n_host_tail_scans,
+             "flag_fetch_bytes": dec.spec_stats["flag_fetch_bytes"],
+             "rounds": {si: r.cpu().tolist() for si, r in dec.spec_stats["rounds"].items()},
+             "host_decoder_err": max(host_decoder_err(px[i], batches[0][i]) for i in (0, 1)),
+             "launches": launches}
+    # the same decode again, every stage timed, over the timed batches
+    stages = [prog_spec_route(dec, b, spec_targets)[2] for b in batches[1:]]
+    route["stage_ms_mean"] = {k: float(np.mean([s.get(k, 0.0) for s in stages]))
+                              for k in stages[0]}
+    route["e2e_mpix_per_s"] = mpix / (route["stage_ms_mean"]["e2e"] / 1e3)
+
+    # the tail: Cb's AC-first scan moved after Y's first refinement (its
+    # deltas kept for K22's checks)
+    runtime.reset_launches()
+    captured, tail_deltas = [], po.tail_deltas
+    po.tail_deltas = lambda *a: captured.append(tail_deltas(*a)) or captured[-1]
+    try:
+        tpx, tok, tst = prog_spec_route(dec, moved, spec_targets)
+    finally:
+        po.tail_deltas = tail_deltas
+    tail = {"ok": tok, "n_host_tail_scans": dec.n_host_tail_scans,
+            "prefix": dec.spec_stats["prefix"], "launches": dict(runtime.LAUNCHES),
+            "host_decoder_err": max(host_decoder_err(tpx[i], batches[0][0]) for i in (0, 1)),
+            "stage_ms": tst, "e2e_mpix_per_s": mpix / (tst["e2e"] / 1e3)}
+    # K22 on the tail's deltas: kernel, plain (scatter_add_ after the index
+    # cast) and the library call alone, on a store of the batch's shape
+    pl = po.parse_progressive(moved[0])
+    dv = [(torch.from_numpy(i).to(dev), torch.from_numpy(v).to(dev)) for i, v in captured[0]]
+    dv64 = [(i.long(), v) for i, v in dv]
+    flat = [torch.randint(-999, 999, (BATCH, pl.myy * v * pl.mxx * h * 64), dtype=torch.int32,
+                          device=dev) for h, v in pl.hv]
+    k22_elems = sum(int(i.numel()) for i, _ in dv)
+    sk = [f.clone() for f in flat]
+    sp = [f.clone() for f in flat]
+    for s, (i, v) in zip(sk, dv):
+        ps.delta_add(s, i, v)
+    for s, (i, v) in zip(sp, dv):
+        ps.delta_add_plain(s, i, v)
+    errs["delta_add"] = max(max_abs_err(a, b) for a, b in zip(sk, sp))
+
+    def k22(fn, pairs):
+        def go():
+            for s, (i, v) in zip(sk, pairs):
+                fn(s, i, v)
+        return go
+
+    k22_ms = cuda_ms(k22(ps.delta_add, dv), 20)
+    k22_plain_ms = cuda_ms(k22(ps.delta_add_plain, dv), 5)
+    k22_lib_ms = cuda_ms(k22(lambda s, i, v: s.scatter_add_(1, i, v), dv64), 20)
+    del sk, sp, flat
+
+    # the fallback: a batch the DC-first walk refuses goes the spec path
+    bad = [corrupt_first_scan(batches[0][0])] + batches[0][1:]
+    hidx = OnchipProgressiveDecoder()
+    runtime.reset_launches()
+    fpx, fok = hidx.decode(bad)
+    torch.cuda.synchronize()
+    f_launches = dict(runtime.LAUNCHES)
+    spx, sok = dec.decode(bad)
+    fallback = {"refused": hidx.prep(bad).refused, "ok": bool(fok),
+                "spec_launches": f_launches["dc_first_spec"],
+                "hostindex_launches": f_launches["dc_first"],
+                "equals_spec_decode": bool(fok) == bool(sok) and torch.equal(fpx, spx)}
+    hidx.close()
+
+    # DeviceProgressiveDecoder on the same batches
+    ddec = DeviceProgressiveDecoder()
+    ddec.decode(batches[1])
+    torch.cuda.synchronize()
+    runtime.reset_launches()
+    dpx = ddec.decode(batches[0])
+    torch.cuda.synchronize()
+    d_launches = dict(runtime.LAUNCHES)
+    delta = {"launches": d_launches, "host_decoder_err":
+             max(host_decoder_err(dpx[i], batches[0][i]) for i in (0, 1)),
+             "equals_spec_route": torch.equal(dpx, px)}
+    dstages = []
+    for b in batches[1:]:
+        with EventClock([(ps, "delta_add", "delta_add"), (pd, "decode_batch_planes",
+                                                          "component_planes"),
+                         (ddec, "_upload", "h2d")], [(ddec, "record", "host_record")]) as clk:
+            t0 = time.perf_counter()
+            ddec.decode(b)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        st = clk.ms()
+        st["e2e"] = wall
+        dstages.append(st)
+    delta["stage_ms_mean"] = {k: float(np.mean([s[k] for s in dstages])) for k in dstages[0]}
+    delta["e2e_mpix_per_s"] = mpix / (delta["stage_ms_mean"]["e2e"] / 1e3)
+    ddec.close()
+    del dpx, tpx, fpx, spx
+
+    # BatchQoiDecoder: K23 against its plain version, the host decoder and
+    # HostIndexQoiDecoder (lane); rounds and chunks; stages; an overflow
+    qdec, lane = BatchQoiDecoder(), HostIndexQoiDecoder()
+    qoi_out, k23 = {}, {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0, "ops": 0,
+                        "stream_bytes": 0}
+    for content, qb in qoi.items():
+        plan = qdec.prep(qb[0])
+        bufs = qdec.upload(plan)
+        runtime.reset_launches()
+        qpx, qok = qdec.run(plan, bufs)
+        torch.cuda.synchronize()
+        ql = runtime.LAUNCHES["qoi_spec"]
+        rounds = qdec.last_rounds.cpu().tolist()
+        kw = dict(n_chunks=plan.n_chunks, chunk_bytes=plan.chunk_bytes, ops_cap=plan.chunk_bytes,
+                  height=SIZE, width=SIZE)
+        stats = {}
+        t0 = time.perf_counter()
+        ppx, pok, _ = qs.spec_decode_plain(*bufs, **kw, stats=stats)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        ms = cuda_ms(lambda: qs.spec_decode(*bufs, **kw), 3)
+        err = max(max_abs_err(qpx, ppx), int(bool(qok) != bool(pok)))
+        host = qoi_host_pixels(qb[0][:2])
+        lane_px = lane.decode(qb[0])
+        qst = []
+        for b in qb[1:]:
+            t0 = time.perf_counter()
+            pl = qdec.prep(b)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            torch.cuda.synchronize()
+            ev[0].record()
+            bb = qdec.upload(pl)
+            ev[1].record()
+            qdec.run(pl, bb)
+            ev[2].record()
+            torch.cuda.synchronize()
+            qst.append({"host_prep": host_ms, "h2d": ev[0].elapsed_time(ev[1]),
+                        "qoi_spec": ev[1].elapsed_time(ev[2]),
+                        "e2e": host_ms + ev[0].elapsed_time(ev[2])})
+        mean = {k: float(np.mean([s[k] for s in qst])) for k in qst[0]}
+        walls, _, _, _ = timed_decodes(lambda d: qdec.decode(d)[0], qb[1:])
+        qoi_out[content] = {
+            "ok": bool(qok), "plain_ok": bool(pok), "max_abs_err_vs_plain": err,
+            "host_decoder_err": max_abs_err(qpx[:2].cpu(), torch.from_numpy(host)),
+            "lane_err": max_abs_err(qpx, lane_px), "launches": ql,
+            "rounds": rounds, "chunks": plan.n_chunks, "chunk_bytes": plan.chunk_bytes,
+            "chunk_ops": stats["chunk_ops"], "ops": stats["ops"],
+            "stream_bytes": int(plan.stream.nbytes), "ms": ms, "plain_ms": plain_ms,
+            "stage_ms_mean": mean, "e2e_ms": [w * 1e3 for w in walls],
+            "e2e_mpix_per_s": mpix / float(np.mean(walls))}
+        k23["max_abs_err"] = max(k23["max_abs_err"], err)
+        for k in ("ms", "plain_ms", "ops", "stream_bytes"):
+            k23[k] += qoi_out[content][k]
+        del qpx, ppx, lane_px
+    over = BatchQoiDecoder(ops_cap=SPEC_OPS_CAP)
+    opx, ook = over.decode(qoi["noise"][0][:2])
+    verified = over.decode_verified(qoi["noise"][0][:2])
+    qoi_out["ops_cap_overflow"] = {
+        "ops_cap": SPEC_OPS_CAP, "ok": bool(ook),
+        "verified_host_err": max_abs_err(torch.from_numpy(verified),
+                                         torch.from_numpy(qoi_host_pixels(qoi["noise"][0][:2])))}
+
+    summary = {"content_seconds": content_s, "max_abs_err": errs, "kernels_ok": kernels_ok,
+               "scans": scans, "spec": route, "tail": tail, "fallback": fallback,
+               "delta": delta, "qoi": qoi_out,
+               "k22_inputs": {"elements": k22_elems, "rows": [list(i.shape) for i, _ in dv]}}
+    # timing entries: the main path's launches and this run's inputs
+    dc = [s for s in scans if s["kind"] == "dc_first_spec"]
+    ac = [s for s in scans if s["kind"] == "ac_first_spec"]
+    chain = {k: max(s["chunk_symbols"] * max(s["rounds"]) for s in v)
+             for k, v in (("dc_first_spec", dc), ("ac_first_spec", ac))}
+    nblk_dc = sum(s["blocks"] for s in dc)
+    entries = {
+        "dc_first_spec": {
+            "ms": sum(s["ms"] for s in dc), "plain_ms": sum(s["plain_ms"] for s in dc),
+            "bytes": sum(s["stream_bytes"] for s in dc) + 4 * nblk_dc,
+            "ops": (OPS_K2_SYMBOL + OPS_K8_BLOCK) * nblk_dc, "launches": launches["dc_first_spec"],
+            "max_abs_err": errs["dc_first_spec"], "library_ms": None,
+            "chain_bound_ms": chain["dc_first_spec"] * CHAIN_CYCLES_PER_SYMBOL / BOOST_HZ * 1e3,
+            "rounds": {s["scan"]: s["rounds"] for s in dc}},
+        "ac_first_spec": {
+            "ms": sum(s["ms"] for s in ac), "plain_ms": sum(s["plain_ms"] for s in ac),
+            # the stream read, the valid blocks' band rows written
+            "bytes": sum(s["stream_bytes"] for s in ac) + 4 * 63 * sum(s["blocks"] for s in ac),
+            "ops": OPS_K2_SYMBOL * sum(s["blocks"] for s in ac),
+            "launches": launches["ac_first_spec"], "max_abs_err": errs["ac_first_spec"],
+            "library_ms": None,
+            "chain_bound_ms": chain["ac_first_spec"] * CHAIN_CYCLES_PER_SYMBOL / BOOST_HZ * 1e3,
+            "rounds": {s["scan"]: s["rounds"] for s in ac}},
+        "delta_add": {
+            "ms": k22_ms, "plain_ms": k22_plain_ms, "library_ms": k22_lib_ms,
+            "library_call": "Tensor.scatter_add_(1, idx.long(), val), a call a component",
+            "bytes": 16 * k22_elems, "ops": OPS_K22_ELEMENT * k22_elems,
+            "launches": d_launches["delta_add"], "max_abs_err": errs["delta_add"],
+            "launches_tail": tail["launches"]["delta_add"]},
+        "qoi_spec": {
+            "ms": k23["ms"], "plain_ms": k23["plain_ms"], "library_ms": None,
+            "bytes": k23["stream_bytes"] + 2 * 4 * BATCH * SIZE * SIZE,
+            "ops": OPS_K23_OP * k23["ops"] + OPS_K23_PIXEL * 2 * BATCH * SIZE * SIZE,
+            "launches": qoi_out["noise"]["launches"], "max_abs_err": k23["max_abs_err"],
+            "rounds": {c: qoi_out[c]["rounds"] for c in ("noise", "screen")},
+            "chunks": {c: qoi_out[c]["chunks"] for c in ("noise", "screen")},
+            "chain_bound_ms": max(qoi_out[c]["chunk_ops"] * max(qoi_out[c]["rounds"])
+                                  for c in ("noise", "screen"))
+            * CHAIN_CYCLES_PER_SYMBOL / BOOST_HZ * 1e3}}
+    dec.close()
+    return summary, entries
+
+
+def spec_check(sp) -> None:
+    r, t, f, d, q = sp["spec"], sp["tail"], sp["fallback"], sp["delta"], sp["qoi"]
+    if any(sp["max_abs_err"].values()) or not sp["kernels_ok"]:
+        raise SystemExit("chip_smoke: K20-K22 disagree with their plain versions")
+    lr = r["launches"]
+    if (not r["ok"] or r["n_host_tail_scans"] or r["host_decoder_err"] or lr["dc_first_spec"] != 1
+            or lr["ac_first_spec"] != 4 or lr["dc_first"] or lr["ac_first"]
+            or min(lr["ac_refine"], lr["dc_refine"], lr["component_planes"]) == 0
+            or r["flag_fetch_bytes"] == 0):
+        raise SystemExit("chip_smoke: the spec route is wrong or skipped a kernel")
+    if not t["ok"] or t["n_host_tail_scans"] != 5 or t["host_decoder_err"] or (
+            t["launches"]["delta_add"] != 3):
+        raise SystemExit("chip_smoke: the spec route's host tail is wrong")
+    if not f["refused"] or not f["spec_launches"] or not f["equals_spec_decode"]:
+        raise SystemExit("chip_smoke: a refused walk did not take the spec path")
+    if d["host_decoder_err"] or not d["equals_spec_route"] or d["launches"]["delta_add"] == 0:
+        raise SystemExit("chip_smoke: DeviceProgressiveDecoder is wrong")
+    for c in ("noise", "screen"):
+        e = q[c]
+        if (not e["ok"] or not e["plain_ok"] or e["max_abs_err_vs_plain"]
+                or e["host_decoder_err"] or e["lane_err"] or e["launches"] != 1):
+            raise SystemExit(f"chip_smoke: BatchQoiDecoder is wrong on {c}")
+    if q["ops_cap_overflow"]["ok"] or q["ops_cap_overflow"]["verified_host_err"]:
+        raise SystemExit("chip_smoke: an ops_cap overflow was not flagged")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4148,6 +4565,12 @@ def main() -> int:
     emit({"phase": "mesh", "seconds": time.perf_counter() - t0, **ms})
     mesh_check(ms)
 
+    # ------------------------- spec: the decoders with no host index walk
+    t0 = time.perf_counter()
+    sp, spec_entries = spec_phase(dev)
+    emit({"phase": "spec", "seconds": time.perf_counter() - t0, **sp})
+    spec_check(sp)
+
     # ------------------------------------------------------- kernel table
     ends, okf = ke.index_pass(*bufs, bpm=plan.bpm, nblk=nblk)
     ac, dc_diff = ke.value_pass(*bufs, ends, okf, bpm=plan.bpm)
@@ -4208,7 +4631,9 @@ def main() -> int:
     }
     paths = {"dri8": launches, "native": ln, "host_index": lh, "sync": sy["launches"],
              "progressive": lp, "python_front_end": py["launches"], **raster_paths,
-             "decode_mixed": mx["launches_all"], "mesh": ms["launches_all"]}
+             "decode_mixed": mx["launches_all"], "mesh": ms["launches_all"],
+             "spec": sp["spec"]["launches"], "spec_tail": sp["tail"]["launches"],
+             "delta": sp["delta"]["launches"]}
     by_path = {k: {p: counts[k] for p, counts in paths.items()} for k in KERNELS}
     kernels = []
     for kname, (fk, fp, nbytes, nops) in timing.items():
@@ -4289,6 +4714,16 @@ def main() -> int:
                 "ms", "plain_ms", "bytes", "ops", "launches", "library_ms", "max_abs_err")},
         })
     kernels.append(sync_entry(batches_rf[0], hplan, hac, sy, by_path["sync_decode"]))
+    for kname in SPEC_KINDS:
+        e = dict(spec_entries[kname])
+        ms_bound, by = roofline.bound_ms(e.pop("bytes"), e.pop("ops"))
+        kernels.append({
+            "name": kname, "route": "cuda", "source": KERNELS[kname][0],
+            "replaces": KERNELS[kname][1], "launches": e.pop("launches"),
+            "launches_by_path": by_path[kname], "max_abs_err": e["max_abs_err"],
+            "matches_plain": e.pop("max_abs_err") == 0, "ms": e.pop("ms"),
+            "plain_ms": e.pop("plain_ms"), "bound_ms": ms_bound, "bound_by": by,
+            "library_ms": e.pop("library_ms"), **e})
     emit({"phase": "serial_chain", "max_symbols_per_segment": seg_syms,
           "max_symbols_per_block": blk_syms, "symbols": n_syms,
           "index_pass_ns_per_symbol": kernels[0]["ms"] * 1e6 / seg_syms,

@@ -14,7 +14,7 @@ import torch
 from PIL import Image
 from _torch_jpeg_writer import (  # noqa: F401  (the inputs the tests share)
     CODED_CASES, QUAD, _noise_jpeg, as_rgb_stream, coded_segments, damage_plan,
-    encode_baseline, k1_k2_edges, port_host_pixels, random_limits, synth_jpeg,
+    encode_baseline, k1_k2_edges, move_scan, port_host_pixels, random_limits, synth_jpeg,
     synth_plain_jpeg, synth_ratio_jpeg)
 
 torch.set_num_threads(2)  # the suite runs with several workers

@@ -441,3 +441,39 @@ def port_host_pixels(data: bytes):
 # 4-component sampling {2x2, 1x1, 1x1, 2x2}, the one besides all-1x1 that
 # the SOF admits (decoder.zig:595-611)
 QUAD = ((2, 2), (1, 1), (1, 1), (2, 2))
+
+
+def jpeg_segments(data: bytes) -> list:
+    """A stream's segments after SOI, in order, each with its marker: an
+    SOS segment takes its entropy data up to the next marker that is not a
+    stuffed FF00 or an RSTn; EOI is the last."""
+    out, pos = [], 2
+    while pos < len(data) - 1:
+        if data[pos + 1] == 0xD9:
+            out.append(data[pos : pos + 2])
+            break
+        end = pos + 2 + ((data[pos + 2] << 8) | data[pos + 3])
+        if data[pos + 1] == 0xDA:
+            while not (data[end] == 0xFF and data[end + 1] not in (0x00, 0xFF)
+                       and not 0xD0 <= data[end + 1] <= 0xD7):
+                end += 1
+        out.append(data[pos:end])
+        pos = end
+    return out
+
+
+def move_scan(data: bytes, scan: int, after: int) -> bytes:
+    """The stream with scan ``scan`` (its SOS and the DHT segments right
+    before it; 0-based) moved to just after scan ``after`` (its number in
+    the stream as given).  Scans of different components commute, so a
+    progressive stream whose scan moves past scans of other components
+    decodes to the same pixels."""
+    segs = jpeg_segments(data)
+    sos = [i for i, s in enumerate(segs) if s[1] == 0xDA]
+    first = sos[scan]
+    while first > 0 and segs[first - 1][1] == 0xC4:
+        first -= 1
+    block = segs[first : sos[scan] + 1]
+    rest = segs[:first] + segs[sos[scan] + 1 :]
+    at = [i for i, s in enumerate(rest) if s[1] == 0xDA][after - (after > scan)] + 1
+    return data[:2] + b"".join(rest[:at] + block + rest[at:])

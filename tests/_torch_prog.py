@@ -226,3 +226,115 @@ def dc_refine_words(rows, grids, hv, valid, al: int, run: int) -> None:
                     c, by = 0, div(i, by_row)
                     bx = i - by * per_row
                 grids[c][b, by, bx, 0] |= bit
+
+
+# --------------------------------------------------------------- K20, K21
+
+# DC tables: a 1-bit code for size 0 (a flat image's: 8 symbols a byte
+# overflow a chunk's 4 a byte), and two with codes of 2 to 10 bits.
+DC_UNARY = ([1] * 12 + [0] * 4, list(range(12)))
+DC_SPREAD = ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0], list(range(12)))
+DC_SKEWED = ([0, 2, 3, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0], list(range(12)))
+
+
+def _pack(out: _Bits) -> np.ndarray:
+    """The bits, then 1-bits to the byte's end (an encoder's padding)."""
+    while len(out) % 8:
+        out.put(1, 1)
+    return np.packbits(np.asarray(out.bits, np.uint8))
+
+
+def spec_dc_scan(seed: int, *, hv=((2, 2), (1, 1), (1, 1)), mxx=5, myy=3, zero=0.3,
+                 tables=(DC_SPREAD, DC_SKEWED)):
+    """A DC-first scan coded by hand, serially: every block of an mxx x myy
+    MCU grid in (MCU, slot) order, the slots of component c coded with
+    table min(c, len(tables) - 1) -> dict: ``stream`` u8 (the scan's
+    bytes), ``diffs`` int64 [nblk] in scan order, ``tid_of_slot``,
+    ``huffs`` [(counts, symbols)], ``symbol_ends`` (bit positions)."""
+    rng = np.random.default_rng(seed)
+    codes = [_codes(*t) for t in tables]
+    tid = [min(c, len(tables) - 1) for c, (h, v) in enumerate(hv) for _ in range(h * v)]
+    nblk = mxx * myy * len(tid)
+    diffs = np.where(rng.random(nblk) < zero, 0, rng.integers(-1000, 1000, nblk))
+    out, ends = _Bits(), []
+    for i, d in enumerate(diffs):
+        size, bits = _magnitude(int(d)) if d else (0, 0)
+        c, ln = codes[tid[i % len(tid)]][size]
+        out.put(c, ln)
+        out.put(bits, size)
+        ends.append(len(out))
+    return {"stream": _pack(out), "diffs": diffs, "tid_of_slot": tid,
+            "huffs": list(tables), "symbol_ends": ends}
+
+
+def dc_store(diffs, hv, mxx, myy, al, grids):
+    """The store a DC-first scan over ``grids`` (int64 [bv, bh, 64] each,
+    changed in place) leaves: coefficient 0 = the prefix of the diffs along
+    each component's chain << al, int32 wrapping."""
+    bpm = sum(h * v for h, v in hv)
+    d = np.asarray(diffs, np.int64).reshape(myy * mxx, bpm)
+    s0 = 0
+    for g, (h, v) in zip(grids, hv):
+        run = np.cumsum(d[:, s0 : s0 + h * v].reshape(-1)).reshape(myy, mxx, v, h)
+        g[..., 0] = (run.transpose(0, 2, 1, 3).reshape(myy * v, mxx * h) << al)
+        s0 += h * v
+    for g in grids:
+        g[...] = ((g + (1 << 31)) % (1 << 32)) - (1 << 31)
+
+
+def spec_ac_scan(seed: int, *, nvy=6, nvx=11, ss=1, se=63, runs=0.3, zrl=0.1, overflow=0.05):
+    """An AC-first scan of one component coded by hand, serially: nvy x nvx
+    valid blocks in raster order, a share ``runs`` of the steps an EOB run
+    (EOBn with its run bits: the run covers its block and as many after as
+    they say, clipped to the blocks left), else a block with data taking
+    symbols until its band ends, an EOB or an overflow symbol (code bits
+    only) -> dict: ``stream`` u8, ``vals`` int64 [nvalid, 64] natural
+    order, ``huffs``, ``run_spans`` [(first bit, end bit) of each EOBn
+    symbol with n > 0], ``symbol_ends``."""
+    rng = np.random.default_rng(seed)
+    codes = _codes(AC_COUNTS, AC_SYMBOLS)
+    nvalid = nvy * nvx
+    vals = np.zeros((nvalid, 64), np.int64)
+    out, spans, ends = _Bits(), [], []
+
+    def sym(s, extra=0, n=0):
+        c, ln = codes[s]
+        out.put(c, ln)
+        out.put(extra, n)
+        ends.append(len(out))
+
+    i = 0
+    while i < nvalid:
+        left = nvalid - i
+        if rng.random() < runs and left > 1:
+            n = int(rng.integers(2, min(left, 1 << 14) + 1))
+            r = n.bit_length() - 1
+            first = len(out)
+            sym(r << 4, n - (1 << r), r)
+            spans.append((first, len(out)))
+            i += n
+            continue
+        k = ss
+        while True:
+            u = rng.random()
+            if u < zrl and k + 16 <= se:
+                sym(0xF0)
+                k += 16
+            elif u < zrl + overflow and se - k + 1 < 16:
+                sym(int(rng.integers(se - k + 1, 16)) << 4 | int(rng.integers(1, 11)))
+                break
+            elif u < zrl + overflow + 0.2:
+                sym(0x00)
+                break
+            else:
+                r = int(rng.integers(0, min(15, se - k) + 1))
+                v = int(rng.integers(1, 1024)) * (1 if rng.random() < 0.5 else -1)
+                size, bits = _magnitude(v)
+                sym(r << 4 | size, bits, size)
+                vals[i, UNZIG[k + r]] = v
+                k += r + 1
+                if k > se:
+                    break
+        i += 1
+    return {"stream": _pack(out), "vals": vals, "huffs": [(AC_COUNTS, AC_SYMBOLS)],
+            "run_spans": spans, "symbol_ends": ends}

@@ -201,7 +201,8 @@ def test_imports_load_neither_jax_nor_the_jax_package():
         "zpix_tpu_torch.codecs.png.sng, zpix_tpu_torch.codecs.bmp, zpix_tpu_torch.codecs.qoi, "
         "zpix_tpu_torch.codecs.qoi.encode_vec, zpix_tpu_torch.parallel.bucketing, "
         "zpix_tpu_torch.parallel.mesh, zpix_tpu_torch.parallel.distributed, "
-        "zpix_tpu_torch.utils.roofline\n"
+        "zpix_tpu_torch.utils.roofline, zpix_tpu_torch.parallel.progressive, "
+        "zpix_tpu_torch.ops.prog_spec, zpix_tpu_torch.ops.qoi_spec\n"
         "import numpy as np\n"
         "from zpix_tpu_torch import decode_config, from_buffer\n"
         "from zpix_tpu_torch.codecs.bmp.encode import encode as bmp\n"
@@ -219,6 +220,19 @@ def test_imports_load_neither_jax_nor_the_jax_package():
         "assert [o.shape for o in outs] == [(3, 4, 4)] * 2\n"
         "assert [decode_config(d).width for d in datas] == [4, 4]\n"
         "from_buffer(datas[0]).rgba_pixels()\n"
+        "from zpix_tpu_torch.parallel import BatchQoiDecoder, DeviceProgressiveDecoder, "
+        "OnchipProgressiveDecoder\n"
+        "q, ok = BatchQoiDecoder(device='cpu', chunk_bytes=16).decode(datas[:1] * 2)\n"
+        "assert bool(ok) and q.shape == (2, 3, 4, 4)\n"
+        "import io\n"
+        "from PIL import Image\n"
+        "buf = io.BytesIO()\n"
+        "Image.fromarray(np.arange(16 * 24 * 3, dtype=np.uint8).reshape(16, 24, 3)).save("
+        "buf, format='JPEG', progressive=True)\n"
+        "j = buf.getvalue()\n"
+        "px, ok = OnchipProgressiveDecoder(device='cpu', impl='spec').decode([j, j])\n"
+        "assert bool(ok) and px.shape == (2, 16, 24, 3)\n"
+        "assert DeviceProgressiveDecoder(device='cpu').decode([j]).shape == (1, 16, 24, 3)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax') "
         "or m == 'zpix_tpu' or m.startswith('zpix_tpu.')]\n"
         "assert not bad, bad\n"

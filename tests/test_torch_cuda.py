@@ -2107,3 +2107,295 @@ def test_scratch_and_grid_maps_key_by_the_cards_index(cuda):
     assert m.device == torch.device("cuda", torch.cuda.current_device())
     assert sparse.grid_map(perm, torch.device("cuda", torch.cuda.current_device())) is m
     assert sparse.grid_map((5, 3, 2, 2), "cuda").data_ptr() != 0
+
+
+# ------------------------------------ spec slice (K20-K23): no host index walk
+
+
+def _spec_first_scans(mode, w, h, batch=3, cb=64, damage=None, **kw):
+    """The DC-first and single-component AC-first scans of a batch of one
+    progressive image -> (plan, [(scan, numpy inputs, chunks)])."""
+    from _torch_jpeg import synth_progressive
+
+    from zpix_tpu_torch.parallel import progressive_onchip as po
+
+    plans = [po.parse_progressive(synth_progressive(w, h, mode, **kw)) for _ in range(batch)]
+    p0, out = plans[0], []
+    for si, sc in enumerate(p0.scans):
+        if sc.kind == "dc_first" or (sc.kind == "ac_first" and len(sc.comps) == 1):
+            arrays, F = po.spec_first_inputs(p0, plans, si, cb)
+            if damage is not None:
+                arrays[0] = damage(arrays[0].copy(), arrays[1], arrays[2])
+            out.append((sc, arrays, F))
+    return p0, out
+
+
+def _spec_scan_both(cuda, p0, sc, arrays, F, cb, seed=0):
+    """One K20 or K21 scan on the card and plain on the CPU, from the same
+    random store -> (kernel's (grids, ok), plain's)."""
+    from zpix_tpu_torch.ops import prog_spec as ps
+    from zpix_tpu_torch.parallel import progressive_onchip as po
+
+    rng = np.random.default_rng(seed)
+    B = arrays[1].shape[0]
+    init = [rng.integers(-999, 999, (B, p0.myy * p0.hv[c][1], p0.mxx * p0.hv[c][0], 64))
+            .astype(np.int32) for c in sc.comps]
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        t = [torch.from_numpy(a).to(dev) for a in arrays]
+        grids = [torch.from_numpy(g.copy()).to(dev) for g in init]
+        ok = torch.ones(1, dtype=torch.int32, device=dev)
+        kw = dict(valid=po.valid_grid(p0, sc.comps[0]), al=sc.al, chunk_bytes=cb, n_chunks=F)
+        kind = "dc_first_spec" if sc.kind == "dc_first" else "ac_first_spec"
+        before = runtime.LAUNCHES[kind]
+        if sc.kind == "dc_first":
+            ps.dc_first_spec(*t, ok, grids, hv=[p0.hv[c] for c in sc.comps], **kw)
+        else:
+            ps.ac_first_spec(*t, ok, grids[0], ss=sc.ss, se=sc.se, **kw)
+        assert runtime.LAUNCHES[kind] == before + (dev.type == "cuda")
+        res.append(([g.cpu() for g in grids], int(ok)))
+    return res
+
+
+@pytest.mark.parametrize("cb", [16, 64, 256])
+@pytest.mark.parametrize("mode,w,h", [("gray", 64, 48), ("444", 37, 29), ("422", 200, 120),
+                                      ("420", 200, 120), ("420", 511, 257)])
+def test_spec_first_kernels_match_plain(cuda, mode, w, h, cb):
+    """K20 and K21 on every DC-first and AC-first scan of a batch, from a
+    random store: the store and ok equal their plain versions'."""
+    p0, scans = _spec_first_scans(mode, w, h, cb=cb)
+    for sc, arrays, F in scans:
+        (gk, okk), (gp, okp) = _spec_scan_both(cuda, p0, sc, arrays, F, cb)
+        assert okk == okp == 1, sc.kind
+        for a, b in zip(gk, gp):
+            assert torch.equal(a, b), (sc.kind, sc.comps)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_spec_first_kernels_match_plain_on_damaged_streams(cuda, seed):
+    """Random bytes written into the scans (image 1 of 3): the kernels and
+    their plain versions agree on the store and ok."""
+    rng = np.random.default_rng(seed)
+
+    def damage(flat, starts, ends):
+        lo, hi = starts[1] // 8, ends[1] // 8
+        at = rng.integers(lo, hi, 4)
+        flat[at] = rng.integers(0, 256, 4, dtype=np.uint8)
+        return flat
+
+    p0, scans = _spec_first_scans("420", 200, 120, cb=16, damage=damage)
+    for sc, arrays, F in scans:
+        (gk, okk), (gp, okp) = _spec_scan_both(cuda, p0, sc, arrays, F, 16, seed)
+        assert okk == okp, sc.kind
+        for a, b in zip(gk, gp):
+            assert torch.equal(a, b), (sc.kind, sc.comps)
+
+
+def test_spec_first_kernels_on_hand_coded_scans(cuda):
+    """K20 (slots cycling through two tables, a 1-bit-code batch that
+    overflows a chunk) and K21 (EOB runs across chunk edges) on scans coded
+    by hand (tests/_torch_prog.py) at chunks of 1 to 8 bytes."""
+    import _torch_prog as tp
+
+    from zpix_tpu_torch.codecs.jpeg.tables import HuffTable
+    from zpix_tpu_torch.ops import prog_spec as ps
+
+    def tables(huffs, tid_of_slot, ac):
+        out = []
+        for counts, syms in huffs:
+            t = HuffTable()
+            t.build(list(counts), bytes(syms))
+            out.append(t)
+        return ke.pack_tables(out, [] if ac else tid_of_slot, [0] if ac else [])
+
+    hv = [(2, 2), (1, 1), (1, 1)]
+    for cb, kw in ((1, {}), (2, {}), (1, dict(zero=1.0, tables=(tp.DC_UNARY,)))):
+        cases = [tp.spec_dc_scan(cb + 3 * b, hv=hv, **kw) for b in range(3)]
+        flat, starts, ends, F = ps.stack_spec([c["stream"] for c in cases], cb)
+        tab = tables(cases[0]["huffs"], cases[0]["tid_of_slot"], False)
+        res = []
+        for dev in (cuda, torch.device("cpu")):
+            grids = [torch.zeros(3, 3 * v, 5 * h, 64, dtype=torch.int32, device=dev) for h, v in hv]
+            ok = torch.ones(1, dtype=torch.int32, device=dev)
+            ps.dc_first_spec(*(torch.from_numpy(a).to(dev) for a in (flat, starts, ends, tab)), ok,
+                             grids, hv=hv, valid=(3, 5), al=2, chunk_bytes=cb, n_chunks=F)
+            res.append(([g.cpu() for g in grids], int(ok)))
+        assert res[0][1] == res[1][1] == int(not kw)
+        assert all(torch.equal(a, b) for a, b in zip(res[0][0], res[1][0]))
+    for cb in (1, 3, 8):
+        cases = [tp.spec_ac_scan(cb + b) for b in range(3)]
+        flat, starts, ends, F = ps.stack_spec([c["stream"] for c in cases], cb)
+        tab = tables(cases[0]["huffs"], None, True)
+        res = []
+        for dev in (cuda, torch.device("cpu")):
+            grid = torch.zeros(3, 7, 12, 64, dtype=torch.int32, device=dev)
+            ok = torch.ones(1, dtype=torch.int32, device=dev)
+            ps.ac_first_spec(*(torch.from_numpy(a).to(dev) for a in (flat, starts, ends, tab)), ok,
+                             grid, valid=(6, 11), ss=1, se=63, al=1, chunk_bytes=cb, n_chunks=F)
+            res.append((grid.cpu(), int(ok)))
+        assert res[0][1] == res[1][1] == 1 and torch.equal(res[0][0], res[1][0])
+        want = np.zeros((3, 7, 12, 64), np.int64)
+        for b, c in enumerate(cases):
+            want[b, :6, :11] = (c["vals"] << 1).reshape(6, 11, 64)
+        assert np.array_equal(res[0][0].numpy(), want.astype(np.int32))
+
+
+@pytest.mark.parametrize("B,N,k", [(1, 10, 3), (16, 4096, 1000), (3, 1 << 20, 1 << 18)])
+def test_delta_add_matches_scatter_add(cuda, B, N, k):
+    """K22 against Tensor.scatter_add_ (its plain version): unique indices a
+    row, padding (0, 0) pairs meeting a real index 0, values that wrap."""
+    from zpix_tpu_torch.ops import prog_spec as ps
+
+    rng = np.random.default_rng(k)
+    state = rng.integers(-2**31, 2**31, (B, N)).astype(np.int32)
+    idx = np.zeros((B, k), np.int32)
+    val = np.zeros((B, k), np.int32)
+    for b in range(B):
+        n = int(rng.integers(1, k + 1))
+        idx[b, :n] = rng.choice(N, n, replace=False)
+        val[b, :n] = rng.integers(-2**31, 2**31, n)
+    want = torch.from_numpy(state.copy())
+    ps.delta_add(want, torch.from_numpy(idx), torch.from_numpy(val))
+    got = torch.from_numpy(state).to(cuda)
+    before = runtime.LAUNCHES["delta_add"]
+    ps.delta_add(got, torch.from_numpy(idx).to(cuda), torch.from_numpy(val).to(cuda))
+    assert runtime.LAUNCHES["delta_add"] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def _qoi_spec_both(cuda, datas, cb=None, ops_cap=None):
+    from zpix_tpu_torch.parallel import BatchQoiDecoder
+
+    before = runtime.LAUNCHES["qoi_spec"]
+    got, ok = BatchQoiDecoder(chunk_bytes=cb, ops_cap=ops_cap, device=cuda).decode(datas)
+    assert runtime.LAUNCHES["qoi_spec"] == before + 1
+    want, wok = BatchQoiDecoder(chunk_bytes=cb, ops_cap=ops_cap, device="cpu").decode(datas)
+    return got.cpu(), bool(ok), want, bool(wok)
+
+
+@pytest.mark.parametrize("cb", [None, 16, 64, 256])
+def test_qoi_spec_kernel_matches_plain_and_host(cuda, cb):
+    """K23 on the four QOI op classes, at the adaptive chunk and at 16, 64
+    and 256 bytes: pixels and ok equal the plain version's and the host
+    decoder's."""
+    from _torch_raster import qoi_enc, qoi_images
+
+    from zpix_tpu_torch.codecs.qoi.decode import decode_pixels
+
+    datas = [qoi_enc(a) for a in qoi_images(96, 64)]
+    got, ok, want, wok = _qoi_spec_both(cuda, datas, cb)
+    assert ok and wok and torch.equal(got, want)
+    for i, d in enumerate(datas):
+        assert np.array_equal(got[i].numpy(), decode_pixels(d))
+
+
+def test_qoi_spec_kernel_on_bench_content(cuda):
+    """K23 on 256^2 screen and noise content of the JAX bench, 4 images each."""
+    from _torch_raster import bench_pixels, qoi_enc
+
+    from zpix_tpu_torch.codecs.qoi.decode import decode_pixels
+
+    for content in ("screen", "noise"):
+        datas = [qoi_enc(bench_pixels(256, s, content)) for s in range(4)]
+        got, ok, want, wok = _qoi_spec_both(cuda, datas)
+        assert ok and wok and torch.equal(got, want), content
+        assert np.array_equal(got[3].numpy(), decode_pixels(datas[3]))
+
+
+def test_qoi_spec_kernel_truncated_and_over_cap(cuda):
+    """A stream cut short (fill) and an ops_cap under the ops: ok as the plain
+    version's, pixels too where ok."""
+    from _torch_raster import qoi_enc, qoi_images
+
+    imgs = qoi_images()
+    dense = qoi_enc(imgs[3])
+    cut = dense[: len(dense) // 2] + b"\x00" * 8
+    got, ok, want, wok = _qoi_spec_both(cuda, [cut, dense], cb=32)
+    assert ok == wok and (not ok or torch.equal(got, want))
+    got, ok, want, wok = _qoi_spec_both(cuda, [dense], cb=32, ops_cap=2)
+    assert not ok and not wok
+
+
+def test_qoi_spec_four_shards(cuda):
+    """BatchQoiDecoder over make_mesh(["cuda:0"] * 4): a launch a shard, the
+    output equal to the unsharded decode."""
+    from _torch_raster import qoi_enc, qoi_images
+
+    from zpix_tpu_torch.parallel import BatchQoiDecoder, make_mesh
+
+    datas = [qoi_enc(a) for a in qoi_images()] * 2
+    want, wok = BatchQoiDecoder(chunk_bytes=32, device=cuda).decode(datas)
+    before = runtime.LAUNCHES["qoi_spec"]
+    got, ok = BatchQoiDecoder(chunk_bytes=32, mesh=make_mesh(["cuda:0"] * 4)).decode(datas)
+    assert runtime.LAUNCHES["qoi_spec"] == before + 4
+    assert bool(ok) and bool(wok) and np.array_equal(np.asarray(got), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("mode,w,h", [("420", 200, 120), ("gray", 37, 29), ("444", 64, 48)])
+def test_spec_route_matches_host_decoder(cuda, mode, w, h):
+    """OnchipProgressiveDecoder(impl="spec") on the card: ok, no host tail,
+    K20 once and K21 on each AC-first scan, pixels the host decoder's and
+    the CPU route's."""
+    from _torch_jpeg import port_host_pixels, synth_progressive
+
+    from zpix_tpu_torch import OnchipProgressiveDecoder
+
+    data = synth_progressive(w, h, mode, phase=0.6)
+    runtime.reset_launches()
+    dec = OnchipProgressiveDecoder(device=cuda, impl="spec")
+    px, ok = dec.decode([data] * 3)
+    assert bool(ok) and dec.n_host_tail_scans == 0
+    assert runtime.LAUNCHES["dc_first_spec"] == 1 and runtime.LAUNCHES["ac_first"] == 0
+    assert runtime.LAUNCHES["ac_first_spec"] == (4 if mode != "gray" else 2)
+    assert np.array_equal(px[2].cpu().numpy(), port_host_pixels(data))
+    cpu, cok = OnchipProgressiveDecoder(device="cpu", impl="spec").decode([data] * 3)
+    assert bool(cok) and torch.equal(px.cpu(), cpu)
+
+
+def test_spec_tail_and_refused_walk_on_the_card(cuda):
+    """The moved Cb scan: the host tail runs (5 scans) and K22 writes its
+    deltas back; a batch a walk refuses takes the spec path in decode()
+    (pixels and ok, or the host tail's error, as the CPU route's)."""
+    from _torch_jpeg import move_scan, port_host_pixels, synth_progressive
+
+    from zpix_tpu_torch import OnchipProgressiveDecoder
+
+    data = synth_progressive(200, 120, "420", phase=0.3)
+    moved = move_scan(data, 3, 5)
+    runtime.reset_launches()
+    dec = OnchipProgressiveDecoder(device=cuda, impl="spec")
+    px, ok = dec.decode([moved] * 2)
+    assert bool(ok) and dec.n_host_tail_scans == 5 and runtime.LAUNCHES["delta_add"] == 3
+    assert np.array_equal(px[1].cpu().numpy(), port_host_pixels(data))
+    bad = bytearray(data)
+    at = -1
+    for _ in range(4):
+        at = bad.find(b"\xff\xda", at + 1)
+    at += 2 + ((bad[at + 2] << 8) | bad[at + 3])
+    bad[at : at + 16] = b"\xff\x00" * 8
+    for datas in ([data, bytes(bad)], [bytes(bad)] * 2):
+        outcomes = []
+        for dev in (cuda, "cpu"):
+            try:  # the host tail may refuse the stream: the error is the outcome
+                px, ok = OnchipProgressiveDecoder(device=dev).decode(datas)
+                outcomes.append((px.cpu(), bool(ok)))
+            except Exception as exc:
+                outcomes.append((type(exc).__name__, str(exc)))
+        (a, ak), (b, bk) = outcomes
+        assert ak == bk and (torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b)
+
+
+def test_delta_route_matches_host_decoder(cuda):
+    """DeviceProgressiveDecoder on the card: K22 a (scan, component), K6,
+    pixels the host decoder's and the CPU route's."""
+    from _torch_jpeg import port_host_pixels, synth_progressive
+
+    from zpix_tpu_torch.parallel import DeviceProgressiveDecoder
+
+    datas = [synth_progressive(200, 120, "420", phase=p) for p in (0.1, 0.5)]
+    runtime.reset_launches()
+    got = DeviceProgressiveDecoder(device=cuda).decode(datas)
+    assert runtime.LAUNCHES["delta_add"] >= 10 and runtime.LAUNCHES["component_planes"] == 1
+    for i, d in enumerate(datas):
+        assert np.array_equal(got[i].cpu().numpy(), port_host_pixels(d))
+    assert torch.equal(got.cpu(), DeviceProgressiveDecoder(device="cpu").decode(datas))

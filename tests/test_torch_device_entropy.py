@@ -134,8 +134,10 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "zpix_tpu_torch.codecs.qoi.decode, zpix_tpu_torch.codecs.qoi.encode_vec, "
         "zpix_tpu_torch.parallel, zpix_tpu_torch.parallel.bucketing, "
         "zpix_tpu_torch.parallel.mesh, zpix_tpu_torch.parallel.distributed, "
-        "zpix_tpu_torch.utils.roofline\n"
+        "zpix_tpu_torch.utils.roofline, zpix_tpu_torch.ops.prog_spec, "
+        "zpix_tpu_torch.ops.qoi_spec, zpix_tpu_torch.parallel.progressive\n"
         "from zpix_tpu_torch import decode, decode_config, from_buffer, from_file_path, load\n"
+        "from zpix_tpu_torch.parallel import BatchQoiDecoder, DeviceProgressiveDecoder\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'zpix_tpu' or m.startswith('zpix_tpu.')]\n"
         "print(bad)\n"

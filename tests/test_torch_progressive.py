@@ -396,22 +396,40 @@ def _corrupt_first_scan(data: bytes) -> bytes:
     return bytes(data)
 
 
+def _decode_outcome(decode):
+    try:
+        px, ok = decode()
+    except Exception as exc:  # the host tail may refuse the stream
+        return type(exc).__name__, str(exc)
+    return np.asarray(px), bool(ok)
+
+
 @pytest.mark.parametrize("mode", ["gray", "420"])
 def test_corrupt_first_scan(mode):
-    """A damaged first scan gives ok False, or, where the host decoder
-    accepts the stream too, its pixels."""
+    """A damaged first scan: decode() takes the spec path where the walk
+    refuses it, as zpix_tpu's does, with zpix_tpu's outcome (pixels and ok,
+    or the error); ok False, or, where the host decoder accepts the stream
+    too, its pixels."""
     from zpix_tpu.codecs.jpeg import decoder as host
 
+    jax_native_lib()
     data = _corrupt_first_scan(synth_progressive(96, 64, mode))
     dec = _cpu()
-    px, ok = dec.decode([data, data])
+    got = _decode_outcome(lambda: dec.decode([data, data]))
+    want = _decode_outcome(lambda: jpo.OnchipProgressiveDecoder(k1=1, k2=1).decode([data, data]))
+    assert type(got[0]) is type(want[0]) and got[1] == want[1]
+    if isinstance(got[0], str):
+        assert got[0] == want[0]
+        return
+    assert np.array_equal(got[0], want[0])
+    px, ok = got
     try:
         host.decode(data)
     except Exception:
-        assert not bool(ok)
+        assert not ok
         return
-    if bool(ok):
-        assert np.array_equal(px[0].numpy(), host_pixels(data))
+    if ok:
+        assert np.array_equal(px[0], host_pixels(data))
 
 
 def test_refused_walk_names_scan_and_image():
@@ -426,7 +444,7 @@ def test_refused_walk_names_scan_and_image():
     bad[at : at + 16] = b"\xff\x00" * 8  # destuffs to all-ones: no valid code
     dec = _cpu()
     prep = dec.prep([good, bytes(bad)])
-    assert not prep.okh and len(prep.scans) == 3
+    assert not prep.okh and prep.refused and len(prep.scans) == 3
     assert prep.failure.startswith("scan 3 (ac_first)") and "image 1" in prep.failure
     px, ok = dec.run(prep)
     assert not bool(ok) and px.shape == (2, 48, 64, 3)

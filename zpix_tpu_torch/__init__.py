@@ -4,8 +4,10 @@ Baseline JPEG with restart markers (``DeviceJpegDecoder``), restart-free
 baseline JPEG through the host index scan (``HostIndexJpegDecoder``),
 through the native coefficient front-end (``BatchJpegDecoder``) and wholly
 on the card by speculative chunk sync (``SyncJpegDecoder``),
-progressive JPEG (``OnchipProgressiveDecoder``, host index walks), QOI
-(``HostIndexQoiDecoder``; ``encode_device``, ``encode_device_batch``), BMP
+progressive JPEG (``OnchipProgressiveDecoder``, host index walks or
+``impl="spec"`` with no walk; ``parallel.DeviceProgressiveDecoder``), QOI
+(``HostIndexQoiDecoder``; ``parallel.BatchQoiDecoder`` wholly on the card;
+``encode_device``, ``encode_device_batch``), BMP
 (``BatchBmpDecoder``) and PNG (``BatchPngDecoder``, three front-ends, Adam7)
 run on hand-written CUDA kernels (``csrc/``),
 built with nvcc on first use; the host C++ (``csrc/host``) is built with

@@ -1,0 +1,391 @@
+"""Progressive JPEG with no host index walk: K20 (DC first) and K21 (AC
+first), found by rounds to the fixed point of their chunk entries, and
+K22, the sparse delta add; each a CUDA kernel (csrc/prog_spec.cu) with
+its plain PyTorch version.
+
+* ``dc_first_spec`` is K20, the port of zpix_tpu/parallel/
+  progressive_onchip.py::build_dc_first_fn (:363-538) and _run_dc_first's
+  store write (:1288-1348).
+* ``ac_first_spec`` is K21, the port of build_ac_first_fn (:541-797) and
+  _run_ac_first's (:1350-1389).
+* ``delta_add`` is K22: ``state[b, idx[b, j]] += val[b, j]`` (progressive.py
+  ::DeviceProgressiveDecoder._apply, :85-98, and the host tail's write-back,
+  progressive_onchip.py:2286-2294).  ``Tensor.scatter_add_`` computes the
+  same function; it is the plain version.
+
+A spec scan's inputs: ``stream`` u8, the batch's destuffed scans as
+``stack_spec`` lays them out (each image at an 8-byte aligned offset, 64
+zero bytes at the end), ``starts`` and ``ends`` int32 [B] each image's
+first and end bit, ``tables`` as for K8 (ops/entropy.py::pack_tables), and
+``ok`` int32 [1], which the scan clears as zpix_tpu clears it.  Each image's
+scan is cut into ``n_chunks`` chunks of ``chunk_bytes``; chunk c of an
+image covers bits [start + 8 c chunk_bytes, + 8 chunk_bytes) clipped to its
+end.  A lane decodes from its chunk's entry to the first symbol boundary
+at or past the chunk's end; the entries are the serial decode's states at
+the chunk starts.  ``ok`` is cleared where a chunk holds more than 4 *
+chunk_bytes symbols (K20) or finished blocks (K21), where an image holds
+fewer symbols than the scan's blocks (K20) or finishes fewer blocks than
+its valid grid (K21), or where the first bad code (a DC size over 16
+included) lies more than 16 bits before the image's end.  The values of
+finished blocks go into the store: K20 sets coefficient 0 to the prefix of
+the diffs along each component's chain << Al (diffs past an image's
+symbols are 0), K21 adds each coefficient's ``val << Al``.
+
+The plain versions find the entries by Jacobi rounds over every chunk at
+once (a lane a chunk, a symbol an iteration), then scan once more to
+record; the dispatch takes them for CPU tensors only.  They and the
+kernels return the rounds each image took (the plain versions one count
+for the batch); the results do not depend on them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import runtime
+from ..codecs.jpeg.tables import UNZIG
+from . import entropy as _entropy
+from .entropy import TAB_WORDS, _bits, _extend, _Tables, _window
+from .progressive import (_check_grids, _dc_chains, _valid_rows, _wrap32, scan_blocks,
+                          store_blocks_plain)
+
+NO_ERR = 2**31 - 1  # the error bit of a lane that met no bad code
+CHUNK_WORDS = 8  # int32 scratch words a chunk (csrc/prog_spec.cu kChunkWords)
+_CHECK_EVERY = 16  # plain versions: symbols between checks that any lane is still running
+
+
+def stack_spec(streams, chunk_bytes: int) -> tuple:
+    """The images' scans back to back at 8-byte aligned offsets, then 64 zero
+    bytes (zpix_tpu's _stack_streams layout: bits past an image's end are
+    the next image's or zeros) -> (buffer u8, starts int32 [B] and ends int32
+    [B] in bits, chunks an image: enough for the longest scan, rounded up
+    to a multiple of 8)."""
+    offs, total = [], 0
+    for s in streams:
+        offs.append(total)
+        total += (len(s) + 7) // 8 * 8
+    flat = np.zeros(total + 64, np.uint8)
+    for s, o in zip(streams, offs):
+        flat[o : o + len(s)] = s
+    if flat.shape[0] > _entropy.MAX_STREAM:
+        raise ValueError("progressive: a spec scan's batch stream must be under 256 MiB")
+    starts = np.asarray(offs, np.int64) * 8
+    ends = starts + 8 * np.asarray([len(s) for s in streams], np.int64)
+    n_chunks = -(-max(len(s) for s in streams) // chunk_bytes)
+    return flat, starts.astype(np.int32), ends.astype(np.int32), max(8, -(-n_chunks // 8) * 8)
+
+
+# ------------------------------------------------------------- plain versions
+
+
+def _chunks(starts, ends, n_chunks: int, chunk_bits: int):
+    """-> (first unit, end unit) of every chunk, int64 [B * n_chunks]: chunk
+    c of an image covers [start + c chunk_bits, + chunk_bits) clipped to
+    its end (bits for a JPEG scan, bytes for a QOI stream)."""
+    s, e = starts.to(torch.int64)[:, None], ends.to(torch.int64)[:, None]
+    raw = s + chunk_bits * torch.arange(n_chunks, dtype=torch.int64, device=starts.device)
+    cs = torch.minimum(raw, e)
+    return cs.reshape(-1), torch.minimum(cs + chunk_bits, e).reshape(-1)
+
+
+def entry_sources(starts, ends, n_chunks: int, unit: int):
+    """The lane whose exit is each lane's entry, int64 [B * n_chunks]: chunk
+    c - 1, except past an image's non-empty chunks, where it is the last
+    non-empty one (an empty chunk's exit is its entry; the kernels'
+    entry_source); chunk 0's entry is fixed (its own lane here)."""
+    s, e = starts.to(torch.int64), ends.to(torch.int64)
+    full = ((e - s + unit - 1) // unit)[:, None]
+    c = torch.arange(n_chunks, dtype=torch.int64, device=starts.device)[None, :]
+    src = torch.where(c - 1 < full, c - 1, (full - 1).clamp(min=0)).clamp(min=0)
+    return (src + n_chunks * torch.arange(s.shape[0], device=starts.device)[:, None]).reshape(-1)
+
+
+def fixed_point(scan, bit0, st0, src, max_rounds: int):
+    """Jacobi rounds: every chunk scanned from its guess (bit0, st0), then
+    again wherever its entry (its source lane's exit, ``entry_sources``)
+    changed, until no entry changes -> (entry bits, entry states, the last
+    scan's results [exit bit, exit state, ...] a lane, rounds, settled).
+    ``scan(bit, st, sel)`` scans lanes ``sel``; past ``max_rounds`` the
+    rounds stop unsettled."""
+    L = bit0.shape[0]
+    first = src == torch.arange(L, device=src.device)  # chunk 0 of each image
+    ent_b, ent_s = bit0.clone(), st0.clone()
+    sel = torch.arange(L, device=bit0.device)
+    res, rounds = None, 0
+    while True:
+        out = scan(ent_b[sel], ent_s[sel], sel)
+        if res is None:
+            res = [o.clone() for o in out]
+        else:
+            for r, o in zip(res, out):
+                r[sel] = o
+        rounds += 1
+        nb = torch.where(first, bit0, res[0][src])
+        ns = torch.where(first, st0, res[1][src])
+        need = (nb != ent_b) | (ns != ent_s)
+        ent_b, ent_s = nb, ns
+        if not bool(need.any()):
+            return ent_b, ent_s, res, rounds, True
+        if rounds > max_rounds:
+            return ent_b, ent_s, res, rounds, False
+        sel = need.nonzero().squeeze(1)
+
+
+def _running(act, step: int) -> bool:
+    return step % _CHECK_EVERY or bool(act.any())
+
+
+def _dc_scan(tab, s64, cap: int, bit, slot, ce, bpm: int, rec=None):
+    """K20's lanes from (bit, slot) to the first symbol boundary at or past
+    ce -> (exit bit, exit slot, symbols, first bad bit).  ``rec`` = (out
+    int64 [B * nblk], lane's row offset, lane's first symbol index, nblk):
+    each symbol's diff goes to out[row + first + j] while first + j < nblk."""
+    bit, slot = bit.clone(), slot.clone()
+    act = bit < ce
+    err = torch.full_like(bit, NO_ERR)
+    cnt = torch.zeros_like(bit)
+    step = 0
+    while _running(act, step):
+        step += 1
+        past = (bit >> 3) + 8 > cap
+        v, off = _window(s64, bit)
+        ln, sym, bad = tab.decode(_bits(v, off, 16), tab.slot_dc[slot])
+        bad = act & (bad | (sym > 16) | past)
+        err = torch.where(bad, bit, err)
+        act = act & ~bad
+        if rec is not None:
+            out, row, first, nblk = rec
+            g = first + cnt
+            w = act & (g < nblk)
+            at = torch.where(w, row + g, out.shape[0] - 1)
+            out.scatter_(0, at, torch.where(w, _extend(v, off + ln, sym), out[-1]))
+        cnt = cnt + act
+        slot = torch.where(act, torch.where(slot + 1 == bpm, 0, slot + 1), slot)
+        bit = torch.where(act, bit + ln + sym, bit)
+        act = act & (bit < ce)
+    return bit, slot, cnt, err
+
+
+def _ac_scan(tab, tid, s64, cap: int, bit, k, ce, *, ss: int, se: int, rec=None):
+    """K21's lanes from (bit, k) to the first symbol boundary at or past ce
+    -> (exit bit, exit k, finished blocks, blocks passed, first bad bit,
+    symbols).
+    ``rec`` = (rows int64 [B * nvalid + 1, 64], lane's row offset, lane's
+    first block index, lane's limit): each coefficient is added into its
+    block's row while the block's index is below the limit."""
+    bit, k = bit.clone(), k.clone()
+    act = bit < ce
+    err = torch.full_like(bit, NO_ERR)
+    ndata = torch.zeros_like(bit)
+    adv = torch.zeros_like(bit)
+    nsym = torch.zeros_like(bit)
+    unzig = torch.as_tensor(UNZIG, dtype=torch.int64, device=bit.device)
+    tid = tid.expand(bit.shape[0])
+    step = 0
+    while _running(act, step):
+        step += 1
+        past = (bit >> 3) + 8 > cap
+        v, off = _window(s64, bit)
+        ln, sym, bad = tab.decode(_bits(v, off, 16), tid)
+        bad = act & (bad | past)
+        err = torch.where(bad, bit, err)
+        act = act & ~bad
+        r, size = sym >> 4, sym & 15
+        eob = (size == 0) & (r < 15)
+        zrl = (size == 0) & (r == 15)
+        k2 = k + r
+        over = (size > 0) & (k2 > se)
+        extra = torch.where(eob & (r > 0), _bits(v, off + ln, r.clamp(0, 14)), 0)
+        skips = torch.where(eob, ((1 << r.clamp(0, 14)) | extra) - 1, 0)
+        consume = torch.where(eob, ln + r, torch.where(zrl | over, ln, ln + size))
+        new_k = torch.where(zrl, k + 16, torch.where(eob | over, k, k2 + 1))
+        if rec is not None:
+            rows, row, first, lim = rec
+            g = first + adv
+            w = act & (size > 0) & ~over & (g < lim)
+            at = torch.where(w, (row + g) * 64 + unzig[k2.clamp(0, 63)], rows.numel() - 1)
+            rows.view(-1).scatter_add_(0, at, torch.where(w, _extend(v, off + ln, size), 0))
+        fin = act & (eob | over | (new_k > se))
+        nsym = nsym + act
+        ndata = ndata + fin
+        adv = adv + torch.where(fin, 1 + skips, 0)
+        k = torch.where(fin, ss, torch.where(act, new_k, k))
+        bit = torch.where(act, bit + consume, bit)
+        act = act & (bit < ce)
+    return bit, k, ndata, adv, err, nsym
+
+
+def _lanes(B: int, F: int, device):
+    return torch.arange(B * F, device=device) // F
+
+
+def dc_first_spec_plain(stream, starts, ends, tables, ok, grids, *, hv, valid, al: int,
+                        chunk_bytes: int, n_chunks: int, stats: dict | None = None):
+    """K20, plain: -> rounds int32 [B] (one count for the batch).  ``stats``
+    gets the most symbols a chunk holds (``chunk_symbols``)."""
+    B, F = grids[0].shape[0], n_chunks
+    bpm = sum(h * v for h, v in hv) if len(grids) > 1 else 1
+    nblk = scan_blocks(grids, hv, valid)
+    tab, s64, cap = _Tables(tables), stream.to(torch.int64), stream.shape[0]
+    cs, ce = _chunks(starts, ends, F, 8 * chunk_bytes)
+
+    def scan(bit, slot, sel):
+        return _dc_scan(tab, s64, cap, bit, slot, ce[sel], bpm)
+
+    src = entry_sources(starts, ends, F, 8 * chunk_bytes)
+    ent_b, ent_s, res, rounds, settled = fixed_point(scan, cs, torch.zeros_like(cs), src, F + 2)
+    cnt = res[2].view(B, F)
+    first = (cnt.cumsum(1) - cnt).reshape(-1)
+    img = _lanes(B, F, cs.device)
+    diffs = torch.zeros(B * nblk + 1, dtype=torch.int64, device=cs.device)
+    _dc_scan(tab, s64, cap, ent_b, ent_s, ce, bpm, rec=(diffs, img * nblk, first, nblk))
+    end = ends.to(torch.int64)
+    good = (settled and bool((cnt <= 4 * chunk_bytes).all()) and bool((cnt.sum(1) >= nblk).all())
+            and bool((res[3] >= end[img] - 16).all()))
+    ok.mul_(int(good))
+    if stats is not None:
+        stats["chunk_symbols"] = int(cnt.max())
+    chains, seg = _dc_chains(grids, hv, valid)
+    dc = _entropy.dc_restore_plain(diffs[:-1].to(torch.int32), hv=chains, seg_mcus=seg)
+    store_blocks_plain(dc, grids, hv=hv, valid=valid, al=al, mode="set")
+    return torch.full((B,), rounds, dtype=torch.int32, device=cs.device)
+
+
+def ac_first_spec_plain(stream, starts, ends, tables, ok, grid, *, valid, ss: int, se: int,
+                        al: int, chunk_bytes: int, n_chunks: int, stats: dict | None = None):
+    """K21, plain: -> rounds int32 [B] (one count for the batch).  ``stats``
+    gets the most symbols a chunk holds (``chunk_symbols``)."""
+    B, F = grid.shape[0], n_chunks
+    nvy, nvx = valid
+    nvalid = nvy * nvx
+    tab, s64, cap = _Tables(tables), stream.to(torch.int64), stream.shape[0]
+    cs, ce = _chunks(starts, ends, F, 8 * chunk_bytes)
+    tid = tab.slot_ac[0]
+
+    def scan(bit, k, sel):
+        return _ac_scan(tab, tid, s64, cap, bit, k, ce[sel], ss=ss, se=se)
+
+    src = entry_sources(starts, ends, F, 8 * chunk_bytes)
+    ent_b, ent_k, res, rounds, settled = fixed_point(scan, cs, torch.full_like(cs, ss), src, F + 2)
+    ndata, adv = res[2].view(B, F), res[3].view(B, F)
+    img = _lanes(B, F, cs.device)
+    total = adv.sum(1)
+    lim = torch.minimum(total, torch.tensor(nvalid, device=cs.device))[img]
+    rows = torch.zeros(B * nvalid + 1, 64, dtype=torch.int64, device=cs.device)
+    _ac_scan(tab, tid, s64, cap, ent_b, ent_k, ce, ss=ss, se=se,
+             rec=(rows, img * nvalid, (adv.cumsum(1) - adv).reshape(-1), lim))
+    end = ends.to(torch.int64)
+    good = (settled and bool((ndata <= 4 * chunk_bytes).all()) and bool((total >= nvalid).all())
+            and bool((res[4] >= end[img] - 16).all()))
+    ok.mul_(int(good))
+    if stats is not None:
+        stats["chunk_symbols"] = int(res[5].max())
+    merged = _valid_rows(grid, valid).to(torch.int64) + (rows[:-1] << al)
+    grid[:, :nvy, :nvx] = _wrap32(merged).view(B, nvy, nvx, 64)
+    return torch.full((B,), rounds, dtype=torch.int32, device=cs.device)
+
+
+def delta_add_plain(state, idx, val) -> None:
+    """K22, plain: ``state.scatter_add_(1, idx, val)`` (int32, wrapping)."""
+    state.scatter_add_(1, idx.to(torch.int64), val)
+
+
+# ------------------------------------------------------------------ wrappers
+
+
+def _check_spec(stream, starts, ends, tables, ok, B: int, chunk_bytes: int, n_chunks: int):
+    if stream.dtype != torch.uint8 or starts.dtype != torch.int32 or (
+            ends.dtype != torch.int32 or tables.dtype != torch.int32 or ok.dtype != torch.int32):
+        raise TypeError("progressive: expected a u8 stream and int32 starts, ends, tables, ok")
+    if starts.shape != (B,) or ends.shape != (B,) or tables.shape[0] != TAB_WORDS or (
+            ok.shape != (1,)):
+        raise ValueError("progressive: one start and end an image, packed tables, ok [1]")
+    if chunk_bytes < 1 or n_chunks < 1 or stream.shape[0] > _entropy.MAX_STREAM:
+        raise ValueError("progressive: chunks of at least a byte, a stream under 256 MiB")
+
+
+def dc_first_spec(stream, starts, ends, tables, ok, grids, *, hv, valid, al: int,
+                  chunk_bytes: int, n_chunks: int):
+    """K20: a DC-first scan with no index walk -> coefficient 0 of each
+    block it visits set to its chain's prefix << al, in place; clears
+    ``ok``.  -> rounds int32 [B]."""
+    _check_grids(grids, hv)
+    B = grids[0].shape[0]
+    _check_spec(stream, starts, ends, tables, ok, B, chunk_bytes, n_chunks)
+    kw = dict(hv=hv, valid=valid, al=al, chunk_bytes=chunk_bytes, n_chunks=n_chunks)
+    if stream.device.type == "cpu":
+        return dc_first_spec_plain(stream, starts, ends, tables, ok, grids, **kw)
+    runtime.require_cuda(stream, starts, ends, tables, ok, *grids)
+    interleaved = len(grids) > 1
+    bpm = sum(h * v for h, v in hv) if interleaved else 1
+    if bpm > _entropy.MAX_SLOTS or not 0 <= al <= 31:
+        raise ValueError("dc_first_spec: more than 16 blocks an MCU or al outside 0..31")
+    nblk = scan_blocks(grids, hv, valid)
+    mxx = grids[0].shape[2] // hv[0][0]
+    dev = stream.device
+    rounds = torch.zeros(B, dtype=torch.int32, device=dev)
+    chunks = torch.empty(B * n_chunks * CHUNK_WORDS, dtype=torch.int32, device=dev)
+    diffs = torch.empty(max(1, B * nblk), dtype=torch.int32, device=dev)
+    pad = [0] * (3 - len(grids))
+    hvs = [h | v << 4 for h, v in hv] if interleaved else [0x11]
+    runtime.launch(
+        "dc_first_spec", dev, "zpix_spec_dc_first", "pl" + "p" * 10 + "i" * 18,
+        stream.data_ptr(), stream.shape[0], starts.data_ptr(), ends.data_ptr(),
+        tables.data_ptr(), ok.data_ptr(), rounds.data_ptr(), chunks.data_ptr(),
+        diffs.data_ptr(), *[g.data_ptr() for g in grids], *pad, B, n_chunks, 8 * chunk_bytes,
+        4 * chunk_bytes, nblk, bpm, len(grids), mxx if interleaved else valid[1], *hvs, *pad,
+        *[g.shape[2] for g in grids], *pad, *[g.shape[1] for g in grids], *pad, al)
+    return rounds
+
+
+def ac_first_spec(stream, starts, ends, tables, ok, grid, *, valid, ss: int, se: int, al: int,
+                  chunk_bytes: int, n_chunks: int):
+    """K21: an AC-first scan over band ss..se of one component with no
+    index walk -> each coefficient's ``val << al`` added into its valid
+    block's row of ``grid`` (int32 [B, bv, bh, 64]), in place; clears
+    ``ok``.  -> rounds int32 [B]."""
+    _check_grids([grid], [(1, 1)])
+    B = grid.shape[0]
+    _check_spec(stream, starts, ends, tables, ok, B, chunk_bytes, n_chunks)
+    nvy, nvx = valid
+    if not 1 <= ss <= se <= 63 or nvy > grid.shape[1] or nvx > grid.shape[2]:
+        raise ValueError("ac_first_spec: bad spectral band or valid grid")
+    kw = dict(valid=valid, ss=ss, se=se, al=al, chunk_bytes=chunk_bytes, n_chunks=n_chunks)
+    if stream.device.type == "cpu":
+        return ac_first_spec_plain(stream, starts, ends, tables, ok, grid, **kw)
+    runtime.require_cuda(stream, starts, ends, tables, ok, grid)
+    if not 0 <= al <= 31:
+        raise ValueError("ac_first_spec: al outside 0..31")
+    dev = stream.device
+    rounds = torch.zeros(B, dtype=torch.int32, device=dev)
+    chunks = torch.empty(B * n_chunks * CHUNK_WORDS, dtype=torch.int32, device=dev)
+    runtime.launch(
+        "ac_first_spec", dev, "zpix_spec_ac_first", "pl" + "p" * 7 + "i" * 11,
+        stream.data_ptr(), stream.shape[0], starts.data_ptr(), ends.data_ptr(),
+        tables.data_ptr(), ok.data_ptr(), rounds.data_ptr(), chunks.data_ptr(),
+        grid.data_ptr(), B, n_chunks, 8 * chunk_bytes, 4 * chunk_bytes, nvy * nvx, nvx,
+        grid.shape[2], grid.shape[1], ss, se, al)
+    return rounds
+
+
+def delta_add(state, idx, val) -> None:
+    """K22: ``state[b, idx[b, j]] += val[b, j]`` for an int32 store [B, N]
+    and int32 [B, k] indices and values, in place (indices unique in a row
+    but for padding entries, which add 0)."""
+    if state.dtype != torch.int32 or idx.dtype != torch.int32 or val.dtype != torch.int32:
+        raise TypeError("delta_add: int32 state, indices and values")
+    if state.dim() != 2 or idx.dim() != 2 or idx.shape != val.shape or (
+            idx.shape[0] != state.shape[0]):
+        raise ValueError("delta_add: state [B, N], indices and values [B, k]")
+    if state.device.type == "cpu":
+        delta_add_plain(state, idx, val)
+        return
+    runtime.require_cuda(state, idx, val)
+    n = idx.numel()
+    if n == 0:
+        return
+    sms = torch.cuda.get_device_properties(state.device).multi_processor_count
+    runtime.launch("delta_add", state.device, "zpix_delta_add", "ppplili",
+                   state.data_ptr(), idx.data_ptr(), val.data_ptr(), n, idx.shape[1],
+                   state.shape[1], min(-(-n // 256), 8 * sms))

@@ -18,8 +18,9 @@ from .device_entropy import DeviceJpegDecoder, HostIndexJpegDecoder
 from .device_entropy_sync import SyncJpegDecoder
 from .pipeline import DecodePipeline
 from .png_batch import BatchPngDecoder
+from .progressive import DeviceProgressiveDecoder
 from .progressive_onchip import OnchipProgressiveDecoder
-from .qoi_batch import HostIndexQoiDecoder
+from .qoi_batch import BatchQoiDecoder, HostIndexQoiDecoder
 
 __all__ = [
     "make_mesh",
@@ -28,7 +29,9 @@ __all__ = [
     "BatchJpegDecoder",
     "BatchPngDecoder",
     "BatchBmpDecoder",
+    "BatchQoiDecoder",
     "HostIndexQoiDecoder",
+    "DeviceProgressiveDecoder",
     "OnchipProgressiveDecoder",
     "DeviceJpegDecoder",
     "HostIndexJpegDecoder",

@@ -1,7 +1,9 @@
-"""Progressive JPEG on the GPU in host-index mode: SOF2 batches end to end.
+"""Progressive JPEG on the GPU: SOF2 batches end to end.
 
 The PyTorch/CUDA counterpart of zpix_tpu/parallel/progressive_onchip.py's
-``OnchipProgressiveDecoder`` in its default host-index mode:
+``OnchipProgressiveDecoder``, in its two modes.
+
+Host-index mode (``impl="hostindex"``, the default):
 
 1. The host parses each stream (``parse_progressive``, numpy) and walks
    every scan of every image with the port's copies of the C++ index walks
@@ -16,17 +18,37 @@ The PyTorch/CUDA counterpart of zpix_tpu/parallel/progressive_onchip.py's
    refinement (ops/progressive.py).  ``ok`` is accumulated on the card.
 4. K6 (ops/planes.py, its int32 arm) turns the store into pixels.
 
+Speculative mode (``impl="spec"``, and ``decode()`` in host-index mode
+wherever an index walk refuses a stream, as zpix_tpu's ``_decode_chunk``
+does, :2161-2175): the card finds the symbols of the first scans itself
+(``decode_spec``, :2175-2296):
+
+* DC first: K20; AC first over one component: K21 (ops/prog_spec.py);
+  DC refinement: K11 on the same raw bit rows.
+* AC refinement: K10 on the host walk's offsets.  At the first
+  refinement one fetch of the store's nonzero flags (packed 8 a byte on
+  the card) seeds the walks' masks, and every later refinement scan is
+  walked at once (they depend only on the masks) and uploaded in one copy.
+* An AC-first scan over several components, an AC-first scan after a
+  refinement, or a refinement whose walk refuses a stream ends the card's
+  prefix.  The rest is the host tail: the store is fetched, each image's
+  remaining scans are decoded by ``_TailScanDecoder`` (the port's host
+  decoder seeded with the store, a thread an image), and each image's
+  differences go back into the store through K22.  ``n_host_tail_scans``
+  counts the scans it decoded.
+* K6 turns the store into pixels.
+
 Output: (pixels u8 [B, H, W, 3], or [B, H, W] for gray; ok 0-dim bool),
 both on the decoder's device.  A batch shares geometry, scan script and
-Huffman tables (quant tables are per image).
+Huffman tables (quant tables are per image).  ``prep``, ``upload`` and
+``run`` are the host-index mode's halves: where a walk refuses a stream,
+``prep`` records it (``ProgPrep.failure``, ``refused``) and ``run``
+returns ``ok`` False.
 
-Not ported, by decision: the speculative-chunk path and the host tail
-(``impl="spec"``, ``_TailScanDecoder``).  Where an index walk refuses a
-stream, the port returns ``ok`` False and does not raise
-(``ProgPrep.failure`` names the scan and the image), and the batch
-belongs to a host decoder: ``decode_verified`` then decodes it with the
-port's (codecs/jpeg/decoder.py).  The ``max_batch`` split and the benchmark
-``salt`` were TPU mechanics and change no output.
+Not ported, by decision: zpix_tpu's unroll, window and compile knobs
+(``k1``, ``k2``, ``W``, ``max_batch`` and ``ZPIX_PROG_IMPL``), which change
+no output; the constructor's ``impl`` decides the mode.  The benchmark
+``salt`` was a TPU mechanic.
 """
 
 from __future__ import annotations
@@ -44,6 +66,7 @@ from ..codecs.jpeg.tables import UNZIG, HuffTable
 from ..color import ycbcr_to_rgb8
 from ..errors import FormatError, UnsupportedError
 from ..ops import entropy as _entropy
+from ..ops import prog_spec as _spec
 from ..ops import progressive as _prog
 from ..runtime import host as _host
 from .batch import decode_batch_planes
@@ -364,7 +387,9 @@ class ScanPrep:
 class ProgPrep:
     """A batch ready for the card: geometry, per-image quant rows and one
     ``ScanPrep`` per scan in script order.  ``okh`` is the host's part of
-    ``ok``; ``failure`` names the scan and the image that cleared it."""
+    ``ok``; ``failure`` names the scan and the image that cleared it;
+    ``refused`` says an index walk refused a stream or an AC scan covers
+    several components (``decode`` then takes the spec path)."""
 
     width: int
     height: int
@@ -376,6 +401,7 @@ class ProgPrep:
     scans: list
     okh: bool = True
     failure: str | None = None
+    refused: bool = False
 
     @property
     def ncomp(self) -> int:
@@ -519,8 +545,10 @@ def prep_hostindex(plans, pool: ThreadPoolExecutor | None = None) -> ProgPrep:
                     return w.index, rc
         return None
 
+    refused = failure is not None
     results = list(pool.map(walk_image, range(B)) if pool else map(walk_image, range(B)))
     failed = [(r[0], b, r[1]) for b, r in enumerate(results) if r]
+    refused |= bool(failed)
     if failed:
         si, b, rc = min(failed)
         failure = (f"scan {si} ({p0.scans[si].kind}): the index walk refused image {b} "
@@ -536,7 +564,7 @@ def prep_hostindex(plans, pool: ThreadPoolExecutor | None = None) -> ProgPrep:
                        for c in range(p0.ncomp)]).astype(np.int32)
     return ProgPrep(width=p0.width, height=p0.height, hv=p0.hv, mxx=p0.mxx, myy=p0.myy,
                     ratio=p0.ratio, quants=quants, scans=scans, okh=failure is None,
-                    failure=failure)
+                    failure=failure, refused=refused)
 
 
 # ------------------------------------------------------------- assembly
@@ -572,22 +600,172 @@ def apply_scan(fn, sc: ScanPrep, t: dict, grids, prep: ProgPrep, ok) -> None:
            ss=sc.ss, se=sc.se, **kw)
 
 
-class OnchipProgressiveDecoder:
-    """Progressive JPEG batches on the GPU (host-index mode): bytes ->
-    (pixels [B, H, W, 3] u8, or [B, H, W] for gray; ok 0-dim bool) on the
-    decoder's device, with no host sync.
+# ------------------------------------------------------------ speculative mode
 
-    ``prep`` is the host half, ``upload`` the one pinned copy, ``run`` the
-    device half; ``decode`` runs all three.  One thread pool for the index
-    walks lives until ``close``.  ``ok`` False means the batch belongs to
-    a host decoder.
+
+def spec_prefix(p0: ProgPlan) -> int:
+    """Scans the card can decode in spec mode before any walk runs: up to an
+    AC-first scan over several components or after a refinement, or a
+    refinement over several components (progressive_onchip.py:2192-2200)."""
+    refined = False
+    for si, sc in enumerate(p0.scans):
+        if sc.kind == "ac_first" and (len(sc.comps) != 1 or refined):
+            return si
+        if sc.kind == "ac_refine":
+            if len(sc.comps) != 1:
+                return si
+            refined = True
+    return len(p0.scans)
+
+
+def spec_first_inputs(p0: ProgPlan, plans, si: int, chunk_bytes: int) -> tuple:
+    """A DC-first or AC-first scan's spec inputs -> ([stream, starts, ends,
+    tables] numpy, chunks an image)."""
+    sc = p0.scans[si]
+    flat, starts, ends, n_chunks = _spec.stack_spec([pl.scans[si].stream for pl in plans],
+                                                    chunk_bytes)
+    if sc.kind == "dc_first":
+        tabs, tid_of_slot, _ = _dc_scan_geom(p0, sc)
+        tables = _entropy.pack_tables(tabs, tid_of_slot, [])
+    else:
+        tables = _entropy.pack_tables([sc.huffs[(1, sc.ta[0])]], [], [0])
+    return [flat, starts, ends, tables], n_chunks
+
+
+def pack_flags(grids):
+    """The store's nonzero flags in zigzag order, 8 a byte MSB first
+    (numpy.unpackbits' order), one row a component -> a flat u8 tensor on
+    the store's device."""
+    dev = grids[0].device
+    unzig = torch.as_tensor(UNZIG, dtype=torch.int64, device=dev)
+    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.uint8, device=dev)
+    return torch.cat([(g.index_select(3, unzig) != 0).view(-1, 8).to(torch.uint8).mul_(weights)
+                      .sum(1, dtype=torch.uint8) for g in grids])
+
+
+def seed_masks(flags: np.ndarray, prep: ProgPrep) -> list:
+    """Unpacked store flags (``pack_flags``) -> per image {component: its
+    valid blocks' zigzag nonzero flags, u8 [nvalid, 64]}
+    (progressive_onchip.py:1852-1860)."""
+    B, out, off = prep.batch, [{} for _ in range(prep.batch)], 0
+    bits = np.unpackbits(flags)
+    for c, (h, v) in enumerate(prep.hv):
+        bv, bh = prep.myy * v, prep.mxx * h
+        n = B * bv * bh * 64
+        grid = bits[off : off + n].reshape(B, bv, bh, 64)
+        off += n
+        nvy, nvx = valid_grid(prep, c)
+        for b in range(B):
+            out[b][c] = np.ascontiguousarray(grid[b, :nvy, :nvx]).reshape(-1, 64)
+    return out
+
+
+class _TailScanDecoder:
+    """The port's host decoder that skips the first ``skip`` scans' entropy
+    data (they ran on the card) and decodes the rest, seeded with the
+    fetched store (progressive_onchip.py:1107-1162)."""
+
+    def __init__(self, data: bytes, skip: int, seed):
+        outer = self
+
+        class _D(_host_decoder.Decoder):
+            def __init__(self):
+                super().__init__(data)
+                self.collect_only = True
+                self._scan_no = 0
+
+            def process_sos(self, n: int) -> None:
+                if self._scan_no < skip:
+                    self._scan_no += 1
+                    # the SOS header, then the entropy bytes up to the next
+                    # real marker (stuffed FF00 and RSTs are entropy data)
+                    self.read_full(n)
+                    d, p = self.data, self.pos
+                    while p < len(d) - 1 and not (d[p] == 0xFF and d[p + 1] not in (0x00, 0xFF)
+                                                  and not 0xD0 <= d[p + 1] <= 0xD7):
+                        p += 1
+                    self.pos = p
+                    return
+                if self._scan_no == skip and seed is not None:
+                    h0, v0 = self.component[0].h, self.component[0].v
+                    if not self.img_allocated:
+                        self._make_img((self.width + 8 * h0 - 1) // (8 * h0),
+                                       (self.height + 8 * v0 - 1) // (8 * v0))
+                    for c, arr in enumerate(seed):
+                        if arr is not None:
+                            self._ensure_coeff(c)
+                            self.coeff[c][...] = arr
+                    outer.seeded = True
+                self._scan_no += 1
+                super().process_sos(n)
+
+        self.dec = _D()
+        self.seeded = False
+
+    def run(self):
+        self.dec.decode_inner(False)
+        return self.dec
+
+
+def tail_deltas(grids, datas, skip: int, pool) -> list:
+    """The host tail: the store fetched, each image's scans from ``skip`` on
+    decoded on the host seeded with it, a thread an image -> per component
+    (indices, values) int32 [B, k] of each image's changed coefficients
+    (padding: index 0, value 0)."""
+    seeds = [g.cpu().numpy() for g in grids]
+    B = len(datas)
+
+    def one(b):
+        return _TailScanDecoder(datas[b], skip, [s[b] for s in seeds]).run()
+
+    decs = list(pool.map(one, range(B)))
+    out = []
+    for c, seed in enumerate(seeds):
+        parts = []
+        for b, dec in enumerate(decs):
+            diff = dec.coeff[c].astype(np.int64).reshape(-1) - seed[b].astype(np.int64).reshape(-1)
+            nz = np.flatnonzero(diff)
+            parts.append((nz, diff[nz]))
+        k = max(1, max(len(nz) for nz, _ in parts))
+        idx = np.zeros((B, k), np.int32)
+        val = np.zeros((B, k), np.int32)
+        for b, (nz, d) in enumerate(parts):
+            idx[b, : len(nz)] = nz
+            val[b, : len(nz)] = d.astype(np.int32)  # int32, wrapping
+        out.append((idx, val))
+    return out
+
+
+class OnchipProgressiveDecoder:
+    """Progressive JPEG batches on the GPU: bytes -> (pixels [B, H, W, 3]
+    u8, or [B, H, W] for gray; ok 0-dim bool) on the decoder's device.
+
+    ``impl``: "hostindex" (the default; ``prep`` the host half, ``upload``
+    the one pinned copy, ``run`` the device half, with no host sync) or
+    "spec" (``decode_spec``).  ``decode`` runs the three halves, or the spec
+    path in spec mode or where a walk refuses a stream.  ``chunk_bytes``:
+    the spec path's chunk (K20, K21).  ``n_host_tail_scans``: the scans the
+    last ``decode`` left to the host tail.  One thread pool for the index
+    walks and the tail lives until ``close``.  ``ok`` False means the batch
+    belongs to a host decoder.
     """
 
-    def __init__(self, *, device=None, n_threads: int | None = None):
+    def __init__(self, *, device=None, n_threads: int | None = None, impl: str = "hostindex",
+                 chunk_bytes: int = 64):
+        if impl not in ("hostindex", "spec"):
+            raise ValueError(f"jpeg: unknown progressive impl {impl!r}")
+        if chunk_bytes < 1:
+            raise ValueError("jpeg: chunk_bytes must be at least 1")
+        self.impl = impl
+        self.chunk_bytes = chunk_bytes
         self.device = resolve_device(device)
         self.n_threads = n_threads or os.cpu_count() or 2
         self._pool = ThreadPoolExecutor(self.n_threads)
         self._upload = PinnedUpload(self.device)
+        self.n_host_tail_scans = 0
+        # the last spec decode: each spec scan's rounds (int32 [B] on the
+        # card, by scan index), the flag fetch's bytes, the card's prefix
+        self.spec_stats: dict = {}
 
     def prep(self, datas: list[bytes]) -> ProgPrep:
         if not datas:
@@ -628,7 +806,115 @@ class OnchipProgressiveDecoder:
         return pixels, ok[0] != 0
 
     def decode(self, datas: list[bytes]):
-        return self.run(self.prep(datas))
+        if not datas:
+            raise ValueError("jpeg: empty batch")
+        plans = [parse_progressive(d) for d in datas]
+        check_batch(plans)
+        if self.impl == "hostindex":
+            prep = prep_hostindex(plans, self._pool)
+            if not prep.refused:
+                self.n_host_tail_scans = 0
+                return self.run(prep)
+        return self.decode_spec(plans, datas)
+
+    def decode_spec(self, plans, datas: list[bytes]):
+        """The spec path on a checked batch (module docstring): the card's
+        prefix of scans in script order, then the host tail, then K6."""
+        p0, B = plans[0], len(plans)
+        n_pre = spec_prefix(p0)
+        quants = np.stack([np.stack([pl.quants[c] for pl in plans])
+                           for c in range(p0.ncomp)]).astype(np.int32)
+        firsts, rows, okh = {}, {}, True
+        for si in range(n_pre):
+            kind = p0.scans[si].kind
+            if kind in ("dc_first", "ac_first"):
+                firsts[si] = spec_first_inputs(p0, plans, si, self.chunk_bytes)
+            elif kind == "dc_refine":
+                sp, short = _ScanWalk(p0, si, B, None).prep(plans)
+                rows[si] = sp
+                okh &= short is None
+        prep = ProgPrep(width=p0.width, height=p0.height, hv=p0.hv, mxx=p0.mxx, myy=p0.myy,
+                        ratio=p0.ratio, quants=quants, scans=[], okh=okh)
+        arrays = [a for si in sorted(firsts) for a in firsts[si][0]]
+        arrays += [rows[si].stream for si in sorted(rows)] + [quants]
+        flat = iter(self._upload(arrays))
+        dev_first = {si: [next(flat) for _ in range(4)] for si in sorted(firsts)}
+        dev_rows = {si: next(flat) for si in sorted(rows)}
+        dev_quants = next(flat)
+        grids, ok = new_store(prep, dev_quants.device)
+        self.spec_stats = stats = {"rounds": {}, "flag_fetch_bytes": 0}
+        refs, n_prefix = None, n_pre
+        for si in range(n_pre):
+            sc = p0.scans[si]
+            if sc.kind == "ac_refine":
+                if refs is None:
+                    refs = self._spec_refinements(plans, si, grids, prep, stats)
+                if si not in refs:
+                    n_prefix = si
+                    break
+                apply_scan(_prog.ac_refine, refs[si][0], refs[si][1], grids, prep, ok)
+            elif sc.kind == "dc_refine":
+                apply_scan(_prog.dc_refine, rows[si], {"stream": dev_rows[si]}, grids, prep, ok)
+            else:
+                stream, starts, ends, tables = dev_first[si]
+                kw = dict(valid=valid_grid(prep, sc.comps[0]), al=sc.al,
+                          chunk_bytes=self.chunk_bytes, n_chunks=firsts[si][1])
+                if sc.kind == "dc_first":
+                    stats["rounds"][si] = _spec.dc_first_spec(
+                        stream, starts, ends, tables, ok, [grids[c] for c in sc.comps],
+                        hv=[p0.hv[c] for c in sc.comps], **kw)
+                else:
+                    stats["rounds"][si] = _spec.ac_first_spec(
+                        stream, starts, ends, tables, ok, grids[sc.comps[0]], ss=sc.ss,
+                        se=sc.se, **kw)
+        self.n_host_tail_scans = len(p0.scans) - n_prefix
+        stats["prefix"] = n_prefix
+        if n_prefix < len(p0.scans):
+            deltas = tail_deltas(grids, datas, n_prefix, self._pool)
+            parts = iter(self._upload([a for pair in deltas for a in pair]))
+            for g in grids:
+                idx, val = next(parts), next(parts)
+                _spec.delta_add(g.view(B, -1), idx, val)
+        pixels = decode_batch_planes(grids, list(dev_quants), color="gray" if p0.ncomp == 1
+                                     else "ycbcr", height=p0.height, width=p0.width,
+                                     ratio=p0.ratio)
+        return pixels, ok[0] != 0
+
+    def _spec_refinements(self, plans, si: int, grids, prep: ProgPrep, stats: dict) -> dict:
+        """At the first AC refinement: one fetch of the store's nonzero
+        flags seeds each image's masks, then every refinement scan from
+        ``si`` up to the next AC-first scan is walked (one image a task,
+        EOB runs from 0) and uploaded in one copy -> {scan: (ScanPrep, its
+        device arrays)} for the scans before the first one a walk refused
+        (progressive_onchip.py:2201-2248)."""
+        p0, B = plans[0], len(plans)
+        flags = pack_flags(grids).cpu().numpy()
+        stats["flag_fetch_bytes"] = int(flags.nbytes)
+        masks = seed_masks(flags, prep)
+        walks = []
+        for sj in range(si, len(p0.scans)):
+            kind = p0.scans[sj].kind
+            if kind == "ac_first" or (kind == "ac_refine" and len(p0.scans[sj].comps) != 1):
+                break
+            if kind == "ac_refine":
+                walks.append(_ScanWalk(p0, sj, B, [pl.scans[sj].stream for pl in plans]))
+        lib = _host.lib()
+
+        def walk_image(b):
+            eob_run = [0]
+            for w in walks:
+                if w.run(lib, b, masks[b], eob_run):
+                    return w.index
+            return len(p0.scans)
+
+        stop = min(self._pool.map(walk_image, range(B)))
+        preps = [w.prep(plans)[0] for w in walks if w.index < stop]
+        flat = iter(self._upload([a for sp in preps for a in sp.arrays()]))
+        out = {}
+        for w, sp in zip(walks, preps):
+            out[w.index] = (sp, {n: next(flat) for n in ScanPrep.ARRAYS
+                                 if getattr(sp, n) is not None})
+        return out
 
     def decode_verified(self, datas: list[bytes]) -> np.ndarray:
         """Host numpy output [B, H, W, 3] (gray [B, H, W]) with a

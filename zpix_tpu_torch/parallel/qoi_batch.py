@@ -1,9 +1,22 @@
-"""QOI batches on the card: host record passes -> device run expansion
-(``HostIndexQoiDecoder``), and the device encoder (``encode_device``,
-``encode_device_batch``).
+"""QOI batches on the card: the speculative decode (``BatchQoiDecoder``),
+host record passes -> device run expansion (``HostIndexQoiDecoder``), and
+the device encoder (``encode_device``, ``encode_device_batch``).
 
-The port of zpix_tpu/parallel/qoi_batch.py's host-index split (:661-1410)
-and device encoder (:1412-1623).  QOI's op stream is serial by
+The port of zpix_tpu/parallel/qoi_batch.py's speculative section (:1-678),
+host-index split (:661-1410) and device encoder (:1412-1623).
+
+``BatchQoiDecoder`` decodes wholly on the card: ``prep_qoi_batch`` lays
+the op streams back to back (``QoiPlan``) and K23 (ops/qoi_spec.py) finds
+each chunk's entry state by rounds to the fixed point and writes the
+pixels, with ``ok`` False on a read past an image's padded end, a chunk of
+more than ``ops_cap`` ops or rounds that did not settle;
+``decode_verified`` then takes the host decoder.  With ``mesh`` each batch
+position decodes its run of images.  Not ported, by decision: zpix_tpu's
+unroll, window and while-carry knobs (``k_ops``, ``win_words``,
+``carry_mb`` with ``carry_bytes`` and ``_pick_groups``, whose guard kept a
+TPU worker from faulting near 400 MB) and the ``ZPIX_QOI_*`` variables.
+
+The host-index split:  QOI's op stream is serial by
 construction (every op updates the previous pixel and a 64-entry rolling
 index), so the byte walk runs on the host, in the port's copy of the C++
 (csrc/host/qoi.cpp, a thread an image), and emits run-length records; the
@@ -26,9 +39,7 @@ shards its lanes (batch-major, as zpix_tpu shards the lane-major arrays)
 and the sorted form its images over the mesh's batch axis, each run
 expanded on its own device; lanes of an image that two positions hold
 come together where its first lane is (``mesh.regroup``), and the output
-is ``Sharded``.  Not ported, by decision: the speculative
-``BatchQoiDecoder`` and its knobs, the ``ZPIX_QOI_*`` environment
-variables and the loop form of the expansion.
+is ``Sharded``.  Not ported, by decision: the loop form of the expansion.
 """
 
 from __future__ import annotations
@@ -41,14 +52,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..codecs.qoi.decode import _parse_header
+from ..codecs.qoi.decode import QOI_HEADER_SIZE, QOI_PADDING_SIZE, _parse_header, decode_pixels
 from ..codecs.qoi.encode import PADDING, check_desc, header
 from ..errors import FormatError, UnsupportedError
 from ..ops import qoi as kq
+from ..ops import qoi_spec as _qspec
 from ..runtime import host
 from ..utils import metrics, trace
 from .device_entropy import PinnedUpload, resolve_device
-from .mesh import DeviceUploads, Sharded, mesh_device, regroup
+from .mesh import DeviceUploads, Sharded, all_ok, mesh_device, regroup
 
 DEFAULT_LANE_P = 32  # zpix_tpu's default when ZPIX_QOI_LANE_P is unset
 
@@ -68,6 +80,151 @@ def _map(fn, n: int):
     """fn(i) for i < n on a thread pool (ctypes releases the GIL)."""
     with ThreadPoolExecutor(max_workers=min(n, os.cpu_count() or 2)) as ex:
         return list(ex.map(fn, range(n)))
+
+
+# ------------------------------------------------------- speculative decode
+
+DEFAULT_CHUNK = 64  # zpix_tpu's default when ZPIX_QOI_CHUNK is unset
+
+
+def _adaptive_chunk(stream_bytes: int) -> int:
+    """The default chunk, doubled until an image has at most ~1,500 chunks
+    (qoi_batch.py:80-93)."""
+    cb = DEFAULT_CHUNK
+    while stream_bytes // cb > 1500 and cb < 65536:
+        cb *= 2
+    return cb
+
+
+@dataclass
+class QoiPlan:
+    """Host prep of a same-dimensions QOI batch for K23."""
+
+    width: int
+    height: int
+    stream: np.ndarray  # op streams (and their 8-byte padding) back to back
+    img_byte_start: np.ndarray  # int32 [B] first op byte
+    img_byte_end: np.ndarray  # int32 [B] end of the op bytes (without the padding)
+    img_raw_end: np.ndarray  # int32 [B] end with the 8-byte padding
+    chunk_bytes: int
+    n_chunks: int  # an image (padded to the longest op stream)
+    batch: int
+
+
+def prep_qoi_batch(datas: list[bytes], chunk_bytes: int | None = None) -> QoiPlan:
+    """Each image's op bytes and padding at an 8-byte aligned offset, then
+    zeros (qoi_batch.py:96-155); the chunk count covers the longest op
+    stream, rounded up to a multiple of 32."""
+    if not datas:
+        raise ValueError("qoi: empty batch")
+    cb = chunk_bytes or _adaptive_chunk(max(len(d) for d in datas))
+    dims, regions = None, []
+    for d in datas:
+        w, h, _, _ = _parse_header(d)
+        if dims is None:
+            dims = (w, h)
+        elif dims != (w, h):
+            raise UnsupportedError("qoi: batch must share dimensions")
+        regions.append(np.frombuffer(d, np.uint8)[QOI_HEADER_SIZE:])
+    offs, total = [], 0
+    for r in regions:
+        offs.append(total)
+        total += (len(r) + 7) // 8 * 8
+    if total + 16 >= 1 << 31:
+        raise UnsupportedError("qoi: a batch's op streams must be under 2 GiB")
+    flat = np.zeros(total + 16, np.uint8)
+    for r, o in zip(regions, offs):
+        flat[o : o + len(r)] = r
+    op_lens = [len(r) - QOI_PADDING_SIZE for r in regions]
+    return QoiPlan(
+        width=dims[0], height=dims[1], stream=flat, img_byte_start=np.array(offs, np.int32),
+        img_byte_end=np.array([o + n for o, n in zip(offs, op_lens)], np.int32),
+        img_raw_end=np.array([o + len(r) for o, r in zip(offs, regions)], np.int32),
+        chunk_bytes=cb, n_chunks=max(32, (-(-max(op_lens) // cb) + 31) // 32 * 32),
+        batch=len(datas))
+
+
+def _sub_plan(plan: QoiPlan, lo: int, hi: int) -> QoiPlan:
+    """Images [lo, hi) of a plan, their stream cut out and rebased."""
+    a = int(plan.img_byte_start[lo])
+    b = int(plan.img_raw_end[hi - 1])
+    stream = np.concatenate([plan.stream[a:b], np.zeros(16, np.uint8)])
+    return QoiPlan(plan.width, plan.height, stream, plan.img_byte_start[lo:hi] - a,
+                   plan.img_byte_end[lo:hi] - a, plan.img_raw_end[lo:hi] - a, plan.chunk_bytes,
+                   plan.n_chunks, hi - lo)
+
+
+class BatchQoiDecoder:
+    """QOI wholly on the card: bytes -> (RGBA u8 [B, H, W, 4] on the
+    decoder's device, ok 0-dim bool), K23.
+
+    ``chunk_bytes`` (default ``_adaptive_chunk``), ``ops_cap`` (ops a chunk
+    may hold; default one a byte, the exact worst case), ``mesh`` (each
+    batch position decodes its run of images; the output is ``Sharded``).
+    ``last_rounds``: the rounds each image of the last batch took (int32
+    [B] on the card; a list of them with a mesh).  ``decode_verified``
+    falls back to the host decoder where ``ok`` is False."""
+
+    def __init__(self, *, chunk_bytes: int | None = None, ops_cap: int | None = None,
+                 device=None, mesh=None):
+        self.chunk_bytes = chunk_bytes
+        self.ops_cap = ops_cap
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device)
+        self._upload = PinnedUpload(self.device)
+        self._uploads = DeviceUploads(self._upload)
+        self.last_rounds = None
+
+    def prep(self, datas: list[bytes]) -> QoiPlan:
+        with trace("qoi_onchip.prep"):
+            plan = prep_qoi_batch(datas, self.chunk_bytes)
+        metrics.count("qoi_onchip.images", len(datas))
+        return plan
+
+    @staticmethod
+    def _arrays(plan: QoiPlan) -> list:
+        return [plan.stream, plan.img_byte_start, plan.img_byte_end, plan.img_raw_end]
+
+    def upload(self, plan: QoiPlan):
+        """The plan's stream and offsets -> device tensors in one copy; with
+        a mesh, a list of those a batch position (its run of images, its
+        part of the stream)."""
+        if self.mesh is None:
+            return self._upload(self._arrays(plan))
+        from .mesh import shard_bounds
+
+        return [self._uploads(dev)(self._arrays(_sub_plan(plan, lo, hi)))
+                for dev, lo, hi in shard_bounds(self.mesh, plan.batch,
+                                                f"qoi: the batch ({plan.batch} images)")]
+
+    def _decode(self, plan: QoiPlan, bufs):
+        return _qspec.spec_decode(*bufs, n_chunks=plan.n_chunks, chunk_bytes=plan.chunk_bytes,
+                                  ops_cap=min(plan.chunk_bytes, self.ops_cap or plan.chunk_bytes),
+                                  height=plan.height, width=plan.width)
+
+    def run(self, plan: QoiPlan, bufs):
+        """K23 on uploaded buffers -> (rgba, ok)."""
+        if self.mesh is None:
+            rgba, ok, self.last_rounds = self._decode(plan, bufs)
+            return rgba, ok
+        outs = [self._decode(plan, b) for b in bufs]
+        self.last_rounds = [o[2] for o in outs]
+        return Sharded.stack(o[0] for o in outs), all_ok([o[1] for o in outs], self.device)
+
+    def decode(self, datas: list[bytes]):
+        plan = self.prep(datas)
+        return self.run(plan, self.upload(plan))
+
+    def decode_verified(self, datas: list[bytes]) -> np.ndarray:
+        """Host numpy output [B, H, W, 4], with the host decoder on every
+        image where ``ok`` is False (or the batch is refused)."""
+        try:
+            rgba, ok = self.decode(datas)
+        except UnsupportedError:
+            ok = False
+        if ok is not False and bool(ok):
+            return np.asarray(rgba.numpy() if isinstance(rgba, Sharded) else rgba.cpu().numpy())
+        return np.stack([decode_pixels(d) for d in datas])
 
 
 # ------------------------------------------------------------- record pass

@@ -38,7 +38,8 @@ LAUNCHES = {"index_pass": 0, "value_pass": 0, "dc_restore": 0,
             "ac_refine": 0, "dc_refine": 0, "qoi_lane_expand": 0,
             "qoi_sorted_expand": 0, "qoi_encode": 0, "bmp_unpack": 0,
             "png_defilter": 0, "inflate_resolve": 0, "adler32": 0, "png_expand": 0,
-            "sync_decode": 0}
+            "sync_decode": 0, "dc_first_spec": 0, "ac_first_spec": 0, "delta_add": 0,
+            "qoi_spec": 0}
 
 _lock = threading.Lock()
 _lib = None
