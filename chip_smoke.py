@@ -105,7 +105,7 @@ tail, one flag fetch; Cb's AC-first scan moved after Y's first
 refinement: the tail decodes 5 scans; a batch the host walk refuses goes
 the spec path in host-index mode's ``decode()``) and
 ``DeviceProgressiveDecoder``, and QOI noise and screen through
-``BatchQoiDecoder`` (its rounds and chunks, an ``ops_cap`` overflow), each
+``BatchQoiDecoder`` (its passes and chunks, an ``ops_cap`` overflow), each
 against the host decoder and timed by stage between CUDA events.
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero.  Without CUDA it exits non-zero and prints no
@@ -3855,9 +3855,9 @@ class EventClock:
 def spec_scan_checks(dec, datas):
     """K20 and K21 against their plain versions on every DC-first and
     AC-first scan of a full batch, each from a zero store on the card ->
-    (max_abs_err by kernel, ok both, per scan: rounds (kernel, per image),
-    chunk count, the most symbols a chunk, kernel and plain ms, stream
-    bytes, blocks)."""
+    (max_abs_err by kernel, ok both, per scan: rounds (kernel, per image:
+    K20's misses, K21's rounds), chunk count, the most symbols a chunk,
+    kernel and plain ms, stream bytes, blocks)."""
     from zpix_tpu_torch.ops import prog_spec as ps
     from zpix_tpu_torch.parallel import progressive_onchip as po
 
@@ -4062,7 +4062,7 @@ def spec_phase(dev):
     del dpx, tpx, fpx, spx
 
     # BatchQoiDecoder: K23 against its plain version, the host decoder and
-    # HostIndexQoiDecoder (lane); rounds and chunks; stages; an overflow
+    # HostIndexQoiDecoder (lane); passes and chunks; stages; an overflow
     qdec, lane = BatchQoiDecoder(), HostIndexQoiDecoder()
     qoi_out, k23 = {}, {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0, "ops": 0,
                         "stream_bytes": 0}
@@ -4073,7 +4073,7 @@ def spec_phase(dev):
         qpx, qok = qdec.run(plan, bufs)
         torch.cuda.synchronize()
         ql = runtime.LAUNCHES["qoi_spec"]
-        rounds = qdec.last_rounds.cpu().tolist()
+        passes = qdec.last_rounds.cpu().tolist()
         kw = dict(n_chunks=plan.n_chunks, chunk_bytes=plan.chunk_bytes, ops_cap=plan.chunk_bytes,
                   height=SIZE, width=SIZE)
         stats = {}
@@ -4107,8 +4107,8 @@ def spec_phase(dev):
             "ok": bool(qok), "plain_ok": bool(pok), "max_abs_err_vs_plain": err,
             "host_decoder_err": max_abs_err(qpx[:2].cpu(), torch.from_numpy(host)),
             "lane_err": max_abs_err(qpx, lane_px), "launches": ql,
-            "rounds": rounds, "chunks": plan.n_chunks, "chunk_bytes": plan.chunk_bytes,
-            "chunk_ops": stats["chunk_ops"], "ops": stats["ops"],
+            "passes": passes, "plain_passes": stats["passes"], "chunks": plan.n_chunks,
+            "chunk_bytes": plan.chunk_bytes, "chunk_ops": stats["chunk_ops"], "ops": stats["ops"],
             "stream_bytes": int(plan.stream.nbytes), "ms": ms, "plain_ms": plain_ms,
             "stage_ms_mean": mean, "e2e_ms": [w * 1e3 for w in walls],
             "e2e_mpix_per_s": mpix / float(np.mean(walls))}
@@ -4128,10 +4128,11 @@ def spec_phase(dev):
                "scans": scans, "spec": route, "tail": tail, "fallback": fallback,
                "delta": delta, "qoi": qoi_out,
                "k22_inputs": {"elements": k22_elems, "rows": [list(i.shape) for i, _ in dv]}}
-    # timing entries: the main path's launches and this run's inputs
+    # timing entries: the main path's launches and this run's inputs; the
+    # chain bounds are one chunk's symbols (ops), whatever a design repeats
     dc = [s for s in scans if s["kind"] == "dc_first_spec"]
     ac = [s for s in scans if s["kind"] == "ac_first_spec"]
-    chain = {k: max(s["chunk_symbols"] * max(s["rounds"]) for s in v)
+    chain = {k: max(s["chunk_symbols"] for s in v)
              for k, v in (("dc_first_spec", dc), ("ac_first_spec", ac))}
     nblk_dc = sum(s["blocks"] for s in dc)
     entries = {
@@ -4141,7 +4142,7 @@ def spec_phase(dev):
             "ops": (OPS_K2_SYMBOL + OPS_K8_BLOCK) * nblk_dc, "launches": launches["dc_first_spec"],
             "max_abs_err": errs["dc_first_spec"], "library_ms": None,
             "chain_bound_ms": chain["dc_first_spec"] * CHAIN_CYCLES_PER_SYMBOL / BOOST_HZ * 1e3,
-            "rounds": {s["scan"]: s["rounds"] for s in dc}},
+            "misses": {s["scan"]: s["rounds"] for s in dc}},
         "ac_first_spec": {
             "ms": sum(s["ms"] for s in ac), "plain_ms": sum(s["plain_ms"] for s in ac),
             # the stream read, the valid blocks' band rows written
@@ -4162,22 +4163,24 @@ def spec_phase(dev):
             "bytes": k23["stream_bytes"] + 2 * 4 * BATCH * SIZE * SIZE,
             "ops": OPS_K23_OP * k23["ops"] + OPS_K23_PIXEL * 2 * BATCH * SIZE * SIZE,
             "launches": qoi_out["noise"]["launches"], "max_abs_err": k23["max_abs_err"],
-            "rounds": {c: qoi_out[c]["rounds"] for c in ("noise", "screen")},
+            "passes": {c: qoi_out[c]["passes"] for c in ("noise", "screen")},
             "chunks": {c: qoi_out[c]["chunks"] for c in ("noise", "screen")},
-            "chain_bound_ms": max(qoi_out[c]["chunk_ops"] * max(qoi_out[c]["rounds"])
-                                  for c in ("noise", "screen"))
+            "chain_bound_ms": max(qoi_out[c]["chunk_ops"] for c in ("noise", "screen"))
             * CHAIN_CYCLES_PER_SYMBOL / BOOST_HZ * 1e3}}
     dec.close()
     return summary, entries
 
 
 def spec_check(sp) -> None:
+    from zpix_tpu_torch.ops.prog_spec import DC_FIRST_KERNELS
+
     r, t, f, d, q = sp["spec"], sp["tail"], sp["fallback"], sp["delta"], sp["qoi"]
     if any(sp["max_abs_err"].values()) or not sp["kernels_ok"]:
         raise SystemExit("chip_smoke: K20-K22 disagree with their plain versions")
     lr = r["launches"]
-    if (not r["ok"] or r["n_host_tail_scans"] or r["host_decoder_err"] or lr["dc_first_spec"] != 1
-            or lr["ac_first_spec"] != 4 or lr["dc_first"] or lr["ac_first"]
+    if (not r["ok"] or r["n_host_tail_scans"] or r["host_decoder_err"]
+            or lr["dc_first_spec"] != DC_FIRST_KERNELS or lr["ac_first_spec"] != 4
+            or lr["dc_first"] or lr["ac_first"]
             or min(lr["ac_refine"], lr["dc_refine"], lr["component_planes"]) == 0
             or r["flag_fetch_bytes"] == 0):
         raise SystemExit("chip_smoke: the spec route is wrong or skipped a kernel")
@@ -4191,7 +4194,8 @@ def spec_check(sp) -> None:
     for c in ("noise", "screen"):
         e = q[c]
         if (not e["ok"] or not e["plain_ok"] or e["max_abs_err_vs_plain"]
-                or e["host_decoder_err"] or e["lane_err"] or e["launches"] != 1):
+                or e["host_decoder_err"] or e["lane_err"] or e["launches"] != 1
+                or max(e["passes"]) != e["plain_passes"]):
             raise SystemExit(f"chip_smoke: BatchQoiDecoder is wrong on {c}")
     if q["ops_cap_overflow"]["ok"] or q["ops_cap_overflow"]["verified_host_err"]:
         raise SystemExit("chip_smoke: an ops_cap overflow was not flagged")

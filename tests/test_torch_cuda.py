@@ -2152,7 +2152,8 @@ def _spec_scan_both(cuda, p0, sc, arrays, F, cb, seed=0):
             ps.dc_first_spec(*t, ok, grids, hv=[p0.hv[c] for c in sc.comps], **kw)
         else:
             ps.ac_first_spec(*t, ok, grids[0], ss=sc.ss, se=sc.se, **kw)
-        assert runtime.LAUNCHES[kind] == before + (dev.type == "cuda")
+        per_call = ps.DC_FIRST_KERNELS if sc.kind == "dc_first" else 1
+        assert runtime.LAUNCHES[kind] == before + per_call * (dev.type == "cuda")
         res.append(([g.cpu() for g in grids], int(ok)))
     return res
 
@@ -2331,6 +2332,186 @@ def test_qoi_spec_four_shards(cuda):
     assert bool(ok) and bool(wok) and np.array_equal(np.asarray(got), want.cpu().numpy())
 
 
+def _k23_both(cuda, datas, cb, ops_cap=None, cut=None):
+    """K23 on the card and plain on the CPU on one QoiPlan (``cut``: bytes
+    taken off every image's op stream and its padding, so an op reads past
+    the padded end) -> (kernel rgba, ok, rounds, plain rgba, ok, stats)."""
+    from zpix_tpu_torch.ops import qoi_spec as qs
+    from zpix_tpu_torch.parallel import qoi_batch as tq
+
+    plan = tq.prep_qoi_batch(datas, cb)
+    arrays = [plan.stream, plan.img_byte_start, plan.img_byte_end, plan.img_raw_end]
+    if cut is not None:
+        arrays[2] = arrays[2] - cut
+        arrays[3] = arrays[2].copy()
+    kw = dict(n_chunks=plan.n_chunks, chunk_bytes=plan.chunk_bytes,
+              ops_cap=ops_cap or plan.chunk_bytes, height=plan.height, width=plan.width)
+    before = runtime.LAUNCHES["qoi_spec"]
+    got, ok, rounds = qs.spec_decode(*(torch.from_numpy(a).to(cuda) for a in arrays), **kw)
+    assert runtime.LAUNCHES["qoi_spec"] == before + 1
+    stats = {}
+    want, wok, _ = qs.spec_decode_plain(*(torch.from_numpy(a) for a in arrays), **kw, stats=stats)
+    return got.cpu(), bool(ok), rounds.cpu(), want, bool(wok), stats
+
+
+def _k23_cases():
+    from _torch_raster import bench_pixels, qoi_enc, qoi_images
+
+    rng = np.random.default_rng(21)
+    lut = rng.integers(0, 256, (60, 4), dtype=np.uint8)
+    few = rng.integers(0, 256, (5, 4), dtype=np.uint8)
+    return {
+        # at most 64 colours: nearly every op INDEX, source chains deep
+        "index_heavy": [qoi_enc(lut[rng.integers(0, 60, (64, 96))]),
+                        qoi_enc(few[(np.arange(64 * 96) // 3 % 5)].reshape(64, 96, 4)),
+                        qoi_enc(qoi_images(96, 64)[2])],
+        "all_run": [qoi_enc(np.full((64, 96, 4), 77, np.uint8))] * 2,
+        "all_rgba": [qoi_enc(rng.integers(0, 256, (64, 96, 4), dtype=np.uint8))
+                     for _ in range(2)],
+        "alpha": [qoi_enc(bench_pixels(96, s, "alpha")[:64]) for s in range(2)],
+        # a flat image beside noise: the short stream's chunks past its end
+        "unequal": [qoi_enc(np.full((64, 96, 4), 9, np.uint8)),
+                    qoi_enc(bench_pixels(96, 5, "noise")[:64]), qoi_enc(qoi_images(96, 64)[0])],
+        "bench": [qoi_enc(bench_pixels(128, s, c)) for s, c in ((1, "screen"), (2, "noise"))],
+    }
+
+
+@pytest.mark.parametrize("cb", [16, 4096])
+@pytest.mark.parametrize("case", ["index_heavy", "all_run", "all_rgba", "alpha", "unequal"])
+def test_qoi_spec_redesign_matches_plain(cuda, case, cb):
+    """K23 against its plain version (max_abs_err 0, the same ok) on
+    index-heavy, all-RUN, all-RGBA and varying-alpha content and a batch of
+    unequal streams, at chunks of 16 bytes and 4 KiB; each image's passes
+    at least 1, the most of them the plain version's source passes."""
+    from zpix_tpu_torch.codecs.qoi.decode import decode_pixels
+
+    datas = _k23_cases()[case]
+    got, ok, rounds, want, wok, stats = _k23_both(cuda, datas, cb)
+    assert ok and wok and torch.equal(got, want), case
+    assert int(rounds.min()) >= 1 and int(rounds.max()) == stats["passes"]
+    assert np.array_equal(got[0].numpy(), decode_pixels(datas[0]))
+
+
+@pytest.mark.parametrize("cut", [1, 2, 3])
+def test_qoi_spec_redesign_stream_cut_inside_an_op(cuda, cut):
+    """Streams whose last op reads past the padded end (the padding and 1-3
+    op bytes taken off): ok False in both, the pixels (the ops before it,
+    then the fill) equal."""
+    from _torch_raster import qoi_enc
+
+    rng = np.random.default_rng(cut)
+    datas = [qoi_enc(rng.integers(0, 256, (24, 40, 4), dtype=np.uint8)) for _ in range(2)]
+    got, ok, _, want, wok, _ = _k23_both(cuda, datas, 16, cut=cut)
+    assert not ok and not wok and torch.equal(got, want)
+
+
+def test_qoi_spec_redesign_ops_cap_overflow(cuda):
+    """ops_cap under a chunk's ops: ok False in both, the pixels equal (the
+    cap only clears ok)."""
+    datas = _k23_cases()["unequal"]
+    got, ok, _, want, wok, _ = _k23_both(cuda, datas, 64, ops_cap=3)
+    assert not ok and not wok and torch.equal(got, want)
+
+
+def test_qoi_spec_redesign_on_bench_content_passes(cuda):
+    """The JAX bench's screen and noise at 128^2, chunks of 128 bytes and
+    the adaptive chunk: equal to the plain version and the host decoder."""
+    from zpix_tpu_torch.codecs.qoi.decode import decode_pixels
+
+    datas = _k23_cases()["bench"]
+    for cb in (128, None):
+        got, ok, rounds, want, wok, stats = _k23_both(cuda, datas, cb)
+        assert ok and wok and torch.equal(got, want)
+        assert int(rounds.max()) == stats["passes"]
+        for i, d in enumerate(datas):
+            assert np.array_equal(got[i].numpy(), decode_pixels(d))
+
+
+K20_HV = {1: ((1, 1),), 3: ((1, 1),) * 3, 6: ((2, 2), (1, 1), (1, 1)),
+          10: ((2, 2), (2, 2), (1, 2))}
+
+
+def _k20_both(cuda, cases, hv, cb, mxx=5, myy=3):
+    """K20 on the card and plain on the CPU from one random store ->
+    (kernel grids, ok, rounds, plain grids, ok, the links plain's misses)."""
+    from zpix_tpu_torch.codecs.jpeg.tables import HuffTable
+    from zpix_tpu_torch.ops import prog_spec as ps
+
+    huffs = []
+    for counts, syms in cases[0]["huffs"]:
+        t = HuffTable()
+        t.build(list(counts), bytes(syms))
+        huffs.append(t)
+    tab = ke.pack_tables(huffs, cases[0]["tid_of_slot"], [])
+    flat, starts, ends, F = ps.stack_spec([c["stream"] for c in cases], cb)
+    B = len(cases)
+    rng = np.random.default_rng(cb)
+    shapes = ([(B, myy + 1, mxx + 2, 64)] if len(hv) == 1 else
+              [(B, myy * v, mxx * h, 64) for h, v in hv])
+    init = [rng.integers(-999, 999, s).astype(np.int32) for s in shapes]
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        grids = [torch.from_numpy(g.copy()).to(dev) for g in init]
+        ok = torch.ones(1, dtype=torch.int32, device=dev)
+        before = runtime.LAUNCHES["dc_first_spec"]
+        rounds = ps.dc_first_spec(*(torch.from_numpy(a).to(dev) for a in (flat, starts, ends, tab)),
+                                  ok, grids, hv=list(hv), valid=(myy, mxx), al=1, chunk_bytes=cb,
+                                  n_chunks=F)
+        assert runtime.LAUNCHES["dc_first_spec"] == before + ps.DC_FIRST_KERNELS * (
+            dev.type == "cuda")
+        res.append(([g.cpu() for g in grids], int(ok), rounds.cpu()))
+    bpm = sum(h * v for h, v in hv) if len(hv) > 1 else 1
+    links = ps.dc_entry_links_plain(*(torch.from_numpy(a) for a in (flat, starts, ends, tab)),
+                                    bpm=bpm, chunk_bytes=cb, n_chunks=F)
+    return res[0], res[1], links["misses"]
+
+
+@pytest.mark.parametrize("cb", [1, 2, 7, 64])
+@pytest.mark.parametrize("bpm", [1, 3, 6, 10])
+def test_dc_first_spec_redesign_matches_plain(cuda, bpm, cb):
+    """K20 against its plain version (max_abs_err 0, the same ok) on scans
+    coded by hand with 1, 3, 6 and 10 blocks an MCU, two images of unequal
+    scan length (their zero shares differ) and a third cut short, at
+    chunks of 1, 2, 7 and 64 bytes; each image's misses those of the
+    kernels' scheme in plain PyTorch."""
+    import _torch_prog as tp
+
+    hv = K20_HV[bpm]
+    cases = [tp.spec_dc_scan(100 * bpm + cb + b, hv=hv, zero=z) for b, z in enumerate((0.2, 0.9))]
+    cut = tp.spec_dc_scan(7 * bpm + cb, hv=hv)
+    cases.append(dict(cut, stream=cut["stream"][: len(cut["stream"]) // 2]))
+    (gk, okk, misses), (gp, okp, _), want_misses = _k20_both(cuda, cases, hv, cb)
+    assert okk == okp == 0  # the cut image holds fewer symbols than its blocks
+    assert all(torch.equal(a, b) for a, b in zip(gk, gp))
+    assert torch.equal(misses.to(torch.int64), want_misses)
+    (gk, okk, misses), (gp, okp, _), want_misses = _k20_both(cuda, cases[:2], hv, cb)
+    assert okk == okp == 1 and all(torch.equal(a, b) for a, b in zip(gk, gp))
+    assert torch.equal(misses.to(torch.int64), want_misses)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_dc_first_spec_redesign_corrupt_code(cuda, seed):
+    """Two 0xFF bytes written into one image's scan (a code past the DC
+    tables' or a wrong symbol) and random bytes into another: K20 and its
+    plain version agree on the store, ok and the misses."""
+    import _torch_prog as tp
+
+    hv = K20_HV[6]
+    rng = np.random.default_rng(seed)
+    cases = [tp.spec_dc_scan(seed * 5 + b, hv=hv, mxx=9, myy=5) for b in range(3)]
+    bad = cases[1]["stream"].copy()
+    at = int(rng.integers(2, len(bad) - 2))
+    bad[at : at + 2] = 0xFF  # all ones: past every DC table's codes
+    cases[1] = dict(cases[1], stream=bad)
+    noisy = cases[2]["stream"].copy()
+    noisy[rng.integers(0, len(noisy), 3)] = rng.integers(0, 256, 3, dtype=np.uint8)
+    cases[2] = dict(cases[2], stream=noisy)
+    for cb in (2, 16):
+        (gk, okk, misses), (gp, okp, _), want_misses = _k20_both(cuda, cases, hv, cb, 9, 5)
+        assert okk == okp and all(torch.equal(a, b) for a, b in zip(gk, gp))
+        assert torch.equal(misses.to(torch.int64), want_misses)
+
+
 @pytest.mark.parametrize("mode,w,h", [("420", 200, 120), ("gray", 37, 29), ("444", 64, 48)])
 def test_spec_route_matches_host_decoder(cuda, mode, w, h):
     """OnchipProgressiveDecoder(impl="spec") on the card: ok, no host tail,
@@ -2345,7 +2526,10 @@ def test_spec_route_matches_host_decoder(cuda, mode, w, h):
     dec = OnchipProgressiveDecoder(device=cuda, impl="spec")
     px, ok = dec.decode([data] * 3)
     assert bool(ok) and dec.n_host_tail_scans == 0
-    assert runtime.LAUNCHES["dc_first_spec"] == 1 and runtime.LAUNCHES["ac_first"] == 0
+    from zpix_tpu_torch.ops import prog_spec as ps
+
+    assert runtime.LAUNCHES["dc_first_spec"] == ps.DC_FIRST_KERNELS
+    assert runtime.LAUNCHES["ac_first"] == 0
     assert runtime.LAUNCHES["ac_first_spec"] == (4 if mode != "gray" else 2)
     assert np.array_equal(px[2].cpu().numpy(), port_host_pixels(data))
     cpu, cok = OnchipProgressiveDecoder(device="cpu", impl="spec").decode([data] * 3)

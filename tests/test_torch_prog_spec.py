@@ -141,6 +141,71 @@ def test_dc_first_spec_matches_zpix_tpu_on_hand_coded_scans():
                 assert np.array_equal(g, w.astype(np.int32))
 
 
+def _links_and_fixed_point(cases, hv, cb):
+    """K20's entry search as its kernels make it (dc_entry_links_plain) and
+    the plain version's fixed point, on a stacked hand-coded batch."""
+    flat, starts, ends, F = ps.stack_spec([c["stream"] for c in cases], cb)
+    tab = _t(ke.pack_tables(_tables(cases[0]["huffs"]), cases[0]["tid_of_slot"], []))
+    bpm = sum(h * v for h, v in hv) if len(hv) > 1 else 1
+    t = [_t(a) for a in (flat, starts, ends)]
+    links = ps.dc_entry_links_plain(*t, tab, bpm=bpm, chunk_bytes=cb, n_chunks=F)
+    T, s64 = ke._Tables(tab), t[0].to(torch.int64)
+    cs, ce = ps._chunks(t[1], t[2], F, 8 * cb)
+
+    def scan(bit, slot, sel):
+        return ps._dc_scan(T, s64, s64.shape[0], bit, slot, ce[sel], bpm)
+
+    fixed = ps.fixed_point(scan, cs, torch.zeros_like(cs), ps.entry_sources(t[1], t[2], F, 8 * cb),
+                           F + 2)
+    return links, fixed, (flat, starts, ends, F, T, s64, ce, bpm)
+
+
+@pytest.mark.parametrize("cb", [1, 2, 3, 5, 8, 16])
+@pytest.mark.parametrize("ratio", ["420", "single"])
+def test_dc_entry_links_match_fixed_point(ratio, cb):
+    """K20's guesses at every slot, links, put-in misses and resolve give
+    every chunk the entry, symbol count and first bad bit the plain
+    version's fixed point gives; an image cut short (its last symbol
+    broken) among them; at 1- to 5-byte chunks the true path misses."""
+    hv = DC_HV[ratio]
+    cases = _dc_batch(40 + cb, hv)
+    cases[1] = dict(cases[1], stream=cases[1]["stream"][: len(cases[1]["stream"]) * 2 // 3])
+    links, (eb, es, res, rounds, settled), _ = _links_and_fixed_point(cases, hv, cb)
+    assert settled
+    assert torch.equal(links["bit"], eb) and torch.equal(links["slot"], es)
+    assert torch.equal(links["count"], res[2]) and torch.equal(links["err"], res[3])
+    if cb <= 5 and ratio == "420":
+        assert int(links["misses"].sum()) > 0 and rounds > 4
+    assert int(links["distinct"].max()) <= (6 if ratio == "420" else 1)
+
+
+def test_dc_entry_links_diffs_match_zpix_tpu():
+    """The diffs recorded from K20's resolved entries equal zpix_tpu's
+    build_dc_first_fn (raw, k1 = 1) on the same stacked batch, at chunks
+    of 1, 3 and 16 bytes."""
+    import jax.numpy as jnp
+
+    hv = DC_HV["420"]
+    for cb in (1, 3, 16):
+        cases = _dc_batch(60 + cb, hv)
+        links, _, (flat, starts, ends, F, T, s64, ce, bpm) = _links_and_fixed_point(cases, hv, cb)
+        nblk = len(cases[0]["diffs"])
+        cnt = links["count"].view(len(cases), F)
+        first = (cnt.cumsum(1) - cnt).reshape(-1)
+        img = torch.arange(len(cases) * F) // F
+        diffs = torch.zeros(len(cases) * nblk + 1, dtype=torch.int64)
+        ps._dc_scan(T, s64, s64.shape[0], links["bit"], links["slot"], ce, bpm,
+                    rec=(diffs, img * nblk, first, nblk))
+        fn = jpo.build_dc_first_fn(batch=len(cases), n_chunks=F, chunk_bytes=cb,
+                                   cmp=_jax_tables(cases[0]["huffs"]),
+                                   tid_of_slot=tuple(cases[0]["tid_of_slot"]), nblk_total=nblk,
+                                   k1=1, _raw=True)
+        want, jok = fn(jnp.asarray(flat), jnp.asarray(starts.astype(np.int64)),
+                       jnp.asarray(ends.astype(np.int64)))
+        assert bool(jok)
+        assert np.array_equal(diffs[:-1].view(len(cases), nblk).numpy(), np.asarray(want))
+
+
 def _ac_spec_store(cases, cb, *, nvy=6, nvx=11, ss=1, se=63, al=1):
     B = len(cases)
     flat, starts, ends, F = ps.stack_spec([c["stream"] for c in cases], cb)

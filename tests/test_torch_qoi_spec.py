@@ -152,3 +152,88 @@ def test_metrics_count_images_and_time_the_prep():
     _port(chunk_bytes=32).decode([qoi_enc(qoi_images()[0])] * 2)
     assert metrics.counters["qoi_onchip.images"] == images + 2
     assert metrics.timer_calls["qoi_onchip.prep"] == calls + 1
+
+
+def _serial_ops(data: bytes):
+    """The serial decode of a QOI stream's ops -> (hash of each op's pixel,
+    INDEX flags, INDEX slots, each INDEX op's source: the last op before it
+    whose pixel hashed to its slot, -1 where none), numpy [n]."""
+    s, pos, end = data, 14, len(data) - 8
+    idx, writer = [0] * 64, [-1] * 64
+    r, g, b, a = 0, 0, 0, 255
+    hs, is_idx, slots, srcs = [], [], [], []
+    while pos < end:
+        b1 = s[pos]
+        j, src = 0, -1
+        if b1 in (0xFE, 0xFF):
+            r, g, b = s[pos + 1], s[pos + 2], s[pos + 3]
+            a = s[pos + 4] if b1 == 0xFF else a
+            pos += 4 if b1 == 0xFE else 5
+        elif b1 >> 6 == 0:
+            j = b1 & 63
+            v, src = idx[j], writer[j]
+            r, g, b, a = v >> 24, (v >> 16) & 255, (v >> 8) & 255, v & 255
+            pos += 1
+        elif b1 >> 6 == 1:
+            r, g, b = ((r + ((b1 >> 4) & 3) - 2) & 255, (g + ((b1 >> 2) & 3) - 2) & 255,
+                       (b + (b1 & 3) - 2) & 255)
+            pos += 1
+        elif b1 >> 6 == 2:
+            dg, b2 = (b1 & 63) - 32, s[pos + 1]
+            r, g, b = ((r + dg + ((b2 >> 4) & 15) - 8) & 255, (g + dg) & 255,
+                       (b + dg + (b2 & 15) - 8) & 255)
+            pos += 2
+        else:
+            pos += 1
+        h = (r * 3 + g * 5 + b * 7 + a * 11) & 63
+        hs.append(h)
+        is_idx.append(b1 >> 6 == 0)
+        slots.append(j)
+        srcs.append(src)
+        idx[h] = r << 24 | g << 16 | b << 8 | a
+        writer[h] = len(hs) - 1
+    return (np.array(hs), np.array(is_idx), np.array(slots), np.array(srcs))
+
+
+@pytest.mark.parametrize("tile", [32, 64, 2048])
+@pytest.mark.parametrize("content", ["palette", "bench"])
+def test_last_writer_sources_match_serial_and_sorted_sources(content, tile):
+    """K23's sources as its passes find them (per-tile last-writer tables,
+    their exclusive max over the tiles, 32-op groups inside a tile) equal
+    the plain version's sort-based sources and the serial decode's, on the
+    ops' true pixels (a palette image, nearly all INDEX ops with deep
+    source chains, and the JAX bench's screen and noise), several images a
+    batch."""
+    from _torch_raster import bench_pixels
+
+    if content == "palette":
+        rng = np.random.default_rng(tile)
+        lut = rng.integers(0, 256, (50, 4), dtype=np.uint8)
+        imgs = [lut[rng.integers(0, 50, (40, 56))], qoi_images(56, 40)[2]]
+    else:
+        imgs = [bench_pixels(64, 3, "screen"), bench_pixels(64, 4, "noise")]
+    rows = [_serial_ops(qoi_enc(im)) for im in imgs]
+    P = max(len(r[0]) for r in rows) + 5  # rows of unequal length, padded
+    h, t_idx, slot, want = (np.zeros((len(rows), P), np.int64) for _ in range(4))
+    writer = np.zeros((len(rows), P), bool)
+    t_idx = t_idx.astype(bool)
+    want -= 1
+    for i, (hs, ix, sl, sr) in enumerate(rows):
+        n = len(hs)
+        h[i, :n], t_idx[i, :n], slot[i, :n], want[i, :n], writer[i, :n] = hs, ix, sl, sr, True
+    args = [torch.from_numpy(a) for a in (h, writer, t_idx, slot)]
+    assert (want >= 0).sum() > 50
+    sorted_src = ks.sources_sorted(*args)
+    assert np.array_equal(sorted_src.numpy(), want)
+    assert torch.equal(ks.sources_last_writer_plain(*args, tile=tile), sorted_src)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_last_writer_sources_match_sorted_on_random_rows(seed):
+    """Random hashes, writers, INDEX flags and slots, rows longer than a
+    tile: the tiled last-writer sources equal the sorted ones."""
+    rng = np.random.default_rng(seed)
+    B, P = 3, 5000 + 977 * seed
+    args = [torch.from_numpy(a) for a in (rng.integers(0, 64, (B, P)), rng.random((B, P)) < 0.9,
+                                          rng.random((B, P)) < 0.5, rng.integers(0, 64, (B, P)))]
+    assert torch.equal(ks.sources_last_writer_plain(*args), ks.sources_sorted(*args))

@@ -83,9 +83,10 @@ struct Spec {
   int32_t* rounds;  // [B]
   int32_t* chunks;  // [B * F * kChunkWords]
   int32_t* diffs;   // K20: [B * nblk]
+  int64_t* stamps;  // K20: [4] or null: image 0's CTA's phase ends on the card's clock
   int32_t* grid[kMaxGrids];
   int bv[kMaxGrids], bh[kMaxGrids], h[kMaxGrids], v[kMaxGrids];
-  int ngrids, F, cbits, mbc;
+  int batch, ngrids, F, cbits, mbc;
   int nblk;     // K20: symbols an image must hold; K21: the valid blocks
   int bpm;      // K20: blocks an MCU (1 for a single-component scan)
   int per_row;  // K20: MCUs a row (interleaved) or the valid width; K21: the valid width
@@ -135,10 +136,43 @@ struct Scan {
   int32_t bit, st, count, adv, err;
 };
 
+// K20's tables in shared memory: the packed tables and, for each DC table
+// an MCU slot uses, a 10-bit lookahead table: lut[t][look >> 6] = len << 8
+// | sym where every lookahead with those 10 bits decodes to one code of at
+// most 10 bits, else 0 (decode_sym in full).  An entry is decode_sym's
+// result for every lookahead it covers: a code's length is monotone in
+// the lookahead, so where it agrees at both ends of the 64 it agrees
+// between them.
+constexpr int kLutBits = 10;
+struct DcTabs {
+  int32_t tab[zpix::kTabEntropyWords];
+  uint16_t lut[8 << kLutBits];
+};
+
+__device__ void stage_dc(DcTabs& T, const Spec& p) {
+  for (int i = threadIdx.x; i < zpix::kTabEntropyWords; i += blockDim.x) T.tab[i] = p.tab[i];
+  __syncthreads();
+  unsigned used = 0;
+  for (int sl = 0; sl < p.bpm; ++sl) used |= 1u << (T.tab[zpix::kTabSlotDc + sl] & 7);
+  for (int i = threadIdx.x; i < (8 << kLutBits); i += blockDim.x) {
+    const int t = i >> kLutBits, look = (i & ((1 << kLutBits) - 1)) << (16 - kLutBits);
+    uint16_t e = 0;
+    if ((used >> t) & 1u) {
+      const Sym lo = zpix::decode_sym(T.tab, t, look);
+      const Sym hi = zpix::decode_sym(T.tab, t, look | ((1 << (16 - kLutBits)) - 1));
+      if (!lo.bad && !hi.bad && lo.len == hi.len && lo.len <= kLutBits && lo.sym < 256) {
+        e = static_cast<uint16_t>(lo.len << 8 | lo.sym);
+      }
+    }
+    T.lut[i] = e;
+  }
+  __syncthreads();
+}
+
 // K20's lane: from (bit, slot) to the first symbol boundary at or past
 // ce.  With ``rec``, the diff of its j-th symbol goes to rec[j] while
 // first + j < lim.
-__device__ Scan dc_scan(const Spec& p, const int32_t* tab, int32_t bit, int slot, int32_t ce,
+__device__ Scan dc_scan(const Spec& p, const DcTabs& T, int32_t bit, int slot, int32_t ce,
                         int32_t* rec, int32_t first, int32_t lim) {
   BitWindow w{p.s, -(int64_t{1} << 40), 0};
   Scan r{bit, slot, 0, 0, kNoErr};
@@ -148,8 +182,11 @@ __device__ Scan dc_scan(const Spec& p, const int32_t* tab, int32_t bit, int slot
       break;
     }
     w.at(r.bit);
-    const Sym y = zpix::decode_sym(tab, tab[zpix::kTabSlotDc + r.st],
-                                   static_cast<int32_t>(w.bits(r.bit, 16)));
+    const int t = T.tab[zpix::kTabSlotDc + r.st];
+    const int32_t look = static_cast<int32_t>(w.bits(r.bit, 16));
+    const unsigned e = T.lut[((t & 7) << kLutBits) | (look >> (16 - kLutBits))];
+    Sym y{static_cast<int>(e >> 8), static_cast<int>(e & 255), false};
+    if (e == 0) y = zpix::decode_sym(T.tab, t, look);
     if (y.bad || y.sym > 16) {
       r.err = r.bit;
       break;
@@ -228,12 +265,11 @@ __device__ Scan ac_scan(const Spec& p, const int32_t* tab, int t, int32_t bit, i
   return r;
 }
 
-// Rounds to the fixed point of image b's chunk entries; every thread owns
-// chunks [c0, c1).  Returns whether the entries settled; the chunks' words
+// K21: rounds to the fixed point of image b's chunk entries; every thread
+// owns chunks [c0, c1).  Returns whether the entries settled; the chunks' words
 // then hold the exits, counts and errors of a scan from their entries.
-template <bool kAc>
-__device__ bool converge(const Spec& p, const int32_t* tab, int b, int c0, int c1,
-                         int32_t* rounds) {
+__device__ bool converge_ac(const Spec& p, const int32_t* tab, int b, int c0, int c1,
+                            int32_t* rounds) {
   int32_t* base = p.chunks + static_cast<int64_t>(b) * p.F * kChunkWords;
   const int32_t start = p.starts[b], end = p.ends[b];
   const int full = static_cast<int>((static_cast<int64_t>(end) - start + p.cbits - 1) / p.cbits);
@@ -241,7 +277,7 @@ __device__ bool converge(const Spec& p, const int32_t* tab, int b, int c0, int c
   for (int c = c0; c < c1; ++c) {
     int32_t* q = base + static_cast<int64_t>(c) * kChunkWords;
     q[kEntBit] = static_cast<int32_t>(chunk_start(start, end, c, p.cbits));
-    q[kEntSt] = kAc ? p.ss : 0;
+    q[kEntSt] = p.ss;
     q[kNeed] = 1;
   }
   __syncthreads();
@@ -252,8 +288,7 @@ __device__ bool converge(const Spec& p, const int32_t* tab, int b, int c0, int c
       int32_t* q = base + static_cast<int64_t>(c) * kChunkWords;
       if (!q[kNeed]) continue;
       const int32_t ce = chunk_end(start, end, c, p.cbits);
-      const Scan s = kAc ? ac_scan(p, tab, t_ac, q[kEntBit], q[kEntSt], ce, nullptr, 0, 0)
-                         : dc_scan(p, tab, q[kEntBit], q[kEntSt], ce, nullptr, 0, 0);
+      const Scan s = ac_scan(p, tab, t_ac, q[kEntBit], q[kEntSt], ce, nullptr, 0, 0);
       q[kExtBit] = s.bit;
       q[kExtSt] = s.st;
       q[kCount] = s.count;
@@ -303,20 +338,294 @@ __device__ void chunk_totals(const Spec& p, const int32_t* base, int32_t end, in
   first[1] = v[1];
 }
 
-__global__ void __launch_bounds__(kThreads) dc_first_spec_kernel(Spec p) {
-  __shared__ int32_t tab[zpix::kTabEntropyWords];
+// ---------------------------------------------- K20: guesses, links, resolve
+//
+// A DC-first state is (bit, slot), packed bit << 8 | slot.  L = B * F
+// chunks, W = 2 bpm candidates a chunk.  Chunk c's candidates: v < bpm the
+// guess exits of chunk c - 1 (X[v][c - 1]: chunk c - 1 scanned from its
+// first bit at slot v); bpm + u a candidate put in (X[bpm + u][c - 1]);
+// chunk 0's only candidate is the image's start at slot 0 (its guess 0's
+// scan).  Y[v][c], n[v][c], e[v][c]: chunk c scanned from candidate v
+// (exit, symbols, first bad bit); links[c][v]: the candidate of chunk
+// c + 1 equal to Y[v][c], or kMiss.
+struct DcLinks {
+  uint64_t* X;    // [W, L]
+  uint64_t* Y;    // [W, L]
+  int32_t* n;     // [W, L]
+  int32_t* e;     // [W, L]
+  uint8_t* links;  // [L, W]
+};
+
+constexpr int kLinkThreads = 256;
+constexpr int kMaxCols = 32;  // W for 16 blocks an MCU
+constexpr uint8_t kMiss = 0xFF;
+
+__device__ __forceinline__ uint64_t pack_st(int32_t bit, int st) {
+  return static_cast<uint64_t>(static_cast<uint32_t>(bit)) << 8 | static_cast<uint32_t>(st);
+}
+
+__device__ __forceinline__ int image_full(const Spec& p, int32_t start, int32_t end) {
+  return static_cast<int>((static_cast<int64_t>(end) - start + p.cbits - 1) / p.cbits);
+}
+
+// The first of xs[0 .. n) equal to z, or kMiss.
+__device__ __forceinline__ uint8_t find_link(const uint64_t* xs, int n, uint64_t z) {
+  for (int u = 0; u < n; ++u) {
+    if (xs[u] == z) return static_cast<uint8_t>(u);
+  }
+  return kMiss;
+}
+
+// A block: chunks [l0, l0 + G) of the batch, with the guesses of the chunk
+// before and the chunk after them; a thread a (chunk, slot guess), a
+// chunk's bpm guesses in adjacent threads.  Each guess scans its chunk;
+// each distinct candidate of an owned chunk (the guess exits of the chunk
+// before) scans it and is linked to its guess exits; each distinct exit
+// that matches none is put in as the next chunk's candidate bpm + u (u its
+// first candidate), scanned and linked at once.
+__global__ void __launch_bounds__(kLinkThreads) dc_guess_link_kernel(Spec p, DcLinks q) {
+  __shared__ DcTabs T;
+  __shared__ uint64_t sx[kLinkThreads], sy[kLinkThreads], yv[kLinkThreads];
+  __shared__ int32_t sn[kLinkThreads], se[kLinkThreads], yn[kLinkThreads], ye[kLinkThreads];
+  const int bpm = p.bpm, W = 2 * bpm, tid = threadIdx.x;
+  const int G = kLinkThreads / bpm - 2;
+  const int64_t L = static_cast<int64_t>(p.batch) * p.F;
+  const int gi = tid / bpm, v = tid - gi * bpm;
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * G - 1 + gi;
+  const bool active = gi <= G + 1 && lane >= 0 && lane < L;
+  const bool owner = active && gi >= 1 && gi <= G;
+  stage_dc(T, p);
+  int c = 0, full = 0;
+  int32_t start = 0, end = 0;
+  if (active) {
+    const int img = static_cast<int>(lane / p.F);
+    c = static_cast<int>(lane - static_cast<int64_t>(img) * p.F);
+    start = p.starts[img];
+    end = p.ends[img];
+    full = image_full(p, start, end);
+  }
+  // the guesses
+  if (active) {
+    const Scan s = dc_scan(p, T, static_cast<int32_t>(chunk_start(start, end, c, p.cbits)), v,
+                           chunk_end(start, end, c, p.cbits), nullptr, 0, 0);
+    sx[tid] = pack_st(s.bit, s.st);
+    sn[tid] = s.count;
+    se[tid] = s.err;
+    if (owner) q.X[v * L + lane] = sx[tid];
+  }
+  __syncthreads();
+  // the first of each set of equal candidates scans the chunk from it
+  const bool linked = owner && c >= 1 && c < full;
+  int lead = v;
+  if (linked) {
+    const uint64_t x = sx[(gi - 1) * bpm + v];
+    lead = find_link(sx + (gi - 1) * bpm, v, x);
+    if (lead == kMiss) {
+      lead = v;
+      const Scan s = dc_scan(p, T, static_cast<int32_t>(x >> 8), static_cast<int>(x & 255),
+                             chunk_end(start, end, c, p.cbits), nullptr, 0, 0);
+      sy[tid] = pack_st(s.bit, s.st);
+      yn[tid] = s.count;
+      ye[tid] = s.err;
+    }
+  }
+  __syncthreads();
+  uint8_t r = kMiss;
+  uint64_t y = 0;
+  if (linked) {
+    const int ls = gi * bpm + lead;
+    y = sy[ls];
+    if (c + 1 < full) r = find_link(sx + gi * bpm, bpm, y);
+    q.Y[v * L + lane] = y;
+    q.n[v * L + lane] = yn[ls];
+    q.e[v * L + lane] = ye[ls];
+  } else if (owner && c == 0 && v == 0) {  // the image's start: guess 0's scan
+    q.Y[lane] = sx[tid];
+    q.n[lane] = sn[tid];
+    q.e[lane] = se[tid];
+    r = 0;
+  }
+  yv[tid] = y;
+  __syncthreads();
+  // each distinct missed exit put in as the next chunk's candidate bpm + u
+  const bool missed = linked && c + 1 < full && r == kMiss;
+  int u = v;
+  if (missed) {
+    u = find_link(yv + gi * bpm, v, y);
+    if (u == kMiss) {
+      u = v;
+      const Scan s = dc_scan(p, T, static_cast<int32_t>(y >> 8), static_cast<int>(y & 255),
+                             chunk_end(start, end, c + 1, p.cbits), nullptr, 0, 0);
+      const uint64_t z = pack_st(s.bit, s.st);
+      const int64_t col = (bpm + v) * L;
+      q.X[col + lane] = y;
+      q.Y[col + lane + 1] = z;
+      q.n[col + lane + 1] = s.count;
+      q.e[col + lane + 1] = s.err;
+      q.links[(lane + 1) * W + bpm + v] =
+          c + 2 < full ? find_link(sx + (gi + 1) * bpm, bpm, z) : kMiss;
+    }
+  }
+  if (!owner) return;
+  q.links[lane * W + v] = missed ? static_cast<uint8_t>(bpm + u) : r;
+  // put-in columns this thread did not fill: of the next chunk, and of
+  // an image's first chunk
+  if (c + 1 < p.F && !(missed && u == v)) q.links[(lane + 1) * W + bpm + v] = kMiss;
+  if (c == 0) q.links[lane * W + bpm + v] = kMiss;
+}
+
+// Image b's resolve, by one warp: each chunk's candidate on the true path
+// (t_1 = 0, t_{c+1} = links[c][t_c]) -> every chunk's entry, symbols and
+// first bad bit in the chunk words; -> the misses (chunks entered by a
+// candidate put in).  The links of chunks 1 .. J - 1 are composed in 32
+// parts, a lane a part, and the parts walked in turn; where the path
+// meets a miss, the warp puts its exit in as the next chunk's candidate
+// bpm, scans that chunk and walks on (a part whose column bpm changed so
+// is walked link by link).
+__device__ int dc_resolve(const Spec& p, const DcTabs& T, const DcLinks& q, int b,
+                          uint8_t (*comp)[kMaxCols + 1], uint8_t* part_in) {
+  const int bpm = p.bpm, W = 2 * bpm, lane = threadIdx.x & 31;
+  const int64_t L = static_cast<int64_t>(p.batch) * p.F, base = static_cast<int64_t>(b) * p.F;
+  const int32_t start = p.starts[b], end = p.ends[b];
+  const int J = image_full(p, start, end) - 1;  // the image's last non-empty chunk
+  const uint8_t* lk = q.links + base * W;
+  const int steps = J - 1;
+  const int per = steps > 0 ? (steps + 31) / 32 : 0;
+  const int js = 1 + lane * per, je = min(js + per, J);
+  if (js < je) {
+    int t[kMaxCols];
+#pragma unroll
+    for (int x = 0; x < kMaxCols; ++x) t[x] = x;
+    for (int j = js; j < je; ++j) {
+#pragma unroll
+      for (int x = 0; x < kMaxCols; ++x) {
+        if (x < W && t[x] != kMiss) t[x] = lk[j * W + t[x]];
+      }
+    }
+#pragma unroll
+    for (int x = 0; x < kMaxCols; ++x) {
+      if (x < W) comp[lane][x] = static_cast<uint8_t>(t[x]);
+    }
+  }
+  __syncwarp();
+  int cur = 0, changed = -1;
+  for (int pt = 0; pt < 32; ++pt) {
+    const int ps = 1 + pt * per, pe = min(ps + per, J);
+    if (ps >= pe) break;
+    if (lane == 0) part_in[pt] = static_cast<uint8_t>(cur);
+    if (changed < ps && comp[pt][cur] != kMiss) {
+      cur = comp[pt][cur];
+      continue;
+    }
+    for (int j = ps; j < pe; ++j) {
+      int nx = lk[j * W + cur];
+      if (nx == kMiss) {  // chunk j + 1 enters at Y[cur][j], no candidate: put it in
+        const uint64_t e = q.Y[cur * L + base + j];
+        const Scan s = dc_scan(p, T, static_cast<int32_t>(e >> 8), static_cast<int>(e & 255),
+                               chunk_end(start, end, j + 1, p.cbits), nullptr, 0, 0);
+        const uint64_t z = pack_st(s.bit, s.st);
+        uint8_t r = kMiss;
+        if (j + 2 <= J) {
+          for (int u = 0; u < bpm && r == kMiss; ++u) {
+            if (q.X[u * L + base + j + 1] == z) r = static_cast<uint8_t>(u);
+          }
+        }
+        __syncwarp();
+        if (lane == 0) {
+          q.X[bpm * L + base + j] = e;
+          q.links[(base + j) * W + cur] = static_cast<uint8_t>(bpm);
+          q.Y[bpm * L + base + j + 1] = z;
+          q.n[bpm * L + base + j + 1] = s.count;
+          q.e[bpm * L + base + j + 1] = s.err;
+          q.links[(base + j + 1) * W + bpm] = r;
+        }
+        __syncwarp();
+        changed = j + 1;
+        nx = bpm;
+      }
+      cur = nx;
+    }
+  }
+  __syncwarp();
+  // each chunk's entry from its candidate: a lane a part, then chunks 0, J
+  // and those past J
+  int32_t* words = p.chunks + base * kChunkWords;
+  int misses = 0;
+  auto put = [&](int j, int tj) {
+    int32_t* w = words + static_cast<int64_t>(j) * kChunkWords;
+    const uint64_t x = q.X[tj * L + base + j - 1];
+    w[kEntBit] = static_cast<int32_t>(x >> 8);
+    w[kEntSt] = static_cast<int>(x & 255);
+    w[kCount] = q.n[tj * L + base + j];
+    w[kErr] = q.e[tj * L + base + j];
+    misses += tj >= bpm;
+  };
+  if (js < je) {
+    int cc = part_in[lane];
+    for (int j = js; j < je; ++j) {
+      put(j, cc);
+      cc = lk[j * W + cc];
+    }
+  }
+  uint64_t last = pack_st(start, 0);  // the exit of chunk J (the start where J < 0)
+  if (J >= 1) {
+    if (lane == 0) put(J, cur);
+    last = q.Y[cur * L + base + J];
+  } else if (J == 0) {
+    last = q.Y[base];
+  }
+  if (lane == 0) {
+    words[kEntBit] = start;
+    words[kEntSt] = 0;
+    words[kCount] = J >= 0 ? q.n[base] : 0;
+    words[kErr] = J >= 0 ? q.e[base] : kNoErr;
+  }
+  const int32_t lb = static_cast<int32_t>(last >> 8);
+  for (int j = max(J + 1, 1) + lane; j < p.F; j += 32) {
+    int32_t* w = words + static_cast<int64_t>(j) * kChunkWords;
+    w[kEntBit] = lb;
+    w[kEntSt] = static_cast<int>(last & 255);
+    w[kCount] = 0;
+    w[kErr] = lb < end ? lb : kNoErr;  // a scan stopped early stops there again
+  }
+  for (int off = 16; off; off >>= 1) misses += __shfl_xor_sync(0xffffffffu, misses, off);
+  return misses;
+}
+
+// With p.stamps, image 0's CTA notes the card's clock (ns) at its start and
+// after its resolve, record scan and chains' prefix.
+__device__ __forceinline__ void dc_stamp(const Spec& p, int i) {
+  if (p.stamps == nullptr) return;
+  __syncthreads();
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    uint64_t ns;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+    p.stamps[i] = static_cast<int64_t>(ns);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) dc_first_spec_kernel(Spec p, DcLinks links) {
+  __shared__ DcTabs T;
   __shared__ uint32_t sh[3 * kThreads];
+  __shared__ uint8_t comp[32][kMaxCols + 1];
+  __shared__ uint8_t part_in[32];
   const int b = blockIdx.x, t = threadIdx.x;
-  for (int i = t; i < zpix::kTabEntropyWords; i += kThreads) tab[i] = p.tab[i];
+  dc_stamp(p, 0);
+  stage_dc(T, p);
   int32_t* diffs = p.diffs + static_cast<int64_t>(b) * p.nblk;
   for (int i = t; i < p.nblk; i += kThreads) diffs[i] = 0;  // symbols past the image's total
+  if (t < 32) {
+    const int misses = dc_resolve(p, T, links, b, comp, part_in);
+    if (t == 0) p.rounds[b] = misses;
+  }
+  __syncthreads();
+  dc_stamp(p, 1);
   const int per = (p.F + kThreads - 1) / kThreads;
   const int c0 = min(p.F, t * per), c1 = min(p.F, c0 + per);
-  const bool settled = converge<false>(p, tab, b, c0, c1, p.rounds);
   const int32_t* base = p.chunks + static_cast<int64_t>(b) * p.F * kChunkWords;
   const int32_t start = p.starts[b], end = p.ends[b];
   uint32_t first[2], tot[2];
-  int bad = settled ? 0 : 1;
+  int bad = 0;
   chunk_totals(p, base, end, c0, c1, sh, first, tot, &bad);
   if (static_cast<int64_t>(tot[0]) < p.nblk) bad = 1;
   // the record scan: every chunk again from its entry, diffs at their index
@@ -325,11 +634,12 @@ __global__ void __launch_bounds__(kThreads) dc_first_spec_kernel(Spec p) {
     const int32_t* q = base + static_cast<int64_t>(c) * kChunkWords;
     const int32_t ce = chunk_end(start, end, c, p.cbits);
     if (static_cast<int64_t>(j) < p.nblk) {
-      dc_scan(p, tab, q[kEntBit], q[kEntSt], ce, diffs + j, static_cast<int32_t>(j), p.nblk);
+      dc_scan(p, T, q[kEntBit], q[kEntSt], ce, diffs + j, static_cast<int32_t>(j), p.nblk);
     }
     j += static_cast<uint32_t>(q[kCount]);
   }
   if (__syncthreads_or(bad) && t == 0) *p.ok = 0;
+  dc_stamp(p, 2);
   // the prefix along each component's chain, coefficient 0 = dc << Al:
   // a thread a run of MCUs, the CTA's prefix of the three chains' sums
   const int n_mcu = p.nblk / p.bpm;
@@ -360,6 +670,7 @@ __global__ void __launch_bounds__(kThreads) dc_first_spec_kernel(Spec p) {
       row[0] = static_cast<int32_t>(sums[g] << p.al);
     }
   }
+  dc_stamp(p, 3);
 }
 
 __global__ void __launch_bounds__(kThreads) ac_first_spec_kernel(Spec p) {
@@ -369,7 +680,7 @@ __global__ void __launch_bounds__(kThreads) ac_first_spec_kernel(Spec p) {
   for (int i = t; i < zpix::kTabEntropyWords; i += kThreads) tab[i] = p.tab[i];
   const int per = (p.F + kThreads - 1) / kThreads;
   const int c0 = min(p.F, t * per), c1 = min(p.F, c0 + per);
-  const bool settled = converge<true>(p, tab, b, c0, c1, p.rounds);
+  const bool settled = converge_ac(p, tab, b, c0, c1, p.rounds);
   const int32_t* base = p.chunks + static_cast<int64_t>(b) * p.F * kChunkWords;
   const int32_t start = p.starts[b], end = p.ends[b];
   uint32_t first[2], tot[2];
@@ -413,9 +724,9 @@ namespace {
 
 int spec_launch(bool ac, const void* s, int64_t cap, const void* starts, const void* ends,
                 const void* tab, void* ok, void* rounds, void* chunks, void* diffs, void* g0,
-                void* g1, void* g2, int batch, int F, int cbits, int mbc, int nblk, int bpm,
-                int ngrids, int per_row, const int* hv, const int* bh, const int* bv, int ss,
-                int se, int al, void* stream) {
+                void* g1, void* g2, const DcLinks* links, void* stamps, int batch, int F,
+                int cbits, int mbc, int nblk, int bpm, int ngrids, int per_row, const int* hv,
+                const int* bh, const int* bv, int ss, int se, int al, void* stream) {
   if (ngrids < 1 || ngrids > kMaxGrids || bpm < 1 || bpm > 16 || al < 0 || al > 31 ||
       F < 1 || cbits < 8 || per_row < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -430,6 +741,7 @@ int spec_launch(bool ac, const void* s, int64_t cap, const void* starts, const v
   p.rounds = static_cast<int32_t*>(rounds);
   p.chunks = static_cast<int32_t*>(chunks);
   p.diffs = static_cast<int32_t*>(diffs);
+  p.stamps = static_cast<int64_t*>(stamps);
   void* grids[3] = {g0, g1, g2};
   for (int g = 0; g < ngrids; ++g) {
     p.grid[g] = static_cast<int32_t*>(grids[g]);
@@ -438,6 +750,7 @@ int spec_launch(bool ac, const void* s, int64_t cap, const void* starts, const v
     p.bh[g] = bh[g];
     p.bv[g] = bv[g];
   }
+  p.batch = batch;
   p.ngrids = ngrids;
   p.F = F;
   p.cbits = cbits;
@@ -448,11 +761,17 @@ int spec_launch(bool ac, const void* s, int64_t cap, const void* starts, const v
   p.ss = ss;
   p.se = se;
   p.al = al;
+  const auto st = static_cast<cudaStream_t>(stream);
   if (batch > 0) {
     if (ac) {
-      ac_first_spec_kernel<<<batch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+      ac_first_spec_kernel<<<batch, kThreads, 0, st>>>(p);
     } else {
-      dc_first_spec_kernel<<<batch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+      const int64_t L = static_cast<int64_t>(batch) * F;
+      const int G = kLinkThreads / bpm - 2;
+      dc_guess_link_kernel<<<static_cast<unsigned>((L + G - 1) / G), kLinkThreads, 0, st>>>(
+          p, *links);
+      if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+      dc_first_spec_kernel<<<batch, kThreads, 0, st>>>(p, *links);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -460,17 +779,24 @@ int spec_launch(bool ac, const void* s, int64_t cap, const void* starts, const v
 
 }  // namespace
 
+// K20's scratch besides ``chunks``: X and Y uint64 [W, B * F], n and e
+// int32 [W, B * F], links u8 [B * F, W], W = 2 bpm (nothing to fill);
+// stamps int64 [4] or null.  Two kernels: the guesses and links, then a CTA
+// an image.
 extern "C" int zpix_spec_dc_first(const void* s, int64_t cap, const void* starts,
                                   const void* ends, const void* tab, void* ok, void* rounds,
-                                  void* chunks, void* diffs, void* g0, void* g1, void* g2,
+                                  void* chunks, void* X, void* Y, void* n, void* e, void* links,
+                                  void* diffs, void* g0, void* g1, void* g2, void* stamps,
                                   int batch, int F, int cbits, int mbc, int nblk, int bpm,
                                   int ngrids, int per_row, int hv0, int hv1, int hv2, int bh0,
                                   int bh1, int bh2, int bv0, int bv1, int bv2, int al,
                                   void* stream) {
   const int hv[3] = {hv0, hv1, hv2}, bh[3] = {bh0, bh1, bh2}, bv[3] = {bv0, bv1, bv2};
-  return spec_launch(false, s, cap, starts, ends, tab, ok, rounds, chunks, diffs, g0, g1, g2,
-                     batch, F, cbits, mbc, nblk, bpm, ngrids, per_row, hv, bh, bv, 0, 0, al,
-                     stream);
+  const DcLinks q{static_cast<uint64_t*>(X), static_cast<uint64_t*>(Y), static_cast<int32_t*>(n),
+                  static_cast<int32_t*>(e), static_cast<uint8_t*>(links)};
+  return spec_launch(false, s, cap, starts, ends, tab, ok, rounds, chunks, diffs, g0, g1, g2, &q,
+                     stamps, batch, F, cbits, mbc, nblk, bpm, ngrids, per_row, hv, bh, bv, 0, 0,
+                     al, stream);
 }
 
 extern "C" int zpix_spec_ac_first(const void* s, int64_t cap, const void* starts,
@@ -481,8 +807,8 @@ extern "C" int zpix_spec_ac_first(const void* s, int64_t cap, const void* starts
   if (ss < 1 || ss > se || se > 63) return static_cast<int>(cudaErrorInvalidValue);
   const int hv[3] = {0x11, 0, 0}, bhs[3] = {bh, 0, 0}, bvs[3] = {bv, 0, 0};
   return spec_launch(true, s, cap, starts, ends, tab, ok, rounds, chunks, nullptr, grid,
-                     nullptr, nullptr, batch, F, cbits, mbc, nvalid, 1, 1, nvx, hv, bhs, bvs, ss,
-                     se, al, stream);
+                     nullptr, nullptr, nullptr, nullptr, batch, F, cbits, mbc, nvalid, 1, 1, nvx,
+                     hv, bhs, bvs, ss, se, al, stream);
 }
 
 extern "C" int zpix_delta_add(void* state, const void* idx, const void* val, int64_t n, int k,

@@ -1,7 +1,8 @@
-"""Progressive JPEG with no host index walk: K20 (DC first) and K21 (AC
-first), found by rounds to the fixed point of their chunk entries, and
-K22, the sparse delta add; each a CUDA kernel (csrc/prog_spec.cu) with
-its plain PyTorch version.
+"""Progressive JPEG with no host index walk: K20 (DC first), whose chunk
+entries come from guesses at every MCU slot and their links, K21 (AC
+first), whose entries come from rounds to their fixed point, and K22, the
+sparse delta add; each a CUDA kernel (csrc/prog_spec.cu) with its plain
+PyTorch version.
 
 * ``dc_first_spec`` is K20, the port of zpix_tpu/parallel/
   progressive_onchip.py::build_dc_first_fn (:363-538) and _run_dc_first's
@@ -33,9 +34,11 @@ symbols are 0), K21 adds each coefficient's ``val << Al``.
 
 The plain versions find the entries by Jacobi rounds over every chunk at
 once (a lane a chunk, a symbol an iteration), then scan once more to
-record; the dispatch takes them for CPU tensors only.  They and the
-kernels return the rounds each image took (the plain versions one count
-for the batch); the results do not depend on them.
+record; the dispatch takes them for CPU tensors only.  They return their
+rounds (one count for the batch); K21's kernel returns each image's
+rounds, K20's each image's misses (the chunks whose entry was none of the
+guess exits of the chunk before, each a scan more, ``dc_entry_links_plain``
+counts them the same way).  The results do not depend on them.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ from .progressive import (_check_grids, _dc_chains, _valid_rows, _wrap32, scan_b
 
 NO_ERR = 2**31 - 1  # the error bit of a lane that met no bad code
 CHUNK_WORDS = 8  # int32 scratch words a chunk (csrc/prog_spec.cu kChunkWords)
+DC_FIRST_KERNELS = 2  # K20's CUDA kernels a call: the guesses and links, a CTA an image
 _CHECK_EVERY = 16  # plain versions: symbols between checks that any lane is still running
 
 
@@ -252,6 +256,107 @@ def dc_first_spec_plain(stream, starts, ends, tables, ok, grids, *, hv, valid, a
     return torch.full((B,), rounds, dtype=torch.int32, device=cs.device)
 
 
+def dc_entry_links_plain(stream, starts, ends, tables, *, bpm: int, chunk_bytes: int,
+                         n_chunks: int) -> dict:
+    """K20's entry search as its kernels make it, in plain PyTorch (for the
+    tests and tools/torch_spec_stages.py; the dispatch never takes it):
+    every chunk scanned from its first bit at every slot 0 .. bpm - 1 (the
+    guesses); the guess exits of chunk c - 1 are chunk c's candidate
+    entries, each scanned through chunk c and linked to the equal guess
+    exit of chunk c; each distinct exit that matches none is put in as
+    chunk c + 1's candidate bpm + u (u its first candidate), scanned and
+    linked too; the true path walks the links from chunk 0 and, where it
+    meets a miss, puts its exit in as the next chunk's candidate bpm and
+    scans that chunk.  -> dict: ``bit``, ``slot`` the entries int64
+    [B * n_chunks] (past an image's non-empty chunks, the last one's exit,
+    as ``fixed_point`` gives them), ``count``, ``err`` the scans from them,
+    ``distinct`` the distinct guess exits a chunk, ``misses`` int64 [B]
+    the chunks entered by a candidate put in (none of the guess exits)."""
+    B, F = starts.shape[0], n_chunks
+    tab, s64, cap = _Tables(tables), stream.to(torch.int64), stream.shape[0]
+    cs, ce = _chunks(starts, ends, F, 8 * chunk_bytes)
+    L = B * F
+    dev = cs.device
+
+    def scan(bit, slot, lanes):
+        return _dc_scan(tab, s64, cap, bit, slot, ce[lanes], bpm)
+
+    lanes = torch.arange(L, device=dev)
+    gb, gs, gc, ge = (r.view(bpm, L) for r in scan(
+        cs.repeat(bpm), torch.arange(bpm, device=dev).repeat_interleave(L), lanes.repeat(bpm)))
+    gkey = gb * 16 + gs  # a state as one number (slots below 16)
+    srt = gkey.sort(0).values
+    distinct = 1 + (srt[1:] != srt[:-1]).sum(0)
+    # the candidates of chunk c: the guess exits of chunk c - 1 (lane 0 of
+    # an image scans from the image's start: its guess 0)
+    prev = (lanes - 1).clamp(min=0)
+    yb, ys, yc, ye = (r.view(bpm, L) for r in scan(gb[:, prev].reshape(-1),
+                                                   gs[:, prev].reshape(-1), lanes.repeat(bpm)))
+    first = (lanes % F == 0)[None, :]
+    yb, ys, yc, ye = (torch.where(first, g, y) for g, y in ((gb, yb), (gs, ys), (gc, yc),
+                                                             (ge, ye)))
+    gkey_l, ykey_l = gkey.T.tolist(), (yb * 16 + ys).T.tolist()
+    yb_l, ys_l, yc_l, ye_l = (y.T.tolist() for y in (yb, ys, yc, ye))
+    gb_l, gs_l, gc_l, ge_l = (g.T.tolist() for g in (gb, gs, gc, ge))
+
+    def link(key, lane):
+        return gkey_l[lane].index(key) if key in gkey_l[lane] else -1
+
+    full = ((ends.to(torch.int64) - starts.to(torch.int64) + 8 * chunk_bytes - 1)
+            // (8 * chunk_bytes)).tolist()
+    cols = {}  # (lane, column >= bpm): a put-in candidate -> (entry, exit, count, err, link)
+    ent_b, ent_s, cnt, err = (torch.zeros(L, dtype=torch.int64, device=dev) for _ in range(4))
+    misses = torch.zeros(B, dtype=torch.int64)
+
+    def put_in(lane, col, b, s):
+        x = scan(torch.tensor([b], device=dev), torch.tensor([s], device=dev),
+                 torch.tensor([lane], device=dev))
+        xb, xs, xc, xe = (int(v[0]) for v in x)
+        last = (lane + 1) % F == 0 or (lane % F) + 1 >= full[lane // F]
+        cols[lane, col] = ((b, s), (xb, xs), xc, xe, -1 if last else link(xb * 16 + xs, lane))
+
+    # the link kernel's put-ins: each chunk's distinct missed exits
+    for lane in range(L):
+        b_img, c = divmod(lane, F)
+        if c < 1 or c + 1 >= full[b_img]:
+            continue
+        for v in range(bpm):
+            key = ykey_l[lane][v]
+            if link(key, lane) < 0 and ykey_l[lane].index(key) == v:
+                put_in(lane + 1, bpm + v, yb_l[lane][v], ys_l[lane][v])
+    for b_img in range(B):
+        l0, J = b_img * F, full[b_img] - 1
+        ent_b[l0], ent_s[l0] = cs[l0], 0
+        cnt[l0], err[l0] = gc_l[l0][0], ge_l[l0][0]
+        exit_ = (gb_l[l0][0], gs_l[l0][0])
+        t = 0
+        for c in range(1, F):
+            lane = l0 + c
+            if c > J:  # empty chunks: the last non-empty one's exit
+                ent_b[lane], ent_s[lane] = exit_
+                x = scan(torch.tensor([exit_[0]], device=dev),
+                         torch.tensor([exit_[1]], device=dev), torch.tensor([lane], device=dev))
+                cnt[lane], err[lane] = x[2][0], x[3][0]
+                continue
+            if t >= bpm:
+                (eb, es), exit_, n, e, nt = cols[lane, t]
+                misses[b_img] += 1
+            else:
+                eb, es = gb_l[lane - 1][t], gs_l[lane - 1][t]
+                exit_ = (yb_l[lane][t], ys_l[lane][t])
+                n, e = yc_l[lane][t], ye_l[lane][t]
+                nt = link(exit_[0] * 16 + exit_[1], lane) if c + 1 <= J else -1
+                if nt < 0 and c + 1 <= J:  # the link kernel put it in
+                    nt = bpm + ykey_l[lane].index(exit_[0] * 16 + exit_[1])
+            ent_b[lane], ent_s[lane], cnt[lane], err[lane] = eb, es, n, e
+            if nt < 0 and c + 1 <= J:  # a miss the link kernel did not put in
+                put_in(lane + 1, bpm, *exit_)
+                nt = bpm
+            t = nt
+    return {"bit": ent_b, "slot": ent_s, "count": cnt, "err": err, "distinct": distinct,
+            "misses": misses}
+
+
 def ac_first_spec_plain(stream, starts, ends, tables, ok, grid, *, valid, ss: int, se: int,
                         al: int, chunk_bytes: int, n_chunks: int, stats: dict | None = None):
     """K21, plain: -> rounds int32 [B] (one count for the batch).  ``stats``
@@ -309,7 +414,8 @@ def dc_first_spec(stream, starts, ends, tables, ok, grids, *, hv, valid, al: int
                   chunk_bytes: int, n_chunks: int):
     """K20: a DC-first scan with no index walk -> coefficient 0 of each
     block it visits set to its chain's prefix << al, in place; clears
-    ``ok``.  -> rounds int32 [B]."""
+    ``ok``.  -> int32 [B]: on the card each image's misses, in plain
+    PyTorch the batch's rounds."""
     _check_grids(grids, hv)
     B = grids[0].shape[0]
     _check_spec(stream, starts, ends, tables, ok, B, chunk_bytes, n_chunks)
@@ -317,6 +423,16 @@ def dc_first_spec(stream, starts, ends, tables, ok, grids, *, hv, valid, al: int
     if stream.device.type == "cpu":
         return dc_first_spec_plain(stream, starts, ends, tables, ok, grids, **kw)
     runtime.require_cuda(stream, starts, ends, tables, ok, *grids)
+    return _dc_first_cuda(stream, starts, ends, tables, ok, grids, **kw)
+
+
+def _dc_first_cuda(stream, starts, ends, tables, ok, grids, *, hv, valid, al: int,
+                   chunk_bytes: int, n_chunks: int, stamps=None):
+    """K20's launch on checked CUDA inputs -> misses int32 [B].  ``stamps``
+    (int64 [4] on the card, for tools/torch_spec_stages.py): its image-0
+    CTA writes the card's clock (ns) at its start and after its resolve,
+    record scan and chains' prefix."""
+    B = grids[0].shape[0]
     interleaved = len(grids) > 1
     bpm = sum(h * v for h, v in hv) if interleaved else 1
     if bpm > _entropy.MAX_SLOTS or not 0 <= al <= 31:
@@ -324,18 +440,25 @@ def dc_first_spec(stream, starts, ends, tables, ok, grids, *, hv, valid, al: int
     nblk = scan_blocks(grids, hv, valid)
     mxx = grids[0].shape[2] // hv[0][0]
     dev = stream.device
-    rounds = torch.zeros(B, dtype=torch.int32, device=dev)
-    chunks = torch.empty(B * n_chunks * CHUNK_WORDS, dtype=torch.int32, device=dev)
+    L, W = B * n_chunks, 2 * bpm
+    rounds = torch.empty(B, dtype=torch.int32, device=dev)
+    chunks = torch.empty(L * CHUNK_WORDS, dtype=torch.int32, device=dev)
+    states = torch.empty(2, W * L, dtype=torch.int64, device=dev)  # X, Y
+    scans = torch.empty(2, W * L, dtype=torch.int32, device=dev)  # symbols, first bad bit
+    links = torch.empty(L * W, dtype=torch.uint8, device=dev)
     diffs = torch.empty(max(1, B * nblk), dtype=torch.int32, device=dev)
     pad = [0] * (3 - len(grids))
     hvs = [h | v << 4 for h, v in hv] if interleaved else [0x11]
     runtime.launch(
-        "dc_first_spec", dev, "zpix_spec_dc_first", "pl" + "p" * 10 + "i" * 18,
+        "dc_first_spec", dev, "zpix_spec_dc_first", "pl" + "p" * 16 + "i" * 18,
         stream.data_ptr(), stream.shape[0], starts.data_ptr(), ends.data_ptr(),
         tables.data_ptr(), ok.data_ptr(), rounds.data_ptr(), chunks.data_ptr(),
-        diffs.data_ptr(), *[g.data_ptr() for g in grids], *pad, B, n_chunks, 8 * chunk_bytes,
-        4 * chunk_bytes, nblk, bpm, len(grids), mxx if interleaved else valid[1], *hvs, *pad,
-        *[g.shape[2] for g in grids], *pad, *[g.shape[1] for g in grids], *pad, al)
+        states[0].data_ptr(), states[1].data_ptr(), scans[0].data_ptr(), scans[1].data_ptr(),
+        links.data_ptr(), diffs.data_ptr(), *[g.data_ptr() for g in grids], *pad,
+        0 if stamps is None else stamps.data_ptr(), B, n_chunks,
+        8 * chunk_bytes, 4 * chunk_bytes, nblk, bpm, len(grids), mxx if interleaved else valid[1],
+        *hvs, *pad, *[g.shape[2] for g in grids], *pad, *[g.shape[1] for g in grids], *pad, al,
+        kernels=DC_FIRST_KERNELS)
     return rounds
 
 

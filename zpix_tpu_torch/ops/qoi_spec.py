@@ -7,30 +7,31 @@ back to back at 8-byte aligned offsets (``parallel/qoi_batch.py::
 prep_qoi_batch``), and int32 [B] per image its first op byte
 (``starts``), the end of its op bytes (``ends``) and the end with the
 padding (``raw_ends``).  Each image's ops are cut into ``n_chunks`` chunks
-of ``chunk_bytes``; a lane decodes ops from its chunk's entry (byte,
-previous pixel, 64-entry index) to the first op boundary at or past the
-chunk's end, and the entries are the serial decode's states at the chunk
-starts.  Output: (RGBA u8 [B, H, W, 4], ok 0-dim bool, rounds int32 [B]).
-Pixels past an image's emitted total repeat its final pixel (the
-stream-exhausted fill, qoi_batch.py:495-511); pixels past H * W are not
-written.  ``ok`` is False where an op reads past its image's padded end,
-where a chunk holds more than ``ops_cap`` ops, or where the rounds did
-not settle (zpix_tpu's rules).
+of ``chunk_bytes``; a chunk holds the ops that start in its bytes, from
+its entry, the serial decode's state at its start.  Output: (RGBA u8 [B,
+H, W, 4], ok 0-dim bool, rounds int32 [B]).  Pixels past an image's
+emitted total repeat its final pixel (the stream-exhausted fill,
+qoi_batch.py:495-511); pixels past H * W are not written.  ``ok`` is False
+where an op reads past its image's padded end or a chunk holds more than
+``ops_cap`` ops (zpix_tpu's rules), and where the kernel's passes hit
+their cap (the most ops an image holds + 2, which only a fault reaches).
 
-The plain version computes the same function another way, with depth
-logarithmic in the ops rather than a round a chunk (K23's rounds repeat
-where an index slot's value comes through a chain of earlier chunks: about
-one round a chunk on the JAX bench's noise).  An op's length is its first
-byte's, so the op boundaries alone settle in a few Jacobi rounds over the
-chunks (a lane a chunk, an op an iteration), and a last scan lists every
-op.  Each op's pixel is then an absolute value, its predecessor's plus a
-delta (DIFF, LUMA, RUN; RGB keeps the alpha) or a copy of the last earlier
-op whose pixel hashed to its slot (INDEX): given those sources, every pixel
-follows by pointer jumping (Wyllie's prefix over the forest they make);
-the hashes of those pixels give the sources again, and the two alternate
-until the sources settle (each pass fixes at least the earliest wrong one;
-the fixed point is the serial decode's).  The ops' (pixel, count) expand as
-zpix_tpu expands them.  The dispatch takes it for CPU tensors only.
+Both versions compute the pixels with depth logarithmic in the ops rather
+than a round a chunk.  An op's length is its first byte's, so the op
+boundaries follow with no pixel state; every op is then listed.  Each
+op's pixel is an absolute value, its predecessor's plus a delta (DIFF,
+LUMA, RUN; RGB keeps the alpha) or a copy of its source, the last earlier
+op whose pixel hashed to its slot (INDEX): given the sources, every pixel
+follows by pointer jumping (Wyllie's); the hashes of those pixels give the
+sources again, and the two alternate until the sources settle (each pass
+fixes at least the earliest wrong one; the fixed point is the serial
+decode's).  The plain version finds the boundaries by Jacobi rounds over
+the chunks and the sources by a sort; it returns its boundary rounds, one
+count for the batch.  The kernel finds the boundaries by guesses and links
+and the sources by per-tile last-writer tables (``sources_last_writer_plain``
+mirrors it); it returns each image's passes, whose most is the plain
+version's ``passes``.  The dispatch takes the plain version for CPU tensors
+only.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from .. import runtime
 from .prog_spec import _chunks, entry_sources, fixed_point
 
 _CHECK_EVERY = 16  # plain version: ops between checks that any lane is still running
+TILE_OPS = 2048  # ops a tile of K23's passes (csrc/qoi_spec.cu kTile)
 
 
 def _op_size(b1):
@@ -83,6 +85,57 @@ def _wyllie(ptr, acc):
         acc = acc + acc[ptr]
         ptr = ptr[ptr]
     return acc
+
+
+def sources_sorted(h, writer, t_idx, slot_of):
+    """The plain version's sources: for each INDEX op (``t_idx``, bool [B, P])
+    the last op before it in its row that is a ``writer`` and whose hash
+    ``h`` is its slot ``slot_of`` (int64 [B, P]), -1 where none, found by a
+    sort of (row, hash, op) keys and a search.  -> int64 [B, P], -1 off the
+    INDEX ops."""
+    B, P = h.shape
+    dev = h.device
+    k = torch.arange(P, device=dev)[None, :]
+    row = torch.arange(B, device=dev)[:, None] * 64
+    keys = torch.where(writer, (row + h) * P + k, B * 64 * P).reshape(-1).sort().values
+    q = ((row + slot_of) * P + k).reshape(-1)
+    at = torch.searchsorted(keys, q) - 1
+    hit = keys[at.clamp(min=0)]
+    ok_hit = (at >= 0) & (hit // P == q // P)
+    return torch.where(t_idx & ok_hit.view(B, P), (hit % P).view(B, P), -1)
+
+
+def sources_last_writer_plain(h, writer, t_idx, slot_of, tile: int = None):
+    """``sources_sorted``'s function computed as K23's passes compute it
+    (for the tests; the dispatch never takes it): tiles of ``tile`` ops,
+    each tile's table of the last writer a slot, their exclusive max over
+    the tiles (P2), in a tile each 32-op group's table and their exclusive
+    max over the groups after the tile's carry, and inside a group the
+    last writer before the op (P3's lane masks a slot)."""
+    tile = tile or TILE_OPS
+    B, P = h.shape
+    dev = h.device
+    NT = -(-P // tile)
+    pad = NT * tile - P
+    k = torch.arange(P, device=dev).expand(B, P)
+    slots = torch.arange(64, device=dev)
+    last = torch.where(writer[..., None] & (h[..., None] == slots), k[..., None], -1)
+    last = torch.nn.functional.pad(last, (0, 0, 0, pad), value=-1)  # [B, NT * tile, 64]
+    lanes = last.view(B, NT * tile // 32, 32, 64)
+    groups = lanes.max(2).values  # each group's table
+    tiles = groups.view(B, NT, tile // 32, 64).max(2).values
+
+    def exclusive(x, dim):
+        inc = x.cummax(dim).values
+        return torch.cat([torch.full_like(inc.narrow(dim, 0, 1), -1),
+                          inc.narrow(dim, 0, inc.shape[dim] - 1)], dim)
+
+    carry = exclusive(tiles, 1)  # P2
+    gpre = torch.maximum(exclusive(groups.view(B, NT, tile // 32, 64), 2), carry[:, :, None])
+    best = torch.maximum(exclusive(lanes, 2), gpre.view(B, -1, 1, 64))  # [B, G, 32, 64]
+    j = torch.nn.functional.pad(slot_of.clamp(0, 63), (0, pad)).view(B, -1, 32, 1)
+    src = best.gather(3, j).view(B, -1)[:, :P]
+    return torch.where(t_idx, src, -1)
 
 
 def spec_decode_plain(stream, starts, ends, raw_ends, *, n_chunks: int, chunk_bytes: int,
@@ -134,7 +187,6 @@ def spec_decode_plain(stream, starts, ends, raw_ends, *, n_chunks: int, chunk_by
     rel = t_diff | t_luma | t_run  # rgb from the previous op
     keep_a = is_rgb | rel  # alpha from the previous op
     slot_of = b1 & 63
-    cand = torch.where(real, 0, 1)  # ops that write the index (sort keys below)
     src = torch.full((B, P), -1, dtype=torch.int64, device=dev)
     sentinel_rgb = torch.zeros(1, 3, dtype=torch.int64, device=dev)
     sentinel_a = torch.zeros(1, 1, dtype=torch.int64, device=dev)
@@ -153,14 +205,7 @@ def spec_decode_plain(stream, starts, ends, raw_ends, *, n_chunks: int, chunk_by
                                       sentinel_a])) & 255
         px = torch.cat([rgb[:n], a[:n]], 1).view(B, P, 4)
         h = (px[..., 0] * 3 + px[..., 1] * 5 + px[..., 2] * 7 + px[..., 3] * 11) & 63
-        key = torch.where(cand == 0, ((torch.arange(B, device=dev)[:, None] * 64 + h) * P + k),
-                          B * 64 * P).reshape(-1)
-        keys = key.sort().values
-        q = ((torch.arange(B, device=dev)[:, None] * 64 + slot_of) * P + k).reshape(-1)
-        at = torch.searchsorted(keys, q) - 1
-        hit = keys[at.clamp(min=0)]
-        ok_hit = (at >= 0) & (hit // P == q // P)
-        new_src = torch.where(t_idx & ok_hit.view(B, P), (hit % P).view(B, P), -1)
+        new_src = sources_sorted(h, real, t_idx, slot_of)  # every real op writes the index
         if torch.equal(new_src, src):
             break
         src = new_src
@@ -180,14 +225,10 @@ def spec_decode_plain(stream, starts, ends, raw_ends, *, n_chunks: int, chunk_by
             torch.full((B,), rounds, dtype=torch.int32, device=dev))
 
 
-_chunk_bytes_c = None
-
-
 def spec_decode(stream, starts, ends, raw_ends, *, n_chunks: int, chunk_bytes: int,
                 ops_cap: int, height: int, width: int):
     """K23: the batch's op streams -> (rgba u8 [B, H, W, 4], ok 0-dim bool,
     rounds int32 [B]) on the stream's device."""
-    global _chunk_bytes_c
     B = starts.shape[0]
     if stream.dtype != torch.uint8 or any(t.dtype != torch.int32 or t.shape != (B,)
                                           for t in (starts, ends, raw_ends)):
@@ -200,15 +241,37 @@ def spec_decode(stream, starts, ends, raw_ends, *, n_chunks: int, chunk_bytes: i
     if stream.device.type == "cpu":
         return spec_decode_plain(stream, starts, ends, raw_ends, **kw)
     runtime.require_cuda(stream, starts, ends, raw_ends)
+    return _spec_decode_cuda(stream, starts, ends, raw_ends, **kw)
+
+
+def _spec_decode_cuda(stream, starts, ends, raw_ends, *, n_chunks: int, chunk_bytes: int,
+                      ops_cap: int, height: int, width: int, stamps=None):
+    """K23's launch on checked CUDA inputs.  ``stamps`` (int64 [n, 2] on the
+    card, for tools/torch_spec_stages.py): the kernel writes (phase, the
+    card's clock in ns) after each of its grid barriers, phases as
+    csrc/qoi_spec.cu names them."""
+    B = starts.shape[0]
     dev = stream.device
-    if _chunk_bytes_c is None:
-        _chunk_bytes_c = runtime.fn("zpix_qoi_spec_chunk_bytes", "")()
+    L, cap = B * n_chunks, stream.shape[0]
+    tpi = -(-n_chunks * chunk_bytes // TILE_OPS)
     out = torch.empty(B, height, width, 4, dtype=torch.uint8, device=dev)
     ok = torch.ones(1, dtype=torch.int32, device=dev)
-    rounds = torch.zeros(B, dtype=torch.int32, device=dev)
-    chunks = torch.empty(B * n_chunks * _chunk_bytes_c, dtype=torch.uint8, device=dev)
-    runtime.launch("qoi_spec", dev, "zpix_qoi_spec", "p" * 8 + "iiiil",
+    rounds = torch.empty(B, dtype=torch.int32, device=dev)
+    chunk_words = torch.empty(14 * L, dtype=torch.int32, device=dev)
+    gpos = torch.empty(8 * L, dtype=torch.int32, device=dev)
+    maps = torch.empty(6 * L, dtype=torch.int32, device=dev)
+    image_words = torch.empty(6 * B, dtype=torch.int32, device=dev)
+    flags = torch.empty(3, dtype=torch.int32, device=dev)
+    op_words = torch.empty(7 * cap, dtype=torch.int32, device=dev)
+    meta = torch.empty(cap, dtype=torch.uint8, device=dev)
+    node = torch.empty(cap, dtype=torch.int64, device=dev)
+    tiles = torch.empty(2, B * tpi * 64, dtype=torch.int32, device=dev)
+    runtime.launch("qoi_spec", dev, "zpix_qoi_spec", "p" * 18 + "i" * 6 + "ll",
                    stream.data_ptr(), starts.data_ptr(), ends.data_ptr(), raw_ends.data_ptr(),
-                   out.data_ptr(), ok.data_ptr(), rounds.data_ptr(), chunks.data_ptr(), B,
-                   n_chunks, chunk_bytes, ops_cap, height * width)
+                   out.data_ptr(), ok.data_ptr(), rounds.data_ptr(), chunk_words.data_ptr(),
+                   gpos.data_ptr(), maps.data_ptr(), image_words.data_ptr(), flags.data_ptr(),
+                   op_words.data_ptr(), meta.data_ptr(), node.data_ptr(), tiles[0].data_ptr(),
+                   tiles[1].data_ptr(), 0 if stamps is None else stamps.data_ptr(),
+                   0 if stamps is None else stamps.shape[0], B, n_chunks, chunk_bytes, ops_cap,
+                   tpi, cap, height * width)
     return out, ok[0] != 0, rounds

@@ -763,8 +763,9 @@ class OnchipProgressiveDecoder:
         self._pool = ThreadPoolExecutor(self.n_threads)
         self._upload = PinnedUpload(self.device)
         self.n_host_tail_scans = 0
-        # the last spec decode: each spec scan's rounds (int32 [B] on the
-        # card, by scan index), the flag fetch's bytes, the card's prefix
+        # the last spec decode: each spec scan's count (int32 [B] on the
+        # card, by scan index: K20's misses, K21's rounds), the flag
+        # fetch's bytes, the card's prefix
         self.spec_stats: dict = {}
 
     def prep(self, datas: list[bytes]) -> ProgPrep:

@@ -7,9 +7,10 @@ host-index split (:661-1410) and device encoder (:1412-1623).
 
 ``BatchQoiDecoder`` decodes wholly on the card: ``prep_qoi_batch`` lays
 the op streams back to back (``QoiPlan``) and K23 (ops/qoi_spec.py) finds
-each chunk's entry state by rounds to the fixed point and writes the
-pixels, with ``ok`` False on a read past an image's padded end, a chunk of
-more than ``ops_cap`` ops or rounds that did not settle;
+the op boundaries, then every op's pixel by passes that alternate its
+source and its value, and writes the pixels, with ``ok`` False on a read
+past an image's padded end, a chunk of more than ``ops_cap`` ops or
+passes that hit their cap;
 ``decode_verified`` then takes the host decoder.  With ``mesh`` each batch
 position decodes its run of images.  Not ported, by decision: zpix_tpu's
 unroll, window and while-carry knobs (``k_ops``, ``win_words``,
@@ -161,8 +162,9 @@ class BatchQoiDecoder:
     ``chunk_bytes`` (default ``_adaptive_chunk``), ``ops_cap`` (ops a chunk
     may hold; default one a byte, the exact worst case), ``mesh`` (each
     batch position decodes its run of images; the output is ``Sharded``).
-    ``last_rounds``: the rounds each image of the last batch took (int32
-    [B] on the card; a list of them with a mesh).  ``decode_verified``
+    ``last_rounds``: K23's passes each image of the last batch took (int32
+    [B] on the card; a list of them with a mesh; on the CPU the plain
+    version's boundary rounds).  ``decode_verified``
     falls back to the host decoder where ``ok`` is False."""
 
     def __init__(self, *, chunk_bytes: int | None = None, ops_cap: int | None = None,
