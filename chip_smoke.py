@@ -3853,60 +3853,90 @@ class EventClock:
 
 
 def spec_scan_checks(dec, datas):
-    """K20 and K21 against their plain versions on every DC-first and
-    AC-first scan of a full batch, each from a zero store on the card ->
-    (max_abs_err by kernel, ok both, per scan: rounds (kernel, per image:
-    K20's misses, K21's rounds), chunk count, the most symbols a chunk,
-    kernel and plain ms, stream bytes, blocks)."""
+    """K20 against its plain version on every DC-first scan, and K21 in one
+    call over every single-component AC-first scan against its plain
+    version a scan at a time, on a full batch from a zero store on the
+    card -> (max_abs_err by kernel, ok all, per scan: misses an image (the
+    kernel's), chunk count, the most symbols a chunk, stream bytes, blocks;
+    K20's kernel and plain ms a scan; K21's group: kernel and plain ms)."""
     from zpix_tpu_torch.ops import prog_spec as ps
     from zpix_tpu_torch.parallel import progressive_onchip as po
 
     plans = [po.parse_progressive(d) for d in datas]
     p0, dev = plans[0], dec.device
     errs = {"dc_first_spec": 0, "ac_first_spec": 0}
-    oks, scans = [], []
+    oks, scans, acs = [], [], []
+
+    def shape(c):
+        return (len(datas), p0.myy * p0.hv[c][1], p0.mxx * p0.hv[c][0], 64)
+
+    def entry(si, sc, name, F, arrays, valid):
+        return {"scan": si, "kind": name, "comps": list(sc.comps), "chunks": F,
+                "stream_bytes": int(arrays[0].nbytes),
+                "blocks": len(datas) * (int(np.prod(valid)) if len(sc.comps) == 1 else
+                                        p0.mxx * p0.myy * sum(p0.hv[c][0] * p0.hv[c][1]
+                                                              for c in sc.comps))}
+
     for si, sc in enumerate(p0.scans):
         if not (sc.kind == "dc_first" or (sc.kind == "ac_first" and len(sc.comps) == 1)):
             continue
         arrays, F = po.spec_first_inputs(p0, plans, si, dec.chunk_bytes)
         t = [torch.from_numpy(a).to(dev) for a in arrays]
         valid = po.valid_grid(p0, sc.comps[0])
-        shapes = [(len(datas), p0.myy * p0.hv[c][1], p0.mxx * p0.hv[c][0], 64) for c in sc.comps]
-        kw = dict(valid=valid, al=sc.al, chunk_bytes=dec.chunk_bytes, n_chunks=F)
-        name = "dc_first_spec" if sc.kind == "dc_first" else "ac_first_spec"
-        stats = {}
-        if sc.kind == "dc_first":
-            kw["hv"] = [p0.hv[c] for c in sc.comps]
-            kern, plain = ps.dc_first_spec, ps.dc_first_spec_plain
-
-            def call(fn, grids, ok, **extra):
-                return fn(*t, ok, grids, **kw, **extra)
-        else:
-            kw.update(ss=sc.ss, se=sc.se)
-            kern, plain = ps.ac_first_spec, ps.ac_first_spec_plain
-
-            def call(fn, grids, ok, **extra):
-                return fn(*t, ok, grids[0], **kw, **extra)
-        gk = [torch.zeros(s, dtype=torch.int32, device=dev) for s in shapes]
-        gp = [torch.zeros(s, dtype=torch.int32, device=dev) for s in shapes]
+        if sc.kind == "ac_first":
+            acs.append((si, sc, t, F, entry(si, sc, "ac_first_spec", F, arrays, valid)))
+            continue
+        kw = dict(valid=valid, al=sc.al, chunk_bytes=dec.chunk_bytes, n_chunks=F,
+                  hv=[p0.hv[c] for c in sc.comps])
+        gk = [torch.zeros(shape(c), dtype=torch.int32, device=dev) for c in sc.comps]
+        gp = [torch.zeros(shape(c), dtype=torch.int32, device=dev) for c in sc.comps]
         okk, okp = (torch.ones(1, dtype=torch.int32, device=dev) for _ in range(2))
-        rounds = call(kern, gk, okk)
+        stats = {}
+        rounds = ps.dc_first_spec(*t, okk, gk, **kw)
         t0 = time.perf_counter()
-        call(plain, gp, okp, stats=stats)
+        ps.dc_first_spec_plain(*t, okp, gp, **kw, stats=stats)
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
-        errs[name] = max(errs[name], max_abs_err(okk, okp),
-                         *(max_abs_err(a, b) for a, b in zip(gk, gp)))
+        errs["dc_first_spec"] = max(errs["dc_first_spec"], max_abs_err(okk, okp),
+                                    *(max_abs_err(a, b) for a, b in zip(gk, gp)))
         oks.append(bool(okk) and bool(okp))
-        ms = cuda_ms(lambda: call(kern, gk, okk), 5)
-        scans.append({"scan": si, "kind": name, "comps": list(sc.comps), "chunks": F,
+        scans.append({**entry(si, sc, "dc_first_spec", F, arrays, valid),
                       "rounds": rounds.cpu().tolist(), "chunk_symbols": stats["chunk_symbols"],
-                      "ms": ms, "plain_ms": plain_s * 1e3, "stream_bytes": int(arrays[0].nbytes),
-                      "blocks": len(datas) * (int(np.prod(valid)) if len(sc.comps) == 1 else
-                                              p0.mxx * p0.myy * sum(p0.hv[c][0] * p0.hv[c][1]
-                                                                    for c in sc.comps))})
+                      "ms": cuda_ms(lambda: ps.dc_first_spec(*t, okk, gk, **kw), 5),
+                      "plain_ms": plain_s * 1e3})
         del gk, gp
-    return errs, all(oks), scans
+    # K21: one call for every AC-first scan, its plain version a scan at a time
+    comps = sorted({sc.comps[0] for _, sc, _, _, _ in acs})
+    gk = {c: torch.zeros(shape(c), dtype=torch.int32, device=dev) for c in comps}
+    gp = {c: torch.zeros(shape(c), dtype=torch.int32, device=dev) for c in comps}
+    okk, okp = (torch.ones(1, dtype=torch.int32, device=dev) for _ in range(2))
+
+    def group(grids):
+        return [ps.AcScan(*t, grids[sc.comps[0]], po.valid_grid(p0, sc.comps[0]), sc.ss, sc.se,
+                          sc.al, F) for _, sc, t, F, _ in acs]
+
+    misses = ps.ac_first_spec_group(group(gk), okk, chunk_bytes=dec.chunk_bytes)
+    t0 = time.perf_counter()
+    for a, (_, _, _, _, e) in zip(group(gp), acs):
+        stats = {}
+        ps.ac_first_spec_plain(a.stream, a.starts, a.ends, a.tables, okp, a.grid, valid=a.valid,
+                               ss=a.ss, se=a.se, al=a.al, chunk_bytes=dec.chunk_bytes,
+                               n_chunks=a.n_chunks, stats=stats)
+        e["chunk_symbols"] = stats["chunk_symbols"]
+    torch.cuda.synchronize()
+    ac_plain_s = time.perf_counter() - t0
+    errs["ac_first_spec"] = max(max_abs_err(okk, okp),
+                                *(max_abs_err(gk[c], gp[c]) for c in comps))
+    oks.append(bool(okk) and bool(okp))
+    for (_, _, _, _, e), m in zip(acs, misses.cpu().tolist()):
+        e["rounds"] = m
+        scans.append(e)
+    grp = group(gk)
+    ac_group = {"scans": len(acs), "ms": cuda_ms(
+        lambda: ps.ac_first_spec_group(grp, okk, chunk_bytes=dec.chunk_bytes), 5),
+        "plain_ms": ac_plain_s * 1e3}
+    del gk, gp, grp
+    return errs, all(oks), scans, ac_group
 
 
 def prog_spec_route(dec, datas, clock_targets):
@@ -3949,13 +3979,15 @@ def spec_phase(dev):
     mpix = BATCH * SIZE * SIZE / 1e6
     dec = OnchipProgressiveDecoder(impl="spec")
 
-    # K20 and K21 against their plain versions, scan by scan, full batch
-    errs, kernels_ok, scans = spec_scan_checks(dec, batches[0])
+    # K20 (scan by scan) and K21 (one call) against their plain versions
+    errs, kernels_ok, scans, ac_group = spec_scan_checks(dec, batches[0])
 
     def spec_targets(d):
-        return ([(ps, "dc_first_spec", "dc_first_spec"), (ps, "ac_first_spec", "ac_first_spec"),
+        return ([(ps, "dc_first_spec", "dc_first_spec"),
+                 (ps, "ac_first_spec_group", "ac_first_spec"),
                  (kpr, "ac_refine", "ac_refine"), (kpr, "dc_refine", "dc_refine"),
-                 (ps, "delta_add", "delta_add"), (po, "decode_batch_planes", "component_planes"),
+                 (ps, "delta_add_segments", "delta_add"),
+                 (po, "decode_batch_planes", "component_planes"),
                  (d, "_upload", "h2d"), (po, "pack_flags", "flag_pack")],
                 [(po, "parse_progressive", "host_parse"),
                  (po, "spec_first_inputs", "host_stack"), (po, "tail_deltas", "host_tail"),
@@ -4002,8 +4034,8 @@ def spec_phase(dev):
     k22_elems = sum(int(i.numel()) for i, _ in dv)
     sk = [f.clone() for f in flat]
     sp = [f.clone() for f in flat]
-    for s, (i, v) in zip(sk, dv):
-        ps.delta_add(s, i, v)
+    k22_updates = [(s, i, v) for s, (i, v) in zip(sk, dv)]
+    ps.delta_add_segments(k22_updates)
     for s, (i, v) in zip(sp, dv):
         ps.delta_add_plain(s, i, v)
     errs["delta_add"] = max(max_abs_err(a, b) for a, b in zip(sk, sp))
@@ -4014,10 +4046,10 @@ def spec_phase(dev):
                 fn(s, i, v)
         return go
 
-    k22_ms = cuda_ms(k22(ps.delta_add, dv), 20)
+    k22_ms = cuda_ms(lambda: ps.delta_add_segments(k22_updates), 20)
     k22_plain_ms = cuda_ms(k22(ps.delta_add_plain, dv), 5)
     k22_lib_ms = cuda_ms(k22(lambda s, i, v: s.scatter_add_(1, i, v), dv64), 20)
-    del sk, sp, flat
+    del sk, sp, flat, k22_updates
 
     # the fallback: a batch the DC-first walk refuses goes the spec path
     bad = [corrupt_first_scan(batches[0][0])] + batches[0][1:]
@@ -4046,8 +4078,8 @@ def spec_phase(dev):
              "equals_spec_route": torch.equal(dpx, px)}
     dstages = []
     for b in batches[1:]:
-        with EventClock([(ps, "delta_add", "delta_add"), (pd, "decode_batch_planes",
-                                                          "component_planes"),
+        with EventClock([(ps, "delta_add_segments", "delta_add"),
+                         (pd, "decode_batch_planes", "component_planes"),
                          (ddec, "_upload", "h2d")], [(ddec, "record", "host_record")]) as clk:
             t0 = time.perf_counter()
             ddec.decode(b)
@@ -4144,14 +4176,14 @@ def spec_phase(dev):
             "chain_bound_ms": chain["dc_first_spec"] * CHAIN_CYCLES_PER_SYMBOL / BOOST_HZ * 1e3,
             "misses": {s["scan"]: s["rounds"] for s in dc}},
         "ac_first_spec": {
-            "ms": sum(s["ms"] for s in ac), "plain_ms": sum(s["plain_ms"] for s in ac),
+            "ms": ac_group["ms"], "plain_ms": ac_group["plain_ms"], "scans": ac_group["scans"],
             # the stream read, the valid blocks' band rows written
             "bytes": sum(s["stream_bytes"] for s in ac) + 4 * 63 * sum(s["blocks"] for s in ac),
             "ops": OPS_K2_SYMBOL * sum(s["blocks"] for s in ac),
             "launches": launches["ac_first_spec"], "max_abs_err": errs["ac_first_spec"],
             "library_ms": None,
             "chain_bound_ms": chain["ac_first_spec"] * CHAIN_CYCLES_PER_SYMBOL / BOOST_HZ * 1e3,
-            "rounds": {s["scan"]: s["rounds"] for s in ac}},
+            "misses": {s["scan"]: s["rounds"] for s in ac}},
         "delta_add": {
             "ms": k22_ms, "plain_ms": k22_plain_ms, "library_ms": k22_lib_ms,
             "library_call": "Tensor.scatter_add_(1, idx.long(), val), a call a component",
@@ -4172,24 +4204,24 @@ def spec_phase(dev):
 
 
 def spec_check(sp) -> None:
-    from zpix_tpu_torch.ops.prog_spec import DC_FIRST_KERNELS
+    from zpix_tpu_torch.ops.prog_spec import AC_FIRST_KERNELS, DC_FIRST_KERNELS
 
     r, t, f, d, q = sp["spec"], sp["tail"], sp["fallback"], sp["delta"], sp["qoi"]
     if any(sp["max_abs_err"].values()) or not sp["kernels_ok"]:
         raise SystemExit("chip_smoke: K20-K22 disagree with their plain versions")
     lr = r["launches"]
     if (not r["ok"] or r["n_host_tail_scans"] or r["host_decoder_err"]
-            or lr["dc_first_spec"] != DC_FIRST_KERNELS or lr["ac_first_spec"] != 4
+            or lr["dc_first_spec"] != DC_FIRST_KERNELS or lr["ac_first_spec"] != AC_FIRST_KERNELS
             or lr["dc_first"] or lr["ac_first"]
             or min(lr["ac_refine"], lr["dc_refine"], lr["component_planes"]) == 0
             or r["flag_fetch_bytes"] == 0):
         raise SystemExit("chip_smoke: the spec route is wrong or skipped a kernel")
     if not t["ok"] or t["n_host_tail_scans"] != 5 or t["host_decoder_err"] or (
-            t["launches"]["delta_add"] != 3):
+            t["launches"]["delta_add"] != 1 or t["launches"]["ac_first_spec"] != AC_FIRST_KERNELS):
         raise SystemExit("chip_smoke: the spec route's host tail is wrong")
     if not f["refused"] or not f["spec_launches"] or not f["equals_spec_decode"]:
         raise SystemExit("chip_smoke: a refused walk did not take the spec path")
-    if d["host_decoder_err"] or not d["equals_spec_route"] or d["launches"]["delta_add"] == 0:
+    if d["host_decoder_err"] or not d["equals_spec_route"] or d["launches"]["delta_add"] != 1:
         raise SystemExit("chip_smoke: DeviceProgressiveDecoder is wrong")
     for c in ("noise", "screen"):
         e = q[c]

@@ -2152,7 +2152,7 @@ def _spec_scan_both(cuda, p0, sc, arrays, F, cb, seed=0):
             ps.dc_first_spec(*t, ok, grids, hv=[p0.hv[c] for c in sc.comps], **kw)
         else:
             ps.ac_first_spec(*t, ok, grids[0], ss=sc.ss, se=sc.se, **kw)
-        per_call = ps.DC_FIRST_KERNELS if sc.kind == "dc_first" else 1
+        per_call = ps.DC_FIRST_KERNELS if sc.kind == "dc_first" else ps.AC_FIRST_KERNELS
         assert runtime.LAUNCHES[kind] == before + per_call * (dev.type == "cuda")
         res.append(([g.cpu() for g in grids], int(ok)))
     return res
@@ -2515,8 +2515,8 @@ def test_dc_first_spec_redesign_corrupt_code(cuda, seed):
 @pytest.mark.parametrize("mode,w,h", [("420", 200, 120), ("gray", 37, 29), ("444", 64, 48)])
 def test_spec_route_matches_host_decoder(cuda, mode, w, h):
     """OnchipProgressiveDecoder(impl="spec") on the card: ok, no host tail,
-    K20 once and K21 on each AC-first scan, pixels the host decoder's and
-    the CPU route's."""
+    K20 once and K21 once for every AC-first scan, pixels the host
+    decoder's and the CPU route's."""
     from _torch_jpeg import port_host_pixels, synth_progressive
 
     from zpix_tpu_torch import OnchipProgressiveDecoder
@@ -2530,15 +2530,16 @@ def test_spec_route_matches_host_decoder(cuda, mode, w, h):
 
     assert runtime.LAUNCHES["dc_first_spec"] == ps.DC_FIRST_KERNELS
     assert runtime.LAUNCHES["ac_first"] == 0
-    assert runtime.LAUNCHES["ac_first_spec"] == (4 if mode != "gray" else 2)
+    assert runtime.LAUNCHES["ac_first_spec"] == ps.AC_FIRST_KERNELS
     assert np.array_equal(px[2].cpu().numpy(), port_host_pixels(data))
     cpu, cok = OnchipProgressiveDecoder(device="cpu", impl="spec").decode([data] * 3)
     assert bool(cok) and torch.equal(px.cpu(), cpu)
 
 
 def test_spec_tail_and_refused_walk_on_the_card(cuda):
-    """The moved Cb scan: the host tail runs (5 scans) and K22 writes its
-    deltas back; a batch a walk refuses takes the spec path in decode()
+    """The moved Cb scan: the host tail runs (5 scans) and one K22 launch
+    writes its deltas back (K21 once for the prefix's 3 AC-first scans); a
+    batch a walk refuses takes the spec path in decode()
     (pixels and ok, or the host tail's error, as the CPU route's)."""
     from _torch_jpeg import move_scan, port_host_pixels, synth_progressive
 
@@ -2549,7 +2550,10 @@ def test_spec_tail_and_refused_walk_on_the_card(cuda):
     runtime.reset_launches()
     dec = OnchipProgressiveDecoder(device=cuda, impl="spec")
     px, ok = dec.decode([moved] * 2)
-    assert bool(ok) and dec.n_host_tail_scans == 5 and runtime.LAUNCHES["delta_add"] == 3
+    assert bool(ok) and dec.n_host_tail_scans == 5 and runtime.LAUNCHES["delta_add"] == 1
+    from zpix_tpu_torch.ops import prog_spec as ps
+
+    assert runtime.LAUNCHES["ac_first_spec"] == ps.AC_FIRST_KERNELS
     assert np.array_equal(px[1].cpu().numpy(), port_host_pixels(data))
     bad = bytearray(data)
     at = -1
@@ -2570,8 +2574,8 @@ def test_spec_tail_and_refused_walk_on_the_card(cuda):
 
 
 def test_delta_route_matches_host_decoder(cuda):
-    """DeviceProgressiveDecoder on the card: K22 a (scan, component), K6,
-    pixels the host decoder's and the CPU route's."""
+    """DeviceProgressiveDecoder on the card: one K22 launch for every
+    (scan, component), K6, pixels the host decoder's and the CPU route's."""
     from _torch_jpeg import port_host_pixels, synth_progressive
 
     from zpix_tpu_torch.parallel import DeviceProgressiveDecoder
@@ -2579,7 +2583,236 @@ def test_delta_route_matches_host_decoder(cuda):
     datas = [synth_progressive(200, 120, "420", phase=p) for p in (0.1, 0.5)]
     runtime.reset_launches()
     got = DeviceProgressiveDecoder(device=cuda).decode(datas)
-    assert runtime.LAUNCHES["delta_add"] >= 10 and runtime.LAUNCHES["component_planes"] == 1
+    assert runtime.LAUNCHES["delta_add"] == 1 and runtime.LAUNCHES["component_planes"] == 1
     for i, d in enumerate(datas):
         assert np.array_equal(got[i].cpu().numpy(), port_host_pixels(d))
     assert torch.equal(got.cpu(), DeviceProgressiveDecoder(device="cpu").decode(datas))
+
+
+# ------------------------------- K21 and K22 redesigned: one call a decode
+
+
+def _ac_group_both(cuda, scans, cb, seed=0):
+    """K21 over ``scans`` [(scan, numpy inputs, chunks)] of one batch in one
+    call on the card, and plain on the CPU (a scan at a time), from one
+    random store -> (kernel grids, ok, misses [S, B], plain grids, ok)."""
+    from zpix_tpu_torch.ops import prog_spec as ps
+
+    rng = np.random.default_rng(seed)
+    B = scans[0][1][0][1].shape[0]
+    shapes = {}
+    for sc, _, _, shape in scans:
+        shapes[sc.comps[0]] = shape
+    init = {c: rng.integers(-999, 999, s).astype(np.int32) for c, s in shapes.items()}
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        grids = {c: torch.from_numpy(g.copy()).to(dev) for c, g in init.items()}
+        ok = torch.ones(1, dtype=torch.int32, device=dev)
+        group = [ps.AcScan(*(torch.from_numpy(a).to(dev) for a in arrays), grids[sc.comps[0]],
+                           valid, sc.ss, sc.se, sc.al, F)
+                 for sc, (arrays, F, valid), _, _ in scans]
+        before = runtime.LAUNCHES["ac_first_spec"]
+        misses = ps.ac_first_spec_group(group, ok, chunk_bytes=cb)
+        assert runtime.LAUNCHES["ac_first_spec"] == before + ps.AC_FIRST_KERNELS * (
+            dev.type == "cuda")
+        res.append(({c: g.cpu() for c, g in grids.items()}, int(ok), misses.cpu()))
+    return res
+
+
+def _prog_ac_scans(datas, cb, prefix_only=False, damage=None):
+    """The single-component AC-first scans of a batch (those of the spec
+    prefix with ``prefix_only``) -> [(scan, (inputs, chunks, valid), index,
+    store shape)]."""
+    from zpix_tpu_torch.parallel import progressive_onchip as po
+
+    plans = [po.parse_progressive(d) for d in datas]
+    p0 = plans[0]
+    n = po.spec_prefix(p0) if prefix_only else len(p0.scans)
+    out = []
+    for si, sc in enumerate(p0.scans[:n]):
+        if sc.kind == "ac_first" and len(sc.comps) == 1:
+            arrays, F = po.spec_first_inputs(p0, plans, si, cb)
+            if damage is not None:
+                arrays[0] = damage(arrays[0].copy(), arrays[1], arrays[2])
+            h, v = p0.hv[sc.comps[0]]
+            out.append((sc, (arrays, F, po.valid_grid(p0, sc.comps[0])), si,
+                        (len(datas), p0.myy * v, p0.mxx * h, 64)))
+    return out
+
+
+def _links_misses(scans, cb):
+    """Each scan's misses an image as the kernels' scheme makes them, in
+    plain PyTorch (ops/prog_spec.py::ac_entry_links_plain) -> int64 [S, B]."""
+    from zpix_tpu_torch.ops import prog_spec as ps
+
+    return torch.stack([ps.ac_entry_links_plain(*(torch.from_numpy(a) for a in arrays[:4]),
+                                                ss=sc.ss, se=sc.se, chunk_bytes=cb,
+                                                n_chunks=F)["misses"]
+                        for sc, (arrays, F, _), _, _ in scans])
+
+
+@pytest.mark.parametrize("cb", [1, 4, 16, 64])
+@pytest.mark.parametrize("mode,w,h", [("420", 96, 64), ("444", 64, 48), ("gray", 72, 40)])
+def test_ac_first_spec_redesign_matches_plain(cuda, mode, w, h, cb):
+    """K21 over every AC-first scan of a 4:2:0, 4:4:4 and gray batch in one
+    call against its plain version a scan at a time, from one random
+    store: max_abs_err 0, the same ok, each (scan, image)'s misses those of
+    ac_entry_links_plain; chunks of 1, 4, 16 and 64 bytes."""
+    from _torch_jpeg import synth_progressive
+
+    datas = [synth_progressive(w, h, mode, phase=0.1 + 0.3 * b) for b in range(1)] * 3
+    scans = _prog_ac_scans(datas, cb)
+    assert len(scans) >= 2
+    (gk, okk, misses), (gp, okp, _) = _ac_group_both(cuda, scans, cb)
+    assert okk == okp == 1
+    assert all(torch.equal(gk[c], gp[c]) for c in gk)
+    assert torch.equal(misses.to(torch.int64), _links_misses(scans, cb))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_ac_first_spec_redesign_damaged_and_cut(cuda, seed):
+    """Random bytes written into one image's scans and another's cut short
+    (fewer blocks than its valid grid): K21's one call and its plain
+    version agree on the store and ok (cleared), at 2- and 16-byte
+    chunks."""
+    from _torch_jpeg import synth_progressive
+
+    rng = np.random.default_rng(seed)
+
+    def damage(flat, starts, ends):
+        lo, hi = starts[1] // 8, ends[1] // 8
+        flat[rng.integers(lo, hi, 4)] = rng.integers(0, 256, 4, dtype=np.uint8)
+        mid = (starts[2] + ends[2]) // 16  # image 2 ends half way: zeros on
+        flat[mid : ends[2] // 8] = 0
+        ends[2] = mid * 8
+        return flat
+
+    datas = [synth_progressive(96, 64, "420", phase=0.2)] * 3
+    for cb in (2, 16):
+        scans = _prog_ac_scans(datas, cb, damage=damage)
+        (gk, okk, misses), (gp, okp, _) = _ac_group_both(cuda, scans, cb, seed)
+        assert okk == okp == 0
+        assert all(torch.equal(gk[c], gp[c]) for c in gk)
+        assert torch.equal(misses.to(torch.int64), _links_misses(scans, cb))
+
+
+def test_ac_first_spec_redesign_chunk_overflow(cuda):
+    """A 1-bit EOB code and a stream of zero bits: 8 finished blocks a
+    1-byte chunk, more than 4 * chunk_bytes, so ok is cleared by both the
+    kernel and its plain version; an EOB run coded by hand over the same
+    grid keeps ok."""
+    import _torch_prog as tp
+
+    from zpix_tpu_torch.codecs.jpeg.tables import HuffTable
+    from zpix_tpu_torch.ops import prog_spec as ps
+
+    counts, syms = [1, 1, 1] + [0] * 13, [0x00, 0x01, 0x11]
+    t = HuffTable()
+    t.build(counts, bytes(syms))
+    tab = ke.pack_tables([t], [], [0])
+    streams = [np.zeros(12, np.uint8)] * 2  # 96 EOBs an image: 9 x 10 valid blocks
+    flat, starts, ends, F = ps.stack_spec(streams, 1)
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        grid = torch.ones(2, 10, 11, 64, dtype=torch.int32, device=dev)
+        ok = torch.ones(1, dtype=torch.int32, device=dev)
+        ps.ac_first_spec_group([ps.AcScan(*(torch.from_numpy(a).to(dev) for a in
+                                            (flat, starts, ends, tab)), grid, (9, 10), 1, 63, 0,
+                                          F)], ok, chunk_bytes=1)
+        res.append((grid.cpu(), int(ok)))
+    assert res[0][1] == res[1][1] == 0 and torch.equal(res[0][0], res[1][0])
+    cases = [tp.spec_ac_scan(9 + b, nvy=9, nvx=10, runs=0.9) for b in range(2)]
+    arrays, F = _hand_inputs(cases, 8)
+    (gk, okk, _), (gp, okp, _) = _ac_group_both(
+        cuda, [(_Band(1, 63, 1, (0,)), (arrays, F, (9, 10)), 0, (2, 10, 11, 64))], 8)
+    assert okk == okp == 1 and torch.equal(gk[0], gp[0])
+    want = np.ones((2, 10, 11, 64), np.int64)  # gk and gp started from one random store
+    assert not np.array_equal(gk[0].numpy(), want)
+
+
+class _Band:
+    """A hand-coded scan's band, Al and component, as a ProgScan gives them."""
+
+    def __init__(self, ss, se, al, comps):
+        self.ss, self.se, self.al, self.comps = ss, se, al, comps
+
+
+def _hand_inputs(cases, cb):
+    from zpix_tpu_torch.codecs.jpeg.tables import HuffTable
+    from zpix_tpu_torch.ops import prog_spec as ps
+
+    huffs = []
+    for counts, syms in cases[0]["huffs"]:
+        t = HuffTable()
+        t.build(list(counts), bytes(syms))
+        huffs.append(t)
+    flat, starts, ends, F = ps.stack_spec([c["stream"] for c in cases], cb)
+    return [flat, starts, ends, ke.pack_tables(huffs, [], [0])], F
+
+
+def test_ac_first_spec_redesign_tail_group(cuda):
+    """The moved Cb scan's batch: the spec prefix holds 3 AC-first scans,
+    decoded by one K21 call equal to its plain version; the spec route
+    then launches K21 once and K22 once."""
+    from _torch_jpeg import move_scan, port_host_pixels, synth_progressive
+
+    from zpix_tpu_torch import OnchipProgressiveDecoder
+    from zpix_tpu_torch.ops import prog_spec as ps
+
+    data = synth_progressive(200, 120, "420", phase=0.7)
+    moved = [move_scan(data, 3, 5)] * 2
+    scans = _prog_ac_scans(moved, 64, prefix_only=True)
+    assert len(scans) == 3
+    (gk, okk, misses), (gp, okp, _) = _ac_group_both(cuda, scans, 64)
+    assert okk == okp == 1 and all(torch.equal(gk[c], gp[c]) for c in gk)
+    assert torch.equal(misses.to(torch.int64), _links_misses(scans, 64))
+    runtime.reset_launches()
+    px, ok = OnchipProgressiveDecoder(device=cuda, impl="spec").decode(moved)
+    assert bool(ok) and runtime.LAUNCHES["ac_first_spec"] == ps.AC_FIRST_KERNELS
+    assert runtime.LAUNCHES["delta_add"] == 1
+    assert np.array_equal(px[0].cpu().numpy(), port_host_pixels(moved[0]))
+
+
+def test_delta_add_segments_matches_scatter_add(cuda):
+    """K22 over several updates in one launch against scatter_add_ an update
+    in turn: two updates of one store hitting the same coefficients, an
+    empty update, k not a multiple of 4, indices and values at offsets that
+    are and are not 16-byte aligned (alike and unlike), padding pairs,
+    int32 wrapping."""
+    from zpix_tpu_torch.ops import prog_spec as ps
+
+    rng = np.random.default_rng(22)
+    B, N = 5, 200_000
+    stores = [rng.integers(-2**31, 2**31, (B, N)).astype(np.int32) for _ in range(2)]
+    pool = rng.integers(-2**31, 2**31, 4 * 1_000_000).astype(np.int32)
+    pairs, off = [], 0
+    for k, shift in ((1001, 1), (4096 * 2 + 3, 0), (0, 0), (7, 2), (30_000, 3), (5, 0)):
+        idx = np.zeros((B, k), np.int32)
+        for b in range(B):
+            n = int(rng.integers(0, k + 1))
+            idx[b, :n] = rng.choice(N // 4, n, replace=False)  # a quarter: many repeats
+        val = np.where(idx != 0, pool[off : off + B * k].reshape(B, k), 0).astype(np.int32)
+        off += B * k
+        pairs.append((idx, val, shift))
+    targets = [0, 1, 0, 1, 0, 0]
+    buf_i = np.zeros(sum(B * k for (i, _, _) in pairs for k in [i.shape[1]]) + 64, np.int32)
+    buf_v = np.zeros_like(buf_i)
+    for dev in (torch.device("cpu"), cuda):
+        st = [torch.from_numpy(s.copy()).to(dev) for s in stores]
+        bi, bv = torch.from_numpy(buf_i).to(dev), torch.from_numpy(buf_v).to(dev)
+        ups, at = [], 0
+        for (idx, val, shift), tgt in zip(pairs, targets):
+            n = idx.size
+            ti = bi[at + shift : at + shift + n]
+            tv = bv[at + (shift * 3 % 4) : at + (shift * 3 % 4) + n]
+            ti.copy_(torch.from_numpy(idx.reshape(-1)))
+            tv.copy_(torch.from_numpy(val.reshape(-1)))
+            ups.append((st[tgt], ti.view(idx.shape), tv.view(val.shape)))
+            at += n + 8
+        before = runtime.LAUNCHES["delta_add"]
+        ps.delta_add_segments(ups)
+        assert runtime.LAUNCHES["delta_add"] == before + (dev.type == "cuda")
+        if dev.type == "cpu":
+            want = [s.clone() for s in st]
+        else:
+            assert all(torch.equal(a.cpu(), b) for a, b in zip(st, want))

@@ -261,6 +261,129 @@ def test_ac_first_spec_matches_zpix_tpu_on_hand_coded_scans():
         assert np.array_equal(got, want.astype(np.int32))
 
 
+def _ac_links_and_fixed_point(cases, cb, ss, se):
+    """K21's entry search as its kernels make it (ac_entry_links_plain) and
+    the plain version's fixed point, on a stacked hand-coded batch."""
+    flat, starts, ends, F = ps.stack_spec([c["stream"] for c in cases], cb)
+    tab = _t(ke.pack_tables(_tables(cases[0]["huffs"]), [], [0]))
+    t = [_t(a) for a in (flat, starts, ends)]
+    links = ps.ac_entry_links_plain(*t, tab, ss=ss, se=se, chunk_bytes=cb, n_chunks=F)
+    T, s64 = ke._Tables(tab), t[0].to(torch.int64)
+    cs, ce = ps._chunks(t[1], t[2], F, 8 * cb)
+
+    def scan(bit, k, sel):
+        return ps._ac_scan(T, T.slot_ac[0], s64, s64.shape[0], bit, k, ce[sel], ss=ss, se=se)
+
+    fixed = ps.fixed_point(scan, cs, torch.full_like(cs, ss),
+                           ps.entry_sources(t[1], t[2], F, 8 * cb), F + 2)
+    return links, fixed, (flat, starts, ends, F, T, s64, ce)
+
+
+@pytest.mark.parametrize("cb", [1, 2, 3, 8, 64])
+@pytest.mark.parametrize("band", [(1, 63), (1, 5), (6, 63)])
+def test_ac_entry_links_match_fixed_point(band, cb):
+    """K21's guess at k = Ss, links, put-in misses and resolve give every
+    chunk the entry (bit, k), finished blocks, blocks passed, first bad bit
+    and symbols the plain version's fixed point gives, on scans coded by
+    hand with EOB runs (run bits), ZRL and overflow symbols, one image cut
+    short; at 1- to 3-byte chunks the true path misses."""
+    ss, se = band
+    cases = [tp.spec_ac_scan(17 * cb + b + ss, ss=ss, se=se) for b in range(3)]
+    cases[1] = dict(cases[1], stream=cases[1]["stream"][: len(cases[1]["stream"]) * 2 // 3])
+    links, (eb, ek, res, rounds, settled), _ = _ac_links_and_fixed_point(cases, cb, ss, se)
+    assert settled
+    assert torch.equal(links["bit"], eb) and torch.equal(links["k"], ek)
+    for i, name in enumerate(("count", "adv", "err", "symbols"), start=2):
+        assert torch.equal(links[name], res[i]), name
+    if cb <= 3:
+        assert int(links["misses"].sum()) > 0 and rounds > 3
+    assert int(links["distinct"].max()) == 1
+
+
+def test_ac_entry_links_values_match_zpix_tpu():
+    """The values recorded from K21's resolved entries (each chunk's first
+    block the prefix of the blocks passed before it) equal zpix_tpu's
+    build_ac_first_fn (raw, k1 = k2 = 1) on the same stacked batch, at
+    chunks of 1, 3 and 16 bytes."""
+    import jax.numpy as jnp
+
+    for cb in (1, 3, 16):
+        cases = [tp.spec_ac_scan(70 + cb + b) for b in range(2)]
+        links, _, (flat, starts, ends, F, T, s64, ce) = _ac_links_and_fixed_point(cases, cb, 1, 63)
+        B, nvalid = len(cases), 66
+        adv = links["adv"].view(B, F)
+        first = (adv.cumsum(1) - adv).reshape(-1)
+        img = torch.arange(B * F) // F
+        lim = torch.minimum(adv.sum(1), torch.tensor(nvalid))[img]
+        rows = torch.zeros(B * nvalid + 1, 64, dtype=torch.int64)
+        ps._ac_scan(T, T.slot_ac[0], s64, s64.shape[0], links["bit"], links["k"], ce, ss=1, se=63,
+                    rec=(rows, img * nvalid, first, lim))
+        fn = jpo.build_ac_first_fn(batch=B, n_chunks=F, chunk_bytes=cb,
+                                   cmp=_jax_tables(cases[0]["huffs"]), tid=0, ss=1, se=63,
+                                   nvalid=nvalid, k1=1, k2=1, _raw=True)
+        curT, jok = fn(jnp.asarray(flat), jnp.asarray(starts.astype(np.int64)),
+                       jnp.asarray(ends.astype(np.int64)))
+        assert bool(jok)
+        want = np.asarray(curT).reshape(64, B, nvalid).transpose(1, 2, 0)
+        assert np.array_equal(rows[:-1].view(B, nvalid, 64).numpy(), want)
+
+
+def test_ac_first_spec_group_on_libjpeg_script():
+    """K21's grouped plain version over the four AC-first scans of libjpeg's
+    script (Pillow's 4:2:0; Y 1-5, Cr, Cb, Y 6-63) equals the four single
+    calls and, after K20's DC-first scan, the host decoder's coefficients
+    after those five scans; each scan's values are zpix_tpu's
+    build_ac_first_fn's (raw, k1 = k2 = 1)."""
+    import jax.numpy as jnp
+    from _torch_jpeg import host_coeffs
+
+    data = synth_progressive(48, 40, "420", phase=0.3)
+    datas, cb = [data] * 2, 16
+    plans = [tpo.parse_progressive(d) for d in datas]
+    p0, B = plans[0], len(datas)
+    acs = [si for si, sc in enumerate(p0.scans[:5]) if sc.kind == "ac_first"]
+    assert acs == [1, 2, 3, 4] and p0.scans[0].kind == "dc_first"
+
+    def store():
+        return [torch.zeros(B, p0.myy * v, p0.mxx * h, 64, dtype=torch.int32) for h, v in p0.hv]
+
+    inputs = {si: po_inputs for si, po_inputs in
+              ((si, tpo.spec_first_inputs(p0, plans, si, cb)) for si in [0] + acs)}
+    group, single = store(), store()
+    ok_g, ok_s = torch.ones(1, dtype=torch.int32), torch.ones(1, dtype=torch.int32)
+    for grids, ok in ((group, ok_g), (single, ok_s)):
+        (arrays, F), sc = inputs[0], p0.scans[0]
+        ps.dc_first_spec(*(_t(a) for a in arrays), ok, grids, hv=list(p0.hv),
+                         valid=tpo.valid_grid(p0, 0), al=sc.al, chunk_bytes=cb, n_chunks=F)
+    rounds = ps.ac_first_spec_group(
+        [ps.AcScan(*(_t(a) for a in inputs[si][0]), group[p0.scans[si].comps[0]],
+                   tpo.valid_grid(p0, p0.scans[si].comps[0]), p0.scans[si].ss, p0.scans[si].se,
+                   p0.scans[si].al, inputs[si][1]) for si in acs], ok_g, chunk_bytes=cb)
+    assert rounds.shape == (4, B)
+    jpr = jpo.OnchipProgressiveDecoder(k1=1, k2=1).prep(datas)
+    for si in acs:
+        sc, (arrays, F) = p0.scans[si], inputs[si]
+        c = sc.comps[0]
+        nvy, nvx = tpo.valid_grid(p0, c)
+        ps.ac_first_spec(*(_t(a) for a in arrays), ok_s, single[c], valid=(nvy, nvx), ss=sc.ss,
+                         se=sc.se, al=sc.al, chunk_bytes=cb, n_chunks=F)
+        meta = jpr["preps"][si][1]
+        fn = jpo.build_ac_first_fn(batch=B, n_chunks=F, chunk_bytes=cb,
+                                   cmp=CmpTables([meta["huff"]]), tid=0, ss=sc.ss, se=sc.se,
+                                   nvalid=nvy * nvx, k1=1, k2=1, _raw=True)
+        curT, jok = fn(jnp.asarray(arrays[0]), jnp.asarray(arrays[1].astype(np.int64)),
+                       jnp.asarray(arrays[2].astype(np.int64)))
+        assert bool(jok)
+        band = np.asarray(curT).reshape(64, B, nvy, nvx).transpose(1, 2, 3, 0).astype(np.int64)
+        nat = [tpo.UNZIG[k] for k in range(sc.ss, sc.se + 1)]
+        assert np.array_equal(group[c].numpy()[:, :nvy, :nvx][..., nat],
+                              (band[..., nat] << sc.al).astype(np.int32))
+    assert int(ok_g) == int(ok_s) == 1
+    for g, s_, want in zip(group, single, host_coeffs(data, 5)):
+        assert torch.equal(g, s_)
+        assert np.array_equal(g[0].numpy(), want)
+
+
 def test_delta_add_plain_hand_case():
     """K22 plain: per-row unique indices, padding pairs (0, 0) meeting a real
     index 0, int32 wrapping."""

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Device time of zpix_tpu_torch's spec kernels K23 (QOI, csrc/qoi_spec.cu)
-and K20 (progressive DC first, csrc/prog_spec.cu) on chip_smoke.py's spec
-content, and what their content asks of them.
+"""Device time of zpix_tpu_torch's spec kernels K23 (QOI, csrc/qoi_spec.cu),
+K20 and K21 (progressive DC first and AC first) and K22 (delta add,
+csrc/prog_spec.cu) on chip_smoke.py's spec content, and what their content
+asks of them.
 
     python3 tools/torch_spec_stages.py [--root CHECKOUT] [--tag NAME]
     python3 tools/torch_spec_stages.py --ab PARENT_CHECKOUT [--stats]
@@ -24,6 +25,13 @@ in the redesign), and a digest of its output (equal digests: equal
 outputs, across checkouts); for the redesigned K23, the time of each of
 its phases in one more call, from the card's clock at its barriers, and
 for the redesigned K20 the phases of its second kernel's image-0 CTA.
+``k21``: the batch's four AC-first scans, in one call where the checkout
+has ``ac_first_spec_group``, else a call a scan, from a zero store (the
+digest of the store after one call and ``ok``).  ``k22``: the updates
+the spec route's host tail (Cb's AC-first scan moved after Y's first
+refinement: 3) and ``DeviceProgressiveDecoder`` (13) add, captured from a
+decode of each, in one call where the checkout has
+``delta_add_segments``, else a call an update, from a zero store.
 
 ``--stats`` gives (alone, or once after ``--ab``'s runs) what the content
 asks, from this checkout's host code and plain PyTorch, not the kernels:
@@ -33,7 +41,10 @@ the longest chain of INDEX sources (an INDEX op whose source is an INDEX
 op, and so on) and the plain version's source passes on the batch; for
 K20 the distinct exits a chunk when every chunk is scanned from its first
 bit at every slot, and the misses on the true path
-(``ops/prog_spec.py::dc_entry_links_plain``).
+(``ops/prog_spec.py::dc_entry_links_plain``); for each AC-first scan of
+K21 the chunks an image, the finished blocks, blocks passed and symbols
+a chunk from its true entry, and the misses on the true path
+(``ac_entry_links_plain``).
 
 Prints one JSON object; needs a CUDA device, exits 1 without.
 """
@@ -181,6 +192,110 @@ def k20(cs) -> dict:
     return res
 
 
+def ac_scan_inputs(cs):
+    """The AC-first scans of batch PROG_INDEX -> (store shapes a component,
+    [(scan, numpy inputs, chunks)])."""
+    from zpix_tpu_torch.parallel import progressive_onchip as po
+
+    datas = cs.make_prog_batches([PROG_INDEX])[0]
+    plans = [po.parse_progressive(d) for d in datas]
+    p0 = plans[0]
+    shapes = [(len(datas), p0.myy * v, p0.mxx * h, 64) for h, v in p0.hv]
+    scans = [(sc, *po.spec_first_inputs(p0, plans, si, DC_CHUNK))
+             for si, sc in enumerate(p0.scans) if sc.kind == "ac_first"]
+    return p0, shapes, scans
+
+
+def k21(cs) -> dict:
+    from zpix_tpu_torch import runtime
+    from zpix_tpu_torch.ops import prog_spec as ps
+    from zpix_tpu_torch.parallel import progressive_onchip as po
+
+    p0, shapes, scans = ac_scan_inputs(cs)
+    grids = [torch.zeros(s, dtype=torch.int32, device="cuda") for s in shapes]
+    ok = torch.ones(1, dtype=torch.int32, device="cuda")
+    ins = [([torch.from_numpy(a).cuda() for a in arrays], sc, F) for sc, arrays, F in scans]
+    group = hasattr(ps, "ac_first_spec_group")
+
+    def call():
+        if group:
+            return ps.ac_first_spec_group(
+                [ps.AcScan(*t, grids[sc.comps[0]], po.valid_grid(p0, sc.comps[0]), sc.ss, sc.se,
+                           sc.al, F) for t, sc, F in ins], ok, chunk_bytes=DC_CHUNK)
+        return torch.stack([ps.ac_first_spec(*t, ok, grids[sc.comps[0]],
+                                             valid=po.valid_grid(p0, sc.comps[0]), ss=sc.ss,
+                                             se=sc.se, al=sc.al, chunk_bytes=DC_CHUNK, n_chunks=F)
+                            for t, sc, F in ins])
+
+    runtime.lib()
+    runtime.reset_launches()
+    rounds = call()  # from the zero store
+    torch.cuda.synchronize()
+    res = {"group": group, "scans": [[sc.comps[0], sc.ss, sc.se, sc.al] for sc, _, _ in scans],
+           "chunks": [F for _, _, F in scans],
+           "stream_bytes": [int(a[0].nbytes) for _, a, _ in scans], "ok": bool(ok),
+           "rounds": rounds.cpu().tolist(), "launches": runtime.LAUNCHES["ac_first_spec"],
+           "digest": digest(*grids, ok), "ms": cs.cuda_ms(call, REPS),
+           "kernels": device_kernels(call)}
+    return res
+
+
+def k22_updates(cs) -> dict:
+    """The (state, indices, values) each K22 route adds, captured from one
+    decode: the spec route's host tail and DeviceProgressiveDecoder."""
+    from zpix_tpu_torch import OnchipProgressiveDecoder
+    from zpix_tpu_torch.ops import prog_spec as ps
+    from zpix_tpu_torch.parallel import DeviceProgressiveDecoder
+
+    datas = cs.make_prog_batches([PROG_INDEX])[0]
+    moved = [cs.jpeg_writer().move_scan(datas[0], 3, 5)] * len(datas)
+    name = "delta_add_segments" if hasattr(ps, "delta_add_segments") else "delta_add"
+    orig, out = getattr(ps, name), {}
+    for route, dec, batch in (("tail", OnchipProgressiveDecoder(impl="spec"), moved),
+                              ("device_progressive", DeviceProgressiveDecoder(), datas)):
+        got = []
+
+        def capture(*a):
+            got.extend(a[0] if name == "delta_add_segments" else [a])
+            return orig(*a)
+
+        setattr(ps, name, capture)
+        try:
+            dec.decode(batch)
+        finally:
+            setattr(ps, name, orig)
+        dec.close()
+        torch.cuda.synchronize()
+        out[route] = [(tuple(st.shape), i.clone(), v.clone()) for st, i, v in got]
+    return out
+
+
+def k22(cs) -> dict:
+    from zpix_tpu_torch import runtime
+    from zpix_tpu_torch.ops import prog_spec as ps
+
+    segments = hasattr(ps, "delta_add_segments")
+    res = {"segments": segments}
+    for route, ups in k22_updates(cs).items():
+        states = [torch.zeros(sh, dtype=torch.int32, device="cuda") for sh, _, _ in ups]
+        triples = [(st, i, v) for st, (_, i, v) in zip(states, ups)]
+
+        def call():
+            if segments:
+                ps.delta_add_segments(triples)
+            else:
+                for st, i, v in triples:
+                    ps.delta_add(st, i, v)
+
+        runtime.reset_launches()
+        call()  # onto the zero stores
+        torch.cuda.synchronize()
+        res[route] = {"updates": len(ups), "elements": sum(int(i.numel()) for _, i, _ in ups),
+                      "launches": runtime.LAUNCHES["delta_add"], "digest": digest(*states),
+                      "ms": cs.cuda_ms(call, REPS), "kernels": device_kernels(call)}
+    return res
+
+
 # ------------------------------------------------------------ content stats
 
 TAGS = ("RGB", "RGBA", "INDEX", "DIFF", "LUMA", "RUN")
@@ -297,6 +412,19 @@ def stats(cs) -> dict:
                        "distinct_exits": summary(real),
                        "distinct_exits_hist": np.bincount(real, minlength=bpm + 1).tolist(),
                        "misses": r["misses"].tolist()}
+    _, _, scans = ac_scan_inputs(cs)
+    out["ac_first"] = []
+    for sc, arrays, F in scans:
+        t = [torch.from_numpy(a).cuda() for a in arrays]
+        r = ps.ac_entry_links_plain(*t, ss=sc.ss, se=sc.se, chunk_bytes=DC_CHUNK, n_chunks=F)
+        starts, ends = arrays[1].astype(np.int64), arrays[2].astype(np.int64)
+        full = (ends - starts + 8 * DC_CHUNK - 1) // (8 * DC_CHUNK)
+        real = np.concatenate([np.arange(b * F, b * F + full[b]) for b in range(len(full))])
+        per = {k: summary(r[k].cpu().numpy()[real]) for k in ("count", "adv", "symbols")}
+        out["ac_first"].append({"comp": sc.comps[0], "band": [sc.ss, sc.se], "al": sc.al,
+                                "chunks_an_image": full.tolist(), "finished_blocks": per["count"],
+                                "blocks_passed": per["adv"], "symbols": per["symbols"],
+                                "misses": r["misses"].tolist()})
     return out
 
 
@@ -342,7 +470,8 @@ def main() -> int:
             raise SystemExit(f"torch_spec_stages: imported {runtime.CSRC}, not {root}")
         runtime.lib()
         res = {"tag": args.tag, "nvidia_smi": smi, "csrc": runtime.CSRC,
-               "k23": [k23(cs, c) for c in ("noise", "screen")], "k20": k20(cs)}
+               "k23": [k23(cs, c) for c in ("noise", "screen")], "k20": k20(cs),
+               "k21": k21(cs), "k22": k22(cs)}
     print(json.dumps(res), flush=True)
     return 0
 

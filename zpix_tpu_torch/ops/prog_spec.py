@@ -1,18 +1,19 @@
-"""Progressive JPEG with no host index walk: K20 (DC first), whose chunk
-entries come from guesses at every MCU slot and their links, K21 (AC
-first), whose entries come from rounds to their fixed point, and K22, the
-sparse delta add; each a CUDA kernel (csrc/prog_spec.cu) with its plain
+"""Progressive JPEG with no host index walk: K20 (DC first) and K21 (AC
+first), whose chunk entries come from guesses and their links, and K22,
+the sparse delta add; each a CUDA kernel (csrc/prog_spec.cu) with its plain
 PyTorch version.
 
 * ``dc_first_spec`` is K20, the port of zpix_tpu/parallel/
   progressive_onchip.py::build_dc_first_fn (:363-538) and _run_dc_first's
   store write (:1288-1348).
-* ``ac_first_spec`` is K21, the port of build_ac_first_fn (:541-797) and
-  _run_ac_first's (:1350-1389).
-* ``delta_add`` is K22: ``state[b, idx[b, j]] += val[b, j]`` (progressive.py
-  ::DeviceProgressiveDecoder._apply, :85-98, and the host tail's write-back,
-  progressive_onchip.py:2286-2294).  ``Tensor.scatter_add_`` computes the
-  same function; it is the plain version.
+* ``ac_first_spec_group`` is K21, the port of build_ac_first_fn (:541-797)
+  and _run_ac_first's (:1350-1389), over every AC-first scan of a batch in
+  one call (``AcScan`` each); ``ac_first_spec`` is its one-scan case.
+* ``delta_add_segments`` is K22 over every update of a decode in one
+  launch: ``state[b, idx[b, j]] += val[b, j]`` (progressive.py::
+  DeviceProgressiveDecoder._apply, :85-98, and the host tail's write-back,
+  progressive_onchip.py:2286-2294); ``delta_add`` is its one-update case.
+  ``Tensor.scatter_add_`` an update in turn is the plain version.
 
 A spec scan's inputs: ``stream`` u8, the batch's destuffed scans as
 ``stack_spec`` lays them out (each image at an 8-byte aligned offset, 64
@@ -35,13 +36,15 @@ symbols are 0), K21 adds each coefficient's ``val << Al``.
 The plain versions find the entries by Jacobi rounds over every chunk at
 once (a lane a chunk, a symbol an iteration), then scan once more to
 record; the dispatch takes them for CPU tensors only.  They return their
-rounds (one count for the batch); K21's kernel returns each image's
-rounds, K20's each image's misses (the chunks whose entry was none of the
-guess exits of the chunk before, each a scan more, ``dc_entry_links_plain``
-counts them the same way).  The results do not depend on them.
+rounds (one count for the batch); the kernels return each image's misses
+(the chunks whose entry was none of the guess exits of the chunk before,
+each a scan more; ``dc_entry_links_plain`` and ``ac_entry_links_plain``
+count them the same way).  The results do not depend on them.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -50,12 +53,17 @@ from .. import runtime
 from ..codecs.jpeg.tables import UNZIG
 from . import entropy as _entropy
 from .entropy import TAB_WORDS, _bits, _extend, _Tables, _window
-from .progressive import (_check_grids, _dc_chains, _valid_rows, _wrap32, scan_blocks,
-                          store_blocks_plain)
+from .progressive import (_check_grids, _dc_chains, _valid_rows, _wrap32, fast_div,
+                          scan_blocks, store_blocks_plain)
 
 NO_ERR = 2**31 - 1  # the error bit of a lane that met no bad code
-CHUNK_WORDS = 8  # int32 scratch words a chunk (csrc/prog_spec.cu kChunkWords)
+CHUNK_WORDS = 6  # int32 scratch words a chunk (csrc/prog_spec.cu kChunkWords)
 DC_FIRST_KERNELS = 2  # K20's CUDA kernels a call: the guesses and links, a CTA an image
+AC_FIRST_KERNELS = 3  # K21's: the guesses and links, a warp an (image, scan), the record
+_AC_LINK_CHUNKS = 254  # K21's chunks a guess-and-link block (kLinkThreads - 2)
+_AC_REC_THREADS = 128  # K21's chunks a record block (kRecThreads)
+_SCAN_WORDS = 19  # int64 words a scan of K21's table (kScanWords)
+_DELTA_TILE = 4096  # K22's pairs a CTA (kDeltaTile)
 _CHECK_EVERY = 16  # plain versions: symbols between checks that any lane is still running
 
 
@@ -256,105 +264,157 @@ def dc_first_spec_plain(stream, starts, ends, tables, ok, grids, *, hv, valid, a
     return torch.full((B,), rounds, dtype=torch.int32, device=cs.device)
 
 
-def dc_entry_links_plain(stream, starts, ends, tables, *, bpm: int, chunk_bytes: int,
-                         n_chunks: int) -> dict:
-    """K20's entry search as its kernels make it, in plain PyTorch (for the
-    tests and tools/torch_spec_stages.py; the dispatch never takes it):
-    every chunk scanned from its first bit at every slot 0 .. bpm - 1 (the
-    guesses); the guess exits of chunk c - 1 are chunk c's candidate
-    entries, each scanned through chunk c and linked to the equal guess
-    exit of chunk c; each distinct exit that matches none is put in as
-    chunk c + 1's candidate bpm + u (u its first candidate), scanned and
-    linked too; the true path walks the links from chunk 0 and, where it
-    meets a miss, puts its exit in as the next chunk's candidate bpm and
-    scans that chunk.  -> dict: ``bit``, ``slot`` the entries int64
-    [B * n_chunks] (past an image's non-empty chunks, the last one's exit,
-    as ``fixed_point`` gives them), ``count``, ``err`` the scans from them,
-    ``distinct`` the distinct guess exits a chunk, ``misses`` int64 [B]
-    the chunks entered by a candidate put in (none of the guess exits)."""
-    B, F = starts.shape[0], n_chunks
-    tab, s64, cap = _Tables(tables), stream.to(torch.int64), stream.shape[0]
-    cs, ce = _chunks(starts, ends, F, 8 * chunk_bytes)
+def _entry_links_plain(scan, starts, ends, *, guesses, chunk_bytes: int, n_chunks: int):
+    """K20 and K21's entry search as their kernels make it, in plain
+    PyTorch: every chunk scanned from its first bit at each state of
+    ``guesses`` (the guesses; guesses[0] is an image's start state); the
+    guess exits of chunk c - 1 are chunk c's candidate entries, each scanned
+    through chunk c and linked to the equal guess exit of chunk c; each
+    distinct exit that matches none is put in as chunk c + 1's candidate
+    ng + u (u its first candidate, ng = len(guesses)), scanned and linked
+    too; the true path walks the links from chunk 0 and, where it meets a
+    miss, puts its exit in as the next chunk's candidate ng and scans that
+    chunk.  ``scan(bit, state, lanes)`` -> (exit bit, exit state, *results).
+    -> (entry bits, entry states int64 [B * n_chunks] (past an image's
+    non-empty chunks, the last one's exit, as ``fixed_point`` gives them),
+    the results of the scans from them, the distinct guess exits a chunk,
+    misses int64 [B]: the chunks entered by a candidate put in)."""
+    B, F, ng = starts.shape[0], n_chunks, len(guesses)
+    cs, _ = _chunks(starts, ends, F, 8 * chunk_bytes)
     L = B * F
     dev = cs.device
 
-    def scan(bit, slot, lanes):
-        return _dc_scan(tab, s64, cap, bit, slot, ce[lanes], bpm)
+    def one(bits, states, lanes):
+        return [r.tolist() for r in scan(torch.tensor(bits, dtype=torch.int64, device=dev),
+                                         torch.tensor(states, dtype=torch.int64, device=dev),
+                                         torch.tensor(lanes, dtype=torch.int64, device=dev))]
 
     lanes = torch.arange(L, device=dev)
-    gb, gs, gc, ge = (r.view(bpm, L) for r in scan(
-        cs.repeat(bpm), torch.arange(bpm, device=dev).repeat_interleave(L), lanes.repeat(bpm)))
-    gkey = gb * 16 + gs  # a state as one number (slots below 16)
+    g = [r.view(ng, L) for r in scan(
+        cs.repeat(ng), torch.tensor(guesses, device=dev).repeat_interleave(L), lanes.repeat(ng))]
+    gkey = g[0] * 256 + g[1]  # a state as one number (states below 256)
     srt = gkey.sort(0).values
     distinct = 1 + (srt[1:] != srt[:-1]).sum(0)
     # the candidates of chunk c: the guess exits of chunk c - 1 (lane 0 of
     # an image scans from the image's start: its guess 0)
     prev = (lanes - 1).clamp(min=0)
-    yb, ys, yc, ye = (r.view(bpm, L) for r in scan(gb[:, prev].reshape(-1),
-                                                   gs[:, prev].reshape(-1), lanes.repeat(bpm)))
+    y = [r.view(ng, L) for r in scan(g[0][:, prev].reshape(-1), g[1][:, prev].reshape(-1),
+                                     lanes.repeat(ng))]
     first = (lanes % F == 0)[None, :]
-    yb, ys, yc, ye = (torch.where(first, g, y) for g, y in ((gb, yb), (gs, ys), (gc, yc),
-                                                             (ge, ye)))
-    gkey_l, ykey_l = gkey.T.tolist(), (yb * 16 + ys).T.tolist()
-    yb_l, ys_l, yc_l, ye_l = (y.T.tolist() for y in (yb, ys, yc, ye))
-    gb_l, gs_l, gc_l, ge_l = (g.T.tolist() for g in (gb, gs, gc, ge))
+    y = [torch.where(first, a, b) for a, b in zip(g, y)]
+    gkey_l, ykey_l = gkey.T.tolist(), (y[0] * 256 + y[1]).T.tolist()
+    gl, yl = [t.T.tolist() for t in g], [t.T.tolist() for t in y]
+    nres = len(g) - 2
 
     def link(key, lane):
         return gkey_l[lane].index(key) if key in gkey_l[lane] else -1
 
     full = ((ends.to(torch.int64) - starts.to(torch.int64) + 8 * chunk_bytes - 1)
             // (8 * chunk_bytes)).tolist()
-    cols = {}  # (lane, column >= bpm): a put-in candidate -> (entry, exit, count, err, link)
-    ent_b, ent_s, cnt, err = (torch.zeros(L, dtype=torch.int64, device=dev) for _ in range(4))
-    misses = torch.zeros(B, dtype=torch.int64)
+    cols = {}  # (lane, column >= ng): a put-in candidate -> (entry, exit, results, link)
 
-    def put_in(lane, col, b, s):
-        x = scan(torch.tensor([b], device=dev), torch.tensor([s], device=dev),
-                 torch.tensor([lane], device=dev))
-        xb, xs, xc, xe = (int(v[0]) for v in x)
-        last = (lane + 1) % F == 0 or (lane % F) + 1 >= full[lane // F]
-        cols[lane, col] = ((b, s), (xb, xs), xc, xe, -1 if last else link(xb * 16 + xs, lane))
+    def put_in(at):  # [(lane, column, bit, state)], scanned together
+        x = one([a[2] for a in at], [a[3] for a in at], [a[0] for a in at])
+        for i, (lane, col, b, s) in enumerate(at):
+            xb, xs = x[0][i], x[1][i]
+            last = (lane + 1) % F == 0 or (lane % F) + 1 >= full[lane // F]
+            cols[lane, col] = ((b, s), (xb, xs), [r[i] for r in x[2:]],
+                               -1 if last else link(xb * 256 + xs, lane))
 
     # the link kernel's put-ins: each chunk's distinct missed exits
+    ins = []
     for lane in range(L):
         b_img, c = divmod(lane, F)
         if c < 1 or c + 1 >= full[b_img]:
             continue
-        for v in range(bpm):
+        for v in range(ng):
             key = ykey_l[lane][v]
             if link(key, lane) < 0 and ykey_l[lane].index(key) == v:
-                put_in(lane + 1, bpm + v, yb_l[lane][v], ys_l[lane][v])
+                ins.append((lane + 1, ng + v, yl[0][lane][v], yl[1][lane][v]))
+    if ins:
+        put_in(ins)
+    ent_b, ent_s = cs.clone(), torch.zeros(L, dtype=torch.int64, device=dev)
+    res = [torch.zeros(L, dtype=torch.int64, device=dev) for _ in range(nres)]
+    misses = torch.zeros(B, dtype=torch.int64)
+    tail = []  # lanes past an image's non-empty chunks, scanned together at the end
     for b_img in range(B):
         l0, J = b_img * F, full[b_img] - 1
-        ent_b[l0], ent_s[l0] = cs[l0], 0
-        cnt[l0], err[l0] = gc_l[l0][0], ge_l[l0][0]
-        exit_ = (gb_l[l0][0], gs_l[l0][0])
+        ent_s[l0] = guesses[0]
+        for i in range(nres):
+            res[i][l0] = gl[2 + i][l0][0]
+        exit_ = (gl[0][l0][0], gl[1][l0][0])
         t = 0
         for c in range(1, F):
             lane = l0 + c
             if c > J:  # empty chunks: the last non-empty one's exit
-                ent_b[lane], ent_s[lane] = exit_
-                x = scan(torch.tensor([exit_[0]], device=dev),
-                         torch.tensor([exit_[1]], device=dev), torch.tensor([lane], device=dev))
-                cnt[lane], err[lane] = x[2][0], x[3][0]
+                tail.append((lane, *exit_))
                 continue
-            if t >= bpm:
-                (eb, es), exit_, n, e, nt = cols[lane, t]
+            if t >= ng:
+                (eb, es), exit_, r, nt = cols[lane, t]
                 misses[b_img] += 1
             else:
-                eb, es = gb_l[lane - 1][t], gs_l[lane - 1][t]
-                exit_ = (yb_l[lane][t], ys_l[lane][t])
-                n, e = yc_l[lane][t], ye_l[lane][t]
-                nt = link(exit_[0] * 16 + exit_[1], lane) if c + 1 <= J else -1
+                eb, es = gl[0][lane - 1][t], gl[1][lane - 1][t]
+                exit_ = (yl[0][lane][t], yl[1][lane][t])
+                r = [yl[2 + i][lane][t] for i in range(nres)]
+                nt = link(exit_[0] * 256 + exit_[1], lane) if c + 1 <= J else -1
                 if nt < 0 and c + 1 <= J:  # the link kernel put it in
-                    nt = bpm + ykey_l[lane].index(exit_[0] * 16 + exit_[1])
-            ent_b[lane], ent_s[lane], cnt[lane], err[lane] = eb, es, n, e
+                    nt = ng + ykey_l[lane].index(exit_[0] * 256 + exit_[1])
+            ent_b[lane], ent_s[lane] = eb, es
+            for i in range(nres):
+                res[i][lane] = r[i]
             if nt < 0 and c + 1 <= J:  # a miss the link kernel did not put in
-                put_in(lane + 1, bpm, *exit_)
-                nt = bpm
+                put_in([(lane + 1, ng, *exit_)])
+                nt = ng
             t = nt
-    return {"bit": ent_b, "slot": ent_s, "count": cnt, "err": err, "distinct": distinct,
+    if tail:
+        x = one([a[1] for a in tail], [a[2] for a in tail], [a[0] for a in tail])
+        at = torch.tensor([a[0] for a in tail], device=dev)
+        ent_b[at] = torch.tensor([a[1] for a in tail], device=dev)
+        ent_s[at] = torch.tensor([a[2] for a in tail], device=dev)
+        for i in range(nres):
+            res[i][at] = torch.tensor(x[2 + i], device=dev)
+    return ent_b, ent_s, res, distinct, misses
+
+
+def dc_entry_links_plain(stream, starts, ends, tables, *, bpm: int, chunk_bytes: int,
+                         n_chunks: int) -> dict:
+    """K20's entry search as its kernels make it (``_entry_links_plain``,
+    a guess at every slot 0 .. bpm - 1; for the tests and
+    tools/torch_spec_stages.py, the dispatch never takes it) -> dict:
+    ``bit``, ``slot`` the entries int64 [B * n_chunks], ``count``, ``err``
+    the scans from them, ``distinct`` the distinct guess exits a chunk,
+    ``misses`` int64 [B]."""
+    tab, s64, cap = _Tables(tables), stream.to(torch.int64), stream.shape[0]
+    _, ce = _chunks(starts, ends, n_chunks, 8 * chunk_bytes)
+
+    def scan(bit, slot, lanes):
+        return _dc_scan(tab, s64, cap, bit, slot, ce[lanes], bpm)
+
+    bit, slot, (cnt, err), distinct, misses = _entry_links_plain(
+        scan, starts, ends, guesses=list(range(bpm)), chunk_bytes=chunk_bytes, n_chunks=n_chunks)
+    return {"bit": bit, "slot": slot, "count": cnt, "err": err, "distinct": distinct,
             "misses": misses}
+
+
+def ac_entry_links_plain(stream, starts, ends, tables, *, ss: int, se: int, chunk_bytes: int,
+                         n_chunks: int) -> dict:
+    """K21's entry search as its kernels make it (``_entry_links_plain``,
+    one guess a chunk: k = ss; for the tests and tools/torch_spec_stages.py,
+    the dispatch never takes it) -> dict: ``bit``, ``k`` the entries int64
+    [B * n_chunks], ``count`` (finished blocks), ``adv`` (blocks passed),
+    ``err``, ``symbols`` the scans from them, ``distinct``, ``misses`` int64
+    [B]."""
+    tab, s64, cap = _Tables(tables), stream.to(torch.int64), stream.shape[0]
+    _, ce = _chunks(starts, ends, n_chunks, 8 * chunk_bytes)
+    tid = tab.slot_ac[0]
+
+    def scan(bit, k, lanes):
+        return _ac_scan(tab, tid, s64, cap, bit, k, ce[lanes], ss=ss, se=se)
+
+    bit, k, (cnt, adv, err, nsym), distinct, misses = _entry_links_plain(
+        scan, starts, ends, guesses=[ss], chunk_bytes=chunk_bytes, n_chunks=n_chunks)
+    return {"bit": bit, "k": k, "count": cnt, "adv": adv, "err": err, "symbols": nsym,
+            "distinct": distinct, "misses": misses}
 
 
 def ac_first_spec_plain(stream, starts, ends, tables, ok, grid, *, valid, ss: int, se: int,
@@ -450,10 +510,10 @@ def _dc_first_cuda(stream, starts, ends, tables, ok, grids, *, hv, valid, al: in
     pad = [0] * (3 - len(grids))
     hvs = [h | v << 4 for h, v in hv] if interleaved else [0x11]
     runtime.launch(
-        "dc_first_spec", dev, "zpix_spec_dc_first", "pl" + "p" * 16 + "i" * 18,
+        "dc_first_spec", dev, "zpix_spec_dc_first", "pl" + "p" * 17 + "i" * 18,
         stream.data_ptr(), stream.shape[0], starts.data_ptr(), ends.data_ptr(),
         tables.data_ptr(), ok.data_ptr(), rounds.data_ptr(), chunks.data_ptr(),
-        states[0].data_ptr(), states[1].data_ptr(), scans[0].data_ptr(), scans[1].data_ptr(),
+        states[0].data_ptr(), states[1].data_ptr(), scans[0].data_ptr(), 0, scans[1].data_ptr(),
         links.data_ptr(), diffs.data_ptr(), *[g.data_ptr() for g in grids], *pad,
         0 if stamps is None else stamps.data_ptr(), B, n_chunks,
         8 * chunk_bytes, 4 * chunk_bytes, nblk, bpm, len(grids), mxx if interleaved else valid[1],
@@ -462,53 +522,137 @@ def _dc_first_cuda(stream, starts, ends, tables, ok, grids, *, hv, valid, al: in
     return rounds
 
 
+class AcScan(NamedTuple):
+    """One AC-first scan of a K21 call: its spec inputs (``stack_spec``,
+    ``pack_tables`` with the scan's AC table in slot 0), the component's
+    grid int32 [B, bv, bh, 64] it adds into, its valid grid (nvy, nvx),
+    band ss..se, Al and chunks an image."""
+    stream: torch.Tensor
+    starts: torch.Tensor
+    ends: torch.Tensor
+    tables: torch.Tensor
+    grid: torch.Tensor
+    valid: tuple
+    ss: int
+    se: int
+    al: int
+    n_chunks: int
+
+
+def ac_first_spec_group(scans, ok, *, chunk_bytes: int):
+    """K21: AC-first scans of one batch (``AcScan`` each), each over band
+    ss..se of one component with no index walk -> each coefficient's ``val
+    << al`` added into its valid block's row of the scan's grid, in place;
+    clears ``ok``.  The scans write disjoint bands and no coefficient 0, so
+    one call equals the scans in turn (its plain version).  -> int32 [S, B]:
+    on the card each (scan, image)'s misses, in plain PyTorch each scan's
+    rounds."""
+    if not scans:
+        raise ValueError("ac_first_spec: no scan")
+    B = scans[0].grid.shape[0]
+    for sc in scans:
+        _check_grids([sc.grid], [(1, 1)])
+        if sc.grid.shape[0] != B:
+            raise ValueError("ac_first_spec: the scans of a call share their batch")
+        _check_spec(sc.stream, sc.starts, sc.ends, sc.tables, ok, B, chunk_bytes, sc.n_chunks)
+        nvy, nvx = sc.valid
+        if not 1 <= sc.ss <= sc.se <= 63 or nvy > sc.grid.shape[1] or nvx > sc.grid.shape[2]:
+            raise ValueError("ac_first_spec: bad spectral band or valid grid")
+    if ok.device.type == "cpu":
+        return torch.stack([
+            ac_first_spec_plain(sc.stream, sc.starts, sc.ends, sc.tables, ok, sc.grid,
+                                valid=sc.valid, ss=sc.ss, se=sc.se, al=sc.al,
+                                chunk_bytes=chunk_bytes, n_chunks=sc.n_chunks) for sc in scans])
+    runtime.require_cuda(ok, *(t for sc in scans for t in (sc.stream, sc.starts, sc.ends,
+                                                          sc.tables, sc.grid)))
+    if not all(0 <= sc.al <= 31 for sc in scans):
+        raise ValueError("ac_first_spec: al outside 0..31")
+    return _ac_first_cuda(scans, ok, chunk_bytes)
+
+
+def _ac_first_cuda(scans, ok, chunk_bytes: int):
+    """K21's launch on checked CUDA inputs -> misses int32 [S, B]: the
+    scan table (int64 words a scan, csrc/prog_spec.cu's kS* order) goes up
+    by a pinned copy; the lanes of all scans share one grid."""
+    S, B, dev = len(scans), scans[0].grid.shape[0], ok.device
+    table = np.zeros((S, _SCAN_WORDS), np.int64)
+    lanes = link_blocks = rec_blocks = 0
+    for s, sc in enumerate(scans):
+        nvy, nvx = sc.valid
+        L = B * sc.n_chunks
+        magic, shift = fast_div(nvx)
+        table[s] = (sc.stream.data_ptr(), sc.stream.shape[0], sc.starts.data_ptr(),
+                    sc.ends.data_ptr(), sc.tables.data_ptr(), sc.grid.data_ptr(), sc.n_chunks,
+                    nvy * nvx, nvx, sc.grid.shape[2], sc.grid.shape[1], sc.ss, sc.se, sc.al,
+                    lanes, link_blocks, rec_blocks, magic & 0xFFFFFFFF, shift)
+        lanes += L
+        link_blocks += -(-L // _AC_LINK_CHUNKS)
+        rec_blocks += -(-L // _AC_REC_THREADS)
+    if link_blocks >= 2**31 or rec_blocks >= 2**31:
+        raise ValueError("ac_first_spec: too many chunks for one call")
+    table_dev = torch.from_numpy(table).pin_memory().to(dev, non_blocking=True)
+    counts = torch.empty(2, S * B, dtype=torch.int32, device=dev)  # misses, limits
+    chunks = torch.empty(lanes * CHUNK_WORDS, dtype=torch.int32, device=dev)
+    states = torch.empty(2, 2 * lanes, dtype=torch.int64, device=dev)  # X, Y
+    words = torch.empty(3, 2 * lanes, dtype=torch.int32, device=dev)  # count, blocks passed, err
+    links = torch.empty(2 * lanes, dtype=torch.uint8, device=dev)
+    runtime.launch(
+        "ac_first_spec", dev, "zpix_spec_ac_first_group", "piiii" + "p" * 10 + "lii",
+        table_dev.data_ptr(), S, B, 8 * chunk_bytes, 4 * chunk_bytes, ok.data_ptr(),
+        counts[0].data_ptr(), counts[1].data_ptr(), chunks.data_ptr(), states[0].data_ptr(),
+        states[1].data_ptr(), words[0].data_ptr(), words[1].data_ptr(), words[2].data_ptr(),
+        links.data_ptr(), lanes, link_blocks, rec_blocks, kernels=AC_FIRST_KERNELS)
+    return counts[0].view(S, B)
+
+
 def ac_first_spec(stream, starts, ends, tables, ok, grid, *, valid, ss: int, se: int, al: int,
                   chunk_bytes: int, n_chunks: int):
-    """K21: an AC-first scan over band ss..se of one component with no
-    index walk -> each coefficient's ``val << al`` added into its valid
-    block's row of ``grid`` (int32 [B, bv, bh, 64]), in place; clears
-    ``ok``.  -> rounds int32 [B]."""
-    _check_grids([grid], [(1, 1)])
-    B = grid.shape[0]
-    _check_spec(stream, starts, ends, tables, ok, B, chunk_bytes, n_chunks)
-    nvy, nvx = valid
-    if not 1 <= ss <= se <= 63 or nvy > grid.shape[1] or nvx > grid.shape[2]:
-        raise ValueError("ac_first_spec: bad spectral band or valid grid")
-    kw = dict(valid=valid, ss=ss, se=se, al=al, chunk_bytes=chunk_bytes, n_chunks=n_chunks)
-    if stream.device.type == "cpu":
-        return ac_first_spec_plain(stream, starts, ends, tables, ok, grid, **kw)
-    runtime.require_cuda(stream, starts, ends, tables, ok, grid)
-    if not 0 <= al <= 31:
-        raise ValueError("ac_first_spec: al outside 0..31")
-    dev = stream.device
-    rounds = torch.zeros(B, dtype=torch.int32, device=dev)
-    chunks = torch.empty(B * n_chunks * CHUNK_WORDS, dtype=torch.int32, device=dev)
-    runtime.launch(
-        "ac_first_spec", dev, "zpix_spec_ac_first", "pl" + "p" * 7 + "i" * 11,
-        stream.data_ptr(), stream.shape[0], starts.data_ptr(), ends.data_ptr(),
-        tables.data_ptr(), ok.data_ptr(), rounds.data_ptr(), chunks.data_ptr(),
-        grid.data_ptr(), B, n_chunks, 8 * chunk_bytes, 4 * chunk_bytes, nvy * nvx, nvx,
-        grid.shape[2], grid.shape[1], ss, se, al)
-    return rounds
+    """K21 on one AC-first scan (``ac_first_spec_group``'s one-scan case)
+    -> int32 [B]: on the card each image's misses, in plain PyTorch the
+    batch's rounds."""
+    return ac_first_spec_group([AcScan(stream, starts, ends, tables, grid, tuple(valid), ss, se,
+                                       al, n_chunks)], ok, chunk_bytes=chunk_bytes)[0]
+
+
+def delta_add_segments(updates) -> None:
+    """K22: for each update (state int32 [B, N], idx and val int32 [B, k])
+    of ``updates``, ``state[b, idx[b, j]] += val[b, j]``, in place, in one
+    launch (indices unique in a row but for padding entries, which add 0;
+    two updates may hit one coefficient, as later scans of one band do)."""
+    for state, idx, val in updates:
+        if state.dtype != torch.int32 or idx.dtype != torch.int32 or val.dtype != torch.int32:
+            raise TypeError("delta_add: int32 state, indices and values")
+        if state.dim() != 2 or idx.dim() != 2 or idx.shape != val.shape or (
+                idx.shape[0] != state.shape[0]):
+            raise ValueError("delta_add: state [B, N], indices and values [B, k]")
+    if not updates:
+        return
+    if updates[0][0].device.type == "cpu":
+        for state, idx, val in updates:
+            delta_add_plain(state, idx, val)
+        return
+    runtime.require_cuda(*(t for u in updates for t in u))
+    rows, tiles = [], 0
+    for state, idx, val in updates:
+        B, k = idx.shape
+        if B * k == 0:
+            continue
+        per_row = -(-k // _DELTA_TILE)
+        rows.append((state.data_ptr(), idx.data_ptr(), val.data_ptr(), state.shape[1], k, per_row,
+                     tiles))
+        tiles += B * per_row
+    if not rows:
+        return
+    if tiles >= 2**31:
+        raise ValueError("delta_add: too many pairs for one launch")
+    dev = updates[0][0].device
+    table = torch.tensor(rows, dtype=torch.int64).pin_memory().to(dev, non_blocking=True)
+    runtime.launch("delta_add", dev, "zpix_delta_add_segments", "pii", table.data_ptr(),
+                   len(rows), tiles)
 
 
 def delta_add(state, idx, val) -> None:
-    """K22: ``state[b, idx[b, j]] += val[b, j]`` for an int32 store [B, N]
-    and int32 [B, k] indices and values, in place (indices unique in a row
-    but for padding entries, which add 0)."""
-    if state.dtype != torch.int32 or idx.dtype != torch.int32 or val.dtype != torch.int32:
-        raise TypeError("delta_add: int32 state, indices and values")
-    if state.dim() != 2 or idx.dim() != 2 or idx.shape != val.shape or (
-            idx.shape[0] != state.shape[0]):
-        raise ValueError("delta_add: state [B, N], indices and values [B, k]")
-    if state.device.type == "cpu":
-        delta_add_plain(state, idx, val)
-        return
-    runtime.require_cuda(state, idx, val)
-    n = idx.numel()
-    if n == 0:
-        return
-    sms = torch.cuda.get_device_properties(state.device).multi_processor_count
-    runtime.launch("delta_add", state.device, "zpix_delta_add", "ppplili",
-                   state.data_ptr(), idx.data_ptr(), val.data_ptr(), n, idx.shape[1],
-                   state.shape[1], min(-(-n // 256), 8 * sms))
+    """K22 on one update (``delta_add_segments``' one-update case):
+    ``state[b, idx[b, j]] += val[b, j]`` for an int32 store [B, N] and int32
+    [B, k] indices and values, in place."""
+    delta_add_segments([(state, idx, val)])

@@ -6,8 +6,9 @@ codecs/jpeg/decoder.py, a thread an image); after every scan the change
 of its coefficients is recorded sparsely (``_ScanRecorder``).  The card
 holds one int32 store a component ([B, bv, bh, 64], natural order); the
 scans are replayed in lockstep, each image's (index, delta) pairs added
-into it by K22 (ops/prog_spec.py::delta_add; padding pairs add 0 at index
-0), and K6 (ops/planes.py, its int32 arm, per-image quant rows) turns the
+into it by one K22 launch for every (scan, component) update
+(ops/prog_spec.py::delta_add_segments; padding pairs add 0 at index 0),
+and K6 (ops/planes.py, its int32 arm, per-image quant rows) turns the
 store into pixels.  The store after scan s equals the host decoder's, so
 the pixels are the host decoder's.
 
@@ -143,8 +144,8 @@ class DeviceProgressiveDecoder:
         store = torch.zeros(sum(B * int(np.prod(sh)) for sh in shapes), dtype=torch.int32,
                             device=dev_quants[0].device)
         flat = torch.split(store, [B * int(np.prod(sh)) for sh in shapes])
-        for c, _idx, _val in updates:
-            _spec.delta_add(flat[c].view(B, -1), next(parts), next(parts))
+        _spec.delta_add_segments([(flat[c].view(B, -1), next(parts), next(parts))
+                                  for c, _idx, _val in updates])
         grids = [f.view(B, *sh) for f, sh in zip(flat, shapes)]
         if ncomp == 1:
             return decode_batch_planes(grids, dev_quants, color="gray", height=r0.height,

@@ -23,8 +23,9 @@ wherever an index walk refuses a stream, as zpix_tpu's ``_decode_chunk``
 does, :2161-2175): the card finds the symbols of the first scans itself
 (``decode_spec``, :2175-2296):
 
-* DC first: K20; AC first over one component: K21 (ops/prog_spec.py);
-  DC refinement: K11 on the same raw bit rows.
+* DC first: K20; AC first over one component: K21 (ops/prog_spec.py),
+  one call for every such scan of the prefix; DC refinement: K11 on the
+  same raw bit rows.
 * AC refinement: K10 on the host walk's offsets.  At the first
   refinement one fetch of the store's nonzero flags (packed 8 a byte on
   the card) seeds the walks' masks, and every later refinement scan is
@@ -34,7 +35,7 @@ does, :2161-2175): the card finds the symbols of the first scans itself
   prefix.  The rest is the host tail: the store is fetched, each image's
   remaining scans are decoded by ``_TailScanDecoder`` (the port's host
   decoder seeded with the store, a thread an image), and each image's
-  differences go back into the store through K22.  ``n_host_tail_scans``
+  differences go back into the store through one K22 launch.  ``n_host_tail_scans``
   counts the scans it decoded.
 * K6 turns the store into pixels.
 
@@ -763,9 +764,9 @@ class OnchipProgressiveDecoder:
         self._pool = ThreadPoolExecutor(self.n_threads)
         self._upload = PinnedUpload(self.device)
         self.n_host_tail_scans = 0
-        # the last spec decode: each spec scan's count (int32 [B] on the
-        # card, by scan index: K20's misses, K21's rounds), the flag
-        # fetch's bytes, the card's prefix
+        # the last spec decode: each spec scan's count (int32 [B] by scan
+        # index: on the card K20's and K21's misses, in plain PyTorch their
+        # rounds), the flag fetch's bytes, the card's prefix
         self.spec_stats: dict = {}
 
     def prep(self, datas: list[bytes]) -> ProgPrep:
@@ -845,6 +846,11 @@ class OnchipProgressiveDecoder:
         grids, ok = new_store(prep, dev_quants.device)
         self.spec_stats = stats = {"rounds": {}, "flag_fetch_bytes": 0}
         refs, n_prefix = None, n_pre
+        # every AC-first scan of the prefix, in one K21 call where the first
+        # comes: they precede every AC refinement (spec_prefix) and write
+        # disjoint bands, never coefficient 0, so they commute with one
+        # another and with the DC scans
+        ac_firsts = [si for si in range(n_pre) if p0.scans[si].kind == "ac_first"]
         for si in range(n_pre):
             sc = p0.scans[si]
             if sc.kind == "ac_refine":
@@ -856,26 +862,24 @@ class OnchipProgressiveDecoder:
                 apply_scan(_prog.ac_refine, refs[si][0], refs[si][1], grids, prep, ok)
             elif sc.kind == "dc_refine":
                 apply_scan(_prog.dc_refine, rows[si], {"stream": dev_rows[si]}, grids, prep, ok)
-            else:
-                stream, starts, ends, tables = dev_first[si]
-                kw = dict(valid=valid_grid(prep, sc.comps[0]), al=sc.al,
-                          chunk_bytes=self.chunk_bytes, n_chunks=firsts[si][1])
-                if sc.kind == "dc_first":
-                    stats["rounds"][si] = _spec.dc_first_spec(
-                        stream, starts, ends, tables, ok, [grids[c] for c in sc.comps],
-                        hv=[p0.hv[c] for c in sc.comps], **kw)
-                else:
-                    stats["rounds"][si] = _spec.ac_first_spec(
-                        stream, starts, ends, tables, ok, grids[sc.comps[0]], ss=sc.ss,
-                        se=sc.se, **kw)
+            elif sc.kind == "dc_first":
+                stats["rounds"][si] = _spec.dc_first_spec(
+                    *dev_first[si], ok, [grids[c] for c in sc.comps],
+                    hv=[p0.hv[c] for c in sc.comps], valid=valid_grid(prep, sc.comps[0]),
+                    al=sc.al, chunk_bytes=self.chunk_bytes, n_chunks=firsts[si][1])
+            elif si == ac_firsts[0]:
+                group = [p0.scans[sj] for sj in ac_firsts]
+                misses = _spec.ac_first_spec_group(
+                    [_spec.AcScan(*dev_first[sj], grids[g.comps[0]],
+                                  valid_grid(prep, g.comps[0]), g.ss, g.se, g.al, firsts[sj][1])
+                     for sj, g in zip(ac_firsts, group)], ok, chunk_bytes=self.chunk_bytes)
+                stats["rounds"].update(zip(ac_firsts, misses))
         self.n_host_tail_scans = len(p0.scans) - n_prefix
         stats["prefix"] = n_prefix
         if n_prefix < len(p0.scans):
             deltas = tail_deltas(grids, datas, n_prefix, self._pool)
             parts = iter(self._upload([a for pair in deltas for a in pair]))
-            for g in grids:
-                idx, val = next(parts), next(parts)
-                _spec.delta_add(g.view(B, -1), idx, val)
+            _spec.delta_add_segments([(g.view(B, -1), next(parts), next(parts)) for g in grids])
         pixels = decode_batch_planes(grids, list(dev_quants), color="gray" if p0.ncomp == 1
                                      else "ycbcr", height=p0.height, width=p0.width,
                                      ratio=p0.ratio)
