@@ -3,6 +3,7 @@ the JAX package's on the same batch (the same counter values, megapixels
 to 1e-9, the same timer names), Metrics alone (counts from many threads,
 the report's format) and profile_trace on the CPU."""
 
+import contextlib
 import glob
 import json
 import threading
@@ -22,7 +23,7 @@ from zpix_tpu.parallel import qoi_batch as jq
 from zpix_tpu.utils import metrics as jax_metrics
 from zpix_tpu_torch import (BatchJpegDecoder, BatchPngDecoder, DeviceJpegDecoder,
                             HostIndexJpegDecoder, HostIndexQoiDecoder, SyncJpegDecoder)
-from zpix_tpu_torch.utils import Metrics, metrics, profile_trace, trace
+from zpix_tpu_torch.utils import Metrics, metrics, profile_trace, recording, spans, trace
 
 
 def _png_batch():
@@ -55,17 +56,21 @@ def _recorded(registry, decode, datas):
     return snap["counters"], set(snap["timers"])
 
 
-@pytest.mark.parametrize("name", list(CASES))
-def test_decoder_metrics_match_jax(name):
+@pytest.mark.parametrize("name,on", [pytest.param(n, False, id=n) for n in CASES]
+                         + [pytest.param(n, True, id=f"{n}-recording") for n in CASES])
+def test_decoder_metrics_match_jax(name, on):
     """The same batch through the JAX decoder and its port: equal counters
     (megapixels to 1e-9) and the same timer names, each prefixed by the
-    route's name."""
+    route's name; with the port's span recording on too (the spans stay out
+    of the counters and timers), when the port also keeps the route's
+    spans."""
     jax_native_lib()
     make_jax, make_port, make_batch = CASES[name]
     datas = make_batch()
     want_c, want_t = _recorded(jax_metrics, make_jax().decode, datas)
     port = make_port()
-    got_c, got_t = _recorded(metrics, port.decode, datas)
+    with recording() if on else contextlib.nullcontext():
+        got_c, got_t = _recorded(metrics, port.decode, datas)
     if hasattr(port, "close"):
         port.close()
     assert got_t == want_t and want_t and all(t.startswith(name + ".") for t in got_t)
@@ -73,6 +78,7 @@ def test_decoder_metrics_match_jax(name):
     for k, v in want_c.items():
         assert got_c[k] == pytest.approx(v, abs=1e-9), k
     assert got_c[f"{name}.images"] == len(datas)
+    assert any(s.name.startswith(name + ".") for s in spans()) == on
 
 
 def test_counts_from_many_threads():

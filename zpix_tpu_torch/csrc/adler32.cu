@@ -32,6 +32,8 @@
 
 #include <cstdint>
 
+#include "timing.cuh"
+
 namespace {
 
 constexpr uint32_t kMod = 65521;
@@ -144,6 +146,7 @@ adler32_kernel(const uint8_t* __restrict__ flat, int64_t n, int lg_span, int64_t
 extern "C" int zpix_adler32_check(const void* flat, int64_t n, const void* want, void* sums,
                                   void* bad, int64_t batch, int lg_span, void* scratch,
                                   void* stream) {
+  const zpix::TimedEntry timed(stream);
   if (lg_span < 4 || lg_span > 20) return static_cast<int>(cudaErrorInvalidValue);
   if (batch > 0) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);

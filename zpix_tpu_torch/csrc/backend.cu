@@ -27,6 +27,7 @@
 
 #include "huffman.cuh"
 #include "mcu_pixels.cuh"
+#include "timing.cuh"
 
 namespace {
 
@@ -88,6 +89,7 @@ extern "C" int zpix_backend(const void* ac, const void* dc, const void* tables,
                             int bpm, int height, int width, int ncomp, int c0,
                             int c1, int c2, int c3, int mode, int nchan,
                             int planar, void* stream) {
+  const zpix::TimedEntry timed(stream);
   const int packed[4] = {c0, c1, c2, c3};
   StripGeo g;
   if (mxx < 1 || n_mcu % mxx) return static_cast<int>(cudaErrorInvalidValue);

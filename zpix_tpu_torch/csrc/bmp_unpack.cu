@@ -37,6 +37,8 @@
 
 #include <cstdint>
 
+#include "timing.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -189,6 +191,7 @@ __global__ void __launch_bounds__(kThreads) unpack_kernel(const UnpackArgs a) {
 extern "C" int zpix_bmp_unpack(const void* rows, const void* pal, void* out, int64_t batch,
                                int H, int W, int row_bytes, int bpp, int top_down,
                                int allow_alpha, void* stream) {
+  const zpix::TimedEntry timed(stream);
   if (reinterpret_cast<uintptr_t>(rows) % 4 || row_bytes % 4 ||
       static_cast<int64_t>(row_bytes) * 8 < static_cast<int64_t>(W) * bpp)
     return static_cast<int>(cudaErrorInvalidValue);

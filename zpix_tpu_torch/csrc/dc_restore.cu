@@ -35,6 +35,7 @@
 #include <cstdint>
 
 #include "lookback.cuh"
+#include "timing.cuh"
 
 namespace {
 
@@ -197,6 +198,7 @@ dc_restore_kernel(const int32_t* __restrict__ dc, int32_t* __restrict__ out, Geo
 extern "C" int zpix_dc_restore(const void* dc, void* out, void* scratch, int64_t scratch_words,
                                int epoch, int64_t n, int seg_mcus, int bpm, int ncomp, int nb0,
                                int nb1, int nb2, int nb3, void* stream) {
+  const zpix::TimedEntry timed(stream);
   const int nbs[kMaxComps] = {nb0, nb1, nb2, nb3};
   if (ncomp < 1 || ncomp > kMaxComps || bpm < 1 || seg_mcus < 1 || n % bpm ||
       (n / bpm) % seg_mcus)

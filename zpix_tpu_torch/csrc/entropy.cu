@@ -55,6 +55,7 @@
 
 #include "huffman.cuh"
 #include "mcu_pixels.cuh"  // cp.async
+#include "timing.cuh"
 
 namespace {
 
@@ -499,6 +500,7 @@ cudaError_t allow_smem(Kernel kernel, int bytes, std::atomic<int> (&sms)[zpix::k
 extern "C" int zpix_index_pass(const void* stream, int64_t cap, const void* seg_pos,
                                const void* seg_nmcu, const void* tables, void* ends, void* ok,
                                int n_lanes, int bpm, int nblk, void* cuda_stream) {
+  const zpix::TimedEntry timed(cuda_stream);
   if (bpm < 1 || bpm > kMaxSlots || nblk < 1 || cap > kMaxStream)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_lanes > 0) {
@@ -525,6 +527,7 @@ extern "C" int zpix_value_pass(const void* stream, int64_t cap, const void* seg_
                                const void* seg_nmcu, const void* tables, const void* ends,
                                void* ac, void* dc, void* ok, int64_t n_lanes, int bpm, int nblk,
                                void* cuda_stream) {
+  const zpix::TimedEntry timed(cuda_stream);
   if (bpm < 1 || bpm > kMaxSlots || nblk < 1 || cap > kMaxStream ||
       n_lanes >= (int64_t(1) << 31))
     return static_cast<int>(cudaErrorInvalidValue);

@@ -14,6 +14,7 @@
 
 #include <cstdint>
 
+#include "timing.cuh"
 #include "wang_idct.cuh"
 
 namespace {
@@ -40,6 +41,7 @@ __global__ void idct_blocks_kernel(const int32_t* __restrict__ in,
 
 extern "C" int zpix_idct_blocks(const void* in, void* out, int64_t n,
                                 void* stream) {
+  const zpix::TimedEntry timed(stream);
   if (n > 0) {
     const int64_t grid = (n + kBlocksPerCta - 1) / kBlocksPerCta;
     idct_blocks_kernel<<<static_cast<unsigned>(grid), kBlocksPerCta * 8, 0,

@@ -54,6 +54,8 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "timing.cuh"
+
 namespace {
 
 // A wait that outlasts this many polls (seconds; a valid input's waits end
@@ -354,6 +356,7 @@ __global__ void __launch_bounds__(kThreads) resolve_kernel(
 extern "C" int zpix_inflate_resolve(const void* lens, const void* dists, const void* lits,
                                     int64_t ts, int64_t nt, void* scratch, void* out,
                                     int64_t batch, int64_t per, int tile, void* stream) {
+  const zpix::TimedEntry timed(stream);
   if (tile != 8192 && tile != 16384 && tile != 32768) return cudaErrorInvalidValue;
   if (batch <= 0 || per <= 0 || nt <= 0) return cudaSuccess;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

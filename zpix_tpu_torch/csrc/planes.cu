@@ -28,6 +28,7 @@
 #include <cstdint>
 
 #include "mcu_pixels.cuh"
+#include "timing.cuh"
 
 namespace {
 
@@ -104,6 +105,7 @@ extern "C" int zpix_component_planes(const void* g0, const void* g1, const void*
                                      int height, int width, int ncomp, int c0,
                                      int c1, int c2, int c3, int mode, int nchan,
                                      int coef_i32, void* stream) {
+  const zpix::TimedEntry timed(stream);
   const int packed[4] = {c0, c1, c2, c3};
   StripGeo g;
   const cudaError_t err = zpix::make_strip_geo(g, batch, mxx, myy, bpm, ncomp, packed, height,

@@ -54,6 +54,8 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "timing.cuh"
+
 namespace {
 
 // A wait that outlasts this many polls (seconds; a valid input's waits end
@@ -383,6 +385,7 @@ extern "C" int zpix_png_defilter(const void* raw, int64_t raw_img, int64_t raw_r
                                  const void* ft, int64_t ft_img, int64_t ft_row, void* out,
                                  int batch, int H, int Wb, int bpp, void* bad, void* scratch,
                                  void* stream) {
+  const zpix::TimedEntry timed(stream);
   if (batch <= 0 || H <= 0 || Wb <= 0) return cudaSuccess;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nbands = (H + 31) / 32;

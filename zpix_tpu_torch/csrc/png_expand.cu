@@ -44,6 +44,8 @@
 
 #include <cstdint>
 
+#include "timing.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -279,6 +281,7 @@ extern "C" int zpix_png_expand(const void* rows, const void* pal, const void* ke
                                int64_t batch, int h, int w, int row_bytes, int arm, int depth,
                                int out_h, int out_w, int xo, int yo, int xf, int yf,
                                void* stream) {
+  const zpix::TimedEntry timed(stream);
   if (batch > 0 && h > 0 && w > 0) {
     ExpandArgs a;
     a.rows = static_cast<const uint8_t*>(rows);

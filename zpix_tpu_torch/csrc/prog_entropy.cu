@@ -80,6 +80,7 @@
 #include "fast_div.cuh"
 #include "huffman.cuh"
 #include "lookback.cuh"
+#include "timing.cuh"
 
 namespace {
 
@@ -807,6 +808,7 @@ extern "C" int zpix_prog_dc_first(const void* stream, int64_t cap, const void* s
                                   int per_row_shift, int hv0, int hv1, int hv2, int bh0, int bh1,
                                   int bh2, int bv0, int bv1, int bv2, int al, int tile_mcus,
                                   int grid, void* cuda_stream) {
+  const zpix::TimedEntry timed(cuda_stream);
   if (ncomp < 1 || ncomp > kDcComps || bpm < 1 || bpm > 16 || tile_mcus < 1 ||
       tile_mcus * bpm > 1024 || grid < 1 || cap >= (int64_t(1) << 28))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -846,6 +848,7 @@ extern "C" int zpix_prog_ac_first(const void* stream, int64_t cap, const void* s
                                   int nvalid_magic, int nvalid_shift, int nvx, int nvx_magic,
                                   int nvx_shift, int bh, int64_t nblk_c, int ss, int se, int al,
                                   int grid, void* cuda_stream) {
+  const zpix::TimedEntry timed(cuda_stream);
   if (grid < 1 || n_lanes < 0 || cap >= (int64_t(1) << 28))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_lanes > 0) {
@@ -867,6 +870,7 @@ extern "C" int zpix_prog_ac_refine(const void* stream, int64_t cap, const void* 
                                    int64_t n_lanes, int nvalid, int nvx, int bh,
                                    int64_t nblk_c, int ss, int se, int al,
                                    void* cuda_stream) {
+  const zpix::TimedEntry timed(cuda_stream);
   if (n_lanes > 0) {
     constexpr int kLanes = 32 * kRefineWarps;
     if (kRowsSmem > 48 * 1024) {

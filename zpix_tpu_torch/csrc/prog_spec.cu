@@ -85,6 +85,7 @@
 
 #include "fast_div.cuh"
 #include "huffman.cuh"
+#include "timing.cuh"
 
 namespace {
 
@@ -1036,6 +1037,7 @@ extern "C" int zpix_spec_dc_first(const void* s, int64_t cap, const void* starts
                                   int bpm, int ngrids, int per_row, int hv0, int hv1, int hv2,
                                   int bh0, int bh1, int bh2, int bv0, int bv1, int bv2, int al,
                                   void* stream) {
+  const zpix::TimedEntry timed(stream);
   if (ngrids < 1 || ngrids > kMaxGrids || bpm < 1 || bpm > 16 || al < 0 || al > 31 ||
       F < 1 || cbits < 8 || per_row < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1094,6 +1096,7 @@ extern "C" int zpix_spec_ac_first_group(const void* scans, int nscans, int batch
                                         void* chunks, void* X, void* Y, void* n, void* a,
                                         void* e, void* links, int64_t lanes, int link_blocks,
                                         int rec_blocks, void* stream) {
+  const zpix::TimedEntry timed(stream);
   if (nscans < 1 || batch < 1 || cbits < 8 || lanes < 1 || link_blocks < 1 || rec_blocks < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1115,6 +1118,7 @@ extern "C" int zpix_spec_ac_first_group(const void* scans, int nscans, int batch
 // K22 over ``nseg`` segments (int64 [nseg, kDeltaWords] on the card, none
 // empty) in ``tiles`` CTAs.
 extern "C" int zpix_delta_add_segments(const void* segs, int nseg, int tiles, void* stream) {
+  const zpix::TimedEntry timed(stream);
   if (nseg < 1 || tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
   delta_add_kernel<<<tiles, kDeltaThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(segs), nseg);

@@ -28,6 +28,7 @@
 #include <cstdint>
 
 #include "fast_div.cuh"
+#include "timing.cuh"
 
 namespace {
 
@@ -94,6 +95,7 @@ extern "C" int zpix_prog_dc_refine(const void* bits, int rowlen, int nblk, int b
                                    int hv2, int mxx, int myy, int bpm, int mcu_magic,
                                    int mcu_shift, int per_row, int row_magic, int row_shift,
                                    int al, void* stream) {
+  const zpix::TimedEntry timed(stream);
   if (ncs < 1 || ncs > 3 || bpm > kSlots || al < 0 || al > 31 || batch > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

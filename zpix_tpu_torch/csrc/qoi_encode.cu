@@ -50,6 +50,8 @@
 
 #include <cstdint>
 
+#include "timing.cuh"
+
 namespace {
 
 constexpr int kTile = 2048;            // pixels a tile, a block (PERF.md: the tile sweep)
@@ -441,6 +443,7 @@ encode_kernel(const uint32_t* __restrict__ px, uint8_t* __restrict__ out,
 extern "C" int zpix_qoi_encode_batch(const void* px, void* out, void* total, void* scratch,
                                      int64_t batch, int64_t n, int64_t out_stride,
                                      void* stream) {
+  const zpix::TimedEntry timed(stream);
   if (batch > 0 && n > 0) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int tpi = static_cast<int>((n + kTile - 1) / kTile);

@@ -56,6 +56,8 @@
 #include <algorithm>
 #include <cstdint>
 
+#include "timing.cuh"
+
 namespace {
 
 constexpr int kExpandThreads = 256;
@@ -481,6 +483,7 @@ void launch_sorted(const SortedArgs& a, bool vin, bool vout, cudaStream_t st) {
 extern "C" int zpix_qoi_lane_expand(const void* cols, const void* s, const void* e,
                                     const void* p4, void* out, int64_t n_lanes, int R, int P,
                                     int fmt, void* stream) {
+  const zpix::TimedEntry timed(stream);
   if (n_lanes > 0 && R > 0 && P > 0) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     LaneArgs a;
@@ -517,6 +520,7 @@ extern "C" int zpix_qoi_lane_expand(const void* cols, const void* s, const void*
 extern "C" int zpix_qoi_sorted_expand(const void* cols, const void* cnts, const void* fill,
                                       void* tile_sum, void* out, int64_t batch, int64_t rcap,
                                       int64_t npx, int tile, void* stream) {
+  const zpix::TimedEntry timed(stream);
   if (tile != 1024 && tile != 2048 && tile != 4096) return static_cast<int>(cudaErrorInvalidValue);
   if (batch > 0 && rcap > 0 && npx > 0) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -72,6 +72,8 @@
 
 #include <cstdint>
 
+#include "timing.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -818,6 +820,7 @@ extern "C" int zpix_qoi_spec(const void* s, const void* starts, const void* ends
                              void* node, void* tbl, void* carry, void* stamps, int n_stamps,
                              int batch, int F, int cb, int ops_cap, int tpi, int64_t cap,
                              int64_t npx, void* stream) {
+  const zpix::TimedEntry timed(stream);
   if (F < 1 || cb < 1 || ops_cap < 1 || tpi < 1 || cap >= (int64_t{1} << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

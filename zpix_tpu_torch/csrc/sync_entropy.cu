@@ -70,6 +70,7 @@
 #include <cstdint>
 
 #include "huffman.cuh"
+#include "timing.cuh"
 
 namespace {
 
@@ -817,6 +818,7 @@ extern "C" int zpix_sync_guess_link(const void* stream, int64_t cap, const void*
                                     void* Y, void* S, void* SG, void* CP, void* links,
                                     void* flags, int B, int F, int cb, int m, int bpm,
                                     void* cuda_stream) {
+  const zpix::TimedEntry timed(cuda_stream);
   if (B > 0 && F > 0) {
     const int bytes = kStageWords * 4;
     if (int e = set_smem(reinterpret_cast<const void*>(guess_link_kernel), bytes)) return e;
@@ -843,6 +845,7 @@ extern "C" int zpix_sync_resolve(const void* stream, int64_t cap, const void* st
                                  void* tj, void* fine,
                                  void* flags, int B, int F, int Ff, int cb, int m, int bpm,
                                  int links_smem_bytes, void* cuda_stream) {
+  const zpix::TimedEntry timed(cuda_stream);
   if (B > 0 && F > 0) {
     const int need = F * (bpm + 2);
     const int smem = need <= links_smem_bytes ? need : 0;
@@ -865,6 +868,7 @@ extern "C" int zpix_sync_record(const void* stream, int64_t cap, const void* sta
                                 const void* ends, const void* tables, const void* lut,
                                 const void* fine, void* rec, void* cnt, void* err, void* flags,
                                 int B, int F, int cb, int bpm, int mb, void* cuda_stream) {
+  const zpix::TimedEntry timed(cuda_stream);
   if (B > 0 && F > 0) {
     const int bytes = kStageWords * 4;
     if (int e = set_smem(reinterpret_cast<const void*>(record_kernel), bytes)) return e;
@@ -885,6 +889,7 @@ extern "C" int zpix_sync_record(const void* stream, int64_t cap, const void* sta
 extern "C" int zpix_sync_assemble(const void* ends, const void* rec, const void* cnt,
                                   const void* err, void* out, void* flags, int B, int F, int mb,
                                   int nblk, void* cuda_stream) {
+  const zpix::TimedEntry timed(cuda_stream);
   if (B > 0 && F > 0) {
     // about two blocks an SM over the batch, at most 1,024 chunks a block
     const int want = (264 + B - 1) / B, most = (F + 31) / 32;

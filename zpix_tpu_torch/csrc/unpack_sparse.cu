@@ -41,6 +41,7 @@
 #include <cstdint>
 
 #include "lookback.cuh"
+#include "timing.cuh"
 
 namespace {
 
@@ -178,6 +179,7 @@ unpack_kernel(const __grid_constant__ Args A, uint64_t* scratch, int64_t tiles, 
 // (the ticket counter) 0 and no word set at ``epoch`` (1 .. 2^30 - 1).
 extern "C" int zpix_unpack_sparse(const void* desc, int ncomp, int batch, void* scratch,
                                   int64_t scratch_words, int epoch, void* stream) {
+  const zpix::TimedEntry timed(stream);
   if (ncomp < 1 || ncomp > kMaxComps || batch < 0 || epoch < 1 ||
       static_cast<uint32_t>(epoch) > lb::kEpochMask)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -48,7 +48,7 @@ from ..errors import FormatError, UnsupportedError
 from ..ops import planes as _planes
 from ..ops import sparse as _sparse
 from ..runtime import host as _host
-from ..utils import metrics, trace
+from ..utils import metrics, span, stage, trace
 from .device_entropy import PinnedUpload
 from .mesh import DeviceUploads, Sharded, mesh_device, shard_bounds
 
@@ -585,6 +585,9 @@ class BatchJpegDecoder:
     UnsupportedError, a broken stream the host decoder's error.
     """
 
+    # the route, and the step the JAX package times, under its name
+    _ROUTE, _TIMERS = "jpeg_batch", {"prep": "front_end"}
+
     def __init__(self, *, device=None, n_threads: int | None = None, mesh=None):
         self.mesh = mesh
         self.device = mesh_device(mesh, device)
@@ -610,13 +613,15 @@ class BatchJpegDecoder:
     def _parse_native(self, datas: list[bytes], sofs) -> Packed:
         key, fe = self._front_end(datas, sofs)
         try:
-            return fe.parse(datas)
+            with span("jpeg_batch.prep.parse"):
+                return fe.parse(datas)
         except FormatError:
             # perhaps denser than the value capacity: once more with room
             # for every coefficient, kept only if that parses
             dense = NativeBatchFrontEnd(datas[0], len(datas), self.n_threads,
                                         pin=self.device.type == "cuda", dense=True)
-            packed = dense.parse(datas)
+            with span("jpeg_batch.prep.parse"):
+                packed = dense.parse(datas)
             with self._lock:
                 self._front_ends[key] = dense
             return packed
@@ -656,7 +661,7 @@ class BatchJpegDecoder:
     def prep(self, datas: list[bytes]) -> Packed:
         """The host half: a front-end parse into a flat buffer of the
         batch's own."""
-        with trace("jpeg_batch.front_end"):
+        with stage(self._ROUTE, "prep", self._TIMERS, images=len(datas)):
             packed = self._parse(datas)
         metrics.count("jpeg_batch.images", len(datas))
         metrics.count("jpeg_batch.megapixels", len(datas) * packed.width * packed.height / 1e6)
@@ -667,21 +672,23 @@ class BatchJpegDecoder:
         of (its run of images as a Packed, that run's buffer on its
         device) a batch position; ValueError where the mesh does not divide
         the batch."""
-        if self.mesh is None:
-            return self._upload.send(packed.buffer)
-        out = []
-        for dev, lo, hi in shard_bounds(self.mesh, packed.batch,
-                                        f"jpeg: the batch ({packed.batch} images)"):
-            part = packed.images(lo, hi, pin=dev.type == "cuda")
-            out.append((part, self._uploads(dev).send(part.buffer)))
-        return out
+        with stage(self._ROUTE, "upload", self._TIMERS):
+            if self.mesh is None:
+                return self._upload.send(packed.buffer)
+            out = []
+            for dev, lo, hi in shard_bounds(self.mesh, packed.batch,
+                                            f"jpeg: the batch ({packed.batch} images)"):
+                part = packed.images(lo, hi, pin=dev.type == "cuda")
+                out.append((part, self._uploads(dev).send(part.buffer)))
+            return out
 
     def run(self, packed: Packed, buf: torch.Tensor) -> torch.Tensor:
         """K7, then K6, on the uploaded buffer -> pixels (``Sharded`` with a
         mesh, each run decoded on its own device)."""
-        if self.mesh is None:
-            return decode_uploaded(buf, packed)
-        return Sharded.stack(decode_uploaded(b, part) for part, b in buf)
+        with stage(self._ROUTE, "run", self._TIMERS):
+            if self.mesh is None:
+                return decode_uploaded(buf, packed)
+            return Sharded.stack(decode_uploaded(b, part) for part, b in buf)
 
     def decode(self, datas: list[bytes]) -> torch.Tensor:
         packed = self.prep(datas)

@@ -33,7 +33,6 @@ from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
-import contextlib
 import ctypes
 import os
 import threading
@@ -47,7 +46,7 @@ from ..codecs.jpeg.tables import UNZIG, HuffTable
 from ..errors import FormatError, UnsupportedError
 from ..ops import backend as _backend
 from ..ops import entropy as _entropy
-from ..utils import metrics, trace
+from ..utils import metrics, span, stage
 
 _RATIOS = {0x11: "444", 0x12: "440", 0x21: "422",
            0x22: "420", 0x41: "411", 0x42: "410"}
@@ -305,17 +304,21 @@ def plan_from_arrays(*, stream, seg_bit_pos, seg_n_mcu, quants, hv, bpm,
     )
 
 
-def _batch_streams(datas: list[bytes], *, restarts: bool):
+def _batch_streams(datas: list[bytes], *, restarts: bool, route: str):
     """Headers and destuffed scans of a batch that shares geometry AND
     tables -> (the first image's header fields, streams, segment starts).
     ``restarts`` asks for restart markers (DRI > 0); without, each stream
-    must be one segment (the host-index route)."""
+    must be one segment (the host-index route).  Each image's header walk
+    and destuffing are the spans ``<route>.prep.headers`` and
+    ``<route>.prep.destuff``."""
     if not datas:
         raise ValueError("jpeg: empty batch")
     first = None
     streams, seg_pos_all = [], []
+    headers, destuff = f"{route}.prep.headers", f"{route}.prep.destuff"
     for data in datas:
-        sof, quants, huffs, dri, sel, scan_start, color = _parse_headers(data)
+        with span(headers):
+            sof, quants, huffs, dri, sel, scan_start, color = _parse_headers(data)
         if restarts and dri <= 0:
             raise UnsupportedError(
                 "jpeg: device entropy decode needs restart markers (DRI)"
@@ -328,7 +331,8 @@ def _batch_streams(datas: list[bytes], *, restarts: bool):
             first = (key, sof, quants, huffs, dri, sel, color)
         elif key != first[0]:
             raise UnsupportedError("jpeg: batch must share geometry and tables")
-        stream, seg_starts = _destuff(data, scan_start)
+        with span(destuff):
+            stream, seg_starts = _destuff(data, scan_start)
         if not restarts and (len(seg_starts) != 1 or int(seg_starts[0]) != 0):
             raise UnsupportedError(
                 "jpeg: the restart-free paths cover streams without restart "
@@ -377,7 +381,7 @@ def _plan(header, **arrays) -> ScanPlan:
 def prep_batch(datas: list[bytes]) -> ScanPlan:
     """Parse/destuff a batch with restart markers; all images must share
     geometry AND tables.  Every restart segment becomes a lane."""
-    header, streams, seg_pos_all = _batch_streams(datas, restarts=True)
+    header, streams, seg_pos_all = _batch_streams(datas, restarts=True, route="jpeg_onchip")
     dri = header[3]
     mxx, myy = _mcu_grid(header[0])
     n_mcu = mxx * myy
@@ -485,26 +489,32 @@ class PinnedUpload:
     def send(self, host: torch.Tensor) -> torch.Tensor:
         """A host u8 buffer -> its copy on the device (a clone on the CPU):
         asynchronous, on the side stream, ordered before the caller's
-        stream's later work."""
+        stream's later work.  The span ``upload.send`` (its ``bytes``)
+        covers issuing the copy."""
         if self.device.type != "cuda":
-            return host.clone()
+            with span("upload.send", bytes=host.numel()):
+                return host.clone()
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
         compute = torch.cuda.current_stream(self.device)
-        with torch.cuda.stream(self._stream):
+        with torch.cuda.stream(self._stream), span("upload.send", bytes=host.numel()):
             out = host.to(self.device, non_blocking=True)
         compute.wait_stream(self._stream)
         out.record_stream(compute)
         return out
 
     def __call__(self, parts) -> list:
-        offs, total = _offsets([a.nbytes for a in parts])
+        """The arrays packed, where ``views`` did not stage them, and sent:
+        the span ``upload.pack`` carries the bytes packed (0 where staged)."""
+        sizes = [a.nbytes for a in parts]
+        offs, total = _offsets(sizes)
         buf = self._staged(parts)
-        if buf is None:
-            buf = self._buffer(total)
-            host = buf.numpy()
-            for a, o in zip(parts, offs):
-                host[o : o + a.nbytes] = np.ascontiguousarray(a).view(np.uint8).reshape(-1)
+        with span("upload.pack", packed_bytes=0 if buf is not None else sum(sizes)):
+            if buf is None:
+                buf = self._buffer(total)
+                host = buf.numpy()
+                for a, o in zip(parts, offs):
+                    host[o : o + a.nbytes] = np.ascontiguousarray(a).view(np.uint8).reshape(-1)
         out = self.send(buf[:total])
         return [out[o : o + a.nbytes].view(_UPLOAD_DTYPES[a.dtype]).view(a.shape)
                 for a, o in zip(parts, offs)]
@@ -536,10 +546,11 @@ class DeviceJpegDecoder:
     decoder.
     """
 
-    # The JAX package's prefix for this route's counters and timers, and
-    # its timed stages (zpix_tpu/parallel/device_entropy.py:1675-1685)
-    _METRICS = "jpeg_onchip"
-    _TIMED = ("prep", "upload", "dispatch")
+    # The route: the JAX package's prefix for its counters and timers, and
+    # the steps it times, under its names (zpix_tpu/parallel/
+    # device_entropy.py:1675-1685)
+    _ROUTE = "jpeg_onchip"
+    _TIMERS = {"prep": "prep", "upload": "upload", "run": "dispatch"}
 
     def __init__(self, *, planar: bool = False, device=None, mesh=None):
         from .mesh import DeviceUploads, mesh_device
@@ -549,12 +560,6 @@ class DeviceJpegDecoder:
         self.device = mesh_device(mesh, device)
         self._upload = PinnedUpload(self.device)
         self._uploads = DeviceUploads(self._upload)  # a shard device's, with a mesh
-
-    def _stage(self, name: str):
-        """The timer of stage ``name`` where the JAX package keeps one."""
-        if name in self._TIMED:
-            return trace(f"{self._METRICS}.{name}")
-        return contextlib.nullcontext()
 
     def _parts(self, plan: ScanPlan, lo: int = 0, hi: int | None = None) -> list:
         """The upload's arrays for lanes [lo, hi): the whole stream and the
@@ -574,7 +579,7 @@ class DeviceJpegDecoder:
         count."""
         from .mesh import shard_bounds
 
-        with self._stage("upload"):
+        with stage(self._ROUTE, "upload", self._TIMERS):
             if self.mesh is None:
                 return tuple(self._upload(self._parts(plan)))
             lanes = shard_bounds(self.mesh, plan.batch * plan.n_segs,
@@ -615,7 +620,7 @@ class DeviceJpegDecoder:
 
     def prep(self, datas: list[bytes]) -> ScanPlan:
         """The host half: marker walks, destuffing, segments and tables."""
-        with self._stage("prep"):
+        with stage(self._ROUTE, "prep", self._TIMERS, images=len(datas)):
             plan = prep_batch(datas)
         metrics.count("jpeg_onchip.images", len(datas))
         metrics.count("jpeg_onchip.megapixels", len(datas) * plan.width * plan.height / 1e6)
@@ -627,7 +632,7 @@ class DeviceJpegDecoder:
         mesh, each position runs K1-K3 on its lanes and K4 on the images
         whose first lane it holds -> (``Sharded`` pixels, ok on the mesh's
         first device: every shard's ok)."""
-        with self._stage("dispatch"):
+        with stage(self._ROUTE, "run", self._TIMERS):
             if self.mesh is None:
                 ac, dc, okf = self.entropy(plan, bufs)
                 pixels = _backend.backend(ac, dc, bufs[3], _backend.BackendGeometry.of(plan),
@@ -703,7 +708,7 @@ def prep_batch_host_index(datas: list[bytes], n_threads: int | None = None) -> S
     """
     from ..runtime import host
 
-    header, streams, _ = _batch_streams(datas, restarts=False)
+    header, streams, _ = _batch_streams(datas, restarts=False, route="jpeg_hostindex")
     sof, _, huffs, _, sel, _ = header
     comps = sof[3]
     mxx, myy = _mcu_grid(sof)
@@ -750,7 +755,7 @@ class HostIndexJpegDecoder(DeviceJpegDecoder):
     belong to DeviceJpegDecoder).
     """
 
-    _METRICS = "jpeg_hostindex"  # device_entropy.py:1876-1882
+    _ROUTE = "jpeg_hostindex"  # device_entropy.py:1876-1882
 
     def __init__(self, *, planar: bool = False, device=None, n_threads: int | None = None,
                  mesh=None):
@@ -768,7 +773,7 @@ class HostIndexJpegDecoder(DeviceJpegDecoder):
 
     def prep(self, datas: list[bytes]) -> ScanPlan:
         """The host half: headers, destuffing and the host index scan."""
-        with self._stage("prep"):
+        with stage(self._ROUTE, "prep", self._TIMERS, images=len(datas)):
             plan = prep_batch_host_index(datas, self.n_threads)
         metrics.count("jpeg_hostindex.images", len(datas))
         return plan

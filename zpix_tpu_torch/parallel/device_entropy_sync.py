@@ -31,7 +31,7 @@ import numpy as np
 from ..errors import UnsupportedError
 from ..ops import entropy as _entropy
 from ..ops import sync as _sync
-from ..utils import metrics
+from ..utils import metrics, span, stage
 from .device_entropy import (DeviceJpegDecoder, ScanPlan, _batch_streams, _flat_stream,
                              _mcu_grid, _plan)
 
@@ -57,13 +57,14 @@ def prep_batch_sync(datas: list[bytes], chunk_bytes: int = 32) -> SyncPlan:
     geometry and tables (else UnsupportedError; DRI > 0 too)."""
     if chunk_bytes < 1:
         raise ValueError("jpeg: chunk_bytes must be positive")
-    header, streams, _ = _batch_streams(datas, restarts=False)
+    header, streams, _ = _batch_streams(datas, restarts=False, route="jpeg_sync")
     if header[3] > 0:
         raise UnsupportedError(
             "jpeg: stream has restart markers; use DeviceJpegDecoder "
             "(restart segments are cheaper parallel boundaries)"
         )
-    flat, offs = _flat_stream(streams)
+    with span("jpeg_sync.prep.flat"):
+        flat, offs = _flat_stream(streams)
     starts = np.asarray(offs, np.int64) * 8
     ends = starts + 8 * np.array([len(s) for s in streams], np.int64)
     mxx, myy = _mcu_grid(header[0])
@@ -88,7 +89,7 @@ class SyncJpegDecoder(DeviceJpegDecoder):
     markers raise UnsupportedError (they belong to DeviceJpegDecoder).
     ``decode`` makes no host sync."""
 
-    _METRICS, _TIMED = "jpeg_sync", ("prep",)  # device_entropy_sync.py:548-550
+    _ROUTE, _TIMERS = "jpeg_sync", {"prep": "prep"}  # device_entropy_sync.py:548-550
 
     def __init__(self, *, chunk_bytes: int = 32, device=None):
         super().__init__(planar=False, device=device)
@@ -97,7 +98,7 @@ class SyncJpegDecoder(DeviceJpegDecoder):
 
     def prep(self, datas: list[bytes]) -> SyncPlan:
         """The host half: headers, destuffing and the images' bit ranges."""
-        with self._stage("prep"):
+        with stage(self._ROUTE, "prep", self._TIMERS, images=len(datas)):
             plan = prep_batch_sync(datas, self.chunk_bytes)
         metrics.count("jpeg_sync.images", len(datas))
         return plan
@@ -105,9 +106,10 @@ class SyncJpegDecoder(DeviceJpegDecoder):
     def upload(self, plan: SyncPlan):
         """Stream, starts, MCU counts, tables and end bits -> device tensors,
         in one copy."""
-        return tuple(self._upload([plan.stream, plan.seg_bit_pos.astype(np.int32),
-                                   plan.seg_n_mcu, plan.tables,
-                                   plan.img_bit_end.astype(np.int32)]))
+        with stage(self._ROUTE, "upload", self._TIMERS):
+            return tuple(self._upload([plan.stream, plan.seg_bit_pos.astype(np.int32),
+                                       plan.seg_n_mcu, plan.tables,
+                                       plan.img_bit_end.astype(np.int32)]))
 
     def entropy(self, plan: SyncPlan, bufs, on_stage=None):
         """K19 + K2 + K3 -> (AC int16 [B*nblk, 64], restored DC int32

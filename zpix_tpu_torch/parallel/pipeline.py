@@ -12,6 +12,12 @@ batch before them:
     upload(i) + run(i)     [caller's thread, enqueued without a sync]
     kernels of i - 1       [card]
 
+Each batch is numbered in submit order from 0, and every span its prep,
+upload and run open (``utils/profiling.py``) carries that number as its
+batch id, on the worker and on the caller's thread; the pipeline adds
+``pipeline.queue`` (submit -> a worker starts the prep) and
+``pipeline.ready`` (prep done -> the caller takes the plan).
+
 Each plan owns its staging buffer (``PinnedUpload``, the native JPEG
 front-end's flat buffer), so a prep never rewrites a batch still waiting
 for its copy, and the copies run on a side stream of their own.  An
@@ -24,6 +30,8 @@ from __future__ import annotations
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterable, Iterator
+
+from ..utils import profiling
 
 
 class DecodePipeline:
@@ -46,24 +54,39 @@ class DecodePipeline:
         self._prefetch = max(1, prefetch)
         self._workers = max(1, workers if workers is not None else prefetch)
 
+    def _prep_batch(self, i: int, datas: list, t_submit):
+        """Batch ``i``'s prep on a worker -> (plan, when it ended)."""
+        profiling.record("pipeline.queue", t_submit, i)
+        with profiling.for_batch(i):
+            plan = self._prep(datas)
+        return plan, profiling.now()
+
     def map(self, batches: Iterable[list]) -> Iterator:
         """Yield each batch's result in order, on the device and not
         synchronised (tensors, or the decoder's (pixels, ok) tuples).  Prep
         runs ``prefetch`` batches ahead; upload and kernels stay on the
         caller's thread."""
-        it = iter(batches)
+        it = enumerate(batches)
         with ThreadPoolExecutor(max_workers=self._workers) as pool:
             pending = deque()
-            for b in it:
-                pending.append(pool.submit(self._prep, b))
+
+            def submit(i, datas):
+                pending.append((i, pool.submit(self._prep_batch, i, datas, profiling.now())))
+
+            for i, datas in it:
+                submit(i, datas)
                 if len(pending) >= self._prefetch:
                     break
             while pending:
-                plan = pending.popleft().result()
+                i, fut = pending.popleft()
+                plan, t_done = fut.result()
+                profiling.record("pipeline.ready", t_done, i)
                 nxt = next(it, None)
                 if nxt is not None:
-                    pending.append(pool.submit(self._prep, nxt))
-                yield self._run(plan)
+                    submit(*nxt)
+                with profiling.for_batch(i):
+                    out = self._run(plan)
+                yield out
 
 
 def jpeg_onchip_pipeline(decoder=None, prefetch: int = 2) -> DecodePipeline:

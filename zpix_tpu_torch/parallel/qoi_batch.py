@@ -59,7 +59,7 @@ from ..errors import FormatError, UnsupportedError
 from ..ops import qoi as kq
 from ..ops import qoi_spec as _qspec
 from ..runtime import host
-from ..utils import metrics, trace
+from ..utils import metrics, span, stage, trace
 from .device_entropy import PinnedUpload, resolve_device
 from .mesh import DeviceUploads, Sharded, all_ok, mesh_device, regroup
 
@@ -133,9 +133,10 @@ def prep_qoi_batch(datas: list[bytes], chunk_bytes: int | None = None) -> QoiPla
         total += (len(r) + 7) // 8 * 8
     if total + 16 >= 1 << 31:
         raise UnsupportedError("qoi: a batch's op streams must be under 2 GiB")
-    flat = np.zeros(total + 16, np.uint8)
-    for r, o in zip(regions, offs):
-        flat[o : o + len(r)] = r
+    with span("qoi_onchip.prep.stream", bytes=total + 16):
+        flat = np.zeros(total + 16, np.uint8)
+        for r, o in zip(regions, offs):
+            flat[o : o + len(r)] = r
     op_lens = [len(r) - QOI_PADDING_SIZE for r in regions]
     return QoiPlan(
         width=dims[0], height=dims[1], stream=flat, img_byte_start=np.array(offs, np.int32),
@@ -167,6 +168,9 @@ class BatchQoiDecoder:
     version's boundary rounds).  ``decode_verified``
     falls back to the host decoder where ``ok`` is False."""
 
+    # the route, and the step the JAX package times, under its name
+    _ROUTE, _TIMERS = "qoi_onchip", {"prep": "prep"}
+
     def __init__(self, *, chunk_bytes: int | None = None, ops_cap: int | None = None,
                  device=None, mesh=None):
         self.chunk_bytes = chunk_bytes
@@ -178,7 +182,7 @@ class BatchQoiDecoder:
         self.last_rounds = None
 
     def prep(self, datas: list[bytes]) -> QoiPlan:
-        with trace("qoi_onchip.prep"):
+        with stage(self._ROUTE, "prep", self._TIMERS, images=len(datas)):
             plan = prep_qoi_batch(datas, self.chunk_bytes)
         metrics.count("qoi_onchip.images", len(datas))
         return plan
@@ -191,13 +195,14 @@ class BatchQoiDecoder:
         """The plan's stream and offsets -> device tensors in one copy; with
         a mesh, a list of those a batch position (its run of images, its
         part of the stream)."""
-        if self.mesh is None:
-            return self._upload(self._arrays(plan))
-        from .mesh import shard_bounds
+        with stage(self._ROUTE, "upload", self._TIMERS):
+            if self.mesh is None:
+                return self._upload(self._arrays(plan))
+            from .mesh import shard_bounds
 
-        return [self._uploads(dev)(self._arrays(_sub_plan(plan, lo, hi)))
-                for dev, lo, hi in shard_bounds(self.mesh, plan.batch,
-                                                f"qoi: the batch ({plan.batch} images)")]
+            return [self._uploads(dev)(self._arrays(_sub_plan(plan, lo, hi)))
+                    for dev, lo, hi in shard_bounds(self.mesh, plan.batch,
+                                                    f"qoi: the batch ({plan.batch} images)")]
 
     def _decode(self, plan: QoiPlan, bufs):
         return _qspec.spec_decode(*bufs, n_chunks=plan.n_chunks, chunk_bytes=plan.chunk_bytes,
@@ -206,12 +211,13 @@ class BatchQoiDecoder:
 
     def run(self, plan: QoiPlan, bufs):
         """K23 on uploaded buffers -> (rgba, ok)."""
-        if self.mesh is None:
-            rgba, ok, self.last_rounds = self._decode(plan, bufs)
-            return rgba, ok
-        outs = [self._decode(plan, b) for b in bufs]
-        self.last_rounds = [o[2] for o in outs]
-        return Sharded.stack(o[0] for o in outs), all_ok([o[1] for o in outs], self.device)
+        with stage(self._ROUTE, "run", self._TIMERS):
+            if self.mesh is None:
+                rgba, ok, self.last_rounds = self._decode(plan, bufs)
+                return rgba, ok
+            outs = [self._decode(plan, b) for b in bufs]
+            self.last_rounds = [o[2] for o in outs]
+            return Sharded.stack(o[0] for o in outs), all_ok([o[1] for o in outs], self.device)
 
     def decode(self, datas: list[bytes]):
         plan = self.prep(datas)

@@ -9,8 +9,10 @@ an edit rebuilds it and a stale build is never loaded.  Nothing is built
 at import: the first kernel call (or ``lib()``) does it.
 
 Each C entry point launches on the caller's CUDA stream and returns
-``cudaGetLastError()``; ``launch`` raises when that is not 0.  The host
-C++ (``csrc/host``) is a second library, built with g++ by ``host.py``.
+``cudaGetLastError()``; ``launch`` raises when that is not 0.  While spans
+are recorded (``utils/profiling.py``) it also times each launch on the
+card with a pair of CUDA events (``csrc/events.cu``).  The host C++
+(``csrc/host``) is a second library, built with g++ by ``host.py``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+from ..utils import profiling
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -43,7 +47,11 @@ LAUNCHES = {"index_pass": 0, "value_pass": 0, "dc_restore": 0,
 
 _lock = threading.Lock()
 _lib = None
+_held_lib = None  # the same library, its calls keeping the interpreter lock
 _fns: dict = {}
+_held_fns: dict = {}
+_free_events: dict = {}  # card index -> timing events not in use
+_NOT_READY = 600  # cudaErrorNotReady
 build_seconds = None  # wall time of this process's build, None if loaded
 
 
@@ -104,7 +112,7 @@ def _compile(so_path: str) -> None:
 
 def lib() -> ctypes.CDLL:
     """The kernel library, built from csrc/ on first use."""
-    global _lib, build_seconds
+    global _lib, _held_lib, build_seconds
     if _lib is not None:
         return _lib
     with _lock:
@@ -115,6 +123,7 @@ def lib() -> ctypes.CDLL:
                 t0 = time.perf_counter()
                 _compile(so_path)
                 build_seconds = time.perf_counter() - t0
+            _held_lib = ctypes.PyDLL(so_path)
             _lib = ctypes.CDLL(so_path)
     return _lib
 
@@ -123,30 +132,96 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _ARGS = {"p": _P, "i": _I, "l": _L}
 
 
-def fn(name: str, sig: str):
+def fn(name: str, sig: str, held: bool = False):
     """C entry ``name`` with argument types from ``sig`` (p = pointer or
-    stream, i = int, l = int64); returns int (a cudaError_t)."""
-    f = _fns.get(name)
+    stream, i = int, l = int64); returns int (a cudaError_t).  ``held``:
+    the call keeps the interpreter lock (a call that never waits)."""
+    fns = _held_fns if held else _fns
+    f = fns.get(name)
     if f is None:
-        f = getattr(lib(), name)
+        lib()
+        f = getattr(_held_lib if held else _lib, name)
         f.argtypes = [_ARGS[c] for c in sig]
         f.restype = ctypes.c_int
-        _fns[name] = f
+        fns[name] = f
     return f
+
+
+def _check(name: str, err: int) -> None:
+    if err:
+        raise RuntimeError(f"zpix_tpu_torch: {name} failed: cudaError {err}")
 
 
 def launch(kernel: str, device, name: str, sig: str, *args, kernels: int = 1) -> None:
     """Launch C entry ``name`` on ``device``'s current stream, count its
     ``kernels`` CUDA kernel launches under ``kernel``, and raise if the
-    launch was refused."""
+    launch was refused.  While spans are recorded, the launch is the span
+    ``launch.<name>`` and its kernels' time on the card ``launch.<name>.card``."""
     import torch
 
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(name, sig + "p")(*args, stream)
-    if err:
-        raise RuntimeError(f"zpix_tpu_torch: {name} failed: cudaError {err}")
+        t0 = profiling.now()
+        if t0 is None:
+            err = fn(name, sig + "p")(*args, stream)
+        else:
+            err = _timed_launch(torch.cuda.current_device(), name, sig, args, stream, t0)
+    _check(name, err)
     LAUNCHES[kernel] += kernels
+
+
+def _timed_launch(card: int, name: str, sig: str, args, stream, t0: int) -> int:
+    """C entry ``name`` with a pair of timing events armed: the entry
+    records the first where it starts and the second where it returns, on
+    ``stream`` (``csrc/timing.cuh``), so the pair holds the entry's work on
+    the card and no wait of this thread for the interpreter lock; kept as
+    the spans ``launch.<name>`` (from ``t0``) and ``launch.<name>.card``.
+    The timing calls keep the lock, so they add no chance for another
+    thread to take it."""
+    start, end = _event(card), _event(card)
+    _check("zpix_event_arm", fn("zpix_event_arm", "pp", held=True)(start, end))
+    try:
+        err = fn(name, sig + "p")(*args, stream)
+    finally:
+        done = fn("zpix_event_disarm", "", held=True)()
+    _check(f"{name}'s timing events", done)
+    profiling.record_card("launch." + name, t0, _EventPair(card, start, end))
+    return err
+
+
+def _event(card: int) -> int:
+    """A timing event of card ``card`` (current), from the pool or new."""
+    with _lock:
+        free = _free_events.get(card)
+        if free:
+            return free.pop()
+    ev = ctypes.c_void_p()
+    _check("zpix_event_create", fn("zpix_event_create", "p", held=True)(ctypes.byref(ev)))
+    return ev.value
+
+
+class _EventPair:
+    """A launch's start and end events; ``ms`` reads the card's time
+    between them and hands both back to the pool."""
+
+    __slots__ = ("card", "start", "end")
+
+    def __init__(self, card: int, start: int, end: int):
+        self.card, self.start, self.end = card, start, end
+
+    def ms(self, wait: bool):
+        """The card's ms between the events; None where the end event has
+        not completed and ``wait`` is False (never waits then)."""
+        if wait:
+            _check("zpix_event_synchronize", fn("zpix_event_synchronize", "p")(self.end))
+        out = ctypes.c_float()
+        err = fn("zpix_event_read", "ppp", held=True)(self.start, self.end, ctypes.byref(out))
+        if err == _NOT_READY and not wait:
+            return None
+        _check("zpix_event_read", err)
+        with _lock:
+            _free_events.setdefault(self.card, []).extend((self.start, self.end))
+        return out.value
 
 
 _EPOCHS = (1 << 30) - 1  # look-back epochs 1 .. 2^30 - 1 (csrc/lookback.cuh)

@@ -1,5 +1,7 @@
 """Utilities: observability."""
 
-from .profiling import Metrics, metrics, profile_trace, trace
+from .profiling import (Metrics, Span, metrics, profile_trace, recording, span, spans, stage,
+                        trace)
 
-__all__ = ["Metrics", "metrics", "profile_trace", "trace"]
+__all__ = ["Metrics", "Span", "metrics", "profile_trace", "recording", "span", "spans", "stage",
+           "trace"]
